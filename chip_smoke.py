@@ -13,11 +13,22 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build  — nvcc builds every kernel from the repository's sources;
   3. kernel — the kernel against its plain PyTorch version on the card
               (10,240 mixed lanes, bit for bit) and both against the
-              pure-Python oracle on a 256-lane sample; n = 1, 127, 129;
+              pure-Python oracle on a 256-lane sample; the small batches
+              of SMALL_N (partial quads, warps and blocks) against both;
   4. slice  — the commit through the entry points, launch counts read
               around it, bad signatures at 0, 5000 and 10239 rejected
               exactly, no ``jax`` in ``sys.modules``;
-  5. times  — kernel, plain version, host prep, sign bytes, commit wall.
+  5. times  — kernel, plain version, host prep, sign bytes, commit wall,
+              the kernel's occupancy and its fraction of the bound;
+  6. profile — the measurement kernels (``ops/profile.py``), counted as a
+              path of their own: the verify kernel built to stop after
+              decompression, the table and the Straus walk, timed at the
+              commit's width (the decompress stage's ok bits held against
+              the plain ``_decompress_pair``), and chains of K field
+              multiplies, squares and adds (``csrc/fe_chain.cu``) on one
+              full wave of the card, held against the plain PyTorch field
+              code and Python integers, giving the measured rate of field
+              products per SM per clock.
 
 Usage, from the repository root, on a machine with a CUDA card:
 
@@ -43,11 +54,17 @@ SEED = 20261016
 CHAIN_ID = "chip-smoke-chain"
 HEIGHT = 100
 KERNEL_RUNS = 30
+BACK_TO_BACK = 5  # calls per sample of the extra back-to-back reading
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # Hopper: 4 partitions x 16 INT32 lanes
 # main-path launches: self-check 1 + verify_commit 1+5 + light 5 + bad
 # commit 1 + batch-verifier bits 1
 MAIN_PATH_LAUNCHES = 14
+# batch sizes that leave quads, warps or blocks partly filled
+SMALL_N = (1, 2, 3, 5, 8, 9, 33, 127, 129)
+STAGE_RUNS = 10
+CHAIN_K = 400  # chain length, as the Pallas chain script
+CHAIN_RUNS = 10
 
 
 class SmokeError(AssertionError):
@@ -80,8 +97,12 @@ def median_ms(fn, runs: int) -> float:
     return statistics.median(ts)
 
 
-def cuda_ms(torch, fn, runs: int, warmup: int) -> float:
-    """Median device time of one ``fn`` over ``runs`` runs, CUDA events."""
+def cuda_ms(torch, fn, runs: int, warmup: int, per: int = 1) -> float:
+    """Median device time of one ``fn`` over ``runs`` samples, CUDA events.
+    A sample times ``per`` calls back to back and divides.  With ``per`` = 1,
+    the method of every ``ms`` this script reports, a sample also counts the
+    card's wait for the host to launch the call (Python, ctypes); with
+    ``per`` > 1 that wait hides behind the previous call's work."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -90,11 +111,119 @@ def cuda_ms(torch, fn, runs: int, warmup: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(per):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        ts.append(start.elapsed_time(end))
+        ts.append(start.elapsed_time(end) / per)
     return statistics.median(ts)
+
+
+def bound(products: int, nbytes: int, sms: int, max_clock_mhz: float):
+    """(ms, "operations" or "bytes"): the least time the card could take for
+    ``products`` 32x32->64-bit products on the data sheet's INT32 lanes at
+    the max SM clock, or for ``nbytes`` moved once at the data sheet's HBM
+    rate, whichever is longer."""
+    ops_ms = products / (sms * INT32_LANES_PER_SM * max_clock_mhz * 1e6) * 1e3
+    bytes_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag) -> dict:
+    """Phase 6.  ``t``: the mixed lanes, ``tg``: the valid commit's lanes,
+    both on ``dev``.  Returns the op-chain kernel's entry of the kernels
+    line."""
+    import numpy as np
+
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import profile as pf
+
+    pf.reset_launches()
+    cv.reset_launches()
+    # stage builds at the commit's width, then the full kernel, in turn
+    plain_oks = pf.decompress_oks(t["a_bytes"], t["r_bytes"])
+    for k in pf.STAGES:
+        got = pf.verify_stage(k, **t)
+        check(torch.equal(got, plain_oks),
+              f"stage {k}: ok bits != plain _decompress_pair on "
+              f"{int((got != plain_oks).sum())} of {n} lanes")
+    stage_ms = {}
+    for k, stage in pf.STAGES.items():
+        stage_ms[stage] = cuda_ms(torch, lambda: pf.verify_stage(k, **tg),
+                                  STAGE_RUNS, 2)
+    stage_ms["full"] = cuda_ms(torch, lambda: cv.verify_core_cuda(**tg),
+                               STAGE_RUNS, 2)
+    plain_ms = cuda_ms(
+        torch, lambda: pf.decompress_oks(tg["a_bytes"], tg["r_bytes"]), 1, 0)
+    prev, parts = 0.0, []
+    for stage, ms in stage_ms.items():
+        parts.append(f"{stage} {ms} ms (+{ms - prev})")
+        prev = ms
+    print(f"profile: verify kernel stopped after each stage, {n} valid lanes, "
+          f"median of {STAGE_RUNS} samples of one call: "
+          f"{'; '.join(parts)}; stage ok bits == plain "
+          f"_decompress_pair on {n} mixed lanes, which takes {plain_ms} ms {tag}")
+
+    # op chains on one full wave of the card
+    occ = pf.chain_occupancy("mul")
+    lanes = sms * occ["blocks_per_sm"] * occ["threads"]
+    rng = np.random.default_rng(SEED + 2)
+    worst, mul, rate = 0, {}, {}
+    for i, op in enumerate(pf.CHAIN_OPS):
+        x = pf.chain_input(lanes, SEED + 10 + i).to(dev)
+        got = pf.fe_chain(x, op, CHAIN_K)
+        plain = pf.fe_chain_plain(x, op, CHAIN_K)
+        err = int((got.long() - plain.long()).abs().max())
+        worst = max(worst, err)
+        check(err == 0, f"fe_chain {op}: kernel != plain (max_abs_err {err})")
+        xs, gs = x.cpu().numpy(), got.cpu().numpy()
+        for j in sorted(rng.choice(lanes, min(64, lanes), replace=False).tolist()):
+            want = pf.chain_reference(pf.int_of_limbs10(xs[j]), op, CHAIN_K)
+            check(pf.int_of_limbs10(gs[j]) == want, f"fe_chain {op}: lane {j}")
+        ms = cuda_ms(torch, lambda: pf.fe_chain(x, op, CHAIN_K), CHAIN_RUNS, 2)
+        plain_ms = cuda_ms(torch, lambda: pf.fe_chain_plain(x, op, CHAIN_K), 1, 0)
+        ops = lanes * CHAIN_K
+        per_sm_clk = ops / (ms * 1e-3 * sms * max_clock_mhz * 1e6)
+        rate[op] = per_sm_clk
+        prods = pf.PRODUCTS_PER_OP[op] * per_sm_clk
+        print(f"profile: fe_chain {op}: {lanes} lanes x {CHAIN_K} ops in {ms} ms "
+              f"({ms * 1e6 / ops:.5f} ns per op per lane; {per_sm_clk:.4f} ops "
+              f"= {prods:.2f} 32x32->64-bit products per SM per clock at "
+              f"{max_clock_mhz:.0f} MHz, data sheet {INT32_LANES_PER_SM} INT32 "
+              f"lanes); plain PyTorch version {plain_ms} ms; == plain "
+              f"(max_abs_err {err}) and == Python integers on {min(64, lanes)} lanes; "
+              f"{occ['regs']} registers, {occ['local_bytes']} bytes local, "
+              f"{occ['blocks_per_sm']} blocks of {occ['threads']} per SM {tag}")
+        if op == "mul":
+            mul = {"ms": ms, "plain_ms": plain_ms,
+                   "bound": bound(ops * pf.PRODUCTS_PER_OP[op], lanes * 80, sms,
+                                  max_clock_mhz)}
+    # each stage against the data sheet and against the measured chain rates
+    work = {**pf.STAGE_WORK, 4: (cv.FIELD_MULS_PER_SIG, cv.FIELD_SQUARES_PER_SIG)}
+    for k, (muls, squares) in work.items():
+        stage = pf.STAGES.get(k, "full")
+        clocks = n * (muls / rate["mul"] + squares / rate["square"]) / sms
+        chain_ms = clocks / (max_clock_mhz * 1e6) * 1e3
+        bound_ms, _ = bound(n * cv.wide_products(muls, squares),
+                            n * cv.BYTES_PER_SIG, sms, max_clock_mhz)
+        print(f"profile: {stage} ({muls} multiplies, {squares} squares per "
+              f"signature): bound {bound_ms} ms (data sheet); {chain_ms} ms at "
+              f"the chain rates; measured {stage_ms[stage]} ms, "
+              f"{chain_ms / stage_ms[stage]:.1%} of the chain rates {tag}")
+    counts = dict(pf.launches, **{cv.NAME: cv.launches})
+    for name, c in counts.items():
+        check(c > 0, f"profile: {name} was not launched")
+    print(f"profile: launches in this phase {counts}; the fe_chain entry of "
+          f"the kernels line is the multiply chain (ms, plain_ms, bound_ms), "
+          f"its max_abs_err the largest of the three chains")
+    return {
+        "name": pf.CHAIN, "route": "cuda", "source": pf.CHAIN_SOURCE,
+        "replaces": pf.CHAIN_REPLACES, "launches": pf.launches[pf.CHAIN],
+        "max_abs_err": worst, "ms": mul["ms"], "plain_ms": mul["plain_ms"],
+        "bound_ms": mul["bound"][0],
+        "bound_by": mul["bound"][1],
+        "library_ms": None,
+    }
 
 
 def make_commit(n: int):
@@ -245,7 +374,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         check(bool(bits[i]) == want, f"lane {i}: kernel {bits[i]}, oracle {want}")
     n_ok = int(bits.sum())
     check(0 < n_ok < n, f"{n_ok} of {n} mixed lanes accepted")
-    for k in (1, 127, 129):
+    for k in SMALL_N:
         sub = {key: v[:k].contiguous() for key, v in t.items()}
         kb = cv.verify_core_cuda(**sub)
         check(torch.equal(kb, ov.verify_core(**sub)), f"n={k}: kernel != plain")
@@ -254,7 +383,8 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
             check(bool(kb[i]) == oracle(mp[i], mm[i], ms[i]), f"n={k}: lane {i}")
     print(f"kernel: {n} mixed lanes, kernel == plain version bit for bit "
           f"(max_abs_err {max_abs_err}), {n_ok} accepted; {len(sample)}-lane "
-          f"sample == oracle; n = 1, 127, 129 == plain == oracle")
+          f"sample == oracle; n = {', '.join(map(str, SMALL_N))} == plain "
+          f"== oracle")
 
     # -- 4. the slice, through the entry points ------------------------------
     needed = vals.total_voting_power() * 2 // 3
@@ -309,17 +439,21 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     tg = ov.batch_to_device(good, dev)
     check(bool(cv.verify_core_cuda(**tg).all()), "valid commit lanes rejected")
     kernel_ms = cuda_ms(torch, lambda: cv.verify_core_cuda(**tg), KERNEL_RUNS, 3)
+    b2b_ms = cuda_ms(torch, lambda: cv.verify_core_cuda(**tg), KERNEL_RUNS, 3,
+                     BACK_TO_BACK)
     plain_ms = cuda_ms(torch, lambda: ov.verify_core(**tg), 3, 1)
     prep_ms = median_ms(lambda: ov.prepare_batch(pubs, sign_bytes, sigs), 3)
     sb_ms = median_ms(lambda: commit.all_vote_sign_bytes(CHAIN_ID), 3)
     ops = n * cv.WIDE_PRODUCTS_PER_SIG
-    ops_ms = ops / (sms * INT32_LANES_PER_SM * max_clock_mhz * 1e6) * 1e3
-    bytes_ms = n * cv.BYTES_PER_SIG / H100_HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    bound_ms, bound_by = bound(ops, n * cv.BYTES_PER_SIG, sms, max_clock_mhz)
     tag = f"[{card}]"
-    print(f"time: kernel {kernel_ms} ms at {n} lanes (median of {KERNEL_RUNS}, "
-          f"CUDA events) = {n / kernel_ms * 1e3:.0f} verifies/s {tag}")
+    print(f"time: kernel {kernel_ms} ms at {n} lanes (median of {KERNEL_RUNS} "
+          f"samples of one call, CUDA events) = {n / kernel_ms * 1e3:.0f} "
+          f"verifies/s {tag}")
+    print(f"time: extra reading, not the kernels line's ms: kernel {b2b_ms} ms "
+          f"per call at {n} lanes (median of {KERNEL_RUNS} samples of "
+          f"{BACK_TO_BACK} back-to-back calls, CUDA events: the host's launch "
+          f"time hidden behind the previous call) {tag}")
     print(f"time: plain PyTorch version {plain_ms} ms at {n} lanes {tag}")
     print(f"time: host prep (SHA-512 + packing) {prep_ms} ms; sign bytes "
           f"{sb_ms} ms {tag}")
@@ -328,9 +462,27 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"ms); verify_commit_light wall {light_ms} ms {tag}")
     print(f"time: bound {bound_ms} ms by {bound_by}: {ops} 32x32->64-bit "
           f"products over {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
-          f"{max_clock_mhz:.0f} MHz; the bytes alone take {bytes_ms} ms {tag}")
+          f"{max_clock_mhz:.0f} MHz, or {n * cv.BYTES_PER_SIG} bytes at "
+          f"{H100_HBM_BYTES_PER_S:.3g} B/s {tag}")
+    print(f"time: kernel at {bound_ms / kernel_ms:.2%} of its bound {tag}")
     print("time: library_ms is null: no PyTorch library call computes Ed25519 "
           "signature verification")
+    occ = cv.occupancy()
+    grid = -(-n * cv.THREADS_PER_SIG // occ["threads"])
+    resident = occ["blocks_per_sm"] * sms
+    print(f"occupancy: {cv.NAME}: {cv.THREADS_PER_SIG} thread(s) per signature, "
+          f"{occ['threads']} threads per block, {occ['regs']} registers and "
+          f"{occ['local_bytes']} bytes of local memory per thread, "
+          f"{occ['shared_bytes']} bytes of static shared memory per block; "
+          f"{occ['blocks_per_sm']} blocks ({occ['blocks_per_sm'] * occ['threads'] // 32}"
+          f" warps) resident per SM; {n} lanes -> {grid} blocks, "
+          f"{min(grid, sms)} of {sms} SMs with work, up to "
+          f"{-(-grid // sms) * occ['threads'] // 32} warps on one SM"
+          f"{'' if grid <= resident else ' (more than one wave)'} {tag}")
+
+    # -- 6. profile: stage builds and field-op chains ------------------------
+    chain_entry = profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag)
+
     print(json.dumps({"kernels": [{
         "name": cv.NAME,
         "route": "cuda",
@@ -343,7 +495,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }, chain_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

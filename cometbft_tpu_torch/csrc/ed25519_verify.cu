@@ -12,277 +12,335 @@
 // "-0" sign accepted, small-order points accepted) and m = (L - h) mod L
 // computed on the host.
 //
-// What bounds it on this card: integer multiplies.  A signature costs about
-// 3.5k field multiplications (two ~255-square decompression chains and a
-// 64-position Straus walk), each 55-100 32x32->64-bit products, against 133
-// bytes of input and output: three to four orders of magnitude more work
-// than traffic, so the bound is the SMs' integer multiply rate.
+// What bounds it on this card: integer multiplies.  A signature costs 1,914
+// field multiplies and 1,546 squares (two ~255-square decompression chains
+// and a 64-position Straus walk), 100 or 55 32x32->64-bit products each,
+// against 133 bytes of input and output, so the bound is the SMs' integer
+// multiply rate.  The field code is fe25519.cuh (ref10's radix 2^25.5).
 //
-// What the design does about it:
-// * Field elements are 10 signed limbs in radix 2^25.5 (the ref10 layout)
-//   with int64 column sums.  Hopper multiplies 32x32->64 in one IMAD.WIDE,
-//   so a field product is 100 wide products (55 for a square) instead of
-//   the TPU layout's 400 13-bit products plus its carry rounds.  Carry
-//   bounds follow ref10: a multiplier input may be the sum or difference of
-//   at most three carried values (|limb| < 1.65 * 2^26); every such input
-//   below is annotated by how many carried values it sums.
-// * One thread per signature, blocks of 128 threads, ragged edge masked.
-//   Every lane runs the same instruction stream, so no warp diverges
-//   except on the sign of a table digit.
-// * The per-lane table {0..8}*A (cached form, 1440 bytes) lives in local
-//   memory; the constant table {0..8}*B (niels form) arrives as a device
-//   tensor from the wrapper and is copied into shared memory once per block.
-// * Unpacking and the signed radix-16 recoding run in the thread, so each
-//   element crosses to the card as 32 bytes.
-// Known limit, left for a later change: one thread per signature gives a
-// 10,240-signature commit 80 blocks, fewer than the card's 132 SMs, with
-// four warps on each; the kernel is latency-bound there, not rate-bound.
+// What the design does about it: four threads per signature.
+// * A quad of four adjacent threads of a warp holds one signature's point,
+//   thread k of the quad coordinate k: X, Y, Z, T of an extended or
+//   completed point, or the four fields of a table entry.  ref10's formulas
+//   are four independent products at each step (the doubling's four
+//   squares, the additions' four products against the cached point, the
+//   four products back to extended form), so each step is one field product
+//   per thread, and operands move between the threads of the quad with
+//   __shfl_sync under the quad's own mask.  A 10,240-signature commit is
+//   1,280 warps, so every one of the card's 132 SMs has work, and a thread
+//   holds one coordinate and its temporaries instead of four points.
+// * The per-signature table {0..8}*A (cached form) and R live in shared
+//   memory, limb-major with the thread index innermost, so the 32 reads of
+//   one limb by a warp fall in 32 distinct banks whatever the digits.  The
+//   constant table {0..8}*B (niels form, Z = 1) arrives as a device tensor
+//   and is copied into shared memory once per block.
+// * Decompression is a serial square-root chain per point: thread 0 of the
+//   quad decompresses A and thread 1 R, at the same time (threads 2 and 3
+//   repeat them and their results are dropped).  The signed radix-16
+//   recoding runs in threads 0 and 1 (s and m) into shared memory.
+// * Blocks of 64 threads (16 signatures).  Every thread of a launched warp
+//   runs every step: a quad past the batch's end works on the last
+//   signature's bytes and skips the store, so no thread named in a shuffle
+//   mask has exited.
 //
-// The same source builds for the host (without __CUDACC__) into a plain C
-// loop over the lanes, so the arithmetic can be checked on a machine with
-// no card.
+// Without __CUDACC__ the same source builds for the host.  There a "quad
+// register" holds the values of all 64 threads of a block, every step is a
+// loop over them, and an exchange reads the array: the block runs in
+// lockstep as it does on the card, padding quads included, so the
+// formulas, the exchanges and the ragged edge are checked on a machine with
+// no card.  With ED25519_TALLY the host build counts the field multiplies
+// and squares whose results are used.
 
-#include <stddef.h>
-#include <stdint.h>
+#include "fe25519.cuh"
 
-#if defined(__CUDACC__)
-#include <cuda_runtime.h>
-#define DEV __device__ __forceinline__
-#else
-#define DEV static inline
+// ED25519_STAGE stops the kernel early, for the stage profile: 1 after
+// decompressing A and R, 2 after the {0..8}*A table, 3 after the Straus
+// walk, 4 (the default) runs the whole verify.  A truncated build returns
+// ok_A | ok_R << 1, plus bit 2 from the last value computed so that no
+// stage is optimised away.
+#ifndef ED25519_STAGE
+#define ED25519_STAGE 4
 #endif
 
-#if defined(ED25519_TALLY) && !defined(__CUDACC__)
-static long long g_tally_mul = 0, g_tally_sq = 0;
-#define TALLY(counter) (++(counter))
+// Blocks per SM the compiler must fit (__launch_bounds__), which caps the
+// registers per thread at 65536 / (THREADS * MIN_BLOCKS): 6 gives 168, and
+// the decompression's square-root chain then fits with no spills (8, at 128
+// registers, spilled and was no faster).  Shared memory allows 7 blocks per
+// SM; a 10,240-signature commit needs 5.
+#define MIN_BLOCKS 6
+
+#define THREADS 64          // threads per block
+#define SIGS (THREADS / 4)  // signatures per block
+#define ENTRIES 10          // table slots: {0..8}*A, then R
+
+#if defined(__CUDACC__)
+#define MEMBER __device__ __forceinline__
+#define SYNC_BLOCK() __syncthreads()
 #else
-#define TALLY(counter) ((void)0)
+#define MEMBER inline
+#define SYNC_BLOCK() ((void)0)
 #endif
 
 namespace {
 
-struct fe {
-  int32_t v[10];
+// --- the quad -------------------------------------------------------------
+
+#if defined(__CUDACC__)
+// On the card a quad register is this thread's value.
+#define LANES 1
+template <class T>
+struct Q {
+  T v;
+  MEMBER T& operator[](int) { return v; }
+  MEMBER const T& operator[](int) const { return v; }
 };
-struct ge_p2 {
-  fe X, Y, Z;
+DEV int thread_of(int) { return threadIdx.x; }
+#else
+// On the host it holds every thread of the block.
+#define LANES THREADS
+template <class T>
+struct Q {
+  T v[THREADS];
+  MEMBER T& operator[](int i) { return v[i]; }
+  MEMBER const T& operator[](int i) const { return v[i]; }
 };
-struct ge_p3 {
-  fe X, Y, Z, T;
-};
-struct ge_p1p1 {
-  fe X, Y, Z, T;
-};
-struct ge_precomp {  // affine niels: (y+x, y-x, 2d*x*y)
-  fe yplusx, yminusx, xy2d;
-};
-struct ge_cached {  // extended, ready to add: (Y+X, Y-X, Z, 2d*T)
-  fe YplusX, YminusX, Z, T2d;
-};
+DEV int thread_of(int i) { return i; }
+#endif
+#define FOR_LANES(i) for (int i = 0; i < LANES; i++)
 
-// Limb i holds bits [25*i + ceil(i/2), ...): 26 bits for even i, 25 for odd.
-#define LIMB_OFF(i) (25 * (i) + (((i) + 1) >> 1))
-#define LIMB_BITS(i) (((i) & 1) ? 25 : 26)
+// The tally counts the work of threads that hold a signature: a padding
+// quad runs every step too, but its products are not used.
+#if defined(ED25519_TALLY) && !defined(__CUDACC__)
+static int g_live_threads = THREADS;
+#define TALLY_LANE(i) (g_tally_on = (i) < g_live_threads)
+#else
+#define TALLY_LANE(i) ((void)0)
+#endif
 
-DEV fe fe_one() {
-  fe h = {{1, 0, 0, 0, 0, 0, 0, 0, 0, 0}};
-  return h;
-}
-DEV fe fe_d() {
-  fe h = {{56195235, 13857412, 51736253, 6949390, 114729, 24766616, 60832955,
-           30306712, 48412415, 21499315}};
-  return h;
-}
-DEV fe fe_d2() {
-  fe h = {{45281625, 27714825, 36363642, 13898781, 229458, 15978800, 54557047,
-           27058993, 29715967, 9444199}};
-  return h;
-}
-DEV fe fe_sqrtm1() {
-  fe h = {{34513072, 25610706, 9377949, 3500415, 12389472, 33281959, 41962654,
-           31548777, 326685, 11406482}};
-  return h;
+// Source lane, per quad lane k = 0..3, of an exchange.
+#define SRC(a, b, c, d) ((a) | (b) << 4 | (c) << 8 | (d) << 12)
+#define QUAD_MASK (0xFu << (threadIdx.x & 28))  // this thread's quad
+DEV int src_lane(int src, int k) { return (src >> (4 * k)) & 3; }
+DEV bool lane_in(int lanes, int k) { return (lanes >> k) & 1; }
+
+// out = in as held by lane src(k) of the same quad.  `out` and `in` must be
+// different registers.
+DEV void q_take(Q<fe>& out, const Q<fe>& in, int src) {
+#if defined(__CUDACC__)
+  const unsigned mask = QUAD_MASK;
+  const int from = src_lane(src, threadIdx.x & 3);
+#pragma unroll
+  for (int l = 0; l < 10; l++) out.v.v[l] = __shfl_sync(mask, in.v.v[l], from, 4);
+#else
+  for (int i = 0; i < THREADS; i++) out[i] = in[(i & ~3) | src_lane(src, i & 3)];
+#endif
 }
 
-DEV void fe_add(fe& h, const fe& f, const fe& g) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) h.v[i] = f.v[i] + g.v[i];
-}
-DEV void fe_sub(fe& h, const fe& f, const fe& g) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) h.v[i] = f.v[i] - g.v[i];
-}
-DEV void fe_neg(fe& h, const fe& f) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) h.v[i] = -f.v[i];
+DEV void q_take(Q<int>& out, const Q<int>& in, int src) {
+#if defined(__CUDACC__)
+  const unsigned mask = QUAD_MASK;
+  out.v = __shfl_sync(mask, in.v, src_lane(src, threadIdx.x & 3), 4);
+#else
+  for (int i = 0; i < THREADS; i++) out[i] = in[(i & ~3) | src_lane(src, i & 3)];
+#endif
 }
 
-// ref10's carry chain over int64 column sums: even limbs keep 26 bits, odd
-// 25, centred remainders; the carry out of limb 9 re-enters limb 0 times 19
-// (2^255 = 19 mod p).  Output |limb| <= 2^25 (even), 2^24 (odd), plus a
-// small incoming carry.
-DEV void fe_carry_wide(fe& h, int64_t t[10]) {
-  int64_t c;
-  c = (t[0] + (1LL << 25)) >> 26; t[1] += c; t[0] -= c * (1LL << 26);
-  c = (t[4] + (1LL << 25)) >> 26; t[5] += c; t[4] -= c * (1LL << 26);
-  c = (t[1] + (1LL << 24)) >> 25; t[2] += c; t[1] -= c * (1LL << 25);
-  c = (t[5] + (1LL << 24)) >> 25; t[6] += c; t[5] -= c * (1LL << 25);
-  c = (t[2] + (1LL << 25)) >> 26; t[3] += c; t[2] -= c * (1LL << 26);
-  c = (t[6] + (1LL << 25)) >> 26; t[7] += c; t[6] -= c * (1LL << 26);
-  c = (t[3] + (1LL << 24)) >> 25; t[4] += c; t[3] -= c * (1LL << 25);
-  c = (t[7] + (1LL << 24)) >> 25; t[8] += c; t[7] -= c * (1LL << 25);
-  c = (t[4] + (1LL << 25)) >> 26; t[5] += c; t[4] -= c * (1LL << 26);
-  c = (t[8] + (1LL << 25)) >> 26; t[9] += c; t[8] -= c * (1LL << 26);
-  c = (t[9] + (1LL << 24)) >> 25; t[0] += c * 19; t[9] -= c * (1LL << 25);
-  c = (t[0] + (1LL << 25)) >> 26; t[1] += c; t[0] -= c * (1LL << 26);
-#pragma unroll
-  for (int i = 0; i < 10; i++) h.v[i] = (int32_t)t[i];
+DEV void sync_quad() {
+#if defined(__CUDACC__)
+  __syncwarp(QUAD_MASK);
+#endif
 }
 
-// Carry any int32 limb vector down to the carried range (value unchanged).
-DEV void fe_reduce(fe& h, const fe& f) {
-  int64_t t[10];
+// h = f * g on the quad lanes in `useful`; the other lanes pass f through.
+// On the card an idle lane computes its product in lockstep with its quad
+// and drops it (skipping would save no time); the host build skips it, so
+// the tally counts only products that are used.
+DEV void q_mul(Q<fe>& h, const Q<fe>& f, const Q<fe>& g, int useful) {
+  FOR_LANES(i) {
+    const bool use = lane_in(useful, thread_of(i) & 3);
+    TALLY_LANE(i);
+#if defined(__CUDACC__)
+    fe r;
+    fe_mul(r, f[i], g[i]);
 #pragma unroll
-  for (int i = 0; i < 10; i++) t[i] = f.v[i];
-  fe_carry_wide(h, t);
-}
-
-// h = f * g.  Inputs: |limb| < 1.65 * 2^26 (three carried values summed).
-// Product f_i g_j lands in column i+j; it is doubled when i and j are both
-// odd (the half bits of the 2^25.5 radix) and folded times 19 when i+j >= 10.
-DEV void fe_mul(fe& h, const fe& f, const fe& g) {
-  TALLY(g_tally_mul);
-  int32_t f2[10], g19[10];
-  int64_t t[10];
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    f2[i] = 2 * f.v[i];
-    g19[i] = 19 * g.v[i];
-    t[i] = 0;
-  }
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-#pragma unroll
-    for (int j = 0; j < 10; j++) {
-      const int32_t a = ((i & 1) && (j & 1)) ? f2[i] : f.v[i];
-      const int32_t b = (i + j >= 10) ? g19[j] : g.v[j];
-      t[(i + j) % 10] += (int64_t)a * b;
-    }
-  }
-  fe_carry_wide(h, t);
-}
-
-// h = f^2 (times 2 when DBL): the 55 products of the upper triangle.
-template <bool DBL>
-DEV void fe_sq_impl(fe& h, const fe& f) {
-  TALLY(g_tally_sq);
-  int64_t t[10];
-#pragma unroll
-  for (int i = 0; i < 10; i++) t[i] = 0;
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-#pragma unroll
-    for (int j = i; j < 10; j++) {
-      const int64_t c = (i == j ? 1 : 2) * (((i & 1) && (j & 1)) ? 2 : 1) *
-                        (i + j >= 10 ? 19 : 1) * (DBL ? 2 : 1);
-      t[(i + j) % 10] += c * ((int64_t)f.v[i] * f.v[j]);
-    }
-  }
-  fe_carry_wide(h, t);
-}
-DEV void fe_sq(fe& h, const fe& f) { fe_sq_impl<false>(h, f); }
-DEV void fe_sq2(fe& h, const fe& f) { fe_sq_impl<true>(h, f); }
-
-// Canonical limbs of f mod p (ref10 fe_tobytes without the byte packing):
-// q = floor(f / p) by a carry sweep, then f - q*p with floor carries.
-DEV void fe_freeze(fe& h, const fe& f) {
-  fe_reduce(h, f);
-  int32_t q = (19 * h.v[9] + (1 << 24)) >> 25;
-#pragma unroll
-  for (int i = 0; i < 10; i++) q = (h.v[i] + q) >> LIMB_BITS(i);
-  h.v[0] += 19 * q;
-#pragma unroll
-  for (int i = 0; i < 9; i++) {
-    const int32_t c = h.v[i] >> LIMB_BITS(i);
-    h.v[i + 1] += c;
-    h.v[i] -= c * (1 << LIMB_BITS(i));
-  }
-  const int32_t c9 = h.v[9] >> 25;
-  h.v[9] -= c9 * (1 << 25);
-}
-
-DEV bool fe_iszero(const fe& f) {
-  fe h;
-  fe_freeze(h, f);
-  int32_t acc = 0;
-#pragma unroll
-  for (int i = 0; i < 10; i++) acc |= h.v[i];
-  return acc == 0;
-}
-
-// The low 255 bits of a 32-byte little-endian string (bit 255, the sign, is
-// dropped).  The value may be >= p: ZIP-215 accepts non-canonical y.
-DEV void fe_frombytes(fe& h, const uint8_t* s) {
-#pragma unroll
-  for (int i = 0; i < 10; i++) {
-    const int off = LIMB_OFF(i);
-    uint64_t w = 0;
-#pragma unroll
-    for (int k = 0; k < 5; k++) {
-      const int idx = (off >> 3) + k;
-      if (idx < 32) w |= (uint64_t)s[idx] << (8 * k);
-    }
-    h.v[i] = (int32_t)((w >> (off & 7)) & ((1u << LIMB_BITS(i)) - 1));
+    for (int l = 0; l < 10; l++) h[i].v[l] = use ? r.v[l] : f[i].v[l];
+#else
+    if (use) fe_mul(h[i], f[i], g[i]);
+    else h[i] = f[i];
+#endif
   }
 }
 
-// z^((p-5)/8) = z^(2^252 - 3), ref10's chain (11 multiplies, 251 squares).
-DEV void fe_pow22523(fe& out, const fe& z) {
-  fe t0, t1, t2;
-  fe_sq(t0, z);
-  fe_sq(t1, t0);
-  fe_sq(t1, t1);
-  fe_mul(t1, z, t1);
-  fe_mul(t0, t0, t1);
-  fe_sq(t0, t0);
-  fe_mul(t0, t1, t0);  // 2^5 - 1
-  fe_sq(t1, t0);
-  for (int i = 1; i < 5; i++) fe_sq(t1, t1);
-  fe_mul(t0, t1, t0);  // 2^10 - 1
-  fe_sq(t1, t0);
-  for (int i = 1; i < 10; i++) fe_sq(t1, t1);
-  fe_mul(t1, t1, t0);  // 2^20 - 1
-  fe_sq(t2, t1);
-  for (int i = 1; i < 20; i++) fe_sq(t2, t2);
-  fe_mul(t1, t2, t1);  // 2^40 - 1
-  fe_sq(t1, t1);
-  for (int i = 1; i < 10; i++) fe_sq(t1, t1);
-  fe_mul(t0, t1, t0);  // 2^50 - 1
-  fe_sq(t1, t0);
-  for (int i = 1; i < 50; i++) fe_sq(t1, t1);
-  fe_mul(t1, t1, t0);  // 2^100 - 1
-  fe_sq(t2, t1);
-  for (int i = 1; i < 100; i++) fe_sq(t2, t2);
-  fe_mul(t1, t2, t1);  // 2^200 - 1
-  fe_sq(t1, t1);
-  for (int i = 1; i < 50; i++) fe_sq(t1, t1);
-  fe_mul(t0, t1, t0);  // 2^250 - 1
-  fe_sq(t0, t0);
-  fe_sq(t0, t0);       // 2^252 - 4
-  fe_mul(out, t0, z);  // 2^252 - 3
+// h = f^2 on every lane, doubled on the lanes in `doubled`.
+DEV void q_sq(Q<fe>& h, const Q<fe>& f, int doubled) {
+  FOR_LANES(i) {
+    TALLY_LANE(i);
+    fe_sq_shl(h[i], f[i], lane_in(doubled, thread_of(i) & 3));
+  }
 }
+
+// out = cf * f + cg * g per limb, with small per-lane coefficients.
+// (Multiplies: masks and adds instead measured slower, the ALU being the
+// busier pipe.)
+DEV void lin(fe& out, int cf, const fe& f, int cg, const fe& g) {
+#pragma unroll
+  for (int l = 0; l < 10; l++) out.v[l] = cf * f.v[l] + cg * g.v[l];
+}
+
+// out = ca * a + cb * b + cc * c per limb.
+DEV void lin3(fe& out, int ca, const fe& a, int cb, const fe& b, int cc,
+              const fe& c) {
+#pragma unroll
+  for (int l = 0; l < 10; l++) out.v[l] = ca * a.v[l] + cb * b.v[l] + cc * c.v[l];
+}
+
+// --- point formulas (ref10; complete for a = -1 and non-square d) ----------
+//
+// Lane k of a quad holds coordinate k: (X, Y, Z, T) of an extended (P3) or
+// completed (P1P1) point, (Y+X, Y-X, Z, 2dT) of a cached one, and
+// (y+x, y-x, 1, 2dxy) of a niels base point.  Carry annotations count the
+// carried values a multiplier input sums (at most three).
+
+// Completed -> extended: (X*T, Y*Z, Z*T, X*Y).  useful = 0x7 leaves out T,
+// which a doubling does not read (ref10's P2 form); then lanes 0-2 each
+// have their first operand already and one exchange brings the second.
+DEV void q_to_p3(Q<fe>& r, const Q<fe>& p, int useful) {
+  Q<fe> f, g;
+  q_take(g, p, SRC(3, 2, 3, 1));
+  if (useful == 0x7) {
+    q_mul(r, p, g, useful);
+  } else {
+    q_take(f, p, SRC(0, 1, 2, 0));
+    q_mul(r, f, g, useful);
+  }
+}
+
+// r = 2p in completed form, from p's X, Y, Z (dbl-2008-hwcd).  Lanes
+// square C = (X+Y)^2, B = Y^2, D = 2Z^2 and A = X^2 (one exchange brings
+// lane 0 its Y and lane 3 its X), then X' = C - A - B, Y' = B + A,
+// Z' = B - A, T' = D - Z' (two exchanges).
+DEV void q_dbl(Q<fe>& r, const Q<fe>& p) {
+  Q<fe> s, u;
+  q_take(u, p, SRC(1, 1, 2, 0));
+  FOR_LANES(i) {
+    const int k = thread_of(i) & 3;
+    // lane 0: X+Y (2 carried values), lane 3: X, lanes 1, 2: Y, Z
+    lin(s[i], k == 3 ? 0 : 1, p[i], (k == 0 || k == 3) ? 1 : 0, u[i]);
+  }
+  q_sq(s, s, 1 << 2);
+  Q<fe> ta, tb;
+  q_take(ta, s, SRC(3, 3, 3, 2));  // A, and D to lane 3
+  q_take(tb, s, SRC(1, 1, 1, 1));  // B
+  FOR_LANES(i) {
+    const int k = thread_of(i) & 3;
+    // X' = C - A - B: 3, Y' = B + A: 2, Z' = B - A: 2, T' = D - B + A: 3
+    const int co = k == 2 ? 0 : 1;
+    const int ca = (k == 0 || k == 2) ? -1 : 1;
+    const int cb = k == 1 ? 0 : (k == 2 ? 1 : -1);
+    lin3(r[i], co, s[i], ca, ta[i], cb, tb[i]);
+  }
+}
+
+// Lane 0: Y+X, lane 1: Y-X (2 carried values each), lanes 2, 3: Z, T.
+DEV void q_sum_diff(Q<fe>& f, const Q<fe>& p) {
+  Q<fe> o;
+  q_take(o, p, SRC(1, 0, 2, 3));  // lane 0 gets Y, lane 1 gets X
+  FOR_LANES(i) {
+    const int k = thread_of(i) & 3;
+    lin(f[i], 1, p[i], k == 0 ? 1 : (k == 1 ? -1 : 0), o[i]);
+  }
+}
+
+// r = p + q in completed form for q cached (Y+X, Y-X, Z, 2dT), or with
+// useful = 0xB for q niels (y+x, y-x, 1, 2dxy), whose Z product is not
+// needed: P = ((Y+X) q0, (Y-X) q1, Z q2, T q3), then X' = P0 - P1,
+// Y' = P0 + P1, Z' = 2 P2 + P3, T' = 2 P2 - P3, each lane from its own P
+// and its partner's (k ^ 1).
+DEV void q_add(Q<fe>& r, const Q<fe>& p, const Q<fe>& q, int useful) {
+  Q<fe> f, o;
+  q_sum_diff(f, p);
+  q_mul(f, f, q, useful);
+  q_take(o, f, SRC(1, 0, 3, 2));
+  FOR_LANES(i) {
+    const int k = thread_of(i) & 3;
+    // X' = P0 - P1: 2, Y' = P1 + P0: 2, Z' = 2 P2 + P3: 3, T' = 2 P2 - P3: 3
+    lin(r[i], k == 3 ? -1 : (k == 2 ? 2 : 1), f[i],
+        k == 0 ? -1 : (k == 3 ? 2 : 1), o[i]);
+  }
+}
+
+// Extended -> cached: (Y+X, Y-X, Z, 2d*T), lane 3's product.
+DEV void q_to_cached(Q<fe>& c, const Q<fe>& p) {
+  Q<fe> d2;
+  q_sum_diff(c, p);
+  FOR_LANES(i) d2[i] = fe_d2();
+  q_mul(c, c, d2, 1 << 3);
+}
+
+// The identity (0, 1, 1, 0).
+DEV void q_identity(Q<fe>& p) {
+  FOR_LANES(i) {
+    const int k = thread_of(i) & 3;
+    p[i] = (k == 1 || k == 2) ? fe_one() : fe_zero();
+  }
+}
+
+// --- shared memory ----------------------------------------------------------
+
+struct Shared {
+  // per-signature cached table, [entry][limb][thread]: thread t stores
+  // coordinate t & 3 of its quad's entry; entry 9 is R
+  int32_t ta[ENTRIES][10][THREADS];
+  // the base table {0..8}*B, [limb][4 * entry + coordinate], niels with Z=1
+  int32_t bt[10][9 * 4];
+  // signed radix-16 digits of s (0) and m (1), [scalar][position][quad]
+  int8_t dig[2][64][SIGS];
+};
+
+DEV void store_entry(Shared& sh, int e, const Q<fe>& c) {
+  FOR_LANES(i) {
+#pragma unroll
+    for (int l = 0; l < 10; l++) sh.ta[e][l][thread_of(i)] = c[i].v[l];
+  }
+}
+
+// Lane k's coordinate of sign * entry e: a negative sign swaps Y+X and Y-X
+// (coordinates 0 and 1) and negates 2dT (coordinate 3).
+DEV void q_select_cached(Q<fe>& c, const Shared& sh, const Q<int>& e,
+                         const Q<int>& neg) {
+  FOR_LANES(i) {
+    const int t = thread_of(i), k = t & 3;
+    const int from = (t & ~3) | (neg[i] && k < 2 ? k ^ 1 : k);
+    const int32_t sg = -(int32_t)(neg[i] && k == 3);
+#pragma unroll
+    for (int l = 0; l < 10; l++) c[i].v[l] = (sh.ta[e[i]][l][from] ^ sg) - sg;
+  }
+}
+
+DEV void q_select_base(Q<fe>& c, const Shared& sh, const Q<int>& e,
+                       const Q<int>& neg) {
+  FOR_LANES(i) {
+    const int k = thread_of(i) & 3;
+    const int col = 4 * e[i] + (neg[i] && k < 2 ? k ^ 1 : k);
+    const int32_t sg = -(int32_t)(neg[i] && k == 3);
+#pragma unroll
+    for (int l = 0; l < 10; l++) c[i].v[l] = (sh.bt[l][col] ^ sg) - sg;
+  }
+}
+
+// --- per-thread pieces --------------------------------------------------------
 
 // (ok, x) with x = sqrt(u/v) when u/v is a square; ok is false iff it is
 // not.  Same steps as the JAX package's fe25519.sqrt_ratio.
 DEV bool fe_sqrt_ratio(fe& x, const fe& u, const fe& v) {
-  fe v3, v7, t, r, vx2, chk, xm;
+  fe v3, t, r, vx2, chk, xm;
   fe_sq(v3, v);
   fe_mul(v3, v3, v);  // v^3
-  fe_sq(v7, v3);
-  fe_mul(v7, v7, v);  // v^7
-  fe_mul(t, u, v7);
+  fe_sq(t, v3);
+  fe_mul(t, t, v);    // v^7
+  fe_mul(t, u, t);    // u v^7
+  fe_mul(x, u, v3);   // u v^3, before the chain so that v3 dies
   fe_pow22523(r, t);
-  fe_mul(x, u, v3);
   fe_mul(x, x, r);
   fe_sq(vx2, x);
   fe_mul(vx2, vx2, v);
@@ -291,232 +349,212 @@ DEV bool fe_sqrt_ratio(fe& x, const fe& u, const fe& v) {
   fe_add(chk, vx2, u);
   const bool ok2 = fe_iszero(chk);
   fe_mul(xm, x, fe_sqrtm1());
-  if (ok2) x = xm;
+#pragma unroll
+  for (int l = 0; l < 10; l++) x.v[l] = ok2 ? xm.v[l] : x.v[l];
   return ok1 || ok2;
 }
 
 // ZIP-215 decompression (the JAX package's ed25519_point.decompress): y
 // unreduced, x the even root, then negated when the sign bit is set (so a
-// "-0" encoding decodes to x = 0).  Coordinates come out carried.
-DEV bool ge_decompress(ge_p3& p, const uint8_t* s) {
-  fe y, y2, u, v, x;
+// "-0" encoding decodes to x = 0).  x and y come out carried.
+DEV int decompress(fe& x, fe& y, const uint8_t* s) {
+  fe u, v;
   fe_frombytes(y, s);
   fe_reduce(y, y);
-  fe_sq(y2, y);
-  fe_sub(u, y2, fe_one());
-  fe_mul(v, y2, fe_d());
-  fe_add(v, v, fe_one());
+  fe_sq(u, y);
+  fe_mul(v, u, fe_d());
+  fe_add(v, v, fe_one());  // d y^2 + 1
+  fe_sub(u, u, fe_one());  // y^2 - 1
   const bool ok = fe_sqrt_ratio(x, u, v);
+  // y again from its bytes rather than kept through the square root
+  fe_frombytes(y, s);
+  fe_reduce(y, y);
   fe_freeze(x, x);
-  if (x.v[0] & 1) fe_neg(x, x);
-  if (s[31] >> 7) fe_neg(x, x);
-  fe_reduce(p.X, x);
-  p.Y = y;
-  p.Z = fe_one();
-  fe_mul(p.T, p.X, y);
-  return ok;
+  const int32_t neg = -(int32_t)((x.v[0] & 1) ^ (s[31] >> 7));
+#pragma unroll
+  for (int l = 0; l < 10; l++) x.v[l] = (x.v[l] ^ neg) - neg;
+  fe_reduce(x, x);
+  return ok ? 1 : 0;
 }
 
-// --- point formulas (ref10; complete for a = -1 and non-square d) ----------
-
-DEV void ge_p1p1_to_p2(ge_p2& r, const ge_p1p1& p) {
-  fe_mul(r.X, p.X, p.T);
-  fe_mul(r.Y, p.Y, p.Z);
-  fe_mul(r.Z, p.Z, p.T);
-}
-
-DEV void ge_p1p1_to_p3(ge_p3& r, const ge_p1p1& p) {
-  fe_mul(r.X, p.X, p.T);
-  fe_mul(r.Y, p.Y, p.Z);
-  fe_mul(r.Z, p.Z, p.T);
-  fe_mul(r.T, p.X, p.Y);
-}
-
-DEV void ge_p3_to_p2(ge_p2& r, const ge_p3& p) {
-  r.X = p.X;
-  r.Y = p.Y;
-  r.Z = p.Z;
-}
-
-DEV void ge_p3_to_cached(ge_cached& r, const ge_p3& p) {
-  fe_add(r.YplusX, p.Y, p.X);   // 2 carried values
-  fe_sub(r.YminusX, p.Y, p.X);  // 2
-  r.Z = p.Z;
-  fe_mul(r.T2d, p.T, fe_d2());
-}
-
-// dbl-2008-hwcd: r = 2p.
-DEV void ge_p2_dbl(ge_p1p1& r, const ge_p2& p) {
-  fe t0;
-  fe_sq(r.X, p.X);
-  fe_sq(r.Z, p.Y);
-  fe_sq2(r.T, p.Z);
-  fe_add(r.Y, p.X, p.Y);  // 2
-  fe_sq(t0, r.Y);
-  fe_add(r.Y, r.Z, r.X);  // 2
-  fe_sub(r.Z, r.Z, r.X);  // 2
-  fe_sub(r.X, t0, r.Y);   // 3
-  fe_sub(r.T, r.T, r.Z);  // 3
-}
-
-// r = p + q (complete extended addition).
-DEV void ge_add(ge_p1p1& r, const ge_p3& p, const ge_cached& q) {
-  fe t0;
-  fe_add(r.X, p.Y, p.X);  // 2
-  fe_sub(r.Y, p.Y, p.X);  // 2
-  fe_mul(r.Z, r.X, q.YplusX);
-  fe_mul(r.Y, r.Y, q.YminusX);
-  fe_mul(r.T, q.T2d, p.T);
-  fe_mul(r.X, p.Z, q.Z);
-  fe_add(t0, r.X, r.X);   // 2
-  fe_sub(r.X, r.Z, r.Y);  // 2
-  fe_add(r.Y, r.Z, r.Y);  // 2
-  fe_add(r.Z, t0, r.T);   // 3
-  fe_sub(r.T, t0, r.T);   // 3
-}
-
-// r = p - q.
-DEV void ge_sub(ge_p1p1& r, const ge_p3& p, const ge_cached& q) {
-  fe t0;
-  fe_add(r.X, p.Y, p.X);
-  fe_sub(r.Y, p.Y, p.X);
-  fe_mul(r.Z, r.X, q.YminusX);
-  fe_mul(r.Y, r.Y, q.YplusX);
-  fe_mul(r.T, q.T2d, p.T);
-  fe_mul(r.X, p.Z, q.Z);
-  fe_add(t0, r.X, r.X);
-  fe_sub(r.X, r.Z, r.Y);
-  fe_add(r.Y, r.Z, r.Y);
-  fe_sub(r.Z, t0, r.T);
-  fe_add(r.T, t0, r.T);
-}
-
-// r = p + q for an affine niels q (mixed addition).
-DEV void ge_madd(ge_p1p1& r, const ge_p3& p, const ge_precomp& q) {
-  fe t0;
-  fe_add(r.X, p.Y, p.X);
-  fe_sub(r.Y, p.Y, p.X);
-  fe_mul(r.Z, r.X, q.yplusx);
-  fe_mul(r.Y, r.Y, q.yminusx);
-  fe_mul(r.T, q.xy2d, p.T);
-  fe_add(t0, p.Z, p.Z);
-  fe_sub(r.X, r.Z, r.Y);
-  fe_add(r.Y, r.Z, r.Y);
-  fe_add(r.Z, t0, r.T);
-  fe_sub(r.T, t0, r.T);
-}
-
-// ±table[|d|] for the per-lane cached table (negation: swap Y±X, negate 2dT).
-DEV void select_cached(ge_cached& t, const ge_cached* tab, int d) {
-  const ge_cached& e = tab[d < 0 ? -d : d];
-  if (d < 0) {
-    t.YplusX = e.YminusX;
-    t.YminusX = e.YplusX;
-    t.Z = e.Z;
-    fe_neg(t.T2d, e.T2d);
-  } else {
-    t = e;
+// (x, y, 1, x*y) from the affine x, y held by quad lane `from`.
+DEV void q_point(Q<fe>& p, const Q<fe>& x, const Q<fe>& y, int from) {
+  Q<fe> xs, ys;
+  const int src = from * SRC(1, 1, 1, 1);
+  q_take(xs, x, src);
+  q_take(ys, y, src);
+  FOR_LANES(i) {
+    const int k = thread_of(i) & 3;
+    if (k == 1) xs[i] = ys[i];
+    if (k == 2) xs[i] = fe_one();
   }
-}
-
-// ±table[|d|] for the constant niels table.
-DEV void select_precomp(ge_precomp& t, const ge_precomp* tab, int d) {
-  const ge_precomp& e = tab[d < 0 ? -d : d];
-  if (d < 0) {
-    t.yplusx = e.yminusx;
-    t.yminusx = e.yplusx;
-    fe_neg(t.xy2d, e.xy2d);
-  } else {
-    t = e;
-  }
+  q_mul(p, xs, ys, 1 << 3);
 }
 
 // 32-byte little-endian scalar < 2^253 -> 64 signed radix-16 digits in
 // [-8, 7], least significant first (the top carry is absorbed because the
-// scalar is below L).
-DEV void recode(int8_t e[64], const uint8_t* s) {
+// scalar is below L), stored at dig[position * SIGS].
+DEV void recode(int8_t* dig, const uint8_t* s) {
   int carry = 0;
   for (int k = 0; k < 64; k++) {
-    int d = ((s[k >> 1] >> (4 * (k & 1))) & 15) + carry;
+    const int d = ((s[k >> 1] >> (4 * (k & 1))) & 15) + carry;
     carry = d >= 8;
-    e[k] = (int8_t)(d - (carry << 4));
+    dig[k * SIGS] = (int8_t)(d - (carry << 4));
   }
 }
 
-DEV void ge_p3_identity(ge_p3& p) {
-  fe zero = {{0, 0, 0, 0, 0, 0, 0, 0, 0, 0}};
-  p.X = zero;
-  p.Y = fe_one();
-  p.Z = fe_one();
-  p.T = zero;
-}
+// --- one block: SIGS signatures, four threads each ----------------------------
 
-// One signature.  base: the niels table {0..8}*B.
-DEV int32_t verify_one(const uint8_t* a, const uint8_t* r, const uint8_t* s,
-                       const uint8_t* m, int s_ok, const ge_precomp* base) {
-  ge_p3 A, R, p;
-  const bool ok_a = ge_decompress(A, a);
-  const bool ok_r = ge_decompress(R, r);
+DEV void verify_block(Shared& sh, const uint8_t* a, const uint8_t* r,
+                      const uint8_t* s, const uint8_t* m,
+                      const uint8_t* s_ok, const int32_t* base_tbl,
+                      int32_t* out, int n, int block) {
+  // the base table, with Z = 1 as coordinate 2 of every entry
+  FOR_LANES(i) {
+    for (int j = thread_of(i); j < 10 * 9 * 4; j += THREADS) {
+      const int l = j / 36, e = (j % 36) / 4, c = j % 4;
+      sh.bt[l][4 * e + c] =
+          c == 2 ? (l == 0) : base_tbl[(e * 3 + (c == 3 ? 2 : c)) * 10 + l];
+    }
+  }
+  SYNC_BLOCK();
 
-  int8_t ds[64], dm[64];
-  recode(ds, s);
-  recode(dm, m);
-
-  // per-lane table {0..8}*A in cached form
-  ge_cached ta[9];
-  ge_p3_identity(p);
-  ge_p3_to_cached(ta[0], p);
-  ge_p3_to_cached(ta[1], A);
-  ge_p1p1 t;
-  p = A;
-  for (int k = 2; k < 9; k++) {
-    ge_add(t, p, ta[1]);
-    ge_p1p1_to_p3(p, t);
-    ge_p3_to_cached(ta[k], p);
+  // signature of each thread; a quad past the end repeats the last one
+  Q<int> sig;
+  FOR_LANES(i) {
+    const int g = block * SIGS + (thread_of(i) >> 2);
+    sig[i] = g < n ? g : n - 1;
   }
 
+  // lane 0 decompresses A, lane 1 R (lanes 2, 3 repeat them on the card)
+  Q<fe> x, y;
+  Q<int> ok;
+  FOR_LANES(i) {
+    const int k = thread_of(i) & 3;
+#if !defined(__CUDACC__)
+    if (k >= 2) {
+      x[i] = y[i] = fe_zero();
+      ok[i] = 0;
+      continue;
+    }
+#endif
+    TALLY_LANE(i);
+    ok[i] = decompress(x[i], y[i], ((k & 1) ? r : a) + (size_t)sig[i] * 32);
+  }
+  Q<int> ok_a, ok_r;
+  q_take(ok_a, ok, SRC(0, 0, 0, 0));
+  q_take(ok_r, ok, SRC(1, 1, 1, 1));
+
+  // A and R as quad points; R goes to the table as entry 9
+  Q<fe> pa, t, c;
+  q_point(pa, x, y, 0);
+  q_point(t, x, y, 1);
+  q_to_cached(c, t);
+  store_entry(sh, 9, c);
+#if ED25519_STAGE == 1
+  Q<int> chk;
+  FOR_LANES(i) chk[i] = pa[i].v[0] ^ c[i].v[0];
+#else
+  // digits: lane 0 recodes s, lane 1 m
+  FOR_LANES(i) {
+    const int k = thread_of(i) & 3;
+    if (k < 2) {
+      recode(&sh.dig[k][0][thread_of(i) >> 2], (k ? m : s) + (size_t)sig[i] * 32);
+    }
+  }
+
+  // the table {0..8}*A in cached form
+  Q<fe> p, ca;
+  q_identity(p);
+  q_to_cached(c, p);
+  store_entry(sh, 0, c);
+  q_to_cached(ca, pa);
+  store_entry(sh, 1, ca);
+  p = pa;
+  for (int e = 2; e < 9; e++) {
+    q_add(t, p, ca, 0xF);
+    q_to_p3(p, t, 0xF);
+    q_to_cached(c, p);
+    store_entry(sh, e, c);
+  }
+  sync_quad();
+#if ED25519_STAGE == 2
+  Q<int> chk;
+  FOR_LANES(i) chk[i] = sh.ta[8][0][thread_of(i)];
+#else
   // s*B + m*A, signed radix-16 Straus, most significant digit first
-  ge_p2 q;
-  ge_cached ca;
-  ge_precomp cb;
-  ge_p3_identity(p);
-  for (int i = 63; i >= 0; i--) {
-    ge_p3_to_p2(q, p);
-    ge_p2_dbl(t, q);
-    ge_p1p1_to_p2(q, t);
-    ge_p2_dbl(t, q);
-    ge_p1p1_to_p2(q, t);
-    ge_p2_dbl(t, q);
-    ge_p1p1_to_p2(q, t);
-    ge_p2_dbl(t, q);
-    ge_p1p1_to_p3(p, t);
-    select_cached(ca, ta, dm[i]);
-    ge_add(t, p, ca);
-    ge_p1p1_to_p3(p, t);
-    select_precomp(cb, base, ds[i]);
-    ge_madd(t, p, cb);
-    ge_p1p1_to_p3(p, t);
+  Q<int> e, neg;
+  q_identity(p);
+  for (int pos = 63; pos >= 0; pos--) {
+    for (int d = 0; d < 4; d++) {
+      q_dbl(t, p);
+      q_to_p3(p, t, d < 3 ? 0x7 : 0xF);
+    }
+    FOR_LANES(i) {
+      const int dm = sh.dig[1][pos][thread_of(i) >> 2];
+      e[i] = dm < 0 ? -dm : dm;
+      neg[i] = dm < 0;
+    }
+    q_select_cached(c, sh, e, neg);
+    q_add(t, p, c, 0xF);
+    q_to_p3(p, t, 0xF);
+    FOR_LANES(i) {
+      const int ds = sh.dig[0][pos][thread_of(i) >> 2];
+      e[i] = ds < 0 ? -ds : ds;
+      neg[i] = ds < 0;
+    }
+    q_select_base(c, sh, e, neg);
+    q_add(t, p, c, 0xB);
+    q_to_p3(p, t, 0xF);
   }
-
+#if ED25519_STAGE == 3
+  Q<int> chk;
+  FOR_LANES(i) chk[i] = p[i].v[0];
+#else
   // [8](p - R) == identity
-  ge_p3_to_cached(ca, R);
-  ge_sub(t, p, ca);
-  ge_p1p1_to_p2(q, t);
-  for (int k = 0; k < 3; k++) {
-    ge_p2_dbl(t, q);
-    ge_p1p1_to_p2(q, t);
+  FOR_LANES(i) {
+    e[i] = 9;
+    neg[i] = 1;
   }
-  fe diff;
-  fe_sub(diff, q.Y, q.Z);
-  const bool ident = fe_iszero(q.X) && fe_iszero(diff);
-  return (ok_a && ok_r && s_ok && ident) ? 1 : 0;
+  q_select_cached(c, sh, e, neg);
+  q_add(t, p, c, 0xF);
+  q_to_p3(p, t, 0x7);
+  for (int d = 0; d < 3; d++) {
+    q_dbl(t, p);
+    q_to_p3(p, t, 0x7);
+  }
+  // lane 0 tests X, lane 1 Y - Z
+  Q<fe> z;
+  Q<int> zero, zx, zyz;
+  q_take(z, p, SRC(0, 2, 2, 2));
+  FOR_LANES(i) {
+    fe d;
+    lin(d, 1, p[i], (thread_of(i) & 3) == 1 ? -1 : 0, z[i]);
+    zero[i] = fe_iszero(d);
+  }
+  q_take(zx, zero, SRC(0, 0, 0, 0));
+  q_take(zyz, zero, SRC(1, 1, 1, 1));
+#endif
+#endif
+#endif
+
+  FOR_LANES(i) {
+    const int t_ = thread_of(i);
+    const int g = block * SIGS + (t_ >> 2);
+    if ((t_ & 3) != 0 || g >= n) continue;
+#if ED25519_STAGE == 4
+    out[g] = (ok_a[i] && ok_r[i] && s_ok[g] && zx[i] && zyz[i]) ? 1 : 0;
+#else
+    out[g] = ok_a[i] | (ok_r[i] << 1) | ((chk[i] != INT32_MIN) << 2);
+#endif
+  }
 }
 
 }  // namespace
 
 #if defined(__CUDACC__)
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
     ed25519_verify_kernel(const uint8_t* __restrict__ a,
                           const uint8_t* __restrict__ r,
                           const uint8_t* __restrict__ s,
@@ -524,14 +562,8 @@ __global__ void __launch_bounds__(128)
                           const uint8_t* __restrict__ s_ok,
                           const int32_t* __restrict__ base_tbl,
                           int32_t* __restrict__ out, int n) {
-  __shared__ ge_precomp base[9];
-  int32_t* sh = reinterpret_cast<int32_t*>(base);
-  for (int k = threadIdx.x; k < 9 * 3 * 10; k += blockDim.x) sh[k] = base_tbl[k];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t o = (size_t)i * 32;
-  out[i] = verify_one(a + o, r + o, s + o, m + o, s_ok[i], base);
+  __shared__ Shared sh;
+  verify_block(sh, a, r, s, m, s_ok, base_tbl, out, n, blockIdx.x);
 }
 
 // a, r, s, m: (n, 32) uint8; s_ok: (n,) uint8; base_tbl: (9, 3, 10) int32
@@ -542,9 +574,8 @@ extern "C" int ed25519_verify_launch(const void* a, const void* r,
                                      const void* s_ok, const void* base_tbl,
                                      void* out, int n, void* stream) {
   if (n > 0) {
-    const int threads = 128;
-    const int blocks = (n + threads - 1) / threads;
-    ed25519_verify_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    const int blocks = (n + SIGS - 1) / SIGS;
+    ed25519_verify_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         (const uint8_t*)a, (const uint8_t*)r, (const uint8_t*)s,
         (const uint8_t*)m, (const uint8_t*)s_ok, (const int32_t*)base_tbl,
         (int32_t*)out, n);
@@ -552,18 +583,42 @@ extern "C" int ed25519_verify_launch(const void* a, const void* r,
   return (int)cudaGetLastError();
 }
 
-#else  // host build: the same arithmetic as a plain loop over the lanes
+// The launch configuration's resources: blocks resident per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), threads per block, and
+// the compiled kernel's registers, local memory and static shared memory
+// bytes per thread or block.  Returns a CUDA error code.
+extern "C" int ed25519_verify_occupancy(int* blocks_per_sm, int* threads,
+                                        int* regs, int* local_bytes,
+                                        int* shared_bytes) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, ed25519_verify_kernel);
+  if (e != cudaSuccess) return (int)e;
+  *threads = THREADS;
+  *regs = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  *shared_bytes = (int)fa.sharedSizeBytes;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, ed25519_verify_kernel, THREADS, 0);
+}
+
+#else  // host build: each block's 64 threads in lockstep
 
 extern "C" int ed25519_verify_host(const uint8_t* a, const uint8_t* r,
                                    const uint8_t* s, const uint8_t* m,
                                    const uint8_t* s_ok,
                                    const int32_t* base_tbl, int32_t* out,
                                    int n) {
-  const ge_precomp* base = reinterpret_cast<const ge_precomp*>(base_tbl);
-  for (int i = 0; i < n; i++) {
-    const size_t o = (size_t)i * 32;
-    out[i] = verify_one(a + o, r + o, s + o, m + o, s_ok[i], base);
+  static Shared sh;
+  for (int b = 0; b * SIGS < n; b++) {
+#if defined(ED25519_TALLY)
+    const int live = 4 * (n - b * SIGS);
+    g_live_threads = live < THREADS ? live : THREADS;
+#endif
+    verify_block(sh, a, r, s, m, s_ok, base_tbl, out, n, b);
   }
+#if defined(ED25519_TALLY)
+  g_tally_on = true;
+#endif
   return 0;
 }
 

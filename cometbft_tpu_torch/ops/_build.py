@@ -1,10 +1,13 @@
 """Build the port's CUDA sources (``csrc/*.cu``) with ``nvcc`` at first use.
 
-Each source becomes its own shared library with a plain C interface,
-loaded with ``ctypes`` (no PyTorch headers, so a build takes seconds).
-Libraries go to ``cometbft_tpu_torch/build/``, named by a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-not.  Only sources in the repository are built; a missing ``nvcc`` raises.
+Each build is one source compiled into its own shared library with a
+plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
+takes seconds).  A build is named: ``<stem>`` is ``csrc/<stem>.cu`` as it
+is, and the names in ``VARIANTS`` compile a source with extra ``-D`` flags
+(the verify kernel's stage builds).  Libraries go to
+``cometbft_tpu_torch/build/``, named by a hash of the sources and that
+build's flags, so an edited source is rebuilt and an unchanged one is not.
+Only sources in the repository are built; a missing ``nvcc`` raises.
 """
 
 from __future__ import annotations
@@ -29,13 +32,28 @@ NVCC_FLAGS = [
 ]
 
 
+# build name -> (source stem, extra flags): the verify kernel stopped after
+# decompression, after its table and after the Straus walk (ED25519_STAGE,
+# see csrc/ed25519_verify.cu), for the stage profile in ``ops.profile``.
+VARIANTS = {
+    f"ed25519_verify_stage{k}": ("ed25519_verify", (f"-DED25519_STAGE={k}",))
+    for k in (1, 2, 3)
+}
+
+
 def sources() -> list[str]:
-    """Names of the kernels in ``csrc/`` (``<name>.cu``)."""
-    return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
+    """Names of every build: the kernels in ``csrc/`` (``<name>.cu``) and
+    the variants."""
+    return sorted({p.stem for p in CSRC_DIR.glob("*.cu")} | set(VARIANTS))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _recipe(name: str) -> tuple[str, tuple]:
+    return VARIANTS.get(name, (name, ()))
+
+
+def _digest(name: str) -> str:
+    flags = [*NVCC_FLAGS, *_recipe(name)[1]]
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in sorted(CSRC_DIR.iterdir()):
         if p.suffix in (".cu", ".cuh", ".h"):
             h.update(p.name.encode())
@@ -44,7 +62,7 @@ def _digest() -> str:
 
 
 def lib_path(name: str) -> Path:
-    return BUILD_DIR / f"lib{name}-{_digest()}.so"
+    return BUILD_DIR / f"lib{name}-{_digest(name)}.so"
 
 
 def log_path(name: str) -> Path:
@@ -77,13 +95,14 @@ def build_all(names: "list[str] | None" = None) -> dict:
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
-        src = CSRC_DIR / f"{name}.cu"
+        stem, defines = _recipe(name)
+        src = CSRC_DIR / f"{stem}.cu"
         if not src.exists():
             raise FileNotFoundError(src)
         tmp = lib_path(name).with_suffix(f".so.tmp{os.getpid()}")
         procs[name] = (
             subprocess.Popen(
-                [compiler, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [compiler, *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)],
                 stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
                 text=True,
@@ -106,7 +125,7 @@ def build_all(names: "list[str] | None" = None) -> dict:
 
 @lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu`` (built first if needed)."""
+    """The built library of build ``name`` (built first if needed)."""
     build_all([name])
     return ctypes.CDLL(str(lib_path(name)))
 

@@ -1,7 +1,7 @@
 """The Ed25519 verify kernel's wrapper (``csrc/ed25519_verify.cu``).
 
 Counterpart of ``cometbft_tpu/ops/pallas_verify.py``: raw bytes in, accept
-bits out, one thread per signature.  For CUDA tensors the wrapper launches
+bits out, four threads per signature.  For CUDA tensors the wrapper launches
 the kernel or raises; for CPU tensors it runs the kernel's plain PyTorch
 version, ``ops.verify.verify_core``.  ``launches`` counts kernel launches
 (and nothing else), so a run can show that its main path went through the
@@ -29,7 +29,18 @@ REPLACES = "cometbft_tpu/ops/pallas_verify.py:94"
 # same source: field multiplies take 100 32x32->64-bit products, squares 55.
 FIELD_MULS_PER_SIG = 1914
 FIELD_SQUARES_PER_SIG = 1546
-WIDE_PRODUCTS_PER_SIG = 100 * FIELD_MULS_PER_SIG + 55 * FIELD_SQUARES_PER_SIG
+PRODUCTS_PER_MUL = 100
+PRODUCTS_PER_SQUARE = 55
+
+
+def wide_products(muls: int, squares: int) -> int:
+    """32x32->64-bit products in ``muls`` field multiplies and ``squares``
+    field squares of the kernel's field code (``csrc/fe25519.cuh``)."""
+    return PRODUCTS_PER_MUL * muls + PRODUCTS_PER_SQUARE * squares
+
+
+WIDE_PRODUCTS_PER_SIG = wide_products(FIELD_MULS_PER_SIG, FIELD_SQUARES_PER_SIG)
+THREADS_PER_SIG = 4
 # bytes each signature moves: four 32-byte inputs, s_ok, one int32 out
 BYTES_PER_SIG = 4 * 32 + 1 + 4
 
@@ -80,6 +91,21 @@ def _launcher():
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def occupancy() -> dict:
+    """The kernel's launch resources on the current card: resident blocks
+    per SM, threads per block, and registers, local memory bytes per thread
+    and static shared memory bytes per block of the compiled kernel."""
+    fn = _build.load(NAME).ed25519_verify_occupancy
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(5)]
+    rc = fn(*map(ctypes.byref, vals))
+    if rc != 0:
+        raise RuntimeError(f"{NAME} occupancy query failed: CUDA error {rc}")
+    keys = ("blocks_per_sm", "threads", "regs", "local_bytes", "shared_bytes")
+    return dict(zip(keys, (v.value for v in vals)))
 
 
 def _check(a_bytes, r_bytes, s_bytes, m_bytes, s_ok) -> int:

@@ -1,11 +1,13 @@
 """The hand-written verify kernel (cometbft_tpu_torch/csrc/ed25519_verify.cu).
 
 On a machine without a card the CUDA kernel cannot run, but its source
-also builds for the host (a plain loop over the lanes, no ``__CUDACC__``),
-so its field and point arithmetic is held here against the pure-Python
-oracle, and its counted field multiplies against the numbers the roofline
-bound uses.  The tests marked ``cuda`` run the kernel itself and skip where
-there is no card.
+also builds for the host (no ``__CUDACC__``): each block's 64 threads run
+in lockstep, four per signature, and an exchange between the threads of a
+quad reads their array.  So its field and point arithmetic, its exchanges
+and its ragged edge are held here against the pure-Python oracle, and its
+counted field multiplies against the numbers the roofline bound uses.  The
+tests marked ``cuda`` run the kernel itself and skip where there is no
+card.
 """
 
 import ctypes
@@ -28,19 +30,24 @@ from test_torch_verify import edge_set, oracle, random_mix
 SRC = _build.CSRC_DIR / "ed25519_verify.cu"
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def host_build(tmp_path_factory, src, *defines) -> ctypes.CDLL:
+    """``src`` compiled for the host with g++ into a shared library."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("no host C++ compiler to build the kernel source for the CPU")
-    out = tmp_path_factory.mktemp("hostbuild") / "libed25519_host.so"
+    out = tmp_path_factory.mktemp("hostbuild") / f"lib{src.stem}_host.so"
     subprocess.run(
         [cxx, "-O1", "-std=c++17", "-x", "c++", "-shared", "-fPIC",
-         "-DED25519_TALLY", "-o", str(out), str(SRC)],
+         *defines, "-o", str(out), str(src)],
         check=True,
         capture_output=True,
     )
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    lib = host_build(tmp_path_factory, SRC, "-DED25519_TALLY")
     lib.ed25519_verify_host.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int]
     lib.ed25519_verify_host.restype = ctypes.c_int
     lib.ed25519_tally.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 2
@@ -76,6 +83,26 @@ def test_kernel_source_on_host_matches_oracle(host_lib, which):
     assert squares == len(pubs) * tcv.FIELD_SQUARES_PER_SIG
 
 
+def _mixed(n):
+    """The first ``n`` of edge_set + random_mix, repeated as needed."""
+    p1, m1, s1 = edge_set()
+    p2, m2, s2 = random_mix(16, seed=21)
+    return ((p1 + p2) * 5)[:n], ((m1 + m2) * 5)[:n], ((s1 + s2) * 5)[:n]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 9, 33])
+def test_kernel_source_on_host_partial_blocks(host_lib, n):
+    """Batches that fill a block's 16 quads, a warp's 8, only in part: the
+    padding quads run every step on the last signature's bytes, their
+    products are not counted and their results are not stored."""
+    pubs, msgs, sigs = _mixed(n)
+    _tally(host_lib)
+    got = _host_verify(host_lib, pubs, msgs, sigs)
+    np.testing.assert_array_equal(got, oracle(pubs, msgs, sigs))
+    assert _tally(host_lib) == (n * tcv.FIELD_MULS_PER_SIG,
+                                n * tcv.FIELD_SQUARES_PER_SIG)
+
+
 def test_base_table_matches_niels_table():
     """The kernel's radix-2^25.5 base table holds the same field values as
     the plain version's 20x13-bit niels table."""
@@ -96,11 +123,9 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 32, 127, 129])
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 8, 9, 32, 33, 127, 129])
 def test_kernel_matches_plain_and_oracle(card, n):
-    p1, m1, s1 = edge_set()
-    p2, m2, s2 = random_mix(16, seed=21)
-    pubs, msgs, sigs = ((p1 + p2) * 5)[:n], ((m1 + m2) * 5)[:n], ((s1 + s2) * 5)[:n]
+    pubs, msgs, sigs = _mixed(n)
     arrays, structural = tov._pack(pubs, msgs, sigs, n)
     t = tov.batch_to_device(arrays, card)
     before = tcv.launches
