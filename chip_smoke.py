@@ -10,17 +10,32 @@ signature through the hand-written Hopper kernel
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. device — the card's name and power limit;
-  2. build  — nvcc builds every kernel from the repository's sources;
-  3. kernel — the kernel against its plain PyTorch version on the card
+  2. build  — g++ builds the host library (``csrc/host_prep.cpp``) and
+              nvcc every kernel, all from the repository's sources;
+  3. host   — the host library on the commit: C++ ``prepare_batch`` ==
+              the Python ``_pack_plain`` on the mixed lanes, C++ sign bytes
+              == the per-index Python encoder for every signature and for
+              the light subset, ``sha512`` == ``hashlib`` at 0-300 bytes;
+  4. kernel — the kernel against its plain PyTorch version on the card
               (10,240 mixed lanes, bit for bit) and both against the
               pure-Python oracle on a 256-lane sample; the small batches
               of SMALL_N (partial quads, warps and blocks) against both;
-  4. slice  — the commit through the entry points, launch counts read
-              around it, bad signatures at 0, 5000 and 10239 rejected
-              exactly, no ``jax`` in ``sys.modules``;
-  5. times  — kernel, plain version, host prep, sign bytes, commit wall,
-              the kernel's occupancy and its fraction of the bound;
-  6. profile — the measurement kernels (``ops/profile.py``), counted as a
+  5. slice  — the commit through the entry points, behind the signature
+              cache: cold commits (cache cleared before each), one warm
+              commit that launches nothing, the bad commit's negative
+              verdicts cached without poisoning the good commit; launch
+              counts read around it, bad signatures at 0, 5000 and 10239
+              rejected exactly, no ``jax`` in ``sys.modules``;
+  6. times  — kernel, plain version, host prep and sign bytes in C++ and
+              in Python, cold and warm commit wall, the remainder of the
+              wall that no part names, the top host functions of one cold
+              commit under cProfile, the kernel's occupancy and bound;
+  7. inflight — a path of its own: a light-client window of four commits
+              through ``prepare_commit_light`` -> ``dispatch_segments``
+              (two in flight on the verify stream) -> ``fetch_segments``
+              -> ``finish_commit_light``, and ``verify_batches_overlapped``
+              against a sequential ``verify_batch`` loop;
+  8. profile — the measurement kernels (``ops/profile.py``), counted as a
               path of their own: the verify kernel built to stop after
               decompression, the table and the Straus walk, timed at the
               commit's width (the decompress stage's ok bits held against
@@ -42,8 +57,10 @@ The last line of standard output is
 
 from __future__ import annotations
 
+import cProfile
 import hashlib
 import json
+import pstats
 import statistics
 import subprocess
 import sys
@@ -57,9 +74,17 @@ KERNEL_RUNS = 30
 BACK_TO_BACK = 5  # calls per sample of the extra back-to-back reading
 H100_HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # Hopper: 4 partitions x 16 INT32 lanes
-# main-path launches: self-check 1 + verify_commit 1+5 + light 5 + bad
-# commit 1 + batch-verifier bits 1
-MAIN_PATH_LAUNCHES = 14
+# main-path launches, each verify behind a cleared signature cache unless
+# said otherwise: self-check 1 + first verify_commit 1 + 5 cold samples +
+# warm sample 0 + 5 cold light samples + bad commit 1 + the good commit
+# after it 1 (its 3 triples that the bad commit changed) + batch-verifier
+# bits 1
+MAIN_PATH_LAUNCHES = 15
+COMMIT_RUNS = 5  # cold verify_commit / verify_commit_light samples
+HOST_RUNS = 5  # samples of each host step (C++); Python's take 3
+WINDOW = 4  # commits in the light-client window of the inflight phase
+INFLIGHT = 2  # handles in flight
+OVERLAP_PAIRS = 3  # overlapped / sequential samples, alternating
 # batch sizes that leave quads, warps or blocks partly filled
 SMALL_N = (1, 2, 3, 5, 8, 9, 33, 127, 129)
 STAGE_RUNS = 10
@@ -130,7 +155,7 @@ def bound(products: int, nbytes: int, sms: int, max_clock_mhz: float):
 
 
 def profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag) -> dict:
-    """Phase 6.  ``t``: the mixed lanes, ``tg``: the valid commit's lanes,
+    """Phase 8.  ``t``: the mixed lanes, ``tg``: the valid commit's lanes,
     both on ``dev``.  Returns the op-chain kernel's entry of the kernels
     line."""
     import numpy as np
@@ -305,6 +330,125 @@ def mixed_triples(ref, pubs, msgs, sigs):
     return pubs, msgs, sigs
 
 
+def host_phase(ov, native, commit, light_idx, mixed) -> None:
+    """Phase 3: the host library against the Python references."""
+    import numpy as np
+
+    mp, mm, ms = mixed
+    n = len(mp)
+    got, _, structural = ov.prepare_batch(mp, mm, ms)
+    plain, plain_struct = ov._pack_plain(mp, mm, ms, got["s_ok"].shape[0])
+    check(np.array_equal(structural, plain_struct), "host: structural != plain")
+    for k in plain:
+        check(got[k].dtype == plain[k].dtype and
+              got[k].tobytes() == plain[k].tobytes(),
+              f"host: C++ prepare_batch {k} != _pack_plain")
+    sb = commit.all_vote_sign_bytes(CHAIN_ID)
+    for i in range(n):
+        check(sb[i] == commit.vote_sign_bytes(CHAIN_ID, i),
+              f"host: sign bytes of {i} != the Python encoder")
+    light = commit.all_vote_sign_bytes(CHAIN_ID, light_idx)
+    for i, b in zip(light_idx, light):
+        check(b == commit.vote_sign_bytes(CHAIN_ID, i),
+              f"host: light sign bytes of {i} != the Python encoder")
+    data = np.random.default_rng(SEED + 3).bytes(300)
+    for k in range(301):
+        check(native.sha512(data[:k]) == hashlib.sha512(data[:k]).digest(),
+              f"host: sha512 of {k} bytes != hashlib")
+    print(f"host: C++ prepare_batch == _pack_plain on all five arrays of "
+          f"{n} mixed lanes; C++ sign bytes == the per-index Python encoder "
+          f"for all {n} signatures and the light subset ({len(light_idx)}); "
+          f"sha512 == hashlib at 0-300 bytes")
+
+
+def top_host_functions(fn, k: int = 5) -> tuple[str, str]:
+    """Run ``fn`` once under cProfile; the ``k`` functions with the most
+    cumulative time and the ``k`` with the most own time, one string
+    each (ms)."""
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats  # {(file, line, name): (cc, nc, tt, ct, _)}
+    rows = [(f"{name} ({file.rsplit('/', 1)[-1]}:{line})", tt, ct)
+            for (file, line, name), (_, _, tt, ct, _) in stats.items()
+            if name != "disable"]
+    fmt = lambda rows, i: "; ".join(f"{r[0]} {r[i] * 1e3:.2f}" for r in rows)
+    by_cum = sorted(rows, key=lambda r: -r[2])[:k]
+    by_own = sorted(rows, key=lambda r: -r[1])[:k]
+    return fmt(by_cum, 2), fmt(by_own, 1)
+
+
+def inflight_phase(torch, ov, cv, val, vals, block_id, window, triples, tag):
+    """Phase 7: a light-client window through the in-flight seam, and the
+    overlapped path against a sequential loop.  Returns the launches of
+    the window's run."""
+    import numpy as np
+
+    cv.reset_launches()
+    prepared = [val.prepare_commit_light(CHAIN_ID, vals, block_id, HEIGHT, c)
+                for c in window]
+    verdicts, bits, pending = [], [], []
+
+    def finish_oldest() -> None:
+        p, h = pending.pop(0)
+        b = ov.fetch_segments(h)[0]
+        bits.append(b)
+        try:
+            val.finish_commit_light(p, b)
+            verdicts.append(None)
+        except val.InvalidSignatureError as e:
+            verdicts.append(e.index)
+
+    for p in prepared:
+        while len(pending) >= INFLIGHT:
+            finish_oldest()
+        pending.append((p, ov.dispatch_segments([(p.pubs, p.msgs, p.sigs)])))
+    while pending:
+        finish_oldest()
+    launches = cv.launches
+    check(launches == len(window), f"inflight: {launches} launches for "
+          f"{len(window)} commits")
+    want = [None if i % 2 == 0 else 0 for i in range(len(window))]
+    check(verdicts == want, f"inflight: verdicts {verdicts}, want {want}")
+    for p, b in zip(prepared, bits):
+        check(np.array_equal(b, ov.verify_batch(p.pubs, p.msgs, p.sigs)),
+              "inflight: window bits != per-commit verify_batch")
+    print(f"inflight: light-client window of {len(window)} commits "
+          f"(good, bad, good, bad; {len(prepared[0].pubs)} signatures each) "
+          f"through prepare_commit_light -> dispatch_segments ({INFLIGHT} "
+          f"in flight) -> fetch_segments -> finish_commit_light: verdicts "
+          f"{verdicts} (None = passed, 0 = InvalidSignatureError(0)); "
+          f"{launches} kernel launches; bits == per-commit verify_batch")
+
+    work = [triples] * WINDOW
+    over, seq = [], []
+    cv.reset_launches()
+    for i in range(OVERLAP_PAIRS):
+        for kind in (("over", "seq") if i % 2 == 0 else ("seq", "over")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "over":
+                got = ov.verify_batches_overlapped(work, inflight=INFLIGHT)
+                over.append((time.perf_counter() - t0) * 1e3 / len(work))
+            else:
+                got = [ov.verify_batch(*w) for w in work]
+                seq.append((time.perf_counter() - t0) * 1e3 / len(work))
+            check(all(g.all() and len(g) == len(triples[0]) for g in got),
+                  f"inflight: {kind} rejected a valid lane")
+    check(cv.launches == 2 * OVERLAP_PAIRS * len(work),
+          f"inflight: {cv.launches} launches in the overlapped runs")
+    print(f"inflight: verify_batches_overlapped over {len(work)} copies of the "
+          f"commit's {len(triples[0])} triples (the same triples each time: "
+          f"the overlapped path does not consult the signature cache, so "
+          f"every batch is packed and launched in full): "
+          f"{statistics.median(over)} ms per batch overlapped ({INFLIGHT} in "
+          f"flight) against {statistics.median(seq)} ms per batch for a "
+          f"sequential verify_batch loop (medians of {OVERLAP_PAIRS} "
+          f"alternating samples; all {over} / {seq}) {tag}")
+    return launches
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -313,8 +457,10 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
 
+    from cometbft_tpu_torch import native
     from cometbft_tpu_torch.crypto import batch as cbatch
     from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.crypto import sigcache
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import cuda_verify as cv
     from cometbft_tpu_torch.ops import verify as ov
@@ -335,12 +481,18 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"{max_clock_mhz:.0f} MHz | torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
     dev = torch.device(device)
+    tag = f"[{card}]"
 
     # -- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
     built = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s, compiled "
           f"{sorted(built) or 'nothing (already built)'}")
+    host_build_s = built.get(native.NAME)
+    print(f"build: host library {native.SOURCE}: "
+          + ("already built" if host_build_s is None
+             else f"compiled by g++ in {host_build_s:.2f} s"))
+    native.lib()  # loads it and binds its three functions
     for name in _build.sources():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "stack frame" in line:
@@ -351,11 +503,18 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     vals, commit, block_id, sign_bytes = make_commit(n)
     pubs = [v.pub_key.bytes() for v in vals.validators]
     sigs = [cs.signature for cs in commit.signatures]
+    needed = vals.total_voting_power() * 2 // 3
+    light_entries, _ = val._collect_entries(vals, commit, needed, False, False)
+    light_idx = [i for i, _, _ in light_entries]
+    check(len(light_entries) == needed + 1, f"light entries {len(light_entries)}")
+    mp, mm, ms = mixed_triples(ref, pubs, sign_bytes, sigs)
     print(f"setup: {n} keys and signed votes in {time.perf_counter() - t0:.1f} s "
           f"(pure-Python signing; data set-up, not verification)")
 
-    # -- 3. kernel against its plain version ---------------------------------
-    mp, mm, ms = mixed_triples(ref, pubs, sign_bytes, sigs)
+    # -- 3. host library against the Python references -----------------------
+    host_phase(ov, native, commit, light_idx, (mp, mm, ms))
+
+    # -- 4. kernel against its plain version ---------------------------------
     arrays, got_n, structural = ov.prepare_batch(mp, mm, ms)
     check(got_n == n and arrays["s_ok"].shape == (n,), "prepare_batch padded")
     t = ov.batch_to_device(arrays, dev)
@@ -386,10 +545,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"sample == oracle; n = {', '.join(map(str, SMALL_N))} == plain "
           f"== oracle")
 
-    # -- 4. the slice, through the entry points ------------------------------
-    needed = vals.total_voting_power() * 2 // 3
-    light_entries, _ = val._collect_entries(vals, commit, needed, False, False)
-    check(len(light_entries) == needed + 1, f"light entries {len(light_entries)}")
+    # -- 5. the slice, through the entry points ------------------------------
     bad_commit = type(commit)(
         commit.height, commit.round_, commit.block_id,
         [type(cs)(cs.block_id_flag, cs.validator_address, cs.timestamp, cs.signature)
@@ -398,26 +554,47 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     for i in bad:
         s = bad_commit.signatures[i].signature
         bad_commit.signatures[i].signature = s[:-1] + bytes([s[-1] ^ 1])
+    cache = sigcache.get_cache()
+    check(cache.enabled() and cache.capacity >= n, "signature cache too small")
+    full = lambda: val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, commit)
+    light = lambda: val.verify_commit_light(CHAIN_ID, vals, block_id, HEIGHT, commit)
+
+    def cold_ms(fn) -> float:
+        """One cold sample: the block-apply case, where no vote of the
+        commit was verified before."""
+        cache.clear()
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
 
     cv.reset_launches()
-    t0 = time.perf_counter()
-    val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, commit)
-    first_ms = (time.perf_counter() - t0) * 1e3
+    first_ms = cold_ms(full)
     check(cbatch.default_backend() == "gpu", "default backend is not gpu")
     check(isinstance(cbatch.create_batch_verifier(vals.validators[0].pub_key),
                      cbatch.GpuBatchVerifier), "default verifier is not the GPU one")
-    commit_ms = median_ms(
-        lambda: val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, commit), 5
-    )
-    light_ms = median_ms(
-        lambda: val.verify_commit_light(CHAIN_ID, vals, block_id, HEIGHT, commit), 5
-    )
+    commit_samples = [cold_ms(full) for _ in range(COMMIT_RUNS)]
+    before = cv.launches
+    t0 = time.perf_counter()
+    full()  # warm: every triple verified by the last sample
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    check(cv.launches == before, f"warm commit made {cv.launches - before} launches")
+    light_samples = [cold_ms(light) for _ in range(COMMIT_RUNS)]
+    cache.clear()
     try:
         val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, bad_commit)
     except val.InvalidSignatureError as e:
         check(e.index == bad[0], f"InvalidSignatureError({e.index})")
     else:
         raise SmokeError("a commit with bad signatures verified")
+    for i in bad:
+        got = cache.get(pubs[i], sign_bytes[i], bad_commit.signatures[i].signature)
+        check(got is False, f"bad signature {i}: cached verdict {got}")
+    misses, before = cache.stats()["misses"], cv.launches
+    full()  # the good commit after the bad one: only its 3 changed triples miss
+    check(cache.stats()["misses"] - misses == len(bad) and
+          cv.launches - before == 1,
+          "the bad commit's verdicts changed how the good commit verified")
+    cache.clear()
     bv = cbatch.create_batch_verifier(vals.validators[0].pub_key)
     for v, sb, cs in zip(vals.validators, sign_bytes, bad_commit.signatures):
         bv.add(v.pub_key, sb, cs.signature)
@@ -429,12 +606,17 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
     check(not leaked, f"imported {leaked}")
+    commit_ms = statistics.median(commit_samples)
+    light_ms = statistics.median(light_samples)
     print(f"slice: verify_commit ({n} signatures) and verify_commit_light "
-          f"({len(light_entries)} signatures) passed on backend gpu; bad "
-          f"indices {list(bad)} -> InvalidSignatureError({bad[0]}) and exactly "
-          f"those bits false; {launches} kernel launches; jax not imported")
+          f"({len(light_entries)} signatures) passed on backend gpu, cold "
+          f"(signature cache cleared before each); a warm verify_commit made 0 "
+          f"launches; bad indices {list(bad)} -> InvalidSignatureError({bad[0]}), "
+          f"their negative verdicts cached, the good commit after it passed "
+          f"with {len(bad)} misses and 1 launch; batch-verifier bits false "
+          f"exactly at {list(bad)}; {launches} kernel launches; jax not imported")
 
-    # -- 5. times ------------------------------------------------------------
+    # -- 6. times ------------------------------------------------------------
     good, _, _ = ov.prepare_batch(pubs, sign_bytes, sigs)
     tg = ov.batch_to_device(good, dev)
     check(bool(cv.verify_core_cuda(**tg).all()), "valid commit lanes rejected")
@@ -442,11 +624,16 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     b2b_ms = cuda_ms(torch, lambda: cv.verify_core_cuda(**tg), KERNEL_RUNS, 3,
                      BACK_TO_BACK)
     plain_ms = cuda_ms(torch, lambda: ov.verify_core(**tg), 3, 1)
-    prep_ms = median_ms(lambda: ov.prepare_batch(pubs, sign_bytes, sigs), 3)
-    sb_ms = median_ms(lambda: commit.all_vote_sign_bytes(CHAIN_ID), 3)
+    prep_ms = median_ms(lambda: ov.prepare_batch(pubs, sign_bytes, sigs), HOST_RUNS)
+    prep_py_ms = median_ms(lambda: ov._pack_plain(pubs, sign_bytes, sigs, n), 3)
+    sb_ms = median_ms(lambda: commit.all_vote_sign_bytes(CHAIN_ID), HOST_RUNS)
+    sb_py_ms = median_ms(
+        lambda: [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(n)], 3)
+    rest_ms = commit_ms - sb_ms - prep_ms - kernel_ms
+    cache.clear()
+    by_cum, by_own = top_host_functions(full)
     ops = n * cv.WIDE_PRODUCTS_PER_SIG
     bound_ms, bound_by = bound(ops, n * cv.BYTES_PER_SIG, sms, max_clock_mhz)
-    tag = f"[{card}]"
     print(f"time: kernel {kernel_ms} ms at {n} lanes (median of {KERNEL_RUNS} "
           f"samples of one call, CUDA events) = {n / kernel_ms * 1e3:.0f} "
           f"verifies/s {tag}")
@@ -455,11 +642,21 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"{BACK_TO_BACK} back-to-back calls, CUDA events: the host's launch "
           f"time hidden behind the previous call) {tag}")
     print(f"time: plain PyTorch version {plain_ms} ms at {n} lanes {tag}")
-    print(f"time: host prep (SHA-512 + packing) {prep_ms} ms; sign bytes "
-          f"{sb_ms} ms {tag}")
-    print(f"time: verify_commit wall {commit_ms} ms = {n / commit_ms * 1e3:.0f} "
+    print(f"time: host prep (SHA-512 + packing, {n} signatures) C++ {prep_ms} "
+          f"ms (median of {HOST_RUNS}), Python {prep_py_ms} ms (median of 3); "
+          f"sign bytes C++ {sb_ms} ms (median of {HOST_RUNS}), Python "
+          f"{sb_py_ms} ms (median of 3) {tag}")
+    print(f"time: verify_commit cold wall {commit_ms} ms (median of "
+          f"{COMMIT_RUNS}; all {commit_samples}) = {n / commit_ms * 1e3:.0f} "
           f"verifies/s end to end (first call, with the self-check, {first_ms} "
-          f"ms); verify_commit_light wall {light_ms} ms {tag}")
+          f"ms); warm (every vote cached, 0 launches) {warm_ms} ms; "
+          f"verify_commit_light cold wall {light_ms} ms (all {light_samples}) {tag}")
+    print(f"time: remainder of the cold verify_commit wall that no part above "
+          f"names: {rest_ms} ms = {commit_ms} - sign bytes {sb_ms} - host prep "
+          f"{prep_ms} - kernel {kernel_ms} (entry collection, the signature "
+          f"cache's keys and writeback, the verifier's lists, copies to the card) {tag}")
+    print(f"time: cProfile of one cold verify_commit, top 5 by cumulative ms: {by_cum}")
+    print(f"time: cProfile of the same run, top 5 by own ms: {by_own}")
     print(f"time: bound {bound_ms} ms by {bound_by}: {ops} 32x32->64-bit "
           f"products over {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
           f"{max_clock_mhz:.0f} MHz, or {n * cv.BYTES_PER_SIG} bytes at "
@@ -480,9 +677,27 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"{-(-grid // sms) * occ['threads'] // 32} warps on one SM"
           f"{'' if grid <= resident else ' (more than one wave)'} {tag}")
 
-    # -- 6. profile: stage builds and field-op chains ------------------------
+    # -- 7. inflight: the light-client window and the overlapped path --------
+    window = [commit if i % 2 == 0 else bad_commit for i in range(WINDOW)]
+    inflight_phase(torch, ov, cv, val, vals, block_id, window,
+                   (pubs, sign_bytes, sigs), tag)
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+    check(not leaked, f"imported {leaked}")
+
+    # -- 8. profile: stage builds and field-op chains ------------------------
     chain_entry = profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag)
 
+    print("host: " + json.dumps({
+        "name": native.NAME,
+        "source": native.SOURCE,
+        "replaces": "cometbft_tpu/native/csrc/cometbft_native.cpp:316 "
+                    "(ed25519_pack), :360 (sha512), :438 (commit_sign_bytes)",
+        "build_s": host_build_s,
+        "prep_ms": prep_ms,
+        "plain_prep_ms": prep_py_ms,
+        "sign_bytes_ms": sb_ms,
+        "plain_sign_bytes_ms": sb_py_ms,
+    }))
     print(json.dumps({"kernels": [{
         "name": cv.NAME,
         "route": "cuda",

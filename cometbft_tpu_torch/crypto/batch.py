@@ -13,7 +13,9 @@ Backends:
     one signature at a time.
 
 Both report per-signature validity directly, so failure attribution needs
-no recheck pass (the reference's types/validation.go:308-317).
+no recheck pass (the reference's types/validation.go:308-317), and both
+sit behind the signature cache (``crypto/sigcache``): only entries whose
+verdict is not cached reach the backend.
 
 There is no silent demotion: with no CUDA device and no explicit CPU
 request ``default_backend`` raises, and a card that fails the known-answer
@@ -27,6 +29,7 @@ from typing import Optional
 
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
 from cometbft_tpu_torch.crypto import keys as ck
+from cometbft_tpu_torch.crypto import sigcache
 
 _SELF_CHECKED: set = set()  # CUDA devices that passed the self-check
 _LOCK = threading.Lock()
@@ -87,15 +90,27 @@ class BatchVerifier:
         raise NotImplementedError
 
 
-class _CollectingVerifier(BatchVerifier):
-    """Shared collection + the structural short-circuit: entries whose
-    pub/sig lengths make them impossible for ed25519 are resolved to False
-    on the host, so garbage does not occupy device lanes.  Subclasses
-    implement ``_verify_pending(pubs, msgs, sigs)`` over the rest, returning
-    definitive verdicts or raising."""
+class BackendError(RuntimeError):
+    """The backend gave no definitive verdict for some entries: an
+    infrastructure failure, never a signature verdict."""
 
-    PUB_SIZE = 32
-    SIG_SIZE = 64
+
+class _CollectingVerifier(BatchVerifier):
+    """Shared collection + the two pre-device filters every backend wants:
+
+    1. signature-cache prefilter — verdicts already known (e.g. votes
+       verified at gossip time) never reach the backend again; only cache
+       MISSES are verified, and fresh verdicts are written back;
+    2. structural short-circuit — entries whose pub/sig lengths make them
+       impossible for ed25519 are resolved to False on the host, so garbage
+       does not occupy device lanes.
+
+    Subclasses implement ``_verify_pending(pubs, msgs, sigs)`` over the
+    surviving entries, returning definitive verdicts or raising.
+    ``COMETBFT_TPU_SIGCACHE=0`` turns filter 1 off."""
+
+    PUB_SIZES = (32,)
+    SIG_SIZES = (64,)
 
     def __init__(self):
         self.pubs: list[bytes] = []
@@ -119,21 +134,27 @@ class _CollectingVerifier(BatchVerifier):
     def verify(self) -> tuple[bool, list[bool]]:
         if not self.pubs:
             return False, []
-        bits = [False] * len(self.pubs)
-        pending = [
-            i
-            for i in range(len(self.pubs))
-            if len(self.pubs[i]) == self.PUB_SIZE
-            and len(self.sigs[i]) == self.SIG_SIZE
-        ]
+        bits, pending = sigcache.partition_misses(
+            self.pubs, self.msgs, self.sigs, self.PUB_SIZES, self.SIG_SIZES
+        )
         if pending:
+            # An infrastructure failure raises out of ``_verify_pending``
+            # before anything is written back: nothing is cached, and the
+            # caller sees an error, not a False bit.
             got = self._verify_pending(
                 [self.pubs[i] for i in pending],
                 [self.msgs[i] for i in pending],
                 [self.sigs[i] for i in pending],
             )
-            for i, b in zip(pending, got):
-                bits[i] = bool(b)
+            sigcache.writeback(
+                self.pubs, self.msgs, self.sigs, bits, pending, got
+            )
+        if any(b is None for b in bits):
+            raise BackendError(
+                "batch backend produced no definitive verdict for some "
+                "entries (infrastructure failure, not a signature verdict)"
+            )
+        bits = [bool(b) for b in bits]
         return all(bits), bits
 
 

@@ -1,18 +1,21 @@
-"""Build the port's CUDA sources (``csrc/*.cu``) with ``nvcc`` at first use.
+"""Build the port's native sources (``csrc/``) at first use.
 
 Each build is one source compiled into its own shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
-takes seconds).  A build is named: ``<stem>`` is ``csrc/<stem>.cu`` as it
-is, and the names in ``VARIANTS`` compile a source with extra ``-D`` flags
-(the verify kernel's stage builds).  Libraries go to
-``cometbft_tpu_torch/build/``, named by a hash of the sources and that
-build's flags, so an edited source is rebuilt and an unchanged one is not.
-Only sources in the repository are built; a missing ``nvcc`` raises.
+takes seconds).  A build is named: ``<stem>`` is ``csrc/<stem>.cu`` (a
+kernel, built by ``nvcc``) or ``csrc/<stem>.cpp`` (host code, built by
+``g++``, also on a machine without CUDA) as it is, and the names in
+``VARIANTS`` compile a kernel source with extra ``-D`` flags (the verify
+kernel's stage builds).  Libraries go to ``cometbft_tpu_torch/build/``,
+named by a hash of the sources and that build's flags, so an edited
+source is rebuilt and an unchanged one is not.  Only sources in the
+repository are built; a missing compiler or a failed build raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -30,6 +33,7 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, kept in the log
 ]
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
 
 # build name -> (source stem, extra flags): the verify kernel stopped after
@@ -42,16 +46,29 @@ VARIANTS = {
 
 
 def sources() -> list[str]:
-    """Names of every build: the kernels in ``csrc/`` (``<name>.cu``) and
-    the variants."""
-    return sorted({p.stem for p in CSRC_DIR.glob("*.cu")} | set(VARIANTS))
+    """Names of every build: the kernels in ``csrc/`` (``<name>.cu``), the
+    variants, and the host libraries (``<name>.cpp``)."""
+    return sorted(
+        {p.stem for p in CSRC_DIR.glob("*.cu")}
+        | set(VARIANTS)
+        | {p.stem for p in CSRC_DIR.glob("*.cpp")}
+    )
 
 
 def _recipe(name: str) -> tuple[str, tuple]:
     return VARIANTS.get(name, (name, ()))
 
 
+def is_host(name: str) -> bool:
+    """True for a host library (``csrc/<name>.cpp``, built by ``g++``)."""
+    return (CSRC_DIR / f"{name}.cpp").exists()
+
+
 def _digest(name: str) -> str:
+    if is_host(name):
+        h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+        h.update((CSRC_DIR / f"{name}.cpp").read_bytes())
+        return h.hexdigest()[:16]
     flags = [*NVCC_FLAGS, *_recipe(name)[1]]
     h = hashlib.sha256(" ".join(flags).encode())
     for p in sorted(CSRC_DIR.iterdir()):
@@ -82,44 +99,69 @@ def nvcc() -> str:
     )
 
 
+def gxx() -> str:
+    found = shutil.which("g++")
+    if found:
+        return found
+    raise RuntimeError(
+        "g++ not found on PATH: the host library cannot be built"
+    )
+
+
+def _command(name: str, out: Path) -> list[str]:
+    if is_host(name):
+        src = CSRC_DIR / f"{name}.cpp"
+        return [gxx(), *GXX_FLAGS, "-o", str(out), str(src)]
+    stem, defines = _recipe(name)
+    src = CSRC_DIR / f"{stem}.cu"
+    if not src.exists():
+        raise FileNotFoundError(src)
+    return [nvcc(), *NVCC_FLAGS, *defines, "-o", str(out), str(src)]
+
+
 def build_all(names: "list[str] | None" = None) -> dict:
-    """Compile every named source that is not built yet, one ``nvcc`` per
-    source, all started together.  Returns {name: seconds} for the ones
-    compiled; raises with the compiler's output if any fails."""
+    """Compile every named source that is not built yet, one compiler per
+    source, all started together (under a lock, so that processes sharing
+    the build directory build each library once).  Returns {name: seconds}
+    for the ones compiled; raises with the compiler's output if any
+    fails."""
     names = sources() if names is None else names
-    todo = [n for n in names if not lib_path(n).exists()]
-    if not todo:
+    if all(lib_path(n).exists() for n in names):
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    compiler = nvcc()
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _compile([n for n in names if not lib_path(n).exists()])
+
+
+def _compile(todo: list[str]) -> dict:
+    tmps = {n: lib_path(n).with_suffix(f".so.tmp{os.getpid()}") for n in todo}
+    commands = {n: _command(n, tmps[n]) for n in todo}  # raises before any starts
     procs = {}
     t0 = time.perf_counter()
     for name in todo:
-        stem, defines = _recipe(name)
-        src = CSRC_DIR / f"{stem}.cu"
-        if not src.exists():
-            raise FileNotFoundError(src)
-        tmp = lib_path(name).with_suffix(f".so.tmp{os.getpid()}")
         procs[name] = (
             subprocess.Popen(
-                [compiler, *NVCC_FLAGS, *defines, "-o", str(tmp), str(src)],
+                commands[name],
                 stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT,
                 text=True,
             ),
-            tmp,
+            tmps[name],
         )
     seconds, failed = {}, []
-    for name, (proc, tmp) in procs.items():
+    # host libraries first: they finish first, so their seconds are their own
+    for name in sorted(procs, key=lambda n: not is_host(n)):
+        proc, tmp = procs[name]
         out, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
         log_path(name).write_text(out)
         if proc.returncode != 0:
-            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{out}")
+            failed.append(f"--- {name} (exit {proc.returncode}) ---\n{out}")
             continue
         os.replace(tmp, lib_path(name))
     if failed:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
+        raise RuntimeError("native build failed:\n" + "\n".join(failed))
     return seconds
 
 
@@ -131,6 +173,7 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_log(name: str) -> str:
-    """nvcc's output for the last build of ``name`` (ptxas resource usage)."""
+    """The compiler's output for the last build of ``name`` (for a kernel,
+    ptxas resource usage)."""
     p = log_path(name)
     return p.read_text() if p.exists() else ""

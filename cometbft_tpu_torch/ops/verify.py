@@ -2,6 +2,7 @@
 
 Pipeline per signature (pub, msg, sig=R||s):
   host:   h = SHA-512(R || pub || msg) mod L;  m = L - h;  s canonical check
+          (C++, ``csrc/host_prep.cpp`` ``ed25519_pack``, one call per batch)
   device: unpack bytes -> limbs/digits; ZIP-215 decompress A and R;
           radix-16 Straus ladder  s*B + m*A;  subtract R;  multiply by
           cofactor 8; accept iff identity.
@@ -12,18 +13,25 @@ accept bits come out for free — no recheck pass to attribute failures
 
 The device inputs are RAW BYTES (32 B per element: pub, R, s, m).  On a
 CUDA device ``verify_batch`` launches the hand-written kernel
-(``ops.cuda_verify``); on the CPU it runs ``verify_core``, the kernel's
-plain PyTorch version, which is what the tests hold against the JAX package.
+(``ops.cuda_verify``) on the device's verify stream; on the CPU it runs
+``verify_core``, the kernel's plain PyTorch version, which is what the
+tests hold against the JAX package.  ``verify_batches_overlapped``,
+``dispatch_segments``/``fetch_segments`` and ``verify_pipelined`` keep
+several batches in flight, so the host packs one while the card verifies
+another.
 """
 
 from __future__ import annotations
 
 import hashlib
+from collections import deque
+from functools import lru_cache
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from cometbft_tpu_torch import native
 from cometbft_tpu_torch.ops import ed25519_point as ep
 from cometbft_tpu_torch.ops import fe25519 as fe
 
@@ -89,10 +97,71 @@ def _decompress_pair(ya, sa, yr, sr):
     return ok_all[:t], a, ok_all[t:], r
 
 
-def _pack(pubs, msgs, sigs, lanes: int):
+BYTE_KEYS = ("a_bytes", "r_bytes", "s_bytes", "m_bytes")
+
+
+def _host_tensors(lanes: int, pin: bool = False) -> dict:
+    """Zeroed host tensors of a packed batch: (lanes, 32) uint8 per byte
+    array and (lanes,) bool ``s_ok``; page-locked when ``pin`` (for copies
+    to the card that do not block the host).  Zeroed by numpy: torch's
+    fill of a tensor this size wakes its thread pool, which costs more
+    than the packing."""
+    out = {
+        k: torch.empty((lanes, 32), dtype=torch.uint8, pin_memory=pin)
+        for k in BYTE_KEYS
+    }
+    out["s_ok"] = torch.empty((lanes,), dtype=torch.bool, pin_memory=pin)
+    for t in out.values():
+        t.numpy().fill(0)
+    return out
+
+
+def _pack(pubs, msgs, sigs, lanes: int, pin: bool = False):
     """Pack n triples into ``lanes`` >= n rows of raw bytes (the extra rows
-    are zero with s_ok False, rejected by construction).  Returns
-    (arrays, structural_ok)."""
+    are zero with s_ok False, rejected by construction) through the host
+    library's ``ed25519_pack`` (``csrc/host_prep.cpp``): SHA-512(R||A||m)
+    mod L, m = L - h and the s < L check in C++, one call for the batch.
+    Returns (host tensors, structural_ok).  A failed build or load of the
+    host library raises: there is no Python fallback."""
+    lib = native.lib()
+    n = len(pubs)
+    host = _host_tensors(lanes, pin)
+    out = {k: v.numpy() for k, v in host.items()}
+    structural = np.zeros((lanes,), bool)
+    ok_idx = [i for i in range(n) if len(pubs[i]) == 32 and len(sigs[i]) == 64]
+    k = len(ok_idx)
+    if k:
+        if k == n:
+            idx, p, m, s = slice(0, n), pubs, msgs, sigs
+        else:
+            idx = np.asarray(ok_idx)
+            p = [pubs[i] for i in ok_idx]
+            m = [msgs[i] for i in ok_idx]
+            s = [sigs[i] for i in ok_idx]
+        pub_cat, sig_cat, msg_cat = b"".join(p), b"".join(s), b"".join(m)
+        offs = np.zeros(k + 1, np.int64)
+        np.cumsum([len(x) for x in m], out=offs[1:])
+        s_buf = np.empty((k, 32), np.uint8)
+        m_buf = np.empty((k, 32), np.uint8)
+        ok_buf = np.empty((k,), np.uint8)
+        rc = lib.ed25519_pack(
+            pub_cat, sig_cat, msg_cat, offs.ctypes.data, k,
+            s_buf.ctypes.data, m_buf.ctypes.data, ok_buf.ctypes.data,
+        )
+        if rc != 0:
+            raise RuntimeError(f"ed25519_pack failed: rc {rc}")
+        structural[idx] = True
+        out["a_bytes"][idx] = np.frombuffer(pub_cat, np.uint8).reshape(k, 32)
+        out["r_bytes"][idx] = np.frombuffer(sig_cat, np.uint8).reshape(k, 64)[:, :32]
+        out["s_bytes"][idx] = s_buf
+        out["m_bytes"][idx] = m_buf
+        out["s_ok"][idx] = ok_buf.astype(bool)
+    return host, structural
+
+
+def _pack_plain(pubs, msgs, sigs, lanes: int):
+    """The reference for ``_pack``: the same packing as a Python/hashlib
+    loop.  Returns (numpy arrays, structural_ok)."""
     n = len(pubs)
     pub_arr = np.zeros((lanes, 32), np.uint8)
     r_arr = np.zeros((lanes, 32), np.uint8)
@@ -134,16 +203,15 @@ def prepare_batch(
     min_bucket: int = 128,
 ):
     """Host-side packing, padded to a bucket.  Returns (arrays, n,
-    structural_ok): ``arrays`` holds the padded uint8 device inputs (the
+    structural_ok): ``arrays`` holds the padded numpy device inputs (the
     JAX package's ``prepare_batch`` dict, key for key) and structural_ok
     marks length-valid entries.
 
-    The per-signature SHA-512 + mod-L math is a Python/hashlib loop."""
+    The per-signature SHA-512 + mod-L math runs in the host library
+    (``_pack``); ``_pack_plain`` is its Python reference."""
     n = len(pubs)
-    arrays, structural = _pack(
-        pubs, msgs, sigs, bucket_size(max(n, 1), min_bucket)
-    )
-    return arrays, n, structural
+    host, structural = _pack(pubs, msgs, sigs, bucket_size(max(n, 1), min_bucket))
+    return {k: v.numpy() for k, v in host.items()}, n, structural
 
 
 def batch_to_device(arrays: dict, device) -> dict:
@@ -151,12 +219,86 @@ def batch_to_device(arrays: dict, device) -> dict:
     four byte arrays as (B, 32) uint8, ``s_ok`` as (B,) uint8."""
     out = {
         k: torch.from_numpy(np.ascontiguousarray(arrays[k], np.uint8)).to(device)
-        for k in ("a_bytes", "r_bytes", "s_bytes", "m_bytes")
+        for k in BYTE_KEYS
     }
     out["s_ok"] = torch.from_numpy(
         np.ascontiguousarray(arrays["s_ok"]).astype(np.uint8)
     ).to(device)
     return out
+
+
+# -- dispatch and fetch ------------------------------------------------------
+#
+# Every verify goes through one packed batch in flight: ``_dispatch`` packs
+# it on the host and, on a CUDA device, copies it from page-locked memory
+# and launches the kernel on the device's verify stream without waiting;
+# ``_fetch`` waits for that batch's event alone and returns its bits.  So
+# a caller that keeps K batches in flight packs batch i+1 while the card
+# verifies batch i.  On the CPU, ``_fetch`` runs the plain version.
+
+
+@lru_cache(maxsize=None)
+def _stream(dev: torch.device) -> "torch.cuda.Stream":
+    """The stream that every verify on ``dev`` is copied and launched on."""
+    return torch.cuda.Stream(device=dev)
+
+
+class _Flight:
+    """One packed batch between its dispatch and its fetch.  It holds the
+    host buffers until the event has fired: the copies read them."""
+
+    __slots__ = ("n", "structural", "host", "bits", "event", "error")
+
+    def __init__(self, n, structural=None, host=None):
+        self.n = n
+        self.structural = structural
+        self.host = host
+        self.bits = None  # pinned (n,) bool, filled by the device
+        self.event = None
+        self.error = None  # a failed launch, raised by _fetch
+
+
+def _dispatch(pubs, msgs, sigs, dev: torch.device) -> _Flight:
+    from cometbft_tpu_torch.ops import cuda_verify
+
+    n = len(pubs)
+    if n == 0:
+        return _Flight(0)
+    if dev.type != "cuda":
+        host, structural = _pack(pubs, msgs, sigs, bucket_size(n, _BUCKETS[0]))
+        return _Flight(n, structural, host)
+    host, structural = _pack(pubs, msgs, sigs, n, pin=True)
+    f = _Flight(n, structural, host)
+    stream = _stream(dev)
+    try:
+        with torch.cuda.stream(stream):
+            t = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
+            accept = cuda_verify.verify_core_cuda(**t)
+            f.bits = torch.empty((n,), dtype=torch.bool, pin_memory=True)
+            f.bits.copy_(accept, non_blocking=True)
+            f.event = torch.cuda.Event()
+            f.event.record(stream)
+    except RuntimeError as e:
+        f.error = e
+    return f
+
+
+def _fetch(f: _Flight) -> np.ndarray:
+    """(n,) bool accept bits of a dispatched batch; raises its launch's
+    failure."""
+    from cometbft_tpu_torch.ops import cuda_verify
+
+    if f.error is not None:
+        raise f.error
+    if f.n == 0:
+        return np.zeros(0, dtype=bool)
+    if f.event is None:  # CPU: the plain version, now
+        accept = cuda_verify.verify_core_cuda(**f.host).numpy()
+    else:
+        f.event.synchronize()
+        accept = f.bits.numpy()
+    f.host = None
+    return (accept & f.structural)[: f.n]
 
 
 def verify_batch(
@@ -169,19 +311,35 @@ def verify_batch(
     results.  ``device=None`` means the CUDA card: the batch goes to the
     kernel unpadded, one launch.  ``device="cpu"`` runs the plain version
     on a bucket-padded batch."""
-    from cometbft_tpu_torch.ops import cuda_verify
+    return _fetch(_dispatch(pubs, msgs, sigs, resolve_device(device)))
 
+
+def verify_batches_overlapped(
+    work: "Sequence[tuple[Sequence[bytes], Sequence[bytes], Sequence[bytes]]]",
+    device=None,
+    inflight: int = 2,
+) -> "list[np.ndarray]":
+    """Verify several (pubs, msgs, sigs) batches with host/device overlap:
+    batch i+1 is packed (SHA-512 and packing on the host) while the card
+    verifies batch i, with at most ``inflight`` batches dispatched and not
+    yet fetched.  One launch per non-empty batch; bitwise-equal to
+    ``verify_batch`` per batch.  On the CPU the batches run one after
+    another.
+
+    Returns a list of (n,) bool arrays, one per input batch."""
     dev = resolve_device(device)
-    n = len(pubs)
-    if n == 0:
-        return np.zeros(0, dtype=bool)
-    if dev.type == "cuda":
-        arrays, structural = _pack(pubs, msgs, sigs, n)
-    else:
-        arrays, n, structural = prepare_batch(pubs, msgs, sigs, _BUCKETS[0])
-    t = batch_to_device(arrays, dev)
-    accept = cuda_verify.verify_core_cuda(**t).cpu().numpy()
-    return (accept & structural)[:n]
+    depth = max(int(inflight), 1)
+    out: list = [None] * len(work)
+    pending: "deque[tuple[int, _Flight]]" = deque()
+    for i, (pubs, msgs, sigs) in enumerate(work):
+        while len(pending) >= depth:
+            j, f = pending.popleft()
+            out[j] = _fetch(f)
+        pending.append((i, _dispatch(pubs, msgs, sigs, dev)))
+    while pending:
+        j, f = pending.popleft()
+        out[j] = _fetch(f)
+    return out
 
 
 def verify_segments(
@@ -195,8 +353,13 @@ def verify_segments(
     verified independently, so fusing cannot couple results across
     segments.
 
+    Falls back to ``verify_batches_overlapped`` when the concatenation
+    would overflow the largest bucket, as the JAX package does.
+
     Returns a list of (n_i,) bool arrays, one per input segment."""
     sizes = [len(p) for p, _, _ in work]
+    if sum(sizes) > _BUCKETS[-1]:
+        return verify_batches_overlapped(work, device)
     pubs: list = []
     msgs: list = []
     sigs: list = []
@@ -204,10 +367,75 @@ def verify_segments(
         pubs.extend(p)
         msgs.extend(m)
         sigs.extend(s)
-    bits = verify_batch(pubs, msgs, sigs, device)
-    out = []
-    off = 0
-    for n in sizes:
-        out.append(bits[off : off + n])
-        off += n
-    return out
+    return _split(verify_batch(pubs, msgs, sigs, device), sizes)
+
+
+def _split(bits: np.ndarray, sizes) -> "list[np.ndarray]":
+    """Per-segment slices of the bits of a fused batch."""
+    offs = np.cumsum([0, *sizes])
+    return [bits[offs[i] : offs[i + 1]] for i in range(len(sizes))]
+
+
+# -- in-flight seam ------------------------------------------------------------
+#
+# The async half of ``verify_segments``: ``dispatch_segments`` packs one
+# fused batch and launches it without waiting for its verdicts, and
+# ``fetch_segments`` resolves them later, so a caller that keeps K handles
+# in flight (the light client's chain sync, blocksync's window prefetch)
+# packs commit i+1 while the card verifies commit i.  Bitwise-equal to
+# ``verify_segments`` for any single handle.
+
+
+class _SegmentsHandle:
+    """One fused multi-segment verify between dispatch and fetch."""
+
+    __slots__ = ("sizes", "flight")
+
+    def __init__(self, sizes, flight):
+        self.sizes = sizes
+        self.flight = flight
+
+
+def dispatch_segments(work, lane=None, device=None) -> _SegmentsHandle:
+    """Pack the segments of ``work`` as one batch and launch it (on a CUDA
+    device, without waiting); ``fetch_segments`` returns the verdicts.
+    ``lane`` pins a mesh lane in the JAX package; the port has no mesh
+    yet and accepts only ``None``."""
+    if lane is not None:
+        raise ValueError("mesh lanes are not ported: lane must be None")
+    dev = resolve_device(device)
+    sizes = [len(p) for p, _, _ in work]
+    pubs = [x for p, _, _ in work for x in p]
+    msgs = [x for _, m, _ in work for x in m]
+    sigs = [x for _, _, s in work for x in s]
+    return _SegmentsHandle(sizes, _dispatch(pubs, msgs, sigs, dev))
+
+
+def fetch_segments(h: _SegmentsHandle) -> "list[np.ndarray]":
+    """Wait for one dispatched handle: a list of (n_i,) bool arrays, one
+    per input segment.  A failed launch raises here."""
+    return _split(_fetch(h.flight), h.sizes)
+
+
+def verify_pipelined(
+    pubs: Sequence[bytes],
+    msgs: Sequence[bytes],
+    sigs: Sequence[bytes],
+    inflight: "int | None" = None,
+    device=None,
+) -> np.ndarray:
+    """Verify one large batch in chunks with ``inflight`` (default 2)
+    chunks dispatched at once.  A chunk is the largest bucket that the
+    batch fills (on one card, as the JAX package with one mesh lane: a
+    10,240 batch is one chunk).  Bitwise-equal to ``verify_batch``:
+    chunking splits lanes, never couples them."""
+    pubs, msgs, sigs = list(pubs), list(msgs), list(sigs)
+    n = len(pubs)
+    fits = [b for b in _BUCKETS if b <= n]
+    chunk = fits[-1] if fits else _BUCKETS[0]
+    work = [
+        (pubs[lo : lo + chunk], msgs[lo : lo + chunk], sigs[lo : lo + chunk])
+        for lo in range(0, n, chunk)
+    ]
+    bits = verify_batches_overlapped(work, device, inflight or 2)
+    return np.concatenate(bits) if bits else np.zeros(0, dtype=bool)

@@ -3,9 +3,13 @@
 
 ``verify_commit`` / ``verify_commit_light`` / ``verify_commit_light_trusting``
 route every signature through the pluggable batch-verifier seam
-(``crypto.batch``).  On the GPU backend a 10k-validator commit is one
-kernel launch; per-signature accept bits make failure attribution free
-(the reference needs a second pass: types/validation.go:308-317).
+(``crypto.batch``), behind the signature cache.  On the GPU backend a
+10k-validator commit is at most one kernel launch (none when every vote
+was verified before); per-signature accept bits make failure attribution
+free (the reference needs a second pass: types/validation.go:308-317).
+``prepare_commit_light`` / ``finish_commit_light`` split the light path
+around ``ops.verify.dispatch_segments`` / ``fetch_segments``, so that
+many commits can be in flight at once.
 
 Errors, and the order in which they are raised, are the JAX package's.
 ``backend``/``device`` pick the verifier: by default the CUDA card.
@@ -13,10 +17,12 @@ Errors, and the order in which they are raised, are the JAX package's.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from fractions import Fraction
 from typing import Optional
 
 from cometbft_tpu_torch.crypto import batch as cbatch
+from cometbft_tpu_torch.crypto import sigcache
 from cometbft_tpu_torch.types.basic import BlockID
 from cometbft_tpu_torch.types.block import Commit
 from cometbft_tpu_torch.types.validator import ValidatorSet
@@ -167,11 +173,97 @@ def _verify_commit(
                 raise CommitVerificationError("batch verification failed")
         else:
             for idx, val, cs in entries:
-                if not val.pub_key.verify_signature(
-                    commit.vote_sign_bytes(chain_id, idx), cs.signature
+                if not sigcache.verify_with_cache(
+                    val.pub_key,
+                    commit.vote_sign_bytes(chain_id, idx),
+                    cs.signature,
                 ):
                     raise InvalidSignatureError(idx)
     _tally(entries, tallied, count_all, voting_power_needed)
+
+
+@dataclass
+class PreparedCommit:
+    """The host half of a light commit verification, split out so pipelined
+    consumers (light-client chain sync, blocksync window prefetch) can
+    dispatch many commits' signature batches before judging any of them.
+    ``pubs``/``msgs``/``sigs`` align 1:1 with ``entries``."""
+
+    chain_id: str
+    vals: ValidatorSet
+    commit: Commit
+    voting_power_needed: int
+    tallied: int
+    count_all: bool = False
+    entries: list = field(default_factory=list)
+    pubs: list = field(default_factory=list)
+    msgs: list = field(default_factory=list)
+    sigs: list = field(default_factory=list)
+
+
+def prepare_commit_light(
+    chain_id: str,
+    vals: ValidatorSet,
+    block_id: BlockID,
+    height: int,
+    commit: Commit,
+    count_all: bool = False,
+) -> PreparedCommit:
+    """Phase 1 of ``verify_commit_light``: basic checks + entry collection +
+    sign-bytes construction.  Raises exactly what ``verify_commit_light``
+    would raise for a malformed commit; does NOT touch any signature.
+
+    ``count_all=True`` collects every non-absent entry (the superset the
+    full ``verify_commit`` queries)."""
+    _verify_basic(vals, commit, height, block_id)
+    needed = vals.total_voting_power() * 2 // 3
+    entries, tallied = _collect_entries(vals, commit, needed, count_all, False)
+    msgs = commit.all_vote_sign_bytes(chain_id, [idx for idx, _, _ in entries])
+    return PreparedCommit(
+        chain_id=chain_id,
+        vals=vals,
+        commit=commit,
+        voting_power_needed=needed,
+        tallied=tallied,
+        count_all=count_all,
+        entries=entries,
+        pubs=[val.pub_key.bytes() for _, val, _ in entries],
+        msgs=list(msgs),
+        sigs=[cs.signature for _, _, cs in entries],
+    )
+
+
+def fused_verify_eligible(validator_sets=()) -> bool:
+    """The eligibility gate for speculative fused verification (the
+    in-flight seam of ``ops.verify``): the default backend is ``gpu``
+    (``default_backend`` raises without a card), and every supplied
+    validator set is uniformly ed25519 (the kernel's key type).  The JAX
+    package's clause on the supervisor's live device tier waits for the
+    supervisor's port."""
+    from cometbft_tpu_torch.crypto import keys as ck
+
+    if cbatch.default_backend() != "gpu":
+        return False
+    for vals in validator_sets:
+        if not all(
+            getattr(v.pub_key, "type_", None) == ck.ED25519_KEY_TYPE
+            for v in vals.validators
+        ):
+            return False
+    return True
+
+
+def finish_commit_light(prepared: PreparedCommit, bits) -> None:
+    """Phase 2: judge the accept bits (aligned with ``prepared.entries``)
+    and tally power — same errors, same order, as the ``_verify_commit``
+    mode ``prepared`` was collected under."""
+    _judge_entries(prepared.entries, bits)
+    _tally(
+        prepared.entries,
+        prepared.tallied,
+        prepared.count_all,
+        prepared.voting_power_needed,
+    )
 
 
 def verify_commit(

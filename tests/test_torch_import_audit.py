@@ -1,9 +1,10 @@
 """Import audit: the port (``cometbft_tpu_torch/``) and ``chip_smoke.py``
 import neither ``jax`` nor anything of the JAX package ``cometbft_tpu``.
 
-An AST scan checks every import statement; a subprocess then runs a small
-verify through the port on the CPU and checks that neither name reached
-``sys.modules``.
+An AST scan checks every import statement, and the native sources
+(``csrc/``) include only system headers and each other; a subprocess then
+runs a small verify through the port on the CPU (its C++ packer included)
+and checks that neither name reached ``sys.modules``.
 """
 
 import ast
@@ -18,6 +19,8 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "cometbft_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ]
+CSRC = ROOT / "cometbft_tpu_torch" / "csrc"
+NATIVE_FILES = sorted(p for p in CSRC.iterdir() if p.suffix in (".cpp", ".cu", ".cuh", ".h"))
 
 
 def _forbidden(name: str) -> bool:
@@ -56,8 +59,11 @@ def test_port_files_exist():
         "cometbft_tpu_torch/ops/verify.py",
         "cometbft_tpu_torch/types/validation.py",
         "cometbft_tpu_torch/convert.py",
+        "cometbft_tpu_torch/native.py",
+        "cometbft_tpu_torch/crypto/sigcache.py",
     ):
         assert need in names
+    assert {p.name for p in NATIVE_FILES} >= {"host_prep.cpp", "ed25519_verify.cu"}
 
 
 @pytest.mark.parametrize(
@@ -66,6 +72,19 @@ def test_port_files_exist():
 def test_no_jax_import(path):
     bad = [(line, name) for line, name in _imports(path) if _forbidden(name)]
     assert bad == [], f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", NATIVE_FILES, ids=[p.relative_to(ROOT).as_posix() for p in NATIVE_FILES]
+)
+def test_native_sources_include_nothing_outside_csrc(path):
+    local = {p.name for p in NATIVE_FILES}
+    for line in path.read_text().splitlines():
+        if not line.lstrip().startswith("#include"):
+            continue
+        target = line.split("#include", 1)[1].strip()
+        ok = target.startswith("<") or target.strip('"') in local
+        assert ok and "cometbft_tpu/" not in target and "jax" not in target, line
 
 
 _PROBE = r"""
@@ -80,6 +99,9 @@ pub, msg = ref.pubkey_from_seed(seed), b"audit"
 sig = ref.sign(seed, msg)
 bits = ov.verify_batch([pub, pub], [msg, msg + b"!"], [sig, sig], device="cpu")
 assert list(bits) == [True, False], bits
+from cometbft_tpu_torch import native
+assert native.lib.cache_info().currsize == 1  # packed by the C++ library
+import cometbft_tpu_torch.crypto.sigcache
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)
