@@ -8,7 +8,9 @@ timestamps, canonical sign bytes) verified through ``verify_commit`` and
 signature through the hand-written Hopper kernel
 (``cometbft_tpu_torch/csrc/ed25519_verify.cu``).
 
-Phases, in order; any failure raises and the script exits non-zero:
+Phases, in order; any failure raises and the script exits non-zero.  The
+main-path phases (5-8) must be served by the cuda tier alone: a batch
+served by the torch or host tier, or one that raised, fails the run.
   1. device — the card's name and power limit;
   2. build  — g++ builds the host library (``csrc/host_prep.cpp``) and
               nvcc every kernel, all from the repository's sources;
@@ -20,22 +22,44 @@ Phases, in order; any failure raises and the script exits non-zero:
               (10,240 mixed lanes, bit for bit) and both against the
               pure-Python oracle on a 256-lane sample; the small batches
               of SMALL_N (partial quads, warps and blocks) against both;
-  5. slice  — the commit through the entry points, behind the signature
-              cache: cold commits (cache cleared before each), one warm
-              commit that launches nothing, the bad commit's negative
+  5. slice  — the commit through the entry points (``verify_commit`` ->
+              the batch verifier -> ``verifysched.verify_segment_sync``
+              (one direct supervised launch for a commit's segment; a
+              scheduler flush for a few triples) -> the supervisor -> the
+              kernel), behind the signature cache: cold commits (cache
+              cleared before each), one warm commit that launches nothing, the bad commit's negative
               verdicts cached without poisoning the good commit; launch
               counts read around it, bad signatures at 0, 5000 and 10239
               rejected exactly, no ``jax`` in ``sys.modules``;
   6. times  — kernel, plain version, host prep and sign bytes in C++ and
-              in Python, cold and warm commit wall, the remainder of the
-              wall that no part names, the top host functions of one cold
-              commit under cProfile, the kernel's occupancy and bound;
+              in Python, cold and warm commit wall, the cold wall with and
+              without the verify scheduler and the supervisor (their kill
+              switches, alternating samples), the remainder of the wall
+              that no part names, the top host functions of one cold
+              commit under cProfile (raw, and with the layers: every
+              thread), the kernel's occupancy and bound;
   7. inflight — a path of its own: a light-client window of four commits
               through ``prepare_commit_light`` -> ``dispatch_segments``
               (two in flight on the verify stream) -> ``fetch_segments``
               -> ``finish_commit_light``, and ``verify_batches_overlapped``
               against a sequential ``verify_batch`` loop;
-  8. profile — the measurement kernels (``ops/profile.py``), counted as a
+  8. gossip — the node's consensus path: the commit's 10,240 precommits
+              and the bad commit's 3 tampered ones, as ``Vote`` objects,
+              verified one at a time by 64 peer threads through
+              ``Vote.verify`` -> the verify scheduler -> the supervisor ->
+              the kernel; verdicts, lanes per launch, latency, and the
+              commit after its gossip at 0 launches;
+  9. supervisor — the per-tier counters of phases 5-8 (cuda only); the
+              supervisor on the card under ``FaultyBackend`` on the cuda
+              tier (raise, hang, wrong_shape, flap) through the batch
+              verifier: every batch either served by cuda with the
+              oracle's verdicts or raising ``BackendError`` — no tier
+              below the kernel answers, nothing of a failed batch is
+              cached — with the outcome and the breaker of each batch
+              printed; bisect quarantine of one poisoned input
+              (``PoisonedInputError`` naming it, the cuda breaker closed);
+              a clean commit served by cuda again;
+ 10. profile — the measurement kernels (``ops/profile.py``), counted as a
               path of their own: the verify kernel built to stop after
               decompression, the table and the Straus walk, timed at the
               commit's width (the decompress stage's ok bits held against
@@ -58,8 +82,10 @@ The last line of standard output is
 from __future__ import annotations
 
 import cProfile
+import contextlib
 import hashlib
 import json
+import os
 import pstats
 import statistics
 import subprocess
@@ -77,8 +103,9 @@ INT32_LANES_PER_SM = 64  # Hopper: 4 partitions x 16 INT32 lanes
 # main-path launches, each verify behind a cleared signature cache unless
 # said otherwise: self-check 1 + first verify_commit 1 + 5 cold samples +
 # warm sample 0 + 5 cold light samples + bad commit 1 + the good commit
-# after it 1 (its 3 triples that the bad commit changed) + batch-verifier
-# bits 1
+# after it 1 (its 3 triples that the bad commit changed, one scheduler
+# flush) + batch-verifier bits 1.  A segment of a commit fills the
+# scheduler's flush target, so it is one direct supervised launch.
 MAIN_PATH_LAUNCHES = 15
 COMMIT_RUNS = 5  # cold verify_commit / verify_commit_light samples
 HOST_RUNS = 5  # samples of each host step (C++); Python's take 3
@@ -90,6 +117,17 @@ SMALL_N = (1, 2, 3, 5, 8, 9, 33, 127, 129)
 STAGE_RUNS = 10
 CHAIN_K = 400  # chain length, as the Pallas chain script
 CHAIN_RUNS = 10
+# the kill switches of the two layers above the kernel, for the A/B of the
+# times phase
+LAYER_SWITCHES = ("COMETBFT_TPU_VERIFY_SCHED", "COMETBFT_TPU_SUPERVISOR")
+AB_PAIRS = 5  # cold verify_commit samples with and without the layers
+PEERS = 64  # gossiping peer threads of the gossip phase
+FAULT_LANES = 256  # the fault matrix's batch, cut from the commit
+FAULT_BAD = (0, 128, 255)  # its tampered lanes
+FAULT_BATCHES = 3  # batches per fault mode
+HANG_DEADLINE_MS = 500
+HANG_S = 2.0
+POISON = 17  # the input of the fault batch that kills the kernel
 
 
 class SmokeError(AssertionError):
@@ -155,7 +193,7 @@ def bound(products: int, nbytes: int, sms: int, max_clock_mhz: float):
 
 
 def profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag) -> dict:
-    """Phase 8.  ``t``: the mixed lanes, ``tg``: the valid commit's lanes,
+    """Phase 10.  ``t``: the mixed lanes, ``tg``: the valid commit's lanes,
     both on ``dev``.  Returns the op-chain kernel's entry of the kernels
     line."""
     import numpy as np
@@ -364,7 +402,9 @@ def host_phase(ov, native, commit, light_idx, mixed) -> None:
 def top_host_functions(fn, k: int = 5) -> tuple[str, str]:
     """Run ``fn`` once under cProfile; the ``k`` functions with the most
     cumulative time and the ``k`` with the most own time, one string
-    each (ms)."""
+    each (ms).  From Python 3.12 cProfile records every thread (it runs
+    on ``sys.monitoring``), so the supervisor's watchdog workers and the
+    scheduler's threads are in it too."""
     prof = cProfile.Profile()
     prof.enable()
     fn()
@@ -449,6 +489,247 @@ def inflight_phase(torch, ov, cv, val, vals, block_id, window, triples, tag):
     return launches
 
 
+@contextlib.contextmanager
+def environ(values: dict):
+    """Environment variables set for a block, restored after it."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def check_tiers(ds, where: str) -> dict:
+    """Every batch of the main path so far served by the cuda tier: the
+    torch and host tiers at 0 batches and 0 signatures."""
+    counts = ds.tier_counts()
+    check(counts["torch"] == (0, 0) and counts["host"] == (0, 0),
+          f"{where}: batches served below the cuda tier: {counts}")
+    check(counts["cuda"][0] > 0, f"{where}: no batch served by the cuda tier")
+    return counts
+
+
+def gossip_phase(cv, ds, val, vals, commit, bad_commit, block_id, sign_bytes,
+                 bad, ref, tag) -> None:
+    """Phase 8: the node's consensus path.  The commit's precommits and the
+    bad commit's three tampered ones arrive as gossip; PEERS threads call
+    ``Vote.verify`` one vote at a time, through the verify scheduler.
+    Then the commit built from them verifies with 0 launches."""
+    import threading
+
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.types.basic import PRECOMMIT_TYPE
+    from cometbft_tpu_torch.types.vote import Vote
+    from cometbft_tpu_torch.verifysched import stats as sstats
+
+    n = len(commit.signatures)
+
+    def vote(i, cs):
+        return Vote(PRECOMMIT_TYPE, commit.height, commit.round_, block_id,
+                    cs.timestamp, cs.validator_address, i, cs.signature)
+
+    votes = [vote(i, cs) for i, cs in enumerate(commit.signatures)]
+    votes += [vote(i, bad_commit.signatures[i]) for i in bad]
+    want = [True] * n + [False] * len(bad)
+    rng = np.random.default_rng(SEED + 4)
+    sample = sorted(rng.choice(n, min(256, n), replace=False).tolist()) + list(
+        range(n, len(votes)))
+    for i in sample:
+        v = votes[i]
+        sb = v.sign_bytes(CHAIN_ID)
+        check(sb == sign_bytes[v.validator_index],
+              f"gossip: vote {i} sign bytes != the commit's")
+        pub = vals.validators[v.validator_index].pub_key.bytes()
+        check(ref.verify_zip215(pub, sb, v.signature) == want[i],
+              f"gossip: vote {i}: oracle disagrees with the expected verdict")
+    pks = [vals.validators[v.validator_index].pub_key for v in votes]
+
+    sigcache.get_cache().clear()
+    sstats.reset()
+    before = ds.snapshot()
+    got = [None] * len(votes)
+    lat = [0.0] * len(votes)
+    barrier = threading.Barrier(PEERS)
+
+    def peer(t: int) -> None:
+        barrier.wait()
+        for i in range(t, len(votes), PEERS):
+            t0 = time.perf_counter()
+            got[i] = votes[i].verify(CHAIN_ID, pks[i])
+            lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=peer, args=(t,)) for t in range(PEERS)]
+    cv.reset_launches()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = cv.launches
+    check(not any(th.is_alive() for th in threads), "gossip: a peer hung")
+    after = ds.snapshot()
+    snap = sstats.snapshot()
+    check(got == want, "gossip: verdicts != the oracle's at "
+          f"{[i for i, (g, w) in enumerate(zip(got, want)) if g != w][:10]}")
+    check_tiers(ds, "gossip")
+    flushes = sum(snap["flushes"].values())
+    verified = snap["flush_misses"]
+    sizes = {k: v - before["buckets"].get(k, 0) for k, v in after["buckets"].items()}
+    max_flush = max(k for k, v in sizes.items() if v > 0)
+    check(launches > 0 and verified == len(votes),
+          f"gossip: {launches} launches for {verified} verified votes")
+    mean = verified / launches
+    check(mean >= 4, f"gossip: {mean:.2f} lanes per launch")
+    p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
+    print(f"gossip: {len(votes)} votes ({n} precommits of the commit, "
+          f"{len(bad)} tampered at {list(bad)}) verified by {PEERS} peer "
+          f"threads through Vote.verify -> the verify scheduler: verdicts == "
+          f"oracle (the {len(bad)} tampered rejected; oracle run on "
+          f"{len(sample)} of them); {flushes} flushes "
+          f"({snap['flushes']}), {launches} kernel launches, {mean:.2f} mean "
+          f"and {max_flush} max lanes per flush; vote-verify latency p50 "
+          f"{p50} ms, p99 {p99} ms; wall {wall_ms} ms; all on the cuda tier {tag}")
+    cv.reset_launches()
+    val.verify_commit(CHAIN_ID, vals, block_id, commit.height, commit)
+    check(cv.launches == 0,
+          f"gossip: the commit after its gossip made {cv.launches} launches")
+    print("gossip: verify_commit of the commit built from the gossiped "
+          "precommits: 0 launches (every triple a cache hit through "
+          "byte-identical sign bytes)")
+
+
+def supervisor_phase(cv, ov, ds, cbatch, val, vals, block_id, commit, pubs,
+                     sign_bytes, sigs, ref, tag) -> None:
+    """Phase 9: the supervisor on the card, under injected faults
+    (``FaultyBackend`` on the cuda tier): a batch is served by the kernel
+    or raises ``BackendError``, never answered below it and never cached;
+    then bisect quarantine, then a clean commit served by the kernel."""
+    import threading
+
+    from cometbft_tpu_torch.crypto import backend_health as bh
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.ops import supervisor as sup
+
+    counts = check_tiers(ds, "main path")
+    print(f"supervisor: tiers after the main-path phases (batches, "
+          f"signatures): {counts}; torch and host at 0")
+
+    p, m, s = (list(x[:FAULT_LANES]) for x in (pubs, sign_bytes, sigs))
+    keys = [v.pub_key for v in vals.validators[:FAULT_LANES]]
+    for i in FAULT_BAD:
+        s[i] = s[i][:-1] + bytes([s[i][-1] ^ 1])
+    want = [ref.verify_zip215(*t) for t in zip(p, m, s)]
+    check(sum(want) == FAULT_LANES - len(FAULT_BAD), "fault batch oracle")
+    cache = sigcache.get_cache()
+    threads = threading.active_count()
+    # hang last: its abandoned workers (the injected sleep) finish in the
+    # background
+    for mode in ("raise", "wrong_shape", "flap", "hang"):
+        bh.reset()
+        before = ds.tier_counts()
+        shim = sup.FaultyBackend(mode, backends=("cuda",), hang_s=HANG_S,
+                                 fail_n=2, pass_n=1)
+        sup.set_fault_injector(shim)
+        outcomes = []
+        try:
+            deadline = ({"COMETBFT_TPU_DISPATCH_TIMEOUT_MS": str(HANG_DEADLINE_MS)}
+                        if mode == "hang" else {})
+            with environ(deadline):
+                for _ in range(FAULT_BATCHES):
+                    cache.clear()
+                    bv = cbatch.create_batch_verifier(keys[0])
+                    for t in zip(keys, m, s):
+                        bv.add(*t)
+                    t0 = time.perf_counter()
+                    try:
+                        _, bits = bv.verify()
+                    except bh.BackendError as e:
+                        ms_ = (time.perf_counter() - t0) * 1e3
+                        check(all(cache.get(*t) is None for t in zip(p, m, s)),
+                              f"supervisor {mode}: a failed batch was cached")
+                        got = f"{type(e).__name__} in {ms_:.1f} ms"
+                    else:
+                        ms_ = (time.perf_counter() - t0) * 1e3
+                        check(bits == want and sup.last_tier() == "cuda",
+                              f"supervisor {mode}: bits != oracle or served "
+                              f"by {sup.last_tier()}")
+                        got = f"served by cuda, verdicts == oracle, in {ms_:.1f} ms"
+                    outcomes.append(f"{got}, cuda breaker "
+                                    f"{bh.registry().breaker('cuda').state}")
+        finally:
+            sup.clear_fault_injector()
+        after = ds.tier_counts()
+        check(after["torch"] == before["torch"] and after["host"] == before["host"],
+              f"supervisor {mode}: a tier below the kernel served: {after}")
+        raised = sum("Error" in o for o in outcomes)
+        check(mode == "flap" or raised == FAULT_BATCHES,
+              f"supervisor {mode}: {outcomes}")
+        snap = bh.snapshot()
+        print(f"supervisor: fault {mode} on the cuda tier ({FAULT_LANES} lanes "
+              f"of the commit through the batch verifier, {len(FAULT_BAD)} bad; "
+              + (f"deadline {HANG_DEADLINE_MS} ms, hang {HANG_S} s; "
+                 if mode == "hang" else "")
+              + f"{shim.faults} of {shim.calls} dispatches faulted): "
+              f"{'; '.join(outcomes)}; demotions {snap['demotions']}, watchdog "
+              f"fires {snap['watchdog_fires']}, host signatures "
+              f"{snap['fallback_signatures']}; torch and host served nothing, "
+              f"no failed batch cached {tag}")
+    # abandoned watchdog workers (hang) finish before anything is timed
+    deadline = time.perf_counter() + 120
+    while threading.active_count() > threads and time.perf_counter() < deadline:
+        time.sleep(0.1)
+
+    bh.reset()
+    poison = p[POISON]
+
+    def poisoned(backend, bp, bm, bs):
+        if backend == "cuda" and poison in bp:
+            raise RuntimeError("injected: this input kills the kernel")
+
+    sup.set_fault_injector(poisoned)
+    cv.reset_launches()
+    try:
+        ov.verify_batch(p, m, s)
+    except sup.PoisonedInputError as e:
+        index = e.index
+    else:
+        raise SmokeError("supervisor bisect: a batch with a poisoned input "
+                         "verified")
+    finally:
+        sup.clear_fault_injector()
+    snap = bh.snapshot()
+    check(index == POISON and snap["quarantined"] == 1 and
+          snap["demotions"] == 0 and snap["fallback_signatures"] == 0 and
+          bh.registry().breaker("cuda").state == bh.CLOSED,
+          f"supervisor bisect: index {index}, {snap}")
+    print(f"supervisor: bisect quarantine of input {POISON} of {FAULT_LANES}: "
+          f"PoisonedInputError naming exactly it (no tier below the kernel "
+          f"verifies it), cuda breaker closed, {cv.launches} kernel launches")
+
+    bh.reset()
+    cache.clear()
+    before = ds.tier_counts()
+    cv.reset_launches()
+    val.verify_commit(CHAIN_ID, vals, block_id, commit.height, commit)
+    after = ds.tier_counts()
+    delta = {t: (after[t][0] - before[t][0], after[t][1] - before[t][1])
+             for t in after}
+    n = len(commit.signatures)
+    check(cv.launches == 1 and delta["cuda"] == (1, n) and
+          delta["torch"] == (0, 0) and delta["host"] == (0, 0),
+          f"supervisor: the clean commit: {cv.launches} launches, {delta}")
+    print(f"supervisor: injector cleared, registry reset: the next {n}-lane "
+          f"commit served by cuda with 1 launch")
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -463,6 +744,8 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     from cometbft_tpu_torch.crypto import sigcache
     from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch import verifysched
+    from cometbft_tpu_torch.ops import dispatch_stats as ds
     from cometbft_tpu_torch.ops import verify as ov
     from cometbft_tpu_torch.types import validation as val
 
@@ -568,6 +851,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         return (time.perf_counter() - t0) * 1e3
 
     cv.reset_launches()
+    ds.reset()
     first_ms = cold_ms(full)
     check(cbatch.default_backend() == "gpu", "default backend is not gpu")
     check(isinstance(cbatch.create_batch_verifier(vals.validators[0].pub_key),
@@ -606,6 +890,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
     check(not leaked, f"imported {leaked}")
+    tiers = check_tiers(ds, "slice")
     commit_ms = statistics.median(commit_samples)
     light_ms = statistics.median(light_samples)
     print(f"slice: verify_commit ({n} signatures) and verify_commit_light "
@@ -614,7 +899,8 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"launches; bad indices {list(bad)} -> InvalidSignatureError({bad[0]}), "
           f"their negative verdicts cached, the good commit after it passed "
           f"with {len(bad)} misses and 1 launch; batch-verifier bits false "
-          f"exactly at {list(bad)}; {launches} kernel launches; jax not imported")
+          f"exactly at {list(bad)}; {launches} kernel launches; jax not imported; "
+          f"served by tier (batches, signatures): {tiers}")
 
     # -- 6. times ------------------------------------------------------------
     good, _, _ = ov.prepare_batch(pubs, sign_bytes, sigs)
@@ -630,8 +916,17 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     sb_py_ms = median_ms(
         lambda: [commit.vote_sign_bytes(CHAIN_ID, i) for i in range(n)], 3)
     rest_ms = commit_ms - sb_ms - prep_ms - kernel_ms
+    ab = {"layers": [], "raw": []}
+    for i in range(AB_PAIRS):
+        for side in (("layers", "raw") if i % 2 == 0 else ("raw", "layers")):
+            with environ({k: "0" for k in LAYER_SWITCHES} if side == "raw" else {}):
+                ab[side].append(cold_ms(full))
+    ab_ms = {k: statistics.median(v) for k, v in ab.items()}
     cache.clear()
-    by_cum, by_own = top_host_functions(full)
+    with environ({k: "0" for k in LAYER_SWITCHES}):
+        by_cum, by_own = top_host_functions(full)
+    cache.clear()
+    layers_cum, layers_own = top_host_functions(full)
     ops = n * cv.WIDE_PRODUCTS_PER_SIG
     bound_ms, bound_by = bound(ops, n * cv.BYTES_PER_SIG, sms, max_clock_mhz)
     print(f"time: kernel {kernel_ms} ms at {n} lanes (median of {KERNEL_RUNS} "
@@ -654,9 +949,20 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     print(f"time: remainder of the cold verify_commit wall that no part above "
           f"names: {rest_ms} ms = {commit_ms} - sign bytes {sb_ms} - host prep "
           f"{prep_ms} - kernel {kernel_ms} (entry collection, the signature "
-          f"cache's keys and writeback, the verifier's lists, copies to the card) {tag}")
-    print(f"time: cProfile of one cold verify_commit, top 5 by cumulative ms: {by_cum}")
+          f"cache's keys and writeback, the verifier's lists, the "
+          f"supervisor's watchdog thread, copies to the card) {tag}")
+    print(f"time: cold verify_commit wall with the verify scheduler and the "
+          f"supervisor {ab_ms['layers']} ms, without them "
+          f"({'=0 '.join(LAYER_SWITCHES)}=0) {ab_ms['raw']} ms: the two layers "
+          f"cost {ab_ms['layers'] - ab_ms['raw']} ms per commit (medians of "
+          f"{AB_PAIRS} alternating pairs; all {ab}) {tag}")
+    print(f"time: cProfile of one cold verify_commit on the raw path "
+          f"({'=0 '.join(LAYER_SWITCHES)}=0), top 5 by cumulative ms: {by_cum}")
     print(f"time: cProfile of the same run, top 5 by own ms: {by_own}")
+    print(f"time: cProfile of one cold verify_commit with the two layers "
+          f"(Python {sys.version.split()[0]}, every thread), top 5 by "
+          f"cumulative ms: {layers_cum}")
+    print(f"time: cProfile of the same run, top 5 by own ms: {layers_own}")
     print(f"time: bound {bound_ms} ms by {bound_by}: {ops} 32x32->64-bit "
           f"products over {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
           f"{max_clock_mhz:.0f} MHz, or {n * cv.BYTES_PER_SIG} bytes at "
@@ -681,10 +987,20 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     window = [commit if i % 2 == 0 else bad_commit for i in range(WINDOW)]
     inflight_phase(torch, ov, cv, val, vals, block_id, window,
                    (pubs, sign_bytes, sigs), tag)
+    check_tiers(ds, "inflight")
+
+    # -- 8. gossip: Vote.verify from 64 peers through the scheduler ----------
+    gossip_phase(cv, ds, val, vals, commit, bad_commit, block_id, sign_bytes,
+                 bad, ref, tag)
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     check(not leaked, f"imported {leaked}")
 
-    # -- 8. profile: stage builds and field-op chains ------------------------
+    # -- 9. supervisor: tier counters, fault matrix, quarantine --------------
+    supervisor_phase(cv, ov, ds, cbatch, val, vals, block_id, commit, pubs,
+                     sign_bytes, sigs, ref, tag)
+    verifysched.reset_scheduler()  # drains and joins its threads
+
+    # -- 10. profile: stage builds and field-op chains -----------------------
     chain_entry = profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag)
 
     print("host: " + json.dumps({

@@ -1,7 +1,8 @@
 """Carry state from the JAX package's objects into the port's.
 
 This system has no weights: its state is the validator set, the commit and
-the packed signature batch.  The readers below are duck-typed — they read
+the packed signature batch, and the votes gossiped between validators.
+The readers below are duck-typed — they read
 only plain attributes (``pub_key.bytes()``, ``voting_power``, ``height``,
 ``block_id.hash``, ``signatures[i].timestamp.seconds``, ...) — so the port
 never imports the JAX package, and a test can build one commit and verify
@@ -15,7 +16,7 @@ from cometbft_tpu_torch.ops.verify import batch_to_device
 from cometbft_tpu_torch.types.basic import BlockID, PartSetHeader, Timestamp
 from cometbft_tpu_torch.types.block import Commit
 from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
-from cometbft_tpu_torch.types.vote import CommitSig
+from cometbft_tpu_torch.types.vote import CommitSig, Vote
 
 
 def batch_from_numpy(arrays: dict, device) -> dict:
@@ -71,4 +72,20 @@ def commit_from(obj) -> Commit:
             )
             for cs in obj.signatures
         ],
+    )
+
+
+def vote_from(obj) -> Vote:
+    """A vote with the same fields, signature and vote extension."""
+    return Vote(
+        type_=int(obj.type_),
+        height=int(obj.height),
+        round_=int(obj.round_),
+        block_id=block_id_from(obj.block_id),
+        timestamp=Timestamp(int(obj.timestamp.seconds), int(obj.timestamp.nanos)),
+        validator_address=bytes(obj.validator_address),
+        validator_index=int(obj.validator_index),
+        signature=bytes(obj.signature),
+        extension=bytes(obj.extension),
+        extension_signature=bytes(obj.extension_signature),
     )

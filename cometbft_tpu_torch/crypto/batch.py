@@ -30,6 +30,7 @@ from typing import Optional
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
 from cometbft_tpu_torch.crypto import keys as ck
 from cometbft_tpu_torch.crypto import sigcache
+from cometbft_tpu_torch.crypto.backend_health import BackendError
 
 _SELF_CHECKED: set = set()  # CUDA devices that passed the self-check
 _LOCK = threading.Lock()
@@ -43,7 +44,9 @@ def gpu_self_check(device=None) -> None:
     """Verify a known-good + known-bad signature pair on the card before
     trusting it for consensus; a kernel regression otherwise makes the node
     reject every valid commit.  Raises ``SelfCheckError`` on a wrong answer
-    (the JAX package logs and demotes to the CPU; the port refuses)."""
+    (the JAX package logs and demotes to the CPU; the port refuses).  It
+    runs the kernel itself, outside the supervisor's chain: a tier below
+    it answering in its place would hide the fault it checks for."""
     from cometbft_tpu_torch.ops import verify as ov
 
     seed = b"\x42" * 32
@@ -51,7 +54,8 @@ def gpu_self_check(device=None) -> None:
     msg = b"cometbft-tpu backend self-check"
     sig = ref.sign(seed, msg)
     bad = sig[:32] + bytes([sig[32] ^ 1]) + sig[33:]
-    bits = ov.verify_batch([pub, pub], [msg, msg], [sig, bad], device)
+    dev = ov.resolve_device(device)
+    bits = ov._fetch(ov._dispatch([pub, pub], [msg, msg], [sig, bad], dev))
     if not (bool(bits[0]) and not bool(bits[1])):
         raise SelfCheckError(
             "GPU crypto backend failed its known-answer self-check "
@@ -88,11 +92,6 @@ class BatchVerifier:
 
     def __len__(self) -> int:
         raise NotImplementedError
-
-
-class BackendError(RuntimeError):
-    """The backend gave no definitive verdict for some entries: an
-    infrastructure failure, never a signature verdict."""
 
 
 class _CollectingVerifier(BatchVerifier):
@@ -168,15 +167,24 @@ class CpuBatchVerifier(_CollectingVerifier):
 
 class GpuBatchVerifier(_CollectingVerifier):
     """The ``TpuBatchVerifier`` counterpart: one ``verify_batch`` call (one
-    kernel launch on a CUDA device) for all pending entries."""
+    kernel launch on a CUDA device) for all pending entries.  On the
+    default device, with the verify scheduler active, they go through
+    ``verifysched.verify_segment_sync``: fewer than a flush's worth
+    coalesce with concurrent gossip-time work into one flush, more are one
+    direct supervised launch, as here."""
 
     def __init__(self, device=None):
         super().__init__()
         self.device = device
 
     def _verify_pending(self, pubs, msgs, sigs) -> list[bool]:
+        from cometbft_tpu_torch import verifysched
         from cometbft_tpu_torch.ops import verify as ov
 
+        if self.device is None and verifysched.scheduler_active():
+            # the scheduler resolves only definitive supervised verdicts,
+            # at the caller's ambient priority class
+            return verifysched.verify_segment_sync(pubs, msgs, sigs)
         return [bool(b) for b in ov.verify_batch(pubs, msgs, sigs, self.device)]
 
 

@@ -128,14 +128,22 @@ def _carry_once(v: torch.Tensor) -> torch.Tensor:
     return r + carry_in
 
 
+@lru_cache(maxsize=None)
+def _carry_plan(lo: int, hi: int) -> tuple[int, int, int]:
+    """(rounds, lo, hi) of ``carry`` on limbs in [lo, hi]: the static
+    analysis depends on the bounds alone, so it runs once per pair."""
+    rounds, bounds = _sim_carry_rounds([(lo, hi)] * NLIMBS)
+    return rounds, min(l for l, _ in bounds), max(h for _, h in bounds)
+
+
 def carry(a: F) -> F:
     """Reduce to the RED fixpoint; runs exactly as many parallel rounds as
     the static bounds require (0 if already reduced)."""
-    rounds, bounds = _sim_carry_rounds([(a.lo, a.hi)] * NLIMBS)
+    rounds, lo, hi = _carry_plan(a.lo, a.hi)
     v = a.v
     for _ in range(rounds):
         v = _carry_once(v)
-    return F(v, min(l for l, _ in bounds), max(h for _, h in bounds))
+    return F(v, lo, hi)
 
 
 def red(a: F) -> F:
@@ -177,13 +185,10 @@ def mul_small(a: F, k: int) -> F:
     return F(a.v * k, lo, hi)
 
 
-def _reduce_cols(x: torch.Tensor, prodmax: int) -> F:
-    """(40, B) product columns (39 + zero pad) -> reduced F.  ``prodmax``
-    is a static bound on one limb product |a_i * b_j|.
-
-    Stage A: parallel-carry the column array as a plain 40-limb number
-    (no fold) until limbs are small; stage B: fold the high 20 limbs into
-    the low 20 with weight 2^260 ≡ 608; stage C: carry to RED.
+@lru_cache(maxsize=None)
+def _reduce_plan(prodmax: int) -> tuple[int, int, int, int]:
+    """The static interval analysis of ``_reduce_cols``, which depends on
+    ``prodmax`` alone: (stage-A steps, stage-C rounds, lo, hi).
 
     All three stages run on exact per-column interval vectors: column k of
     a 20x20 schoolbook product has min(k+1, 39-k) terms.  Limb 39 (the zero
@@ -213,26 +218,38 @@ def _reduce_cols(x: torch.Tensor, prodmax: int) -> F:
         steps += 1
         if steps > 6:
             raise AssertionError("column carry analysis diverged")
-    for _ in range(steps):
-        c = (x + HALF) >> BITS
-        # zero limb 39's carry: it must accumulate, not emit (see above)
-        c = torch.cat([c[:-1], torch.zeros_like(c[-1:])], dim=0)
-        r = x - (c << BITS)
-        x = r + torch.cat([torch.zeros_like(c[:1]), c[:-1]], dim=0)
-    # stage B: value = lo20 + 2^260 * hi20
-    lo20, hi20 = x[:NLIMBS], x[NLIMBS:]
-    v = lo20 + FOLD * hi20
     vb = []
     for i in range(NLIMBS):
         l = b[i][0] + FOLD * b[NLIMBS + i][0]
         h = b[i][1] + FOLD * b[NLIMBS + i][1]
         _check_i32(l, h, "stage-B fold")
         vb.append((l, h))
-    # stage C: carry to RED, per-limb
     rounds, vb = _sim_carry_rounds(vb)
+    return steps, rounds, min(l for l, _ in vb), max(h for _, h in vb)
+
+
+def _reduce_cols(x: torch.Tensor, prodmax: int) -> F:
+    """(40, B) product columns (39 + zero pad) -> reduced F.  ``prodmax``
+    is a static bound on one limb product |a_i * b_j|.
+
+    Stage A: parallel-carry the column array as a plain 40-limb number
+    (no fold) until limbs are small; stage B: fold the high 20 limbs into
+    the low 20 with weight 2^260 ≡ 608; stage C: carry to RED.  The step
+    counts and the bounds come from ``_reduce_plan``."""
+    steps, rounds, lo, hi = _reduce_plan(prodmax)
+    for _ in range(steps):
+        c = (x + HALF) >> BITS
+        # zero limb 39's carry: it must accumulate, not emit (_reduce_plan)
+        c = torch.cat([c[:-1], torch.zeros_like(c[-1:])], dim=0)
+        r = x - (c << BITS)
+        x = r + torch.cat([torch.zeros_like(c[:1]), c[:-1]], dim=0)
+    # stage B: value = lo20 + 2^260 * hi20
+    lo20, hi20 = x[:NLIMBS], x[NLIMBS:]
+    v = lo20 + FOLD * hi20
+    # stage C: carry to RED, per-limb
     for _ in range(rounds):
         v = _carry_once(v)
-    return F(v, min(l for l, _ in vb), max(h for _, h in vb))
+    return F(v, lo, hi)
 
 
 def _cols(a: F, b: F) -> torch.Tensor:
@@ -249,21 +266,6 @@ def _cols(a: F, b: F) -> torch.Tensor:
     return torch.cat([cols, cols.new_zeros((1, B))], dim=0)
 
 
-def _cols_sq(a: F) -> torch.Tensor:
-    """(40, B) product columns of a^2 via the symmetric triangle: row j
-    contributes a_j * (a_j, 2a_{j+1}, ..., 2a_{19}) at columns 2j..j+19 —
-    210 limb products instead of 400 (off-diagonal terms pre-doubled)."""
-    n = NLIMBS
-    B = a.v.shape[1]
-    a2 = a.v * 2
-    acc = a.v.new_zeros((2 * n, B))
-    for j in range(n):
-        acc[2 * j] += a.v[j] * a.v[j]
-        if j + 1 < n:
-            acc[2 * j + 1 : j + n] += a2[j + 1 :] * a.v[j][None, :]
-    return acc
-
-
 def mul(a: F, b: F) -> F:
     """Schoolbook 20x20 product."""
     if a is b:
@@ -275,11 +277,12 @@ def mul(a: F, b: F) -> F:
 
 
 def square(a: F) -> F:
-    """a^2 via the half-triangle column form (column values and bounds are
-    identical to ``mul``'s)."""
+    """a^2: the columns of ``mul`` with both operands ``a`` (a handful of
+    tensor ops; a half-triangle loop of 20 steps issues ten times as
+    many, which is what a plain version's time goes to)."""
     while NLIMBS * a.absmax * a.absmax >= _I32_LIMIT:
         a = carry(a)
-    return _reduce_cols(_cols_sq(a), a.absmax * a.absmax)
+    return _reduce_cols(_cols(a, a), a.absmax * a.absmax)
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,10 @@ CUDA device ``verify_batch`` launches the hand-written kernel
 tests hold against the JAX package.  ``verify_batches_overlapped``,
 ``dispatch_segments``/``fetch_segments`` and ``verify_pipelined`` keep
 several batches in flight, so the host packs one while the card verifies
-another.
+another.  Every public entry goes through ``ops/supervisor`` (watchdog,
+breakers, bisection; on a card the kernel answers or the call raises, on
+the CPU the plain version then the host reference) unless
+``COMETBFT_TPU_SUPERVISOR=0``.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from cometbft_tpu_torch import native
+from cometbft_tpu_torch.ops import dispatch_stats
 from cometbft_tpu_torch.ops import ed25519_point as ep
 from cometbft_tpu_torch.ops import fe25519 as fe
 
@@ -230,50 +234,64 @@ def batch_to_device(arrays: dict, device) -> dict:
 # -- dispatch and fetch ------------------------------------------------------
 #
 # Every verify goes through one packed batch in flight: ``_dispatch`` packs
-# it on the host and, on a CUDA device, copies it from page-locked memory
-# and launches the kernel on the device's verify stream without waiting;
-# ``_fetch`` waits for that batch's event alone and returns its bits.  So
-# a caller that keeps K batches in flight packs batch i+1 while the card
-# verifies batch i.  On the CPU, ``_fetch`` runs the plain version.
+# it on the host and, for the ``cuda`` tier, copies it from page-locked
+# memory and launches the kernel on the device's verify stream without
+# waiting; ``_fetch`` waits for that batch's event alone and returns its
+# bits.  So a caller that keeps K batches in flight packs batch i+1 while
+# the card verifies batch i.  The ``torch`` tier (the plain version, the
+# CPU's tier) packs a bucket-padded batch and runs at fetch.
+# ``ops/supervisor`` runs both halves under its watchdog.
 
 
 @lru_cache(maxsize=None)
 def _stream(dev: torch.device) -> "torch.cuda.Stream":
-    """The stream that every verify on ``dev`` is copied and launched on."""
+    """The stream that every kernel launch on ``dev`` runs on."""
     return torch.cuda.Stream(device=dev)
 
 
 class _Flight:
     """One packed batch between its dispatch and its fetch.  It holds the
-    host buffers until the event has fired: the copies read them."""
+    host buffers and, for the ``cuda`` tier, the device tensors and the
+    page-locked bits until its fetch has seen the event fire: a fetch
+    abandoned by the watchdog leaves them all referenced here."""
 
-    __slots__ = ("n", "structural", "host", "bits", "event", "error")
+    __slots__ = ("n", "structural", "host", "dev", "tier", "device_refs",
+                 "bits", "event", "error")
 
-    def __init__(self, n, structural=None, host=None):
+    def __init__(self, n, structural=None, host=None, dev=None, tier=None):
         self.n = n
         self.structural = structural
         self.host = host
+        self.dev = dev
+        self.tier = tier
+        self.device_refs = None  # the launch's inputs and output, on dev
         self.bits = None  # pinned (n,) bool, filled by the device
         self.event = None
         self.error = None  # a failed launch, raised by _fetch
 
 
 def _dispatch(pubs, msgs, sigs, dev: torch.device) -> _Flight:
+    """Pack a batch and, on a CUDA device, launch the kernel on it (the
+    ``cuda`` tier; a card verifies with its kernel only).  On the CPU the
+    batch waits for ``_fetch`` to run the plain version (the ``torch``
+    tier)."""
     from cometbft_tpu_torch.ops import cuda_verify
 
+    tier = "cuda" if dev.type == "cuda" else "torch"
     n = len(pubs)
     if n == 0:
-        return _Flight(0)
-    if dev.type != "cuda":
+        return _Flight(0, tier=tier)
+    if tier == "torch":
         host, structural = _pack(pubs, msgs, sigs, bucket_size(n, _BUCKETS[0]))
-        return _Flight(n, structural, host)
+        return _Flight(n, structural, host, dev, tier)
     host, structural = _pack(pubs, msgs, sigs, n, pin=True)
-    f = _Flight(n, structural, host)
+    f = _Flight(n, structural, host, dev, tier)
     stream = _stream(dev)
     try:
         with torch.cuda.stream(stream):
             t = {k: v.to(dev, non_blocking=True) for k, v in host.items()}
             accept = cuda_verify.verify_core_cuda(**t)
+            f.device_refs = (t, accept)
             f.bits = torch.empty((n,), dtype=torch.bool, pin_memory=True)
             f.bits.copy_(accept, non_blocking=True)
             f.event = torch.cuda.Event()
@@ -286,18 +304,16 @@ def _dispatch(pubs, msgs, sigs, dev: torch.device) -> _Flight:
 def _fetch(f: _Flight) -> np.ndarray:
     """(n,) bool accept bits of a dispatched batch; raises its launch's
     failure."""
-    from cometbft_tpu_torch.ops import cuda_verify
-
     if f.error is not None:
         raise f.error
     if f.n == 0:
         return np.zeros(0, dtype=bool)
-    if f.event is None:  # CPU: the plain version, now
-        accept = cuda_verify.verify_core_cuda(**f.host).numpy()
+    if f.tier == "torch":
+        accept = verify_core(**f.host).numpy()
     else:
         f.event.synchronize()
         accept = f.bits.numpy()
-    f.host = None
+    f.host = f.device_refs = None
     return (accept & f.structural)[: f.n]
 
 
@@ -310,8 +326,21 @@ def verify_batch(
     """Verify a batch; returns (n,) bool numpy array of per-signature
     results.  ``device=None`` means the CUDA card: the batch goes to the
     kernel unpadded, one launch.  ``device="cpu"`` runs the plain version
-    on a bucket-padded batch."""
-    return _fetch(_dispatch(pubs, msgs, sigs, resolve_device(device)))
+    on a bucket-padded batch.
+
+    Supervised by default (``ops/supervisor``): the dispatch runs under a
+    watchdog and breakers, and the bits are always verdicts.  On a card a
+    failed or wedged launch raises ``BackendError`` (a WARNING and the
+    breaker record it); on the CPU the host reference re-verifies the
+    batch, visibly (a WARNING and the per-tier counter).
+    ``COMETBFT_TPU_SUPERVISOR=0`` restores the raw path, where a failed
+    launch raises as it comes."""
+    from cometbft_tpu_torch.ops import supervisor
+
+    dev = resolve_device(device)
+    if supervisor.enabled():
+        return supervisor.verify_supervised(pubs, msgs, sigs, dev)
+    return _fetch(_dispatch(pubs, msgs, sigs, dev))
 
 
 def verify_batches_overlapped(
@@ -324,10 +353,16 @@ def verify_batches_overlapped(
     verifies batch i, with at most ``inflight`` batches dispatched and not
     yet fetched.  One launch per non-empty batch; bitwise-equal to
     ``verify_batch`` per batch.  On the CPU the batches run one after
-    another.
+    another.  Supervised by default: a failure raises on a card and
+    re-verifies the affected batch on the host on the CPU, and the rest of
+    the window skips the failed tier.
 
     Returns a list of (n,) bool arrays, one per input batch."""
+    from cometbft_tpu_torch.ops import supervisor
+
     dev = resolve_device(device)
+    if supervisor.enabled():
+        return supervisor.verify_batches_overlapped_supervised(work, dev, inflight)
     depth = max(int(inflight), 1)
     out: list = [None] * len(work)
     pending: "deque[tuple[int, _Flight]]" = deque()
@@ -367,6 +402,8 @@ def verify_segments(
         pubs.extend(p)
         msgs.extend(m)
         sigs.extend(s)
+    if len(work) > 1:
+        dispatch_stats.record_fused(len(work))
     return _split(verify_batch(pubs, msgs, sigs, device), sizes)
 
 
@@ -381,19 +418,30 @@ def _split(bits: np.ndarray, sizes) -> "list[np.ndarray]":
 # The async half of ``verify_segments``: ``dispatch_segments`` packs one
 # fused batch and launches it without waiting for its verdicts, and
 # ``fetch_segments`` resolves them later, so a caller that keeps K handles
-# in flight (the light client's chain sync, blocksync's window prefetch)
-# packs commit i+1 while the card verifies commit i.  Bitwise-equal to
-# ``verify_segments`` for any single handle.
+# in flight (the light client's chain sync, blocksync's window prefetch,
+# the verify scheduler) packs commit i+1 while the card verifies commit i.
+# Bitwise-equal to ``verify_segments`` for any single handle.
 
 
 class _SegmentsHandle:
-    """One fused multi-segment verify between dispatch and fetch."""
+    """One fused multi-segment verify between dispatch and fetch: a
+    supervised in-flight verify (``sup``), or a raw flight when the
+    supervisor is off or there is nothing to verify."""
 
-    __slots__ = ("sizes", "flight")
+    __slots__ = ("sizes", "flight", "sup")
 
-    def __init__(self, sizes, flight):
+    def __init__(self, sizes, flight=None, sup=None):
         self.sizes = sizes
         self.flight = flight
+        self.sup = sup
+
+    @property
+    def tier(self):
+        """The tier that served (or, raw, runs) this verify; ``None``
+        before a supervised fetch and for empty work."""
+        if self.sup is not None:
+            return self.sup.tier
+        return self.flight.tier if self.flight.n else None
 
 
 def dispatch_segments(work, lane=None, device=None) -> _SegmentsHandle:
@@ -401,6 +449,8 @@ def dispatch_segments(work, lane=None, device=None) -> _SegmentsHandle:
     device, without waiting); ``fetch_segments`` returns the verdicts.
     ``lane`` pins a mesh lane in the JAX package; the port has no mesh
     yet and accepts only ``None``."""
+    from cometbft_tpu_torch.ops import supervisor
+
     if lane is not None:
         raise ValueError("mesh lanes are not ported: lane must be None")
     dev = resolve_device(device)
@@ -408,12 +458,23 @@ def dispatch_segments(work, lane=None, device=None) -> _SegmentsHandle:
     pubs = [x for p, _, _ in work for x in p]
     msgs = [x for _, m, _ in work for x in m]
     sigs = [x for _, _, s in work for x in s]
-    return _SegmentsHandle(sizes, _dispatch(pubs, msgs, sigs, dev))
+    if len(work) > 1:
+        dispatch_stats.record_fused(len(work))
+    if pubs and supervisor.enabled():
+        return _SegmentsHandle(
+            sizes, sup=supervisor.dispatch_verify(pubs, msgs, sigs, device=dev)
+        )
+    return _SegmentsHandle(sizes, flight=_dispatch(pubs, msgs, sigs, dev))
 
 
 def fetch_segments(h: _SegmentsHandle) -> "list[np.ndarray]":
     """Wait for one dispatched handle: a list of (n_i,) bool arrays, one
-    per input segment.  A failed launch raises here."""
+    per input segment.  A failed launch raises here on a card (supervised,
+    as ``BackendError``); on the CPU, supervised, the host answers."""
+    from cometbft_tpu_torch.ops import supervisor
+
+    if h.sup is not None:
+        return _split(supervisor.fetch_verify(h.sup), h.sizes)
     return _split(_fetch(h.flight), h.sizes)
 
 
@@ -425,7 +486,9 @@ def verify_pipelined(
     device=None,
 ) -> np.ndarray:
     """Verify one large batch in chunks with ``inflight`` (default 2)
-    chunks dispatched at once.  A chunk is the largest bucket that the
+    chunks dispatched at once, through ``verify_batches_overlapped`` (so
+    supervised by default, as the JAX package's chunks go through the
+    supervisor's in-flight seam).  A chunk is the largest bucket that the
     batch fills (on one card, as the JAX package with one mesh lane: a
     10,240 batch is one chunk).  Bitwise-equal to ``verify_batch``:
     chunking splits lanes, never couples them."""

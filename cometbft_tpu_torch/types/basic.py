@@ -11,6 +11,7 @@ from dataclasses import dataclass, field
 from cometbft_tpu_torch.libs import protoenc as pe
 
 # SignedMsgType (proto enum value, reference: proto/cometbft/types/types.proto)
+PREVOTE_TYPE = 1
 PRECOMMIT_TYPE = 2
 
 # CommitSig block-ID flags (reference: types/block.go BlockIDFlag)

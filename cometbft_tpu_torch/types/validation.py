@@ -17,12 +17,14 @@ Errors, and the order in which they are raised, are the JAX package's.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from fractions import Fraction
 from typing import Optional
 
 from cometbft_tpu_torch.crypto import batch as cbatch
 from cometbft_tpu_torch.crypto import sigcache
+from cometbft_tpu_torch.ops import dispatch_stats
 from cometbft_tpu_torch.types.basic import BlockID
 from cometbft_tpu_torch.types.block import Commit
 from cometbft_tpu_torch.types.validator import ValidatorSet
@@ -154,6 +156,7 @@ def _verify_commit(
     lookup_by_address -> trusting mode: commit indexes may not match the
                        validator set; match signatures by address.
     """
+    t0 = time.perf_counter()
     entries, tallied = _collect_entries(
         vals, commit, voting_power_needed, count_all, lookup_by_address
     )
@@ -180,6 +183,7 @@ def _verify_commit(
                 ):
                     raise InvalidSignatureError(idx)
     _tally(entries, tallied, count_all, voting_power_needed)
+    dispatch_stats.record_verify_latency(time.perf_counter() - t0)
 
 
 @dataclass
@@ -236,13 +240,16 @@ def prepare_commit_light(
 def fused_verify_eligible(validator_sets=()) -> bool:
     """The eligibility gate for speculative fused verification (the
     in-flight seam of ``ops.verify``): the default backend is ``gpu``
-    (``default_backend`` raises without a card), and every supplied
-    validator set is uniformly ed25519 (the kernel's key type).  The JAX
-    package's clause on the supervisor's live device tier waits for the
-    supervisor's port."""
+    (``default_backend`` raises without a card), the supervisor has a live
+    device tier (with every breaker open, catch-up degrades to per-commit
+    host verification instead of speculating), and every supplied
+    validator set is uniformly ed25519 (the kernel's key type)."""
     from cometbft_tpu_torch.crypto import keys as ck
+    from cometbft_tpu_torch.ops import supervisor
 
     if cbatch.default_backend() != "gpu":
+        return False
+    if supervisor.enabled() and supervisor.active_backend() is None:
         return False
     for vals in validator_sets:
         if not all(

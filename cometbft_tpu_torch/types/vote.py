@@ -1,4 +1,4 @@
-"""CommitSig (reference: types/block.go CommitSig)."""
+"""Vote and CommitSig (reference: types/vote.go, types/block.go)."""
 
 from __future__ import annotations
 
@@ -7,8 +7,80 @@ from dataclasses import dataclass, field
 from cometbft_tpu_torch.types.basic import (
     BLOCK_ID_FLAG_ABSENT,
     BLOCK_ID_FLAG_COMMIT,
+    PRECOMMIT_TYPE,
+    PREVOTE_TYPE,
+    BlockID,
     Timestamp,
 )
+from cometbft_tpu_torch.types.canonical import canonical_vote_sign_bytes
+
+
+@dataclass
+class Vote:
+    type_: int
+    height: int
+    round_: int
+    block_id: BlockID  # zero block id == vote for nil
+    timestamp: Timestamp
+    validator_address: bytes
+    validator_index: int
+    signature: bytes = b""
+    extension: bytes = b""
+    extension_signature: bytes = b""
+
+    def is_nil(self) -> bool:
+        return self.block_id.is_zero()
+
+    def sign_bytes(self, chain_id: str) -> bytes:
+        return canonical_vote_sign_bytes(
+            chain_id,
+            self.type_,
+            self.height,
+            self.round_,
+            None if self.block_id.is_zero() else self.block_id,
+            self.timestamp,
+        )
+
+    def validate_basic(self) -> str | None:
+        if self.type_ not in (PREVOTE_TYPE, PRECOMMIT_TYPE):
+            return "invalid vote type"
+        if self.height < 0:
+            return "negative height"
+        if self.round_ < 0:
+            return "negative round"
+        if len(self.validator_address) != 20:
+            return "invalid validator address"
+        if self.validator_index < 0:
+            return "negative validator index"
+        if not self.signature:
+            return "missing signature"
+        if len(self.signature) > 96:
+            return "signature too large"
+        if self.type_ == PREVOTE_TYPE and (
+            self.extension or self.extension_signature
+        ):
+            return "prevote cannot carry vote extension"
+        return None
+
+    def verify(self, chain_id: str, pub_key) -> bool:
+        """Reference: types/vote.go:227 — single-signature path.
+
+        Routed through the signature cache AND the continuous-batching
+        scheduler at the consensus priority class: on a card-backed node,
+        concurrent gossip-time verifications from many peers coalesce into
+        one kernel launch; elsewhere this is the cached host path.  Either
+        way a precommit verified here at gossip time makes the commit
+        built from it free to re-verify (its CommitSig reconstructs
+        byte-identical sign bytes from the same timestamp).  (The JAX
+        package's "consensus.vote" span waits for libs/tracing.)"""
+        from cometbft_tpu_torch import verifysched
+
+        return verifysched.verify_cached(
+            pub_key,
+            self.sign_bytes(chain_id),
+            self.signature,
+            priority=verifysched.PRIO_CONSENSUS,
+        )
 
 
 @dataclass
@@ -25,4 +97,3 @@ class CommitSig:
 
     def for_block(self) -> bool:
         return self.block_id_flag == BLOCK_ID_FLAG_COMMIT
-

@@ -3,7 +3,8 @@ import neither ``jax`` nor anything of the JAX package ``cometbft_tpu``.
 
 An AST scan checks every import statement, and the native sources
 (``csrc/``) include only system headers and each other; a subprocess then
-runs a small verify through the port on the CPU (its C++ packer included)
+runs gossip-time ``Vote.verify`` through the verify scheduler, the
+supervisor and the plain version on the CPU (the C++ packer included),
 and checks that neither name reached ``sys.modules``.
 """
 
@@ -61,6 +62,12 @@ def test_port_files_exist():
         "cometbft_tpu_torch/convert.py",
         "cometbft_tpu_torch/native.py",
         "cometbft_tpu_torch/crypto/sigcache.py",
+        "cometbft_tpu_torch/crypto/backend_health.py",
+        "cometbft_tpu_torch/ops/dispatch_stats.py",
+        "cometbft_tpu_torch/ops/supervisor.py",
+        "cometbft_tpu_torch/verifysched/service.py",
+        "cometbft_tpu_torch/verifysched/stats.py",
+        "cometbft_tpu_torch/types/vote.py",
     ):
         assert need in names
     assert {p.name for p in NATIVE_FILES} >= {"host_prep.cpp", "ed25519_verify.cu"}
@@ -89,19 +96,46 @@ def test_native_sources_include_nothing_outside_csrc(path):
 
 _PROBE = r"""
 import sys
-import numpy as np
-from cometbft_tpu_torch.crypto import ed25519_ref as ref
+import threading
+import time
 from cometbft_tpu_torch.ops import verify as ov
 import cometbft_tpu_torch.convert, cometbft_tpu_torch.types.validation
 import cometbft_tpu_torch.ops.cuda_verify, cometbft_tpu_torch.ops._build
-seed = b"\x05" * 32
-pub, msg = ref.pubkey_from_seed(seed), b"audit"
-sig = ref.sign(seed, msg)
-bits = ov.verify_batch([pub, pub], [msg, msg + b"!"], [sig, sig], device="cpu")
-assert list(bits) == [True, False], bits
+import cometbft_tpu_torch.crypto.sigcache
+# gossip-time Vote.verify, a good vote and one whose signature is of other
+# bytes, through the verify scheduler (opened on the CPU), the supervisor
+# and the plain version: both ride one flush
+from cometbft_tpu_torch import verifysched
+from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+from cometbft_tpu_torch.types.basic import PRECOMMIT_TYPE, BlockID, Timestamp
+from cometbft_tpu_torch.types.vote import Vote
+from cometbft_tpu_torch.verifysched import service
+service.backend_trusted = lambda: True
+sched = service._SCHED = service.VerifyScheduler(device="cpu")
+priv = Ed25519PrivKey.from_seed(b"\x05" * 32)
+votes = [Vote(PRECOMMIT_TYPE, 1, 0, BlockID(), Timestamp(1, k),
+              priv.pub_key().address(), 0) for k in range(2)]
+for v in votes:
+    v.signature = priv.sign(v.sign_bytes("audit-chain"))
+votes[1].signature = votes[0].signature
+got = [None, None]
+sched.pause()
+peers = [threading.Thread(target=lambda k=k: got.__setitem__(
+    k, votes[k].verify("audit-chain", priv.pub_key()))) for k in range(2)]
+for t in peers:
+    t.start()
+while sched.pending() < 2:
+    time.sleep(0.001)
+sched.resume()
+for t in peers:
+    t.join(120)
+assert got == [True, False], got
 from cometbft_tpu_torch import native
 assert native.lib.cache_info().currsize == 1  # packed by the C++ library
-import cometbft_tpu_torch.crypto.sigcache
+from cometbft_tpu_torch.ops import dispatch_stats
+assert dispatch_stats.tier_counts()["torch"] == (1, 2)  # one plain verify
+assert verifysched.stats.snapshot()["submitted"]["consensus"] == 2
+verifysched.reset_scheduler()
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)

@@ -213,14 +213,18 @@ def test_prepare_raises_what_verify_raises(commits):
 
 def test_light_window_through_the_seam(commits):
     """Two commits, one handle: prepare -> dispatch -> fetch -> finish
-    passes the good commit and names index 3 of the bad one."""
+    passes the good commit and names index 3 of the bad one.  The handle
+    is a real supervised flight on the CPU (packed at dispatch, the plain
+    version at fetch), served by the torch tier."""
     window = [commits["valid"][1], commits["bad_sig"][1]]
     prepared = [
         tval.prepare_commit_light(CHAIN, v, b, HEIGHT, c) for v, c, b in window
     ]
     h = tov.dispatch_segments([(p.pubs, p.msgs, p.sigs) for p in prepared],
                               device="cpu")
+    assert h.sup.kind == "chip" and h.tier is None
     bits = tov.fetch_segments(h)
+    assert h.tier == "torch"
     for p, b in zip(prepared, bits):
         np.testing.assert_array_equal(b, oracle(p.pubs, p.msgs, p.sigs))
     tval.finish_commit_light(prepared[0], bits[0])
@@ -261,8 +265,8 @@ def test_card_seam_matches_verify_batch(card):
     work = _work()
     tcv.reset_launches()
     handles = [tov.dispatch_segments([seg]) for seg in work]
-    assert all(h.flight.host is None or h.flight.host["a_bytes"].is_pinned()
-               for h in handles)
+    flights = [h.sup.flight if h.sup else h.flight for h in handles]
+    assert all(f.host is None or f.host["a_bytes"].is_pinned() for f in flights)
     got = [tov.fetch_segments(h)[0] for h in handles]
     assert tcv.launches == 2  # the empty segment launches nothing
     over = tov.verify_batches_overlapped(work)
@@ -277,6 +281,9 @@ def test_card_seam_matches_verify_batch(card):
 
 @pytest.mark.cuda
 def test_card_failed_launch_raises_at_fetch(card, monkeypatch):
+    # the raw path; under the supervisor it raises BackendError
+    # (test_torch_supervisor.py)
+    monkeypatch.setenv("COMETBFT_TPU_SUPERVISOR", "0")
     monkeypatch.setattr(tcv, "_launcher", lambda: lambda *a: 700)
     h = tov.dispatch_segments([_work()[0]])
     with pytest.raises(RuntimeError, match="kernel launch failed"):
