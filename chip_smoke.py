@@ -67,14 +67,34 @@ served by the torch or host tier, or one that raised, fails the run.
               multiplies, squares and adds (``csrc/fe_chain.cu``) on one
               full wave of the card, held against the plain PyTorch field
               code and Python integers, giving the measured rate of field
-              products per SM per clock.
+              products per SM per clock;
+ 11. secp   — secp256k1 commit verification (BASELINE config 4), a path of
+              its own: 10,240 validators with secp256k1 keys, signed with
+              RFC 6979; the ECDSA kernel (``csrc/secp256k1_verify.cu``)
+              against its plain PyTorch version on 10,240 mixed lanes (bad
+              signatures, messages, keys, high-S, r or s out of range, bad
+              prefixes, x off the curve or >= p, short keys and signatures)
+              bit for bit and at SECP_SMALL_N, both against the pure-Python
+              oracle on a 256-lane sample holding every kind of bad lane,
+              and the x >= n branch of the compare at the ladder's inputs;
+              then the commit through ``verify_commit``/``verify_commit_light``
+              -> ``Secp256k1BatchVerifier`` (self-check, signature cache) ->
+              the supervisor's single-tier call (breaker ``secp_device``) ->
+              ``ops/secp_verify.verify_batch`` -> the kernel, cold and warm,
+              the bad commit rejected at exactly 0, 5000 and 10239, every
+              secp batch served by the cuda tier; times of the kernel, the
+              plain version, host prep, the commit walls and the set-up;
+              the bound from the work ECDSA verification needs on the
+              timed lanes (``cuda_secp.needed_work``), and beside it the
+              kernel's own tally.
 
 Usage, from the repository root, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
 Set-up signs 10,240 votes with the pure-Python oracle (~1.6 ms each on one
-host core, ~17 s in all): the cost of making the data, not of verifying it.
+host core, ~17 s in all) and 10,240 secp256k1 votes (~5 s): the cost of
+making the data, not of verifying it.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -128,6 +148,8 @@ FAULT_BATCHES = 3  # batches per fault mode
 HANG_DEADLINE_MS = 500
 HANG_S = 2.0
 POISON = 17  # the input of the fault batch that kills the kernel
+SECP_SEED = SEED + 5  # the secp256k1 validators' keys
+SECP_SMALL_N = (1, 3, 31, 33, 255)
 
 
 class SmokeError(AssertionError):
@@ -289,9 +311,11 @@ def profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag) -> dict:
     }
 
 
-def make_commit(n: int):
-    """Seeded validator set of ``n`` equal-power keys and a commit signed by
-    all of them.  Returns (vals, commit, block_id, sign_bytes)."""
+def make_commit(n: int, key_from_seed=None, seed: int = SEED):
+    """Seeded validator set of ``n`` equal-power keys (Ed25519 unless
+    ``key_from_seed`` makes another private key from 32 seeded bytes) and a
+    commit signed by all of them.  Returns (vals, commit, block_id,
+    sign_bytes)."""
     import numpy as np
 
     from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
@@ -305,8 +329,9 @@ def make_commit(n: int):
     from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
     from cometbft_tpu_torch.types.vote import CommitSig
 
-    rng = np.random.default_rng(SEED)
-    privs = [Ed25519PrivKey.from_seed(rng.bytes(32)) for _ in range(n)]
+    rng = np.random.default_rng(seed)
+    key_from_seed = key_from_seed or Ed25519PrivKey.from_seed
+    privs = [key_from_seed(rng.bytes(32)) for _ in range(n)]
     by_addr = {}
     vals = []
     for p in privs:
@@ -730,6 +755,252 @@ def supervisor_phase(cv, ov, ds, cbatch, val, vals, block_id, commit, pubs,
           f"commit served by cuda with 1 launch")
 
 
+def secp_mixed(s, pubs, msgs, sigs):
+    """The secp256k1 commit's triples damaged by lane (index mod 16): 0-6
+    valid, 7 a flipped byte of s, 8 another message, 9 another validator's
+    key, 10 high-S (n - s: valid ECDSA that the low-S rule rejects), 11
+    r = 0, 12 s = 0, 13 r >= n, 14 a bad key (by (i // 16) mod 4: prefix 5,
+    x not on the curve, x >= p, 32 bytes), 15 a 63-byte signature."""
+    x = 5
+    while s.pt_decompress(b"\x02" + x.to_bytes(32, "big")) is not None:
+        x += 1
+    keys = [b"\x05" + pubs[0][1:], b"\x02" + x.to_bytes(32, "big"),
+            b"\x03" + (s.P + 1).to_bytes(32, "big"), pubs[0][:32]]
+    pubs, msgs, sigs = list(pubs), list(msgs), list(sigs)
+    n = len(pubs)
+    for i in range(n):
+        kind, sig = i % 16, sigs[i]
+        r, sv_ = sig[:32], int.from_bytes(sig[32:], "big")
+        if kind == 7:
+            sigs[i] = sig[:40] + bytes([sig[40] ^ 4]) + sig[41:]
+        elif kind == 8:
+            msgs[i] = msgs[i] + b"\x00"
+        elif kind == 9:
+            pubs[i] = pubs[(i + 1) % n]
+        elif kind == 10:
+            sigs[i] = r + (s.N - sv_).to_bytes(32, "big")
+        elif kind == 11:
+            sigs[i] = bytes(32) + sig[32:]
+        elif kind == 12:
+            sigs[i] = r + bytes(32)
+        elif kind == 13:
+            sigs[i] = s.N.to_bytes(32, "big") + sig[32:]
+        elif kind == 14:
+            pubs[i] = keys[(i // 16) % 4]
+        elif kind == 15:
+            sigs[i] = sig[:63]
+    return pubs, msgs, sigs
+
+
+def secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
+               max_clock_mhz, tag) -> dict:
+    """Phase 11: secp256k1 commit verification (BASELINE config 4) through
+    the hand-written ECDSA kernel.  Returns its entry of the kernels
+    line."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import secp256k1 as s
+    from cometbft_tpu_torch.ops import cuda_secp as cs
+    from cometbft_tpu_torch.ops import secp_verify as sv
+
+    def oracle(p, m, g):
+        return len(p) == 33 and s.Secp256k1PubKey(p).verify_signature(m, g)
+
+    t0 = time.perf_counter()
+    vals, commit, block_id, sign_bytes = make_commit(
+        n, s.Secp256k1PrivKey.from_secret, SECP_SEED)
+    setup_s = time.perf_counter() - t0
+    pubs = [v.pub_key.bytes() for v in vals.validators]
+    sigs = [cs_.signature for cs_ in commit.signatures]
+    print(f"secp: {n} secp256k1 keys and signed votes in {setup_s:.2f} s "
+          f"(pure-Python RFC 6979 signing over the fixed-base table; data "
+          f"set-up, not verification)")
+
+    # the kernel against its plain version and the oracle
+    mp, mm, ms = secp_mixed(s, pubs, sign_bytes, sigs)
+    t = sv.batch_to_device(sv.prepare_batch(mp, mm, ms), dev)
+    kern = cs.verify_core_cuda(**t)
+    torch.cuda.synchronize()
+    plain = sv.verify_core(**t)
+    torch.cuda.synchronize()
+    max_abs_err = int((kern.int() - plain.int()).abs().max())
+    check(torch.equal(kern, plain),
+          f"secp: kernel != plain on {int((kern != plain).sum())} of {n} lanes")
+    bits = kern.cpu().numpy()
+    rng = np.random.default_rng(SEED + 6)
+    head = min(128, n)  # every kind of damage, eight times over
+    sample = list(range(head)) + sorted(
+        rng.choice(range(head, n), min(128, n - head), replace=False).tolist())
+    for i in sample:
+        want = oracle(mp[i], mm[i], ms[i])
+        check(bool(bits[i]) == want, f"secp lane {i}: kernel {bits[i]}, oracle {want}")
+    n_ok = int(bits.sum())
+    check(0 < n_ok < n, f"secp: {n_ok} of {n} mixed lanes accepted")
+    for k in SECP_SMALL_N:
+        sub = {key: v[:k].contiguous() for key, v in t.items()}
+        kb = cs.verify_core_cuda(**sub)
+        check(torch.equal(kb, sv.verify_core(**sub)), f"secp n={k}: kernel != plain")
+        kb = kb.cpu().numpy()
+        for i in range(min(k, 64)):
+            check(bool(kb[i]) == bool(bits[i]), f"secp n={k}: lane {i}")
+    # the x >= n branch of the compare, at the ladder's own inputs: Q with
+    # x >= n, u1 = 0, u2 = 1, r = x - n (accept) and x - n + 1 (reject)
+    x = s.N
+    while s.pt_decompress(b"\x02" + x.to_bytes(32, "big")) is None:
+        x += 1
+    row = lambda v: list(v.to_bytes(32, "big"))
+    q = torch.tensor([list(b"\x02" + x.to_bytes(32, "big"))] * 2, dtype=torch.uint8)
+    edge = {"q33": q, "u1": torch.zeros(2, 32, dtype=torch.uint8),
+            "u2": torch.tensor([row(1)] * 2, dtype=torch.uint8),
+            "r": torch.tensor([row(x - s.N), row(x - s.N + 1)], dtype=torch.uint8),
+            "ok": torch.ones(2, dtype=torch.uint8)}
+    edge = {k: v.to(dev) for k, v in edge.items()}
+    got = cs.verify_core_cuda(**edge).tolist()
+    check(got == sv.verify_core(**edge).tolist() == [True, False],
+          f"secp x >= n branch: kernel {got}")
+    print(f"secp: kernel: {n} mixed lanes, kernel == plain version bit for "
+          f"bit (max_abs_err {max_abs_err}), {n_ok} accepted; {len(sample)}-"
+          f"lane sample (every kind of bad and structurally bad lane) == "
+          f"oracle; n = {', '.join(map(str, SECP_SMALL_N))} == plain; the "
+          f"x >= n compare branch (Q.x = n + {x - s.N}) == plain == [True, "
+          f"False]")
+
+    # the commit through the entry points
+    cache = sigcache.get_cache()
+    bad_commit = tampered(commit, bad)
+    full = lambda: val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, commit)
+    light = lambda: val.verify_commit_light(CHAIN_ID, vals, block_id, HEIGHT, commit)
+
+    def cold_ms(fn) -> float:
+        cache.clear()
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    check(isinstance(cbatch.create_batch_verifier(vals.validators[0].pub_key),
+                     cbatch.Secp256k1BatchVerifier),
+          "secp: the default verifier is not the secp256k1 one")
+    tiers0 = ds.tier_counts("secp256k1")
+    cs.reset_launches()
+    first_ms = cold_ms(full)
+    commit_samples = [cold_ms(full) for _ in range(COMMIT_RUNS)]
+    before = cs.launches
+    t0 = time.perf_counter()
+    full()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    check(cs.launches == before, f"secp: warm commit made {cs.launches - before} launches")
+    light_samples = [cold_ms(light) for _ in range(COMMIT_RUNS)]
+    cache.clear()
+    try:
+        val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, bad_commit)
+    except val.InvalidSignatureError as e:
+        check(e.index == bad[0], f"secp: InvalidSignatureError({e.index})")
+    else:
+        raise SmokeError("secp: a commit with bad signatures verified")
+    misses, before = cache.stats()["misses"], cs.launches
+    full()
+    check(cache.stats()["misses"] - misses == len(bad) and cs.launches - before == 1,
+          "secp: the bad commit's verdicts changed how the good commit verified")
+    cache.clear()
+    bv = cbatch.create_batch_verifier(vals.validators[0].pub_key)
+    for v, sb, c in zip(vals.validators, sign_bytes, bad_commit.signatures):
+        bv.add(v.pub_key, sb, c.signature)
+    ok, bad_bits = bv.verify()
+    false_at = [i for i, b in enumerate(bad_bits) if not b]
+    check(not ok and false_at == list(bad), f"secp: false bits at {false_at}")
+    launches = cs.launches
+    check(launches == MAIN_PATH_LAUNCHES, f"secp: {launches} kernel launches")
+    tiers = {k: (v[0] - tiers0[k][0], v[1] - tiers0[k][1])
+             for k, v in ds.tier_counts("secp256k1").items()}
+    check(tiers["torch"] == (0, 0) and tiers["host"] == (0, 0) and
+          tiers["cuda"][0] == MAIN_PATH_LAUNCHES - 1,
+          f"secp: batches served below the cuda tier or missing: {tiers}")
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
+    check(not leaked, f"secp: imported {leaked}")
+    print(f"secp: slice: verify_commit ({n} signatures) and "
+          f"verify_commit_light passed on the secp256k1 verifier, cold "
+          f"(signature cache cleared before each); a warm verify_commit made "
+          f"0 launches; bad indices {list(bad)} -> InvalidSignatureError"
+          f"({bad[0]}), the good commit after it passed with {len(bad)} "
+          f"misses and 1 launch; batch-verifier bits false exactly at "
+          f"{list(bad)}; {launches} kernel launches (self-check 1); jax not "
+          f"imported; secp batches served by tier (batches, signatures): {tiers}")
+
+    # times
+    host = sv.prepare_batch(pubs, sign_bytes, sigs)
+    good = sv.batch_to_device(host, dev)
+    check(bool(cs.verify_core_cuda(**good).all()), "secp: valid lanes rejected")
+    kernel_ms = cuda_ms(torch, lambda: cs.verify_core_cuda(**good), KERNEL_RUNS, 3)
+    plain_ms = cuda_ms(torch, lambda: sv.verify_core(**good), 1, 0)
+    prep_ms = median_ms(lambda: sv.prepare_batch(pubs, sign_bytes, sigs), HOST_RUNS)
+    # the bound: the work the function needs on this run's lanes
+    # (libsecp256k1's GLV + wNAF ladder), not the work this kernel does
+    muls, squares, products = cs.needed_work(host["q33"], host["u1"], host["u2"],
+                                             host["ok"])
+    bound_ms, bound_by = bound(products, n * cs.BYTES_PER_SIG, sms, max_clock_mhz)
+    # the kernel's own work, from its host build's tally; the (r + n) * Z
+    # multiply runs where r + n < p
+    extra = sum(int.from_bytes(host["r"][i].tobytes(), "big") < s.P - s.N
+                for i in range(n))
+    tally = n * cs.WIDE_PRODUCTS_PER_SIG + extra * cs.PRODUCTS_PER_MUL
+    tally_ms, _ = bound(tally, n * cs.BYTES_PER_SIG, sms, max_clock_mhz)
+    occ = cs.occupancy()
+    commit_ms = statistics.median(commit_samples)
+    light_ms = statistics.median(light_samples)
+    print(f"secp: time: kernel {kernel_ms} ms at {n} lanes (median of "
+          f"{KERNEL_RUNS} samples of one call, CUDA events) = "
+          f"{n / kernel_ms * 1e3:.0f} verifies/s; plain PyTorch version "
+          f"{plain_ms} ms; host prep (prepare_batch: SHA-256, s^-1 mod n, u1, u2) "
+          f"{prep_ms} ms (median of {HOST_RUNS}) {tag}")
+    print(f"secp: time: verify_commit cold wall {commit_ms} ms (median of "
+          f"{COMMIT_RUNS}; all {commit_samples}; first call, with the "
+          f"self-check, {first_ms} ms); warm (0 launches) {warm_ms} ms; "
+          f"verify_commit_light cold wall {light_ms} ms (all {light_samples}); "
+          f"set-up {setup_s * 1e3:.0f} ms {tag}")
+    print(f"secp: time: bound {bound_ms} ms by {bound_by}: {products} "
+          f"32x32->64-bit products that ECDSA verification needs on these "
+          f"{n} lanes ({muls} field multiplies, {squares} squares and the GLV "
+          f"splits: libsecp256k1's wNAF Straus ladder, counted from this "
+          f"run's scalars) over {sms} SMs x {INT32_LANES_PER_SM} INT32 lanes "
+          f"x {max_clock_mhz:.0f} MHz, or {n * cs.BYTES_PER_SIG} bytes; "
+          f"kernel at {bound_ms / kernel_ms:.2%} of its bound {tag}")
+    print(f"secp: time: the kernel's own work (its host build's tally): "
+          f"{tally} products ({cs.FIELD_MULS_PER_SIG} multiplies, "
+          f"{cs.FIELD_SQUARES_PER_SIG} squares, {cs.FIELD_SMALLS_PER_SIG} "
+          f"small multiplies per signature; {extra} lanes with r + n < p), "
+          f"{tally / products:.3f}x the bound's, {tally_ms} ms at the same "
+          f"rates; kernel at {tally_ms / kernel_ms:.2%} of that {tag}")
+    print("secp: library_ms is null: no PyTorch library call computes "
+          "secp256k1 ECDSA verification")
+    grid = -(-n // occ["threads"])
+    print(f"occupancy: {cs.NAME}: 1 thread per signature, {occ['threads']} "
+          f"threads per block, {occ['regs']} registers and "
+          f"{occ['local_bytes']} bytes of local memory per thread; "
+          f"{occ['blocks_per_sm']} blocks resident per SM; {n} lanes -> "
+          f"{grid} blocks, {min(grid, sms)} of {sms} SMs with work {tag}")
+    return {
+        "name": cs.NAME, "route": "cuda", "source": cs.SOURCE,
+        "replaces": cs.REPLACES, "launches": launches,
+        "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
+def tampered(commit, idx):
+    """A copy of ``commit`` with the last byte of the signatures at ``idx``
+    flipped."""
+    out = type(commit)(
+        commit.height, commit.round_, commit.block_id,
+        [type(c)(c.block_id_flag, c.validator_address, c.timestamp, c.signature)
+         for c in commit.signatures],
+    )
+    for i in idx:
+        sig = out.signatures[i].signature
+        out.signatures[i].signature = sig[:-1] + bytes([sig[-1] ^ 1])
+    return out
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -829,14 +1100,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"== oracle")
 
     # -- 5. the slice, through the entry points ------------------------------
-    bad_commit = type(commit)(
-        commit.height, commit.round_, commit.block_id,
-        [type(cs)(cs.block_id_flag, cs.validator_address, cs.timestamp, cs.signature)
-         for cs in commit.signatures],
-    )
-    for i in bad:
-        s = bad_commit.signatures[i].signature
-        bad_commit.signatures[i].signature = s[:-1] + bytes([s[-1] ^ 1])
+    bad_commit = tampered(commit, bad)
     cache = sigcache.get_cache()
     check(cache.enabled() and cache.capacity >= n, "signature cache too small")
     full = lambda: val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, commit)
@@ -1003,6 +1267,10 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     # -- 10. profile: stage builds and field-op chains -----------------------
     chain_entry = profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag)
 
+    # -- 11. secp: a secp256k1 commit through the ECDSA kernel --------------
+    secp_entry = secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
+                            max_clock_mhz, tag)
+
     print("host: " + json.dumps({
         "name": native.NAME,
         "source": native.SOURCE,
@@ -1026,7 +1294,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, chain_entry]}))
+    }, chain_entry, secp_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -11,7 +11,7 @@ it in both.
 
 from __future__ import annotations
 
-from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+from cometbft_tpu_torch.crypto.keys import pub_key_from_type
 from cometbft_tpu_torch.ops.verify import batch_to_device
 from cometbft_tpu_torch.types.basic import BlockID, PartSetHeader, Timestamp
 from cometbft_tpu_torch.types.block import Commit
@@ -28,12 +28,13 @@ def batch_from_numpy(arrays: dict, device) -> dict:
 
 
 def validator_set_from(obj) -> ValidatorSet:
-    """A validator set with the same validators, order, voting powers,
-    proposer priorities and proposer.  The set is rebuilt as it stands:
-    the constructor's proposer-priority increment is not run again."""
+    """A validator set with the same validators (Ed25519 or secp256k1
+    keys, by their ``type_``), order, voting powers, proposer priorities
+    and proposer.  The set is rebuilt as it stands: the constructor's
+    proposer-priority increment is not run again."""
     vals = [
         Validator(
-            Ed25519PubKey(bytes(v.pub_key.bytes())),
+            pub_key_from_type(v.pub_key.type_, bytes(v.pub_key.bytes())),
             int(v.voting_power),
             int(v.proposer_priority),
         )

@@ -47,6 +47,10 @@ HALF_OPEN = "half-open"
 
 _STATE_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
+# The breaker of the secp256k1 device path (``ops/supervisor``'s
+# ``supervised_device_call``), beside the verify chain's ``cuda``/``torch``.
+SECP_DEVICE = "secp_device"
+
 
 class BackendError(RuntimeError):
     """Base class for infrastructure failures the supervisor attributes to

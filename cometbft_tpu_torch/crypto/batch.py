@@ -5,12 +5,19 @@ Reference: crypto/batch/batch.go:10-27 and crypto.BatchVerifier
 backend-selected verifier; everything above this seam (commit verification)
 is backend-agnostic, exactly as in the reference design.
 
-Backends:
+Backends for Ed25519 keys:
   * ``gpu`` — batched verification through ``ops.verify.verify_batch``:
     the hand-written CUDA kernel on the card (``device=None`` or a CUDA
     device), or its plain PyTorch version for ``device="cpu"``.
   * ``cpu`` — host verification through the pure-Python ZIP-215 oracle,
     one signature at a time.
+
+secp256k1 keys get ``Secp256k1BatchVerifier``: batched ECDSA through
+``ops.secp_verify.verify_batch`` under the supervisor's single-tier call
+(breaker ``secp_device``), the CUDA kernel on the card, its plain PyTorch
+version for ``device="cpu"`` or ``backend="cpu"``.  (The reference
+verifies secp256k1 one signature at a time; batching it is the JAX
+package's extension, BASELINE config 4.)
 
 Both report per-signature validity directly, so failure attribution needs
 no recheck pass (the reference's types/validation.go:308-317), and both
@@ -18,22 +25,33 @@ sit behind the signature cache (``crypto/sigcache``): only entries whose
 verdict is not cached reach the backend.
 
 There is no silent demotion: with no CUDA device and no explicit CPU
-request ``default_backend`` raises, and a card that fails the known-answer
-self-check raises naming the check.
+request ``default_backend`` raises, a card that fails a known-answer
+self-check (one per key type) raises naming the check, and on a card a
+batch its kernel did not serve raises ``BackendError``.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 from typing import Optional
+
+import numpy as np
 
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
 from cometbft_tpu_torch.crypto import keys as ck
 from cometbft_tpu_torch.crypto import sigcache
-from cometbft_tpu_torch.crypto.backend_health import BackendError
+from cometbft_tpu_torch.crypto.backend_health import (
+    SECP_DEVICE,
+    BackendError,
+    BackendOutputError,
+)
+from cometbft_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey, Secp256k1PubKey
 
 _SELF_CHECKED: set = set()  # CUDA devices that passed the self-check
+_SECP_SELF_CHECKED: set = set()  # ... and the secp256k1 self-check
 _LOCK = threading.Lock()
+logger = logging.getLogger("cometbft_tpu_torch.crypto")
 
 
 class SelfCheckError(RuntimeError):
@@ -59,6 +77,29 @@ def gpu_self_check(device=None) -> None:
     if not (bool(bits[0]) and not bool(bits[1])):
         raise SelfCheckError(
             "GPU crypto backend failed its known-answer self-check "
+            f"(valid signature -> {bool(bits[0])}, tampered signature -> "
+            f"{bool(bits[1])}); refusing to verify consensus signatures on it"
+        )
+
+
+def secp_self_check(device=None) -> None:
+    """The secp256k1 counterpart of ``gpu_self_check``: a known-good and a
+    tampered signature through the secp256k1 kernel, outside the
+    supervisor, before the card is trusted with secp256k1 commits.  Raises
+    ``SelfCheckError`` on a wrong answer (the JAX package's
+    ``_secp_device_ok`` falls back to host verification; the port
+    refuses)."""
+    from cometbft_tpu_torch.ops import secp_verify as sv
+
+    priv = Secp256k1PrivKey.from_secret(b"cometbft-tpu secp self-check")
+    pub = priv.pub_key().bytes()
+    msg = b"secp backend self-check"
+    sig = priv.sign(msg)
+    bad = sig[:32] + bytes([sig[32] ^ 1]) + sig[33:]
+    bits = sv.verify_batch([pub, pub], [msg, msg], [sig, bad], device)
+    if not (bool(bits[0]) and not bool(bits[1])):
+        raise SelfCheckError(
+            "GPU secp256k1 backend failed its known-answer self-check "
             f"(valid signature -> {bool(bits[0])}, tampered signature -> "
             f"{bool(bits[1])}); refusing to verify consensus signatures on it"
         )
@@ -188,19 +229,88 @@ class GpuBatchVerifier(_CollectingVerifier):
         return [bool(b) for b in ov.verify_batch(pubs, msgs, sigs, self.device)]
 
 
+class Secp256k1BatchVerifier(_CollectingVerifier):
+    """Batched ECDSA over secp256k1 keys (33-byte SEC1, 64-byte R||S): all
+    pending entries in one supervised call of ``ops.secp_verify.
+    verify_batch`` (breaker ``secp_device``), one kernel launch on the card.
+
+    On a card the first batch runs ``secp_self_check``; a batch the kernel
+    did not serve raises ``BackendError`` (the JAX class answers it on the
+    host instead).  On the CPU the plain PyTorch version is the device tier,
+    and the host oracle answers below it, as for Ed25519.  The tier that
+    served each batch is counted in ``ops.dispatch_stats``
+    (``tier_counts("secp256k1")``)."""
+
+    PUB_SIZES = (33,)
+    SIG_SIZES = (64,)
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.device = device
+
+    def _verify_pending(self, pubs, msgs, sigs) -> list[bool]:
+        from cometbft_tpu_torch.ops import dispatch_stats, supervisor
+        from cometbft_tpu_torch.ops import secp_verify as sv
+        from cometbft_tpu_torch.ops.verify import resolve_device
+
+        dev = resolve_device(self.device)
+        n = len(pubs)
+        if dev.type == "cuda":
+            with _LOCK:
+                if str(dev) not in _SECP_SELF_CHECKED:
+                    secp_self_check(dev)
+                    _SECP_SELF_CHECKED.add(str(dev))
+        if not supervisor.enabled():
+            return [bool(b) for b in sv.verify_batch(pubs, msgs, sigs, dev)]
+
+        def validate(bits) -> None:
+            bits = np.asarray(bits)
+            if bits.shape != (n,) or bits.dtype != np.bool_:
+                raise BackendOutputError(
+                    f"secp device returned shape {bits.shape} dtype "
+                    f"{bits.dtype} for {n} inputs"
+                )
+
+        bits = supervisor.supervised_device_call(
+            SECP_DEVICE, lambda: sv.verify_batch(pubs, msgs, sigs, dev),
+            validate, fallback_units=n, device=dev, inputs=(pubs, msgs, sigs),
+        )
+        if bits is None:  # the CPU only: the host oracle answers
+            dispatch_stats.record_tier("host", n, ck.SECP256K1_KEY_TYPE)
+            logger.warning("secp256k1 batch of %d signatures served by the "
+                           "host tier", n)
+            return [Secp256k1PubKey(p).verify_signature(m, s)
+                    for p, m, s in zip(pubs, msgs, sigs)]
+        dispatch_stats.record_tier("cuda" if dev.type == "cuda" else "torch", n,
+                                   ck.SECP256K1_KEY_TYPE)
+        return [bool(b) for b in bits]
+
+
 def supports_batch_verifier(pub_key) -> bool:
-    """Reference: crypto/batch/batch.go:21 — ed25519."""
-    return getattr(pub_key, "type_", None) == ck.ED25519_KEY_TYPE
+    """Reference: crypto/batch/batch.go:21 — ed25519; secp256k1 is the JAX
+    package's extension (BASELINE config 4)."""
+    return getattr(pub_key, "type_", None) in (
+        ck.ED25519_KEY_TYPE, ck.SECP256K1_KEY_TYPE,
+    )
 
 
 def create_batch_verifier(
     pub_key, backend: Optional[str] = None, device=None
 ) -> BatchVerifier:
-    """Reference: crypto/batch/batch.go:10.  ``backend=None`` picks the
-    default (the card, self-checked), unless ``device`` names a device
-    explicitly, which selects the ``gpu`` backend on that device."""
+    """Reference: crypto/batch/batch.go:10, routed by key type as the JAX
+    package's.  For Ed25519, ``backend=None`` picks the default (the card,
+    self-checked), unless ``device`` names a device explicitly, which
+    selects the ``gpu`` backend on that device.  A secp256k1 key gets
+    ``Secp256k1BatchVerifier`` on ``device`` (None: the card), or on the
+    CPU for ``backend="cpu"``."""
     if not supports_batch_verifier(pub_key):
         raise ValueError(f"key type does not support batch verification: {pub_key}")
+    if pub_key.type_ == ck.SECP256K1_KEY_TYPE:
+        if backend == "cpu":
+            device = "cpu"
+        elif backend not in (None, "gpu"):
+            raise ValueError(f"unknown crypto backend: {backend}")
+        return Secp256k1BatchVerifier(device)
     if backend is None:
         backend = "gpu" if device is not None else default_backend()
     if backend == "gpu":

@@ -1,11 +1,13 @@
-"""Key interfaces and the Ed25519 implementation.
+"""Key interfaces, the Ed25519 implementation and the key-type registry.
 
 Mirrors the reference seam (crypto/crypto.go:22-52): ``PubKey`` /
-``PrivKey`` with 20-byte SHA-256-truncated addresses.
+``PrivKey`` with 20-byte addresses (SHA-256-truncated for Ed25519,
+RIPEMD160(SHA256) for secp256k1, ``crypto.secp256k1``).
 
-Single verification runs the port's own pure-Python ZIP-215 oracle
-(``crypto.ed25519_ref``): the port depends on no host crypto library, so
-it behaves the same on every machine it runs on.
+Single verification runs the port's own pure-Python oracles
+(``crypto.ed25519_ref``, ZIP-215; ``crypto.secp256k1``, low-S ECDSA): the
+port depends on no host crypto library, so it behaves the same on every
+machine it runs on.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from cometbft_tpu_torch.crypto import ed25519_ref, tmhash
+from cometbft_tpu_torch.crypto.secp256k1 import SECP256K1_KEY_TYPE, Secp256k1PubKey
 
 ED25519_KEY_TYPE = "ed25519"
 
@@ -63,3 +66,18 @@ class Ed25519PrivKey:
 
     def bytes(self) -> bytes:
         return self.seed
+
+
+def pub_key_from_type(key_type: str, data: bytes):
+    """The public key of ``key_type`` over its encoded bytes (the JAX
+    package's registry without BLS, which the port does not have yet)."""
+    if key_type == ED25519_KEY_TYPE:
+        return Ed25519PubKey(data)
+    if key_type == SECP256K1_KEY_TYPE:
+        return Secp256k1PubKey(data)
+    raise ValueError(f"unsupported key type: {key_type}")
+
+
+def supported_key_types() -> list[str]:
+    """The key types the port has: Ed25519 and secp256k1."""
+    return [ED25519_KEY_TYPE, SECP256K1_KEY_TYPE]

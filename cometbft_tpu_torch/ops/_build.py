@@ -172,6 +172,23 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(lib_path(name)))
 
 
+def occupancy(name: str) -> dict:
+    """The launch resources of kernel ``name`` on the current card, from
+    the library's ``<name>_occupancy``: resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), threads per
+    block, and registers, local memory bytes per thread and static shared
+    memory bytes per block of the compiled kernel."""
+    fn = getattr(load(name), f"{name}_occupancy")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+    fn.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(5)]
+    rc = fn(*map(ctypes.byref, vals))
+    if rc != 0:
+        raise RuntimeError(f"{name} occupancy query failed: CUDA error {rc}")
+    keys = ("blocks_per_sm", "threads", "regs", "local_bytes", "shared_bytes")
+    return dict(zip(keys, (v.value for v in vals)))
+
+
 def build_log(name: str) -> str:
     """The compiler's output for the last build of ``name`` (for a kernel,
     ptxas resource usage)."""

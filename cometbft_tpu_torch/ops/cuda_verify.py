@@ -94,18 +94,9 @@ def _launcher():
 
 
 def occupancy() -> dict:
-    """The kernel's launch resources on the current card: resident blocks
-    per SM, threads per block, and registers, local memory bytes per thread
-    and static shared memory bytes per block of the compiled kernel."""
-    fn = _build.load(NAME).ed25519_verify_occupancy
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
-    fn.restype = ctypes.c_int
-    vals = [ctypes.c_int() for _ in range(5)]
-    rc = fn(*map(ctypes.byref, vals))
-    if rc != 0:
-        raise RuntimeError(f"{NAME} occupancy query failed: CUDA error {rc}")
-    keys = ("blocks_per_sm", "threads", "regs", "local_bytes", "shared_bytes")
-    return dict(zip(keys, (v.value for v in vals)))
+    """The kernel's launch resources on the current card
+    (``_build.occupancy``)."""
+    return _build.occupancy(NAME)
 
 
 def _check(a_bytes, r_bytes, s_bytes, m_bytes, s_ok) -> int:

@@ -18,10 +18,10 @@ Counters:
     in-flight routing tally per lane (a supervisor tier until the mesh is
     ported)
   * ``tier_dispatches`` / ``tier_lanes`` — batches and signatures SERVED
-    per tier (``cuda`` on a card; ``torch``, then ``host`` below it, on
-    the CPU).  A card's batch that the kernel did not serve raises and
-    shows under no tier; on the CPU a batch the plain version did not
-    serve shows under ``host``.
+    per key type and tier (``cuda`` on a card; ``torch``, then ``host``
+    below it, on the CPU).  A card's batch that the kernel did not serve
+    raises and shows under no tier; on the CPU a batch the plain version
+    did not serve shows under ``host``.
 
 Histograms:
   * ``buckets[lanes]``            — dispatch count per lane count
@@ -60,8 +60,8 @@ def _zero() -> dict:
         "lane_dispatches": {},  # lane (str) -> dispatches routed there
         "lane_lanes_total": {},  # lane (str) -> lanes shipped
         "lane_lanes_used": {},  # lane (str) -> lanes carrying a signature
-        "tier_dispatches": {t: 0 for t in TIERS},  # batches served
-        "tier_lanes": {t: 0 for t in TIERS},  # signatures served
+        "tier_dispatches": {},  # key type -> tier -> batches served
+        "tier_lanes": {},  # key type -> tier -> signatures served
     }
 
 
@@ -88,22 +88,21 @@ def record_dispatch_time(impl: str, lanes: int, seconds: float) -> None:
         h.observe(float(seconds))
 
 
-def record_tier(tier: str, n_signatures: int) -> None:
-    """One batch of ``n_signatures`` answered by ``tier`` of the chain."""
+def record_tier(tier: str, n_signatures: int, key_type: str = "ed25519") -> None:
+    """One batch of ``n_signatures`` ``key_type`` signatures answered by
+    ``tier`` of the chain."""
     with _LOCK:
-        _STATS["tier_dispatches"][tier] = _STATS["tier_dispatches"].get(tier, 0) + 1
-        _STATS["tier_lanes"][tier] = _STATS["tier_lanes"].get(tier, 0) + int(
-            n_signatures
-        )
+        for k, n in (("tier_dispatches", 1), ("tier_lanes", int(n_signatures))):
+            d = _STATS[k].setdefault(key_type, dict.fromkeys(TIERS, 0))
+            d[tier] = d.get(tier, 0) + n
 
 
-def tier_counts() -> dict:
-    """{tier: (batches served, signatures served)}."""
+def tier_counts(key_type: str = "ed25519") -> dict:
+    """{tier: (batches served, signatures served)} for ``key_type``."""
     with _LOCK:
-        return {
-            t: (_STATS["tier_dispatches"][t], _STATS["tier_lanes"][t])
-            for t in _STATS["tier_dispatches"]
-        }
+        d = _STATS["tier_dispatches"].get(key_type, dict.fromkeys(TIERS, 0))
+        lanes = _STATS["tier_lanes"].get(key_type, {})
+        return {t: (d[t], lanes.get(t, 0)) for t in d}
 
 
 def record_inflight_enter() -> int:
@@ -157,7 +156,8 @@ def snapshot() -> dict:
                 out[k] = v.to_dict()
             elif isinstance(v, dict):
                 out[k] = {
-                    kk: (vv.to_dict() if isinstance(vv, Histo) else vv)
+                    kk: (vv.to_dict() if isinstance(vv, Histo)
+                         else dict(vv) if isinstance(vv, dict) else vv)
                     for kk, vv in v.items()
                 }
             else:

@@ -54,6 +54,10 @@ standard shim (modes: raise / hang / wrong_shape / flap).
 ``set_device_runner`` swaps the device tiers' execution for a stand-in
 (tests), leaving every mechanism above it unchanged.
 
+Single-tier device paths (secp256k1's ``Secp256k1BatchVerifier``, breaker
+``secp_device``) go through ``supervised_device_call`` under the same
+rule: on a card the kernel serves the call or it raises ``BackendError``.
+
 Kill switch: ``COMETBFT_TPU_SUPERVISOR=0`` restores the raw dispatch path.
 
 The JAX package's spans and anomaly records (``libs/tracing``) are left
@@ -327,35 +331,69 @@ def supervised_device_call(
     fn: Callable,
     validate: Optional[Callable] = None,
     fallback_units: int = 0,
+    device=None,
+    inputs: Optional[tuple] = None,
 ):
-    """One breaker-gated, watchdogged device call — the shared protocol
-    for single-tier device paths (secp256k1 and BLS G1 once ported,
-    ROADMAP §1 items 8-9).  Returns the call's result, or None when the
-    breaker is open or the call failed (the caller then takes its host
-    fallback; ``fallback_units`` signatures are recorded as degraded host
-    work in that case).  ``validate(result)`` may raise
-    ``BackendOutputError`` to classify a malformed result as infra."""
+    """One breaker-gated, watchdogged device call: the shared protocol for
+    single-tier device paths (secp256k1, ``crypto.batch``; BLS G1 once
+    ported, ROADMAP §1 item 9).  Returns the call's result.
+
+    A call the device did not serve — it raised, wedged past the watchdog,
+    returned a malformed result (``validate(result)`` raises, e.g.
+    ``BackendOutputError``), or its breaker is open — logs a WARNING and,
+    for a failure, counts against the breaker and the demotions.  Then:
+
+      * on a card (``device`` None or CUDA) it raises ``BackendError``,
+        chained to the failure: a card's answer comes from its kernel or
+        not at all, and nothing is returned for a host to answer;
+      * on the CPU (the kernel's plain version is the device tier) it
+        returns None, the caller's host reference answers, and
+        ``fallback_units`` signatures are recorded as host work, as the
+        verify chain's host tier does below the torch tier.
+
+    ``inputs`` (pubs, msgs, sigs), where given, are shown to the fault
+    injector inside the call, and with the device-runner seam installed the
+    runner answers in place of ``fn`` (tests)."""
     reg = backend_health.registry()
     br = reg.breaker(backend)
+    err = None
     if br.allow():
         try:
-            out = watchdog_call(fn, backend=backend)
+            out = watchdog_call(lambda: _single_tier(backend, fn, inputs),
+                                backend=backend)
             if validate is not None:
                 validate(out)
             br.record_success()
             return out
         except Exception as e:  # noqa: BLE001 — any device error demotes
+            err = e
             br.record_failure(e)
             reg.record_demotion(backend)
-            logger.warning(
-                "crypto backend %s call failed (%r); host fallback "
-                "(breaker recorded the failure)",
-                backend,
-                e,
-            )
+    why = "its breaker is open" if err is None else f"it failed: {err!r}"
+    if _on_card(device):
+        logger.warning("crypto backend %s did not serve a call (%s); the "
+                       "call raises", backend, why)
+        raise BackendError(
+            f"the {backend} kernel did not serve a call ({why}); a card has "
+            f"no tier below the kernel"
+        ) from err
+    logger.warning("crypto backend %s did not serve a call (%s); host "
+                   "fallback", backend, why)
     if fallback_units:
         reg.record_fallback(fallback_units)
     return None
+
+
+def _single_tier(backend: str, fn: Callable, inputs: Optional[tuple]):
+    """The body of a supervised single-tier call, on the watchdog worker:
+    the fault injector first, as a device fault would, then ``fn`` or the
+    device runner."""
+    if inputs is None:
+        return fn()
+    inj, runner = _FAULT_INJECTOR, _DEVICE_RUNNER
+    transform = inj(backend, *inputs) if inj is not None else None
+    out = runner(backend, *inputs, len(inputs[0])) if runner is not None else fn()
+    return transform(out) if transform is not None else out
 
 
 # -- supervised ed25519 verification ----------------------------------------

@@ -5,7 +5,9 @@ An AST scan checks every import statement, and the native sources
 (``csrc/``) include only system headers and each other; a subprocess then
 runs gossip-time ``Vote.verify`` through the verify scheduler, the
 supervisor and the plain version on the CPU (the C++ packer included),
-and checks that neither name reached ``sys.modules``.
+and a secp256k1 batch through its verifier, the supervisor's single-tier
+call and the plain ECDSA version, and checks that neither name reached
+``sys.modules``.
 """
 
 import ast
@@ -68,9 +70,15 @@ def test_port_files_exist():
         "cometbft_tpu_torch/verifysched/service.py",
         "cometbft_tpu_torch/verifysched/stats.py",
         "cometbft_tpu_torch/types/vote.py",
+        "cometbft_tpu_torch/crypto/secp256k1.py",
+        "cometbft_tpu_torch/ops/fpgen.py",
+        "cometbft_tpu_torch/ops/wcurve.py",
+        "cometbft_tpu_torch/ops/secp_verify.py",
+        "cometbft_tpu_torch/ops/cuda_secp.py",
     ):
         assert need in names
-    assert {p.name for p in NATIVE_FILES} >= {"host_prep.cpp", "ed25519_verify.cu"}
+    assert {p.name for p in NATIVE_FILES} >= {
+        "host_prep.cpp", "ed25519_verify.cu", "secp256k1_verify.cu"}
 
 
 @pytest.mark.parametrize(
@@ -136,6 +144,17 @@ from cometbft_tpu_torch.ops import dispatch_stats
 assert dispatch_stats.tier_counts()["torch"] == (1, 2)  # one plain verify
 assert verifysched.stats.snapshot()["submitted"]["consensus"] == 2
 verifysched.reset_scheduler()
+# a secp256k1 batch: the verifier, the supervisor's single-tier call, host
+# prep and the plain version of the ECDSA kernel
+from cometbft_tpu_torch.crypto import batch
+from cometbft_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey
+import cometbft_tpu_torch.ops.cuda_secp
+spriv = Secp256k1PrivKey.from_secret(b"audit")
+bv = batch.create_batch_verifier(spriv.pub_key(), backend="cpu")
+for m in (b"a", b"b"):
+    bv.add(spriv.pub_key(), m, spriv.sign(b"a"))
+assert bv.verify() == (False, [True, False])
+assert dispatch_stats.tier_counts("secp256k1")["torch"] == (1, 2)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)

@@ -9,9 +9,10 @@ bits, breaker states and counters, tier for tier.  Then the port's own
 rules: the tier that served each batch (per thread, per handle, per-tier
 counter, a WARNING for every step down), the card's rule that a batch
 the kernel did not serve raises ``BackendError`` (on a stand-in card:
-CUDA reported available, the device tier on the runner seam), the kill
-switch, the sigcache audit, and one real ``torch``-tier verify on the
-CPU.  Tests marked ``cuda`` run the supervisor on the card.
+CUDA reported available, the device tier on the runner seam), for the
+Ed25519 chain and for the secp256k1 single-tier call (breaker
+``secp_device``), the kill switch, the sigcache audit, and one real
+``torch``-tier verify on the CPU.  Tests marked ``cuda`` run the supervisor on the card.
 """
 
 import logging
@@ -27,6 +28,7 @@ from cometbft_tpu_torch.crypto import backend_health as tbh
 from cometbft_tpu_torch.crypto import batch as tbatch
 from cometbft_tpu_torch.crypto import ed25519_ref as ref
 from cometbft_tpu_torch.crypto import sigcache as tsc
+from cometbft_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey, Secp256k1PubKey
 from cometbft_tpu_torch.ops import cuda_verify as tcv
 from cometbft_tpu_torch.ops import dispatch_stats as tds
 from cometbft_tpu_torch.ops import supervisor as tsup
@@ -294,11 +296,16 @@ def test_watchdog_and_switches():
     assert tsup.active_backend("cpu") is None
     with pytest.raises(ValueError):
         tsup.FaultyBackend("melt")
+    # the single-tier call: on a card (the default device) a call the
+    # kernel did not serve raises; on the CPU the caller's host answers
     assert tsup.supervised_device_call("secp_device", lambda: 7) == 7
+    with pytest.raises(tbh.BackendError, match="no tier below the kernel"):
+        tsup.supervised_device_call("secp_device", lambda: int("x"),
+                                    fallback_units=2)
     assert tsup.supervised_device_call(
-        "secp_device", lambda: int("x"), fallback_units=2) is None
+        "secp_device", lambda: int("x"), fallback_units=2, device="cpu") is None
     snap = tbh.snapshot()
-    assert snap["demotions"] == 1 and snap["fallback_signatures"] == 2
+    assert snap["demotions"] == 2 and snap["fallback_signatures"] == 2
 
 
 @pytest.mark.parametrize("pkg", ["jax", "torch"])
@@ -488,6 +495,74 @@ def test_stand_in_card_scheduler_completes_futures_with_the_error(stand_in_card,
         tvs.reset_scheduler()
     assert tvs.stats.snapshot()["shed_fallback"]["consensus"] == 0
     assert tds.tier_counts() == {"cuda": (0, 0), "torch": (0, 0), "host": (0, 0)}
+
+
+def _secp_runner(backend, pubs, msgs, sigs, lanes):
+    """The secp256k1 device tier's stand-in: the host oracle."""
+    return np.array([Secp256k1PubKey(p).verify_signature(m, s)
+                     for p, m, s in zip(pubs, msgs, sigs)], bool)
+
+
+def _secp_verifier(device, n=5):
+    """A Secp256k1BatchVerifier holding ``n`` triples, the third tampered,
+    and the oracle's bits."""
+    privs = [Secp256k1PrivKey.from_secret(b"sup-secp-%d" % i) for i in range(n)]
+    msgs = [b"secp-vote-%d" % i for i in range(n)]
+    sigs = [p.sign(m) for p, m in zip(privs, msgs)]
+    sigs[2] = sigs[2][:-1] + bytes([sigs[2][-1] ^ 1])
+    bv = tbatch.create_batch_verifier(privs[0].pub_key(), device=device)
+    assert isinstance(bv, tbatch.Secp256k1BatchVerifier)
+    for p, m, sig in zip(privs, msgs, sigs):
+        bv.add(p.pub_key(), m, sig)
+    return bv, [i != 2 for i in range(n)]
+
+
+@pytest.mark.parametrize("mode", ["raise", "hang", "wrong_shape"])
+def test_secp_device_faults_raise_on_a_stand_in_card(stand_in_card, monkeypatch,
+                                                     caplog, mode):
+    """The ``secp_device`` breaker in the fault matrix, through
+    ``Secp256k1BatchVerifier`` on the runner seam: served by the cuda tier
+    while healthy; under each fault every batch raises ``BackendError``
+    (no host answers, nothing is cached), the breaker opens after three,
+    and an open breaker raises without a call."""
+    monkeypatch.setattr(tbatch, "_SECP_SELF_CHECKED", {"cuda"})
+    tsup.set_device_runner(_secp_runner)
+    bv, want = _secp_verifier(None)
+    assert bv.verify() == (False, want)
+    assert tds.tier_counts("secp256k1") == {"cuda": (1, 5), "torch": (0, 0), "host": (0, 0)}
+    tsc.reset_cache()
+    if mode == "hang":  # the deadline only the wedge should meet
+        monkeypatch.setenv("COMETBFT_TPU_DISPATCH_TIMEOUT_MS", "60")
+    shim = tsup.FaultyBackend(mode, backends=(tbh.SECP_DEVICE,), hang_s=0.25)
+    tsup.set_fault_injector(shim)
+    with caplog.at_level(logging.WARNING, logger="cometbft_tpu_torch.crypto"):
+        for _ in range(3):
+            with pytest.raises(tbh.BackendError, match="no tier below the kernel"):
+                bv.verify()
+        calls = shim.calls
+        with pytest.raises(tbh.BackendError, match="breaker is open"):
+            bv.verify()
+    assert shim.calls == calls == 3 and len(tsc.get_cache()) == 0
+    assert tds.tier_counts("secp256k1") == {"cuda": (1, 5), "torch": (0, 0), "host": (0, 0)}
+    snap = tbh.snapshot()
+    assert (snap["demotions"], snap["fallback_signatures"]) == (3, 0)
+    assert snap["watchdog_fires"] == (3 if mode == "hang" else 0)
+    assert snap["breakers"][tbh.SECP_DEVICE]["state"] == tbh.OPEN
+    assert sum("secp_device did not serve" in r.getMessage()
+               for r in caplog.records) == 4
+
+
+def test_secp_device_fault_on_the_cpu_is_answered_by_the_host(monkeypatch):
+    """On the CPU the plain version is the device tier and the host
+    oracle answers a batch it could not serve, counted as host work."""
+    tsup.set_device_runner(_secp_runner)
+    tsup.set_fault_injector(tsup.FaultyBackend("raise", backends=(tbh.SECP_DEVICE,)))
+    tsc.reset_cache()
+    bv, want = _secp_verifier("cpu")
+    assert bv.verify() == (False, want)
+    assert tds.tier_counts("secp256k1") == {"cuda": (0, 0), "torch": (0, 0), "host": (1, 5)}
+    assert tbh.snapshot()["fallback_signatures"] == 5
+    tsc.reset_cache()
 
 
 # -- on the card ---------------------------------------------------------------
