@@ -86,15 +86,42 @@ served by the torch or host tier, or one that raised, fails the run.
               plain version, host prep, the commit walls and the set-up;
               the bound from the work ECDSA verification needs on the
               timed lanes (``cuda_secp.needed_work``), and beside it the
-              kernel's own tally.
+              kernel's own tally;
+ 12. light  — light-client header sync (BASELINE config 3), a path of its
+              own: 1,000 equal-power validators, a trusted header at height
+              1 and 16 adjacent headers, the set changed at height 9
+              (``update_with_change_set``: 100 leave, 100 join, one changes
+              power; header 8 names the new set), every commit signed by its
+              whole set.  The SHA-256 tree kernel (``csrc/sha256_tree.cu``)
+              against its plain PyTorch version bit for bit and both against
+              ``crypto/merkle`` on the validator set, on sets of 1-129 leaves,
+              on the block-edge leaf lengths and on 16,384 leaves; then the
+              sync through ``light/verifier``: ``verify_adjacent_chain``
+              cold and warm (every header's ``ValidatorSet.hash`` through the
+              hashing plane -> ``ops/sha256_tree`` -> the tree kernel, the
+              commits through ``verify_batches_overlapped`` -> the Ed25519
+              kernel), the sequential ``verify_adjacent`` loop,
+              ``verify_non_adjacent`` from 1 to 17, and four rejections with
+              the JAX package's error classes (a forged signature, a wrong
+              ``validators_hash``, an expired trusted header, a target the
+              trusted set cannot vouch for), chain and sequential agreeing;
+              before them, with the self-check undone, ``verify_adjacent``
+              opens the gate itself so that its first set hash is the
+              card's; every tree pass and signature batch served by
+              ``cuda``; times of the tree kernel at 1,000 and 16,384 leaves
+              beside its plain version, the host ``crypto/merkle`` and its
+              bound, the layer kernel's instruction mix (``cuobjdump``), and of
+              the sync (per header, cold and warm) with where a header's time
+              goes.
 
 Usage, from the repository root, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
 Set-up signs 10,240 votes with the pure-Python oracle (~1.6 ms each on one
-host core, ~17 s in all) and 10,240 secp256k1 votes (~5 s): the cost of
-making the data, not of verifying it.
+host core, ~17 s in all), 10,240 secp256k1 votes (~5 s) and the light
+chain's 17,000 votes (~30 s): the cost of making the data, not of
+verifying it.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -107,6 +134,7 @@ import hashlib
 import json
 import os
 import pstats
+import re
 import statistics
 import subprocess
 import sys
@@ -150,6 +178,20 @@ HANG_S = 2.0
 POISON = 17  # the input of the fault batch that kills the kernel
 SECP_SEED = SEED + 5  # the secp256k1 validators' keys
 SECP_SMALL_N = (1, 3, 31, 33, 255)
+LIGHT_SEED = SEED + 7  # the light chain's keys and the tree phase's leaves
+LIGHT_VALIDATORS = 1_000  # BASELINE config 3
+LIGHT_HEADERS = 16  # adjacent headers after the trusted one
+LIGHT_CHANGE_AT = 9  # the first height signed by the changed set
+LIGHT_CHANGED = 100  # validators that leave, and that join, there
+LIGHT_PERIOD_S = 14 * 24 * 3600  # trusting period
+LIGHT_T0 = 1_760_000_000  # header 1's time; a header every 5 s
+LIGHT_RUNS = 3  # cold chain samples
+LIGHT_FORGED = (11, 123)  # (header of the chain, commit index) forged
+LIGHT_BAD_HASH = 4  # header of the chain with a wrong validators_hash
+LIGHT_UNTRUSTED_SIGNERS = 300  # of the trusted set's 1,000, on the target
+TREE_BIG = 16_384  # the JAX bucket cap, the proof-serving size
+TREE_SMALL_N = (1, 2, 3, 8, 9, 31, 32, 33, 63, 65, 127, 129)
+TREE_EDGE_LENS = (0, 1, 54, 55, 56, 63, 64, 65, 118, 119, 120)
 
 
 class SmokeError(AssertionError):
@@ -1001,6 +1043,441 @@ def tampered(commit, idx):
     return out
 
 
+def make_light_chain(n: int, headers: int):
+    """BASELINE config 3's chain: ``n`` equal-power validators (keys from
+    LIGHT_SEED), light blocks at heights 1 .. ``headers`` + 1, the set
+    changed at LIGHT_CHANGE_AT by ``update_with_change_set`` (the first
+    LIGHT_CHANGED leave, as many join, one more changes power), each header
+    at its own time with a block id whose hash is ``Header.hash()``, each
+    commit signed by its whole set.  Returns (light blocks, the set before,
+    the set after)."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.types.basic import (
+        BLOCK_ID_FLAG_COMMIT,
+        BlockID,
+        PartSetHeader,
+        Timestamp,
+    )
+    from cometbft_tpu_torch.types.block import Commit, ConsensusVersion, Header
+    from cometbft_tpu_torch.types.light import LightBlock, SignedHeader
+    from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+    from cometbft_tpu_torch.types.vote import CommitSig
+
+    rng = np.random.default_rng(LIGHT_SEED)
+    privs = [Ed25519PrivKey.from_seed(rng.bytes(32)) for _ in range(n + LIGHT_CHANGED)]
+    by_addr = {p.pub_key().address(): p for p in privs}
+    before = ValidatorSet([Validator(p.pub_key(), 10) for p in privs[:n]])
+    after = before.copy()
+    after.update_with_change_set(
+        [Validator(p.pub_key(), 0) for p in privs[:LIGHT_CHANGED]]
+        + [Validator(p.pub_key(), 10) for p in privs[n:]]
+        + [Validator(privs[LIGHT_CHANGED].pub_key(), 30)])
+    hashes = {id(before): before.hash(), id(after): after.hash()}
+    lbs, bid = [], BlockID()
+    for h in range(1, headers + 2):
+        base = before if h < LIGHT_CHANGE_AT else after
+        nxt = before if h + 1 < LIGHT_CHANGE_AT else after
+        vals = base.copy_increment_proposer_priority(h)
+        t = Timestamp(LIGHT_T0 + 5 * (h - 1), 0)
+        header = Header(
+            version=ConsensusVersion(11, 1), chain_id=CHAIN_ID, height=h, time=t,
+            last_block_id=bid,
+            data_hash=hashlib.sha256(b"data-%d" % h).digest(),
+            validators_hash=hashes[id(base)],
+            next_validators_hash=hashes[id(nxt)],
+            app_hash=hashlib.sha256(b"app-%d" % h).digest(),
+            proposer_address=vals.get_proposer().address,
+        )
+        bid = BlockID(header.hash(),
+                      PartSetHeader(1, hashlib.sha256(b"parts-%d" % h).digest()))
+        commit = Commit(h, 0, bid, [
+            CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                      Timestamp(t.seconds + 1, 1_000_003 * i), b"")
+            for i, v in enumerate(vals.validators)])
+        for v, cs, m in zip(vals.validators, commit.signatures,
+                            commit.all_vote_sign_bytes(CHAIN_ID)):
+            cs.signature = by_addr[v.address].sign(m)
+        lbs.append(LightBlock(SignedHeader(header, commit), vals))
+    return lbs, before, after
+
+
+def _with_commit(lb, commit, header=None):
+    """A copy of light block ``lb`` with another commit (and header)."""
+    from cometbft_tpu_torch.types.light import LightBlock, SignedHeader
+
+    return LightBlock(SignedHeader(header or lb.signed_header.header, commit),
+                      lb.validator_set)
+
+
+def light_cases(lbs):
+    """The rejections of the light phase, built from the good chain: name
+    -> (the bad light block, the chain of adjacent headers that ends in it,
+    the error class the JAX package raises, the index it names)."""
+    import dataclasses
+
+    from cometbft_tpu_torch.types.basic import BlockID
+    from cometbft_tpu_torch.types.vote import CommitSig
+
+    news = lbs[1:]
+    j, i = LIGHT_FORGED
+    forged = tampered(news[j].signed_header.commit, [i])
+    forged = _with_commit(news[j], forged)
+    old = news[LIGHT_BAD_HASH]
+    header = dataclasses.replace(old.signed_header.header, validators_hash=b"\x11" * 32)
+    c = old.signed_header.commit
+    # the commit follows the header, so validate_basic reaches the set check
+    bad_hash = _with_commit(old, type(c)(
+        c.height, c.round_, BlockID(header.hash(), c.block_id.part_set_header),
+        c.signatures), header)
+    trusted_vals = lbs[0].validator_set
+    target = lbs[-1]
+    keep = [k for k, v in enumerate(target.validator_set.validators)
+            if trusted_vals.has_address(v.address)][:LIGHT_UNTRUSTED_SIGNERS]
+    keep = set(keep)
+    c = target.signed_header.commit
+    untrusted = _with_commit(target, type(c)(c.height, c.round_, c.block_id, [
+        cs if k in keep else CommitSig() for k, cs in enumerate(c.signatures)]))
+    return {
+        "forged signature": (forged, news[:j] + [forged],
+                             "InvalidSignatureError", i),
+        "wrong validators_hash": (bad_hash, news[:LIGHT_BAD_HASH] + [bad_hash],
+                                  "ErrInvalidHeader", None),
+        "untrusted target": (untrusted, None, "ErrNewValSetCantBeTrusted", None),
+    }
+
+
+def merkle_levels(merkle, items):
+    """Every level of the tree from ``crypto/merkle``'s leaf and inner
+    hashes, leaves first: adjacent pairs, the odd tail promoted."""
+    level = [merkle._leaf_hash(it) for it in items]
+    levels = [level]
+    while len(level) > 1:
+        nxt = [merkle._inner_hash(level[j], level[j + 1])
+               for j in range(0, len(level) - 1, 2)]
+        level = nxt + level[2 * len(nxt):]
+        levels.append(level)
+    return levels
+
+
+def word_levels(st, words, n):
+    """The digests of a tree's words (every level, leaves first) as bytes,
+    level by level."""
+    import numpy as np
+
+    raw = words.cpu().numpy().astype(np.uint32).astype(">u4").tobytes()
+    levels, o = [], 0
+    for k in st.level_sizes(n):
+        levels.append([raw[32 * i : 32 * i + 32] for i in range(o, o + k)])
+        o += k
+    return levels
+
+
+def sass_mix(lib, kernel: str) -> dict:
+    """Opcode counts of ``kernel``'s machine code in the built library
+    ``lib`` (``cuobjdump -sass``; an opcode without its modifiers)."""
+    from pathlib import Path
+
+    from cometbft_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    counts, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+            continue
+        m = inside and re.match(
+            r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def light_phase(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
+                tag) -> dict:
+    """Phase 12: light-client header sync (BASELINE config 3) through the
+    SHA-256 tree kernel and the Ed25519 kernel.  Returns the tree kernel's
+    entry of the kernels line."""
+    import numpy as np
+
+    from cometbft_tpu_torch import verifysched
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.light import verifier as lv
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.proofserve import plane
+    from cometbft_tpu_torch.types import validation as val
+    from cometbft_tpu_torch.types.validator import ValidatorSet
+
+    t0 = time.perf_counter()
+    lbs, before, after = make_light_chain(LIGHT_VALIDATORS, LIGHT_HEADERS)
+    setup_s = time.perf_counter() - t0
+    print(f"light: {LIGHT_VALIDATORS} validators, {LIGHT_HEADERS + 1} headers "
+          f"(set changed at height {LIGHT_CHANGE_AT}: {LIGHT_CHANGED} left, "
+          f"{LIGHT_CHANGED} joined, one changed power; {len(after)} validators "
+          f"of total power {after.total_voting_power()} after it), "
+          f"{sum(len(lb.signed_header.commit.signatures) for lb in lbs)} "
+          f"signed votes in {setup_s:.2f} s (pure-Python signing; data "
+          f"set-up, not verification)")
+
+    # the tree kernel against its plain version and crypto/merkle
+    rng = np.random.default_rng(LIGHT_SEED + 1)
+    cycle = lambda k: [rng.bytes(TREE_EDGE_LENS[x % len(TREE_EDGE_LENS)])
+                       for x in range(k)]
+    validators = [v.simple_encode() for v in before.validators]
+    big = [rng.bytes(int(ln)) for ln in rng.integers(0, 128, TREE_BIG)]
+    sets = {"the validator set": validators}
+    sets.update({f"{k} leaves": cycle(k) for k in TREE_SMALL_N})
+    sets.update({f"9 leaves of {ln} bytes": [rng.bytes(ln) for _ in range(9)]
+                 for ln in TREE_EDGE_LENS})
+    sets[f"{TREE_BIG} leaves"] = big
+    worst = 0
+    for name, items in sets.items():
+        data, offs = st.pack_leaves(items, dev)
+        kern = csh.tree_words(data, offs)
+        torch.cuda.synchronize()
+        plain = st.tree_words_plain(data, offs)
+        err = int((kern.long() - plain.long()).abs().max())
+        worst = max(worst, err)
+        check(torch.equal(kern, plain), f"light: tree kernel != plain on {name} "
+              f"(max_abs_err {err})")
+        levels = word_levels(st, kern, len(items))
+        check(levels == merkle_levels(merkle, items),
+              f"light: tree levels != crypto/merkle's on {name}")
+        check(st.device_root(items) == levels[-1][0]
+              == merkle.hash_from_byte_slices(items),
+              f"light: tree root != crypto/merkle on {name}")
+    print(f"light: tree kernel == plain version bit for bit (max_abs_err "
+          f"{worst}), every level == crypto/merkle's leaf and inner hashes, "
+          f"the device pass's root == crypto/merkle's, on {len(sets)} leaf "
+          f"sets: {', '.join(sets)}")
+
+    # the sync through the entry points
+    trusted, news = lbs[0], lbs[1:]
+    now = LIGHT_T0 + 5 * (LIGHT_HEADERS + 2)
+    cache = sigcache.get_cache()
+    made = [0]  # validator-set hashes at the plane's width
+    real_hash = ValidatorSet.hash
+
+    def counted_hash(self, device=None):
+        if len(self) >= plane.min_batch():
+            made[0] += 1
+        return real_hash(self, device)
+
+    def chain(news_, now_=now):
+        lv.verify_adjacent_chain(CHAIN_ID, trusted, news_, LIGHT_PERIOD_S, now_)
+
+    def sequential(news_, now_=now):
+        current = trusted
+        for lb in news_:
+            lv.verify_adjacent(CHAIN_ID, current, lb, LIGHT_PERIOD_S, now_)
+            current = lb
+
+    def outcome(fn):
+        try:
+            fn()
+        except (lv.LightClientError, val.CommitVerificationError) as e:
+            return type(e).__name__, getattr(e, "index", None)
+        return None
+
+    # a fresh process: no self-check has run, and the entry point runs it
+    # before the first header's hashes, which are then the card's
+    cbatch._SELF_CHECKED.clear()
+    check(not st.device_active(), "light: the gate is open before any self-check")
+    fresh0 = ds.tier_counts(st.MERKLE)
+    lv.verify_adjacent(CHAIN_ID, trusted, news[0], LIGHT_PERIOD_S, now)
+    fresh = {k: v[0] - fresh0[k][0] for k, v in ds.tier_counts(st.MERKLE).items()}
+    check(st.device_active() and fresh["cuda"] == 1 and fresh["host"] == 0,
+          f"light: the first header of a fresh gate hashed its set by tier {fresh}")
+    print(f"light: a fresh gate: verify_adjacent ran the self-check before the "
+          f"header checks; the first validator-set hash by tier {fresh}")
+
+    ed0, tree0 = ds.tier_counts(), ds.tier_counts(st.MERKLE)
+    over0 = ds.tier_counts(st.MERKLE_OVERSIZE)
+    cv.reset_launches()
+    csh.reset_launches()
+    ValidatorSet.hash = counted_hash
+    try:
+        cold = []
+        for _ in range(LIGHT_RUNS):
+            cache.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            chain(news)
+            cold.append((time.perf_counter() - t0) * 1e3)
+        cold_launches = cv.launches
+        check(cold_launches == LIGHT_RUNS * LIGHT_HEADERS,
+              f"light: {cold_launches} Ed25519 launches for {LIGHT_RUNS} cold "
+              f"chains of {LIGHT_HEADERS} headers")
+        t0 = time.perf_counter()
+        chain(news)
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        check(cv.launches == cold_launches,
+              f"light: the warm chain made {cv.launches - cold_launches} launches")
+        cache.clear()
+        t0 = time.perf_counter()
+        sequential(news)
+        seq_ms = (time.perf_counter() - t0) * 1e3
+        cache.clear()
+        t0 = time.perf_counter()
+        lv.verify_non_adjacent(CHAIN_ID, trusted, lbs[-1], LIGHT_PERIOD_S, now)
+        nonadj_ms = (time.perf_counter() - t0) * 1e3
+        lv.verify(CHAIN_ID, trusted, lbs[1], LIGHT_PERIOD_S, now)
+        lv.verify(CHAIN_ID, trusted, lbs[-1], LIGHT_PERIOD_S, now)
+
+        # rejections, each with the JAX package's error class
+        late = LIGHT_T0 + LIGHT_PERIOD_S + 1
+        seen = {"expired trusted header": (
+            outcome(lambda: chain(news, late)), outcome(lambda: sequential(news, late)),
+            outcome(lambda: lv.verify_non_adjacent(CHAIN_ID, trusted, lbs[-1],
+                                                   LIGHT_PERIOD_S, late)))}
+        check(set(seen["expired trusted header"]) == {("ErrOldHeaderExpired", None)},
+              f"light: expired: {seen}")
+        for name, (bad, run, want, index) in light_cases(lbs).items():
+            if run is None:
+                got = (outcome(lambda: lv.verify_non_adjacent(
+                           CHAIN_ID, trusted, bad, LIGHT_PERIOD_S, now)),
+                       outcome(lambda: lv.verify(CHAIN_ID, trusted, bad,
+                                                 LIGHT_PERIOD_S, now)))
+            else:
+                # the run before the bad header passes (warm): it is the
+                # bad header that raises, on both paths
+                chain(run[:-1])
+                got = (outcome(lambda: chain(run)), outcome(lambda: sequential(run)))
+            seen[name] = got
+            check(set(got) == {(want, index)}, f"light: {name}: {got}, want "
+                  f"{(want, index)}")
+    finally:
+        ValidatorSet.hash = real_hash
+    launches = csh.launches
+    tree = {k: (v[0] - tree0[k][0], v[1] - tree0[k][1])
+            for k, v in ds.tier_counts(st.MERKLE).items()}
+    over = {k: v[0] - over0[k][0] for k, v in ds.tier_counts(st.MERKLE_OVERSIZE).items()}
+    ed = {k: (v[0] - ed0[k][0], v[1] - ed0[k][1]) for k, v in ds.tier_counts().items()}
+    check(tree["cuda"][0] == made[0] > 0 and tree["torch"] == tree["host"] == (0, 0)
+          and not any(over.values()),
+          f"light: tree passes by tier {tree}, oversize {over}, for {made[0]} "
+          f"validator-set hashes")
+    check(ed["cuda"][0] > 0 and ed["torch"] == ed["host"] == (0, 0),
+          f"light: signature batches by tier {ed}")
+    levels_per_tree = len(st.level_sizes(LIGHT_VALIDATORS))
+    check(cv.launches > 0 and launches == made[0] * levels_per_tree > 0,
+          f"light: {launches} tree launches for {made[0]} validator-set "
+          f"hashes, {cv.launches} Ed25519 launches")
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
+    check(not leaked, f"light: imported {leaked}")
+    print(f"light: slice: verify_adjacent_chain over {LIGHT_HEADERS} headers "
+          f"passed cold ({LIGHT_RUNS} runs, cache cleared before each, "
+          f"{LIGHT_HEADERS} Ed25519 launches each) and warm (0 Ed25519 "
+          f"launches); the sequential verify_adjacent loop, verify_non_adjacent "
+          f"1 -> {LIGHT_HEADERS + 1} and verify passed; rejections, chain and "
+          f"sequential agreeing, as (error, index): {seen}; "
+          f"{made[0]} validator-set hashes, tree passes by tier (passes, "
+          f"leaves) {tree}, oversize {over}; signature batches by tier {ed}; "
+          f"launches: tree kernels {launches} ({levels_per_tree} per "
+          f"{LIGHT_VALIDATORS}-leaf tree), Ed25519 {cv.launches}; jax not imported")
+
+    # times: the tree kernel, its plain version and the host merkle
+    def tree_times(items):
+        data, offs = st.pack_leaves(items, dev)
+        ms = cuda_ms(torch, lambda: csh.tree_words(data, offs), KERNEL_RUNS, 3)
+        plain_ms = cuda_ms(torch, lambda: st.tree_words_plain(data, offs), 3, 1)
+        host_ms = median_ms(lambda: merkle.hash_from_byte_slices(items), 5)
+        lens = [len(x) for x in items]
+        comps = csh.compressions(lens)
+        nbytes = (sum(lens) + 8 * (len(items) + 1)
+                  + 32 * sum(st.level_sizes(len(items))))
+        b_ms, b_by = bound(comps * csh.OPS_PER_COMPRESSION, nbytes, sms,
+                           max_clock_mhz)
+        print(f"light: time: tree kernel {ms} ms at {len(items)} leaves "
+              f"({len(st.level_sizes(len(items)))} launches; median of "
+              f"{KERNEL_RUNS} samples of one call, CUDA events); plain PyTorch "
+              f"version {plain_ms} ms; host crypto/merkle (the host path, not a "
+              f"card number) {host_ms} ms; bound {b_ms} ms by {b_by}: {comps} "
+              f"compressions x {csh.OPS_PER_COMPRESSION} sm_90 integer instructions (SHF, "
+              f"LOP3, IADD3, IADD) over "
+              f"{sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
+              f"{max_clock_mhz:.0f} MHz, or {nbytes} bytes; kernel at "
+              f"{b_ms / ms:.2%} of its bound {tag}")
+        return ms, plain_ms, b_ms, b_by
+
+    kernel_ms, plain_ms, bound_ms, bound_by = tree_times(validators)
+    tree_times(big)
+    print("light: library_ms is null: no PyTorch library call computes SHA-256")
+    from cometbft_tpu_torch.ops import _build
+
+    mix = sass_mix(_build.lib_path(csh.NAME), "sha256_layer_kernel")
+    alu = {k: mix.get(k, 0) for k in ("SHF", "LOP3", "IADD3", "IADD", "IMAD",
+                                      "PRMT", "SHL", "SHR", "LEA")}
+    check(sum(mix.values()) > 0, "light: cuobjdump showed no sha256_layer_kernel")
+    print(f"sass: sha256_layer_kernel (one parent per thread: two "
+          f"compressions, the second over a schedule of constant words): "
+          f"{sum(mix.values())} instructions, of them {alu}; the bound counts "
+          f"2 x {csh.OPS_PER_COMPRESSION} = {2 * csh.OPS_PER_COMPRESSION} per "
+          f"parent {tag}")
+    occ = csh.occupancy()
+    print(f"occupancy: {csh.NAME}: 1 thread per leaf (and per parent), "
+          f"{occ['threads']} threads per block, {occ['regs']} registers and "
+          f"{occ['local_bytes']} bytes of local memory per thread; "
+          f"{occ['blocks_per_sm']} blocks resident per SM {tag}")
+
+    # times: the sync, and where a header's time goes
+    per_cold = statistics.median(cold) / LIGHT_HEADERS
+    print(f"light: time: verify_adjacent_chain over {LIGHT_HEADERS} headers of "
+          f"{LIGHT_VALIDATORS} validators: cold {statistics.median(cold)} ms "
+          f"(median of {LIGHT_RUNS}; all {cold}) = {per_cold} ms per header = "
+          f"{1e3 / per_cold:.1f} headers/s; warm (0 Ed25519 launches) {warm_ms} "
+          f"ms = {warm_ms / LIGHT_HEADERS} ms per header; the sequential "
+          f"verify_adjacent loop, cold, {seq_ms} ms = {seq_ms / LIGHT_HEADERS} "
+          f"ms per header; verify_non_adjacent 1 -> {LIGHT_HEADERS + 1}, cold, "
+          f"{nonadj_ms} ms; set-up {setup_s * 1e3:.0f} ms {tag}")
+    lb = news[LIGHT_CHANGE_AT]
+    commit = lb.signed_header.commit
+    valset_ms = median_ms(lambda: lb.validator_set.hash(), 10)
+    encode_ms = median_ms(lambda: [v.simple_encode() for v in lb.validator_set.validators], 10)
+    header_ms = median_ms(lambda: lb.signed_header.header.hash(), 10)
+    basic_ms = median_ms(lambda: lb.validate_basic(CHAIN_ID), 5)
+    prep = lambda: val.prepare_commit_light(CHAIN_ID, lb.validator_set,
+                                            commit.block_id, lb.height, commit)
+    prepare_ms = median_ms(prep, 5)
+    p = prep()
+
+    def cache_round():
+        cache.clear()
+        bits, miss = sigcache.partition_misses(p.pubs, p.msgs, p.sigs)
+        sigcache.writeback(p.pubs, p.msgs, p.sigs, bits, miss, [True] * len(miss))
+
+    cache_ms = median_ms(cache_round, 5)
+    pack_ms = median_ms(lambda: ov.prepare_batch(p.pubs, p.msgs, p.sigs), 5)
+    arrays, _, _ = ov.prepare_batch(p.pubs, p.msgs, p.sigs)
+    tg = ov.batch_to_device(arrays, dev)
+    ed_ms = cuda_ms(torch, lambda: cv.verify_core_cuda(**tg), KERNEL_RUNS, 3)
+    rest = per_cold - basic_ms - prepare_ms - cache_ms - pack_ms - ed_ms
+    print(f"light: time: one header (height {lb.height}, {len(p.pubs)} "
+          f"signatures to pass 2/3), medians of separate runs: validate_basic "
+          f"{basic_ms} ms (of it the validator-set hash {valset_ms} ms: "
+          f"simple_encode of {len(lb.validator_set)} validators {encode_ms} ms, "
+          f"the tree plane and kernel the rest; the header hash, 14 leaves on "
+          f"the host, {header_ms} ms); entries and sign bytes "
+          f"(prepare_commit_light) {prepare_ms} ms; the signature cache "
+          f"(partition and writeback, cold) {cache_ms} ms; Ed25519 host prep "
+          f"{pack_ms} ms; Ed25519 kernel {ed_ms} ms; remainder of the cold "
+          f"per-header wall {rest} ms {tag}")
+    cache.clear()
+    verifysched.reset_scheduler()  # drains and joins its threads
+    return {
+        "name": csh.NAME, "route": "cuda", "source": csh.SOURCE,
+        "replaces": csh.REPLACES, "launches": launches,
+        "max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -1271,6 +1748,10 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     secp_entry = secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
                             max_clock_mhz, tag)
 
+    # -- 12. light: header sync (config 3) through the SHA-256 tree kernel --
+    light_entry = light_phase(torch, dev, cbatch, cv, ds, sigcache, sms,
+                              max_clock_mhz, tag)
+
     print("host: " + json.dumps({
         "name": native.NAME,
         "source": native.SOURCE,
@@ -1294,7 +1775,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, chain_entry, secp_entry]}))
+    }, chain_entry, secp_entry, light_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

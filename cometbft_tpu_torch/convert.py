@@ -14,7 +14,8 @@ from __future__ import annotations
 from cometbft_tpu_torch.crypto.keys import pub_key_from_type
 from cometbft_tpu_torch.ops.verify import batch_to_device
 from cometbft_tpu_torch.types.basic import BlockID, PartSetHeader, Timestamp
-from cometbft_tpu_torch.types.block import Commit
+from cometbft_tpu_torch.types.block import Commit, ConsensusVersion, Header
+from cometbft_tpu_torch.types.light import LightBlock, SignedHeader
 from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
 from cometbft_tpu_torch.types.vote import CommitSig, Vote
 
@@ -74,6 +75,32 @@ def commit_from(obj) -> Commit:
             for cs in obj.signatures
         ],
     )
+
+
+def header_from(obj) -> Header:
+    """A header with the same fields (and so the same hash)."""
+    ts = lambda t: Timestamp(int(t.seconds), int(t.nanos))  # noqa: E731
+    return Header(
+        version=ConsensusVersion(int(obj.version.block), int(obj.version.app)),
+        chain_id=str(obj.chain_id),
+        height=int(obj.height),
+        time=ts(obj.time),
+        last_block_id=block_id_from(obj.last_block_id),
+        **{f: bytes(getattr(obj, f)) for f in (
+            "last_commit_hash", "data_hash", "validators_hash",
+            "next_validators_hash", "consensus_hash", "app_hash",
+            "last_results_hash", "evidence_hash", "proposer_address")},
+    )
+
+
+def signed_header_from(obj) -> SignedHeader:
+    return SignedHeader(header_from(obj.header), commit_from(obj.commit))
+
+
+def light_block_from(obj) -> LightBlock:
+    """A light block with the same signed header and validator set."""
+    return LightBlock(signed_header_from(obj.signed_header),
+                      validator_set_from(obj.validator_set))
 
 
 def vote_from(obj) -> Vote:

@@ -50,6 +50,8 @@ _STATE_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 # The breaker of the secp256k1 device path (``ops/supervisor``'s
 # ``supervised_device_call``), beside the verify chain's ``cuda``/``torch``.
 SECP_DEVICE = "secp_device"
+# ... and of the SHA-256 Merkle tree kernel (``ops/sha256_tree``).
+MERKLE_DEVICE = "merkle_device"
 
 
 class BackendError(RuntimeError):

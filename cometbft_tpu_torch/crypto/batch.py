@@ -28,11 +28,20 @@ There is no silent demotion: with no CUDA device and no explicit CPU
 request ``default_backend`` raises, a card that fails a known-answer
 self-check (one per key type) raises naming the check, and on a card a
 batch its kernel did not serve raises ``BackendError``.
+
+``COMETBFT_TPU_CRYPTO_BACKEND`` is the operator's request, read first, as
+in the JAX package: ``cpu`` gives the CPU verifier for every key type and
+closes the trust gate (``verifysched.backend_trusted``); ``gpu``, or the
+JAX package's name ``tpu``, asks for the card; ``auto`` or unset keeps
+the default (the card, or a raise without one).  Any other value raises
+``ValueError``.  An explicit ``backend`` or ``device`` argument wins over
+the variable.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 from typing import Optional
 
@@ -105,13 +114,31 @@ def secp_self_check(device=None) -> None:
         )
 
 
+def env_backend() -> Optional[str]:
+    """The backend that ``COMETBFT_TPU_CRYPTO_BACKEND`` asks for: ``"cpu"``,
+    ``"gpu"`` (also for ``tpu``, the JAX package's accelerator), or None
+    when it is unset or ``auto``.  Raises ``ValueError`` on any other
+    value."""
+    env = os.environ.get("COMETBFT_TPU_CRYPTO_BACKEND", "")
+    if env in ("", "auto"):
+        return None
+    if env in ("gpu", "tpu"):
+        return "gpu"
+    if env == "cpu":
+        return "cpu"
+    raise ValueError(f"unknown COMETBFT_TPU_CRYPTO_BACKEND: {env!r}")
+
+
 def default_backend() -> str:
-    """'gpu' when a CUDA device is visible *and* it passes the known-answer
-    self-check (run once per process).  Raises when there is no CUDA
-    device: the caller must ask for ``backend="cpu"`` or ``device="cpu"``
-    explicitly."""
+    """'cpu' when ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``; otherwise 'gpu' when
+    a CUDA device is visible *and* it passes the known-answer self-check
+    (run once per process).  Raises when there is no CUDA device: the
+    caller must ask for the CPU explicitly (``backend="cpu"``,
+    ``device="cpu"`` or the variable)."""
     from cometbft_tpu_torch.ops import verify as ov
 
+    if env_backend() == "cpu":
+        return "cpu"
     dev = ov.resolve_device(None)
     key = str(dev)
     with _LOCK:
@@ -302,9 +329,12 @@ def create_batch_verifier(
     self-checked), unless ``device`` names a device explicitly, which
     selects the ``gpu`` backend on that device.  A secp256k1 key gets
     ``Secp256k1BatchVerifier`` on ``device`` (None: the card), or on the
-    CPU for ``backend="cpu"``."""
+    CPU for ``backend="cpu"``.  With neither ``backend`` nor ``device``,
+    ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` means ``backend="cpu"``."""
     if not supports_batch_verifier(pub_key):
         raise ValueError(f"key type does not support batch verification: {pub_key}")
+    if backend is None and device is None and env_backend() == "cpu":
+        backend = "cpu"
     if pub_key.type_ == ck.SECP256K1_KEY_TYPE:
         if backend == "cpu":
             device = "cpu"

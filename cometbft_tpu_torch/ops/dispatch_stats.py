@@ -21,7 +21,10 @@ Counters:
     per key type and tier (``cuda`` on a card; ``torch``, then ``host``
     below it, on the CPU).  A card's batch that the kernel did not serve
     raises and shows under no tier; on the CPU a batch the plain version
-    did not serve shows under ``host``.
+    did not serve shows under ``host``.  The SHA-256 tree plane
+    (``ops/sha256_tree``) records its tree passes and leaves under the key
+    ``merkle`` (``host`` for the sets it routes to the host), and the
+    oversize ones also under ``merkle_oversize``.
 
 Histograms:
   * ``buckets[lanes]``            — dispatch count per lane count
@@ -89,8 +92,8 @@ def record_dispatch_time(impl: str, lanes: int, seconds: float) -> None:
 
 
 def record_tier(tier: str, n_signatures: int, key_type: str = "ed25519") -> None:
-    """One batch of ``n_signatures`` ``key_type`` signatures answered by
-    ``tier`` of the chain."""
+    """One batch of ``n_signatures`` ``key_type`` signatures (or one tree
+    pass of as many leaves) answered by ``tier`` of the chain."""
     with _LOCK:
         for k, n in (("tier_dispatches", 1), ("tier_lanes", int(n_signatures))):
             d = _STATS[k].setdefault(key_type, dict.fromkeys(TIERS, 0))

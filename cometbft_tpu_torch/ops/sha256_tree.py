@@ -1,0 +1,288 @@
+"""RFC 6962 SHA-256 Merkle tree roots on the card: the ``tree_root`` half
+of the JAX package's ``ops/sha256_tree.py``.
+
+A leaf set is hashed in one device pass: the leaves' raw bytes and their
+offsets go to the card, the leaf kernel hashes every ``SHA-256(0x00 ||
+leaf)``, one layer launch per level hashes adjacent pairs
+``SHA-256(0x01 || L || R)``, an odd tail promoted unchanged
+(``ops/cuda_sha256.py`` + ``csrc/sha256_tree.cu``), and the root's 32
+bytes come back.  Bottom-up adjacent
+pairing with odd-tail promotion is structurally equal to
+``crypto/merkle``'s split-point recursion, which is the oracle.
+
+``leaf_core`` / ``layer_core`` are the kernel's plain PyTorch version:
+32-bit words held in int64 and masked (torch on the CPU has no add and no
+shifts for ``uint32``).  CPU tensors take it.
+
+Routing, as in the JAX package: a set beyond the bucket rules
+(``_bucket_shape``) goes to the host oracle and is counted as oversize;
+with no device named and the trust gate closed
+(``verifysched.backend_trusted``, which reads
+``COMETBFT_TPU_CRYPTO_BACKEND`` first) a tree is hashed on the host.  The
+gate never runs the card's self-check itself; a named device runs its
+tier whatever the gate says.  There is no fallback: on
+a card, a tree pass that the kernel fails, or that returns a malformed
+result, counts against the ``merkle_device`` breaker, logs a WARNING and
+raises ``BackendError`` (``ops/supervisor.supervised_device_call``); the
+JAX package recomputes that tree on the host instead.  On the CPU the
+host answers below the plain version, counted per tier.  Tree passes and
+leaves served per tier are in ``ops/dispatch_stats.tier_counts("merkle")``,
+oversize ones also under ``"merkle_oversize"``.
+
+``tree_proofs`` and ``proofs_from_levels``, and with them the copy of
+every level back, wait for the port of the proof service.
+"""
+
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+import torch
+
+from cometbft_tpu_torch.crypto import merkle
+from cometbft_tpu_torch.crypto.backend_health import (
+    MERKLE_DEVICE,
+    BackendOutputError,
+)
+
+BREAKER = MERKLE_DEVICE
+MERKLE = "merkle"  # the dispatch_stats key of tree passes
+MERKLE_OVERSIZE = "merkle_oversize"
+
+# The JAX package's bucket rules: lanes are powers of two, blocks bound the
+# longest leaf; a set beyond them is hashed on the host
+_MIN_LANES = 8
+_MAX_LANES_DEFAULT = 16384
+_MAX_BLOCKS = 1024  # 64 KiB leaves (part-set chunks)
+_MAX_BATCH_BYTES = 1 << 25  # lanes * blocks * 64
+
+_H0 = (
+    0x6A09E667, 0xBB67AE85, 0x3C6EF372, 0xA54FF53A,
+    0x510E527F, 0x9B05688C, 0x1F83D9AB, 0x5BE0CD19,
+)
+_K = (
+    0x428A2F98, 0x71374491, 0xB5C0FBCF, 0xE9B5DBA5,
+    0x3956C25B, 0x59F111F1, 0x923F82A4, 0xAB1C5ED5,
+    0xD807AA98, 0x12835B01, 0x243185BE, 0x550C7DC3,
+    0x72BE5D74, 0x80DEB1FE, 0x9BDC06A7, 0xC19BF174,
+    0xE49B69C1, 0xEFBE4786, 0x0FC19DC6, 0x240CA1CC,
+    0x2DE92C6F, 0x4A7484AA, 0x5CB0A9DC, 0x76F988DA,
+    0x983E5152, 0xA831C66D, 0xB00327C8, 0xBF597FC7,
+    0xC6E00BF3, 0xD5A79147, 0x06CA6351, 0x14292967,
+    0x27B70A85, 0x2E1B2138, 0x4D2C6DFC, 0x53380D13,
+    0x650A7354, 0x766A0ABB, 0x81C2C92E, 0x92722C85,
+    0xA2BFE8A1, 0xA81A664B, 0xC24B8B70, 0xC76C51A3,
+    0xD192E819, 0xD6990624, 0xF40E3585, 0x106AA070,
+    0x19A4C116, 0x1E376C08, 0x2748774C, 0x34B0BCB5,
+    0x391C0CB3, 0x4ED8AA4A, 0x5B9CCA4F, 0x682E6FF3,
+    0x748F82EE, 0x78A5636F, 0x84C87814, 0x8CC70208,
+    0x90BEFFFA, 0xA4506CEB, 0xBEF9A3F7, 0xC67178F2,
+)
+_MASK = 0xFFFFFFFF
+
+EMPTY_HASH = hashlib.sha256(b"").digest()
+
+
+def device_active() -> bool:
+    """True when a tree pass with no device named goes to the card: the
+    trust gate is open.  Never runs the self-check."""
+    from cometbft_tpu_torch.verifysched import service
+
+    return service.backend_trusted()
+
+
+def level_sizes(n: int) -> "list[int]":
+    """Digests per level of an ``n``-leaf tree, leaves first."""
+    sizes = [n]
+    while sizes[-1] > 1:
+        sizes.append((sizes[-1] + 1) // 2)
+    return sizes
+
+
+# -- bucket rules --------------------------------------------------------------
+
+
+def _pow2_at_least(n: int, floor: int) -> int:
+    b = floor
+    while b < n:
+        b *= 2
+    return b
+
+
+def _bucket_shape(items) -> "tuple[int, int] | None":
+    """(lanes, blocks) of the JAX package's padding bucket for a leaf set,
+    or None when the set exceeds its ladder (too many leaves, a leaf too
+    long, or too many bytes in all): such a set is hashed on the host.
+    The kernel pads nothing; the rules only route."""
+    n = len(items)
+    if n > _MAX_LANES_DEFAULT:
+        return None
+    lanes = _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES)
+    need = max((len(it) + 10 + 63) // 64 for it in items)
+    if need > _MAX_BLOCKS:
+        return None
+    blocks = _pow2_at_least(need, 1)
+    if lanes * blocks * 64 > _MAX_BATCH_BYTES:
+        return None
+    return lanes, blocks
+
+
+# -- the plain PyTorch version ---------------------------------------------------
+
+
+def pack_leaves(items, device="cpu") -> "tuple[torch.Tensor, torch.Tensor]":
+    """The leaves as the kernel takes them: their bytes back to back as a
+    (total,) uint8 tensor and (n + 1,) int64 offsets (leaf i is
+    ``data[offs[i]:offs[i + 1]]``), on ``device``."""
+    raw = b"".join(bytes(it) for it in items)
+    data = torch.from_numpy(np.frombuffer(raw, np.uint8).copy())
+    offs = np.zeros(len(items) + 1, np.int64)
+    np.cumsum([len(it) for it in items], out=offs[1:])
+    return data.to(device), torch.from_numpy(offs).to(device)
+
+
+def _rotr(x, n: int):
+    return ((x >> n) | (x << (32 - n))) & _MASK
+
+
+def _compress(state, w):
+    """One SHA-256 compression over lanes: ``state`` 8 and ``w`` 16 (B,)
+    int64 tensors of 32-bit words."""
+    ws = list(w)
+    for t in range(16, 64):
+        x15, x2 = ws[t - 15], ws[t - 2]
+        s0 = _rotr(x15, 7) ^ _rotr(x15, 18) ^ (x15 >> 3)
+        s1 = _rotr(x2, 17) ^ _rotr(x2, 19) ^ (x2 >> 10)
+        ws.append((ws[t - 16] + s0 + ws[t - 7] + s1) & _MASK)
+    a, b, c, d, e, f, g, h = state
+    for t in range(64):
+        s1 = _rotr(e, 6) ^ _rotr(e, 11) ^ _rotr(e, 25)
+        ch = (e & f) ^ ((e ^ _MASK) & g)
+        t1 = (h + s1 + ch + _K[t] + ws[t]) & _MASK
+        s0 = _rotr(a, 2) ^ _rotr(a, 13) ^ _rotr(a, 22)
+        maj = (a & b) ^ (a & c) ^ (b & c)
+        h, g, f, e, d, c, b, a = g, f, e, (d + t1) & _MASK, c, b, a, (
+            t1 + s0 + maj) & _MASK
+    return [(s + v) & _MASK for s, v in zip(state, (a, b, c, d, e, f, g, h))]
+
+
+def _initial(n: int, device) -> list:
+    return [torch.full((n,), h, dtype=torch.int64, device=device) for h in _H0]
+
+
+def leaf_core(data: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """(n, 8) int64 words of SHA-256(0x00 || leaf) for the leaves of
+    ``pack_leaves``: each leaf padded in place, the message blocks scanned
+    with the lanes past their last block masked."""
+    dev = offs.device
+    n = offs.numel() - 1
+    lens = offs[1:] - offs[:-1]
+    m = lens + 1  # with the 0x00 prefix
+    total = ((m + 8) // 64 + 1) * 64
+    nblk = total // 64
+    blocks = int(nblk.max()) if n else 0
+    buf = torch.zeros((n, blocks * 64), dtype=torch.int64, device=dev)
+    rows = torch.arange(n, device=dev)
+    if data.numel():
+        leaf_of = torch.repeat_interleave(rows, lens)
+        pos = torch.arange(data.numel(), device=dev) - offs[leaf_of] + 1
+        buf[leaf_of, pos] = data.long()
+    buf[rows, m] = 0x80
+    bits = m * 8
+    for q in range(8):
+        buf[rows, total - 8 + q] = (bits >> (56 - 8 * q)) & 0xFF
+    b = buf.view(n, blocks, 16, 4)
+    words = (b[..., 0] << 24) | (b[..., 1] << 16) | (b[..., 2] << 8) | b[..., 3]
+    state = _initial(n, dev)
+    for k in range(blocks):
+        new = _compress(state, [words[:, k, j] for j in range(16)])
+        live = k < nblk
+        state = [torch.where(live, x, s) for x, s in zip(new, state)]
+    return torch.stack(state, dim=1)
+
+
+def layer_core(digests: torch.Tensor) -> torch.Tensor:
+    """(ceil(k/2), 8) int64 parent words of a level of (k, 8) int64 digest
+    words: ``SHA-256(0x01 || L || R)`` of adjacent pairs (a 65-byte message
+    of two blocks, built from the words by shifts), the odd tail promoted
+    unchanged."""
+    k = digests.shape[0]
+    half = k // 2
+    left, right = digests[0 : 2 * half : 2], digests[1 : 2 * half : 2]
+    w = [(0x01 << 24) | (left[:, 0] >> 8)]
+    w += [((left[:, i - 1] & 0xFF) << 24) | (left[:, i] >> 8) for i in range(1, 8)]
+    w.append(((left[:, 7] & 0xFF) << 24) | (right[:, 0] >> 8))
+    w += [((right[:, i - 1] & 0xFF) << 24) | (right[:, i] >> 8) for i in range(1, 8)]
+    state = _compress(_initial(half, digests.device), w)
+    zero = torch.zeros(half, dtype=torch.int64, device=digests.device)
+    w2 = [((right[:, 7] & 0xFF) << 24) | 0x800000] + [zero] * 14
+    w2.append(torch.full((half,), 65 * 8, dtype=torch.int64, device=digests.device))
+    inner = torch.stack(_compress(state, w2), dim=1)
+    if k % 2:
+        inner = torch.cat([inner, digests[k - 1 :]])
+    return inner
+
+
+def tree_words_plain(data: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    """Every level's digests, leaves first, as (sum of ``level_sizes``, 8)
+    int32 words (the bits of uint32): what the kernels write."""
+    level = leaf_core(data, offs)
+    levels = [level]
+    while level.shape[0] > 1:
+        level = layer_core(level)
+        levels.append(level)
+    words = torch.cat(levels)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+# -- the device pass -----------------------------------------------------------
+
+
+def device_root(items, device=None) -> bytes:
+    """The unguarded device tree pass: the leaves' bytes to ``device``
+    (None: the card), the leaf launch and one layer launch per level on
+    one stream, one copy of the root back.  CPU tensors run the plain
+    version.  Raises on any failure; ``tree_root`` supervises it."""
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    data, offs = pack_leaves(items, resolve_device(device))
+    root = cuda_sha256.tree_words(data, offs)[-1]
+    return root.cpu().numpy().astype(np.uint32).astype(">u4").tobytes()
+
+
+def _validate(root) -> None:
+    """A malformed result is an infrastructure failure, never a root."""
+    if not (isinstance(root, bytes) and len(root) == 32):
+        raise BackendOutputError(f"tree pass returned a malformed root: {root!r:.80}")
+
+
+def tree_root(items, device=None) -> bytes:
+    """Merkle root, bit-identical to ``merkle.hash_from_byte_slices`` on
+    every input.  ``device=None`` routes by the gate (the card when it is
+    open, else the host); a named device runs its tier.  Oversize sets go
+    to the host.  On a card a failed pass raises ``BackendError``; on the
+    CPU the host answers below the plain version.  The empty set's root is
+    ``EMPTY_HASH`` and launches nothing."""
+    from cometbft_tpu_torch.ops import dispatch_stats, supervisor
+
+    n = len(items)
+    if n == 0:
+        return EMPTY_HASH
+    if device is None and not device_active():
+        dispatch_stats.record_tier("host", n, MERKLE)
+        return merkle.hash_from_byte_slices(items)
+    if _bucket_shape(items) is None:
+        dispatch_stats.record_tier("host", n, MERKLE)
+        dispatch_stats.record_tier("host", n, MERKLE_OVERSIZE)
+        return merkle.hash_from_byte_slices(items)
+    root = supervisor.supervised_device_call(
+        BREAKER, lambda: device_root(items, device), _validate, device=device,
+    )
+    if root is None:  # the CPU only: the host answers below the plain version
+        dispatch_stats.record_tier("host", n, MERKLE)
+        return merkle.hash_from_byte_slices(items)
+    dispatch_stats.record_tier("cuda" if supervisor._on_card(device) else "torch",
+                               n, MERKLE)
+    return root

@@ -28,6 +28,9 @@ class PartSetHeader:
     def is_zero(self) -> bool:
         return self.total == 0 and not self.hash
 
+    def encode(self) -> bytes:
+        return pe.t_varint(1, self.total) + pe.t_bytes(2, self.hash)
+
 
 @dataclass(frozen=True)
 class BlockID:
@@ -36,6 +39,12 @@ class BlockID:
 
     def is_zero(self) -> bool:
         return not self.hash and self.part_set_header.is_zero()
+
+    def encode(self) -> bytes:
+        """Regular proto encoding (BlockID: hash=1, part_set_header=2)."""
+        return pe.t_bytes(1, self.hash) + pe.t_message(
+            2, self.part_set_header.encode()
+        )
 
     def canonical_encode(self) -> bytes:
         """CanonicalBlockID (reference: types/canonical.go): same layout but
@@ -60,3 +69,6 @@ class Timestamp:
 
     def encode(self) -> bytes:
         return encode_timestamp(self.seconds, self.nanos)
+
+    def to_ns(self) -> int:
+        return self.seconds * 1_000_000_000 + self.nanos

@@ -1,8 +1,11 @@
-"""Commit (reference: types/block.go).
+"""Header and Commit (reference: types/block.go).
 
-A Commit carries one CommitSig per validator in validator-set order, and
-``vote_sign_bytes`` reconstructs the exact canonical vote each validator
-signed (reference: types/block.go:901).
+``Header.hash()`` is the Merkle root over the proto-encoded header fields
+(reference: types/block.go Header.Hash).  A Commit carries one CommitSig
+per validator in validator-set order, and ``vote_sign_bytes``
+reconstructs the exact canonical vote each validator signed (reference:
+types/block.go:901).  Both hashes go through the port's hashing plane
+(``proofserve/plane``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,15 +15,80 @@ from dataclasses import dataclass
 import numpy as np
 
 from cometbft_tpu_torch import native
+from cometbft_tpu_torch.libs import protoenc as pe
+from cometbft_tpu_torch.proofserve import plane
 from cometbft_tpu_torch.types.basic import (
     BLOCK_ID_FLAG_ABSENT,
     BLOCK_ID_FLAG_COMMIT,
     BLOCK_ID_FLAG_NIL,
     PRECOMMIT_TYPE,
     BlockID,
+    Timestamp,
 )
 from cometbft_tpu_torch.types.canonical import canonical_vote_sign_bytes
 from cometbft_tpu_torch.types.vote import CommitSig
+
+
+@dataclass(frozen=True)
+class ConsensusVersion:
+    """Proto Consensus{block, app} version pair."""
+
+    block: int
+    app: int = 0
+
+    def encode(self) -> bytes:
+        return pe.t_varint(1, self.block) + pe.t_varint(2, self.app)
+
+
+@dataclass
+class Header:
+    version: ConsensusVersion
+    chain_id: str
+    height: int
+    time: Timestamp
+    last_block_id: BlockID
+    last_commit_hash: bytes = b""
+    data_hash: bytes = b""
+    validators_hash: bytes = b""
+    next_validators_hash: bytes = b""
+    consensus_hash: bytes = b""
+    app_hash: bytes = b""
+    last_results_hash: bytes = b""
+    evidence_hash: bytes = b""
+    proposer_address: bytes = b""
+
+    def hash(self, device=None) -> bytes:
+        """Merkle root over the proto encodings of each field, in order (14
+        leaves: hashed on the host by the plane's size gate; ``device`` as
+        for ``plane.tree_hash``)."""
+        if not self.validators_hash:
+            return b""
+        fields = [
+            self.version.encode(),
+            self.chain_id.encode(),
+            pe.uvarint(self.height),
+            self.time.encode(),
+            self.last_block_id.encode(),
+            self.last_commit_hash,
+            self.data_hash,
+            self.validators_hash,
+            self.next_validators_hash,
+            self.consensus_hash,
+            self.app_hash,
+            self.last_results_hash,
+            self.evidence_hash,
+            self.proposer_address,
+        ]
+        return plane.tree_hash(fields, device)
+
+    def validate_basic(self) -> "str | None":
+        if not self.chain_id or len(self.chain_id) > 50:
+            return "invalid chain id"
+        if self.height < 0:
+            return "negative height"
+        if self.proposer_address and len(self.proposer_address) != 20:
+            return "invalid proposer address"
+        return None
 
 
 @dataclass
@@ -86,6 +154,17 @@ class Commit:
         raw = out[:total].tobytes()
         o = offs.tolist()
         return [raw[o[i] : o[i + 1]] for i in range(n)]
+
+    def hash(self) -> bytes:
+        """Merkle root of the proto-encoded CommitSigs, in order."""
+        items = [
+            pe.t_varint(1, cs.block_id_flag)
+            + pe.t_bytes(2, cs.validator_address)
+            + pe.t_message(3, cs.timestamp.encode())
+            + pe.t_bytes(4, cs.signature)
+            for cs in self.signatures
+        ]
+        return plane.tree_hash(items)
 
     def validate_basic(self) -> str | None:
         if self.height < 0:

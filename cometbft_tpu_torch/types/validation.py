@@ -237,19 +237,20 @@ def prepare_commit_light(
     )
 
 
-def fused_verify_eligible(validator_sets=()) -> bool:
+def fused_verify_eligible(validator_sets=(), device=None) -> bool:
     """The eligibility gate for speculative fused verification (the
     in-flight seam of ``ops.verify``): the default backend is ``gpu``
-    (``default_backend`` raises without a card), the supervisor has a live
-    device tier (with every breaker open, catch-up degrades to per-commit
-    host verification instead of speculating), and every supplied
-    validator set is uniformly ed25519 (the kernel's key type)."""
+    (``default_backend`` raises without a card; ``device``, where given,
+    names the device instead), the supervisor has a live device tier
+    (with every breaker open, catch-up degrades to per-commit host
+    verification instead of speculating), and every supplied validator
+    set is uniformly ed25519 (the kernel's key type)."""
     from cometbft_tpu_torch.crypto import keys as ck
     from cometbft_tpu_torch.ops import supervisor
 
-    if cbatch.default_backend() != "gpu":
+    if device is None and cbatch.default_backend() != "gpu":
         return False
-    if supervisor.enabled() and supervisor.active_backend() is None:
+    if supervisor.enabled() and supervisor.active_backend(device) is None:
         return False
     for vals in validator_sets:
         if not all(

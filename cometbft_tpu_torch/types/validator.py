@@ -14,6 +14,8 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Iterable, Optional
 
+from cometbft_tpu_torch.libs import protoenc as pe
+
 MAX_INT64 = (1 << 63) - 1
 MAX_TOTAL_VOTING_POWER = MAX_INT64 // 8
 PRIORITY_WINDOW_SIZE_FACTOR = 2
@@ -48,6 +50,14 @@ class Validator:
             return other
         raise ValueError("duplicate validator address")
 
+    def simple_encode(self) -> bytes:
+        """SimpleValidator proto used for the validator-set Merkle hash
+        (reference: types/validator.go ToSimpleValidator / Hash).  As the
+        JAX package does, every key is tagged as field 1 of PublicKey (the
+        Ed25519 field), whatever its type."""
+        pub = pe.t_message(1, pe.t_bytes(1, self.pub_key.bytes()))
+        return pub + pe.t_varint(2, self.voting_power)
+
     def copy(self) -> "Validator":
         return replace(self)
 
@@ -76,6 +86,9 @@ class ValidatorSet:
 
     def __len__(self) -> int:
         return len(self.validators)
+
+    def has_address(self, address: bytes) -> bool:
+        return self.get_by_address(address) is not None
 
     def get_by_address(self, address: bytes) -> Optional[tuple[int, Validator]]:
         idx_map = self._addr_index
@@ -167,3 +180,88 @@ class ValidatorSet:
         for v in self.validators[1:]:
             mostest = mostest.compare_proposer_priority(v)
         return mostest
+
+    # -- updates ----------------------------------------------------------
+
+    def copy(self) -> "ValidatorSet":
+        new = ValidatorSet.__new__(ValidatorSet)
+        new.validators = [v.copy() for v in self.validators]
+        new._addr_index = None
+        new.proposer = None
+        if self.proposer is not None:
+            found = new.get_by_address(self.proposer.address)
+            new.proposer = found[1] if found else self.proposer.copy()
+        new._total_voting_power = self._total_voting_power
+        return new
+
+    def copy_increment_proposer_priority(self, times: int) -> "ValidatorSet":
+        new = self.copy()
+        new.increment_proposer_priority(times)
+        return new
+
+    def update_with_change_set(self, changes: list[Validator]) -> None:
+        """Apply validator updates: power 0 removes, new addresses join with
+        priority -1.125*P (reference: validator_set.go updateWithChangeSet,
+        computeNewPriorities), with the JAX package's errors and order."""
+        if not changes:
+            return
+        by_addr = {}
+        for c in changes:
+            if c.address in by_addr:
+                raise ValueError("duplicate address in change set")
+            if c.voting_power < 0:
+                raise ValueError("negative voting power in update")
+            by_addr[c.address] = c
+
+        removals = {a for a, c in by_addr.items() if c.voting_power == 0}
+        for a in removals:
+            if self.get_by_address(a) is None:
+                raise ValueError("removal of non-existent validator")
+
+        kept = [v for v in self.validators if v.address not in removals]
+        kept_addrs = {v.address for v in kept}
+        for v in kept:
+            c = by_addr.get(v.address)
+            if c is not None and c.voting_power > 0:
+                v.voting_power = c.voting_power
+        joining = [c for a, c in by_addr.items()
+                   if c.voting_power > 0 and a not in kept_addrs]
+
+        new_total = sum(v.voting_power for v in kept) + sum(
+            c.voting_power for c in joining)
+        if new_total > MAX_TOTAL_VOTING_POWER:
+            raise OverflowError("updated total voting power exceeds cap")
+        if new_total == 0:
+            raise ValueError("validator set update would empty the set")
+
+        for c in joining:
+            nv = c.copy()
+            # New validators start out "in debt" so they cannot propose
+            # immediately (reference: validator_set.go:~computeNewPriorities).
+            nv.proposer_priority = -(new_total + (new_total >> 3))
+            kept.append(nv)
+
+        kept.sort(key=lambda v: v.address)
+        self.validators = kept
+        self._addr_index = None
+        self._total_voting_power = None
+        self.total_voting_power()  # validate cap
+        self._shift_by_avg_proposer_priority()
+        self._rescale_priorities(
+            PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power()
+        )
+        if self.proposer is not None:
+            found = self.get_by_address(self.proposer.address)
+            self.proposer = found[1] if found else None
+
+    # -- hashing ----------------------------------------------------------
+
+    def hash(self, device=None) -> bytes:
+        """Merkle root of SimpleValidator encodings in set order (reference:
+        types/validator_set.go Hash), through the hashing plane at 32 or
+        more validators: on ``device``, or with None on the card's tree
+        kernel once the card is trusted."""
+        from cometbft_tpu_torch.proofserve import plane
+
+        return plane.tree_hash([v.simple_encode() for v in self.validators],
+                               device)

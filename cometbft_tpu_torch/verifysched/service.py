@@ -98,13 +98,15 @@ def enabled() -> bool:
 def backend_trusted() -> bool:
     """True once the batch backend has resolved to ``gpu`` on this process
     (``crypto.batch.default_backend`` ran the card's known-answer
-    self-check and it passed).  Never runs the self-check itself: a
-    gossip-time ``Vote.verify`` must not be the thing that first touches
-    the card; until the batch seam's own first use resolves the backend,
-    the gate stays closed."""
+    self-check and it passed), unless ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``
+    closes the gate.  Never runs the self-check itself: a gossip-time
+    ``Vote.verify`` or a validator-set hash must not be the thing that
+    first touches the card; until the batch seam's own first use resolves
+    the backend, the gate stays closed (``gpu``/``tpu`` in the variable do
+    not open it without a passed self-check)."""
     from cometbft_tpu_torch.crypto import batch as cbatch
 
-    return bool(cbatch._SELF_CHECKED)
+    return cbatch.env_backend() != "cpu" and bool(cbatch._SELF_CHECKED)
 
 
 def scheduler_active() -> bool:

@@ -5,9 +5,10 @@ An AST scan checks every import statement, and the native sources
 (``csrc/``) include only system headers and each other; a subprocess then
 runs gossip-time ``Vote.verify`` through the verify scheduler, the
 supervisor and the plain version on the CPU (the C++ packer included),
-and a secp256k1 batch through its verifier, the supervisor's single-tier
-call and the plain ECDSA version, and checks that neither name reached
-``sys.modules``.
+a secp256k1 batch through its verifier, the supervisor's single-tier
+call and the plain ECDSA version, and a validator-set hash at the tree
+plane's width (on the host and on the plain tree version), and checks
+that neither name reached ``sys.modules``.
 """
 
 import ast
@@ -75,10 +76,17 @@ def test_port_files_exist():
         "cometbft_tpu_torch/ops/wcurve.py",
         "cometbft_tpu_torch/ops/secp_verify.py",
         "cometbft_tpu_torch/ops/cuda_secp.py",
+        "cometbft_tpu_torch/crypto/merkle.py",
+        "cometbft_tpu_torch/ops/sha256_tree.py",
+        "cometbft_tpu_torch/ops/cuda_sha256.py",
+        "cometbft_tpu_torch/proofserve/plane.py",
+        "cometbft_tpu_torch/types/light.py",
+        "cometbft_tpu_torch/light/verifier.py",
     ):
         assert need in names
     assert {p.name for p in NATIVE_FILES} >= {
-        "host_prep.cpp", "ed25519_verify.cu", "secp256k1_verify.cu"}
+        "host_prep.cpp", "ed25519_verify.cu", "secp256k1_verify.cu",
+        "sha256_tree.cu"}
 
 
 @pytest.mark.parametrize(
@@ -118,6 +126,7 @@ from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
 from cometbft_tpu_torch.types.basic import PRECOMMIT_TYPE, BlockID, Timestamp
 from cometbft_tpu_torch.types.vote import Vote
 from cometbft_tpu_torch.verifysched import service
+real_trusted = service.backend_trusted
 service.backend_trusted = lambda: True
 sched = service._SCHED = service.VerifyScheduler(device="cpu")
 priv = Ed25519PrivKey.from_seed(b"\x05" * 32)
@@ -155,6 +164,22 @@ for m in (b"a", b"b"):
     bv.add(spriv.pub_key(), m, spriv.sign(b"a"))
 assert bv.verify() == (False, [True, False])
 assert dispatch_stats.tier_counts("secp256k1")["torch"] == (1, 2)
+# a validator-set hash at the tree plane's width (the gate is closed on a
+# machine with no trusted card: the host), the plain tree version, and the
+# light verifier's module
+service.backend_trusted = real_trusted
+import cometbft_tpu_torch.light.verifier
+from cometbft_tpu_torch.crypto import merkle
+from cometbft_tpu_torch.ops import sha256_tree
+from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
+vals = ValidatorSet([Validator(Ed25519PrivKey.from_seed(bytes([i]) * 32).pub_key(), 1)
+                     for i in range(40)])
+leaves = [v.simple_encode() for v in vals.validators]
+root = vals.hash()
+assert root == merkle.hash_from_byte_slices(leaves)
+assert sha256_tree.tree_root(leaves, device="cpu") == root
+assert dispatch_stats.tier_counts("merkle") == {
+    "cuda": (0, 0), "torch": (1, 40), "host": (1, 40)}
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)
