@@ -70,13 +70,17 @@ served by the torch or host tier, or one that raised, fails the run.
               products per SM per clock;
  11. secp   — secp256k1 commit verification (BASELINE config 4), a path of
               its own: 10,240 validators with secp256k1 keys, signed with
-              RFC 6979; the ECDSA kernel (``csrc/secp256k1_verify.cu``)
+              RFC 6979; the ECDSA kernel (``csrc/secp256k1_verify.cu``, a
+              quad of four threads per signature over GLV-split scalars)
               against its plain PyTorch version on 10,240 mixed lanes (bad
               signatures, messages, keys, high-S, r or s out of range, bad
               prefixes, x off the curve or >= p, short keys and signatures)
-              bit for bit and at SECP_SMALL_N, both against the pure-Python
-              oracle on a 256-lane sample holding every kind of bad lane,
-              and the x >= n branch of the compare at the ladder's inputs;
+              bit for bit and at SECP_SMALL_N (quads that cut a block:
+              15, 16, 17), both against the pure-Python oracle on a
+              256-lane sample holding every kind of bad lane, and on the
+              edge lanes of ``cuda_secp.edge_lanes`` (u1 = 0, Q = G,
+              Q = -G with u1 = u2, u1 or u2 = n - 1, the x >= n branch of
+              the compare) against the plain version and their verdicts;
               then the commit through ``verify_commit``/``verify_commit_light``
               -> ``Secp256k1BatchVerifier`` (self-check, signature cache) ->
               the supervisor's single-tier call (breaker ``secp_device``) ->
@@ -84,9 +88,14 @@ served by the torch or host tier, or one that raised, fails the run.
               the bad commit rejected at exactly 0, 5000 and 10239, every
               secp batch served by the cuda tier; times of the kernel, the
               plain version, host prep, the commit walls and the set-up;
+              the parent commit's kernel (SECP_PARENT: one thread per
+              signature, its source from ``git show`` or
+              $COMETBFT_TPU_SECP_PARENT_SRC, built by nvcc into a temporary
+              directory) timed in turns with this one on the same lanes;
               the bound from the work ECDSA verification needs on the
               timed lanes (``cuda_secp.needed_work``), and beside it the
-              kernel's own tally;
+              kernel's own tally; its occupancy (threads per signature,
+              registers, local and shared bytes, blocks per SM, waves);
  12. light  — light-client header sync (BASELINE config 3), a path of its
               own: 1,000 equal-power validators, a trusted header at height
               1 and 16 adjacent headers, the set changed at height 9
@@ -135,9 +144,11 @@ import json
 import os
 import pstats
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 N_VALIDATORS = 10_240
@@ -177,7 +188,10 @@ HANG_DEADLINE_MS = 500
 HANG_S = 2.0
 POISON = 17  # the input of the fault batch that kills the kernel
 SECP_SEED = SEED + 5  # the secp256k1 validators' keys
-SECP_SMALL_N = (1, 3, 31, 33, 255)
+SECP_SMALL_N = (1, 3, 15, 16, 17, 31, 33, 255)
+SECP_EDGE_SEED = SEED + 8
+SECP_PARENT = "bf5ae8b"  # its secp256k1 kernel: one thread per signature
+SECP_AB_RUNS = 10  # samples of each kernel per turn: parent, new, new, parent
 LIGHT_SEED = SEED + 7  # the light chain's keys and the tree phase's leaves
 LIGHT_VALIDATORS = 1_000  # BASELINE config 3
 LIGHT_HEADERS = 16  # adjacent headers after the trusted one
@@ -834,14 +848,87 @@ def secp_mixed(s, pubs, msgs, sigs):
     return pubs, msgs, sigs
 
 
+def start_parent_secp(_build, cs):
+    """Start nvcc on the secp256k1 kernel of commit SECP_PARENT, to time it
+    beside the current one: its source from $COMETBFT_TPU_SECP_PARENT_SRC
+    or ``git show``, built with the package's flags into a temporary
+    directory.  Returns (process, library, directory), or (None, why not,
+    None)."""
+    path = os.environ.get("COMETBFT_TPU_SECP_PARENT_SRC")
+    try:
+        if path:
+            with open(path, "rb") as f:
+                src = f.read()
+        else:
+            src = subprocess.run(
+                ["git", "show", f"{SECP_PARENT}:{cs.SOURCE}"],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                capture_output=True, check=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        return None, f"no source of {SECP_PARENT}'s kernel ({type(e).__name__})", None
+    tmp = tempfile.mkdtemp(prefix="secp-parent-")
+    cu = os.path.join(tmp, "secp256k1_verify.cu")
+    with open(cu, "wb") as f:
+        f.write(src)
+    lib = os.path.join(tmp, "libsecp256k1_parent.so")
+    proc = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, cu],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib, tmp
+
+
+def parent_secp_launcher(torch, proc, lib):
+    """The parent's kernel as a function of the device inputs, returning
+    its (n,) bool bits; raises if its build or a launch failed."""
+    import ctypes
+
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"secp: the parent's kernel did not build:\n{log}")
+    fn = ctypes.CDLL(lib).secp256k1_verify_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(q33, u1, u2, r, ok):
+        n = q33.shape[0]
+        out = torch.empty((n,), dtype=torch.int32, device=q33.device)
+        stream = torch.cuda.current_stream(q33.device).cuda_stream
+        flag = ok.to(torch.uint8)
+        rc = fn(q33.data_ptr(), u1.data_ptr(), u2.data_ptr(), r.data_ptr(),
+                flag.data_ptr(), out.data_ptr(), n, stream)
+        check(rc == 0, f"secp: the parent's kernel: CUDA error {rc}")
+        return out != 0
+
+    return run, [line.strip() for line in log.splitlines()
+                 if "registers" in line or "stack frame" in line]
+
+
 def secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
                max_clock_mhz, tag) -> dict:
     """Phase 11: secp256k1 commit verification (BASELINE config 4) through
     the hand-written ECDSA kernel.  Returns its entry of the kernels
     line."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import cuda_secp as cs
+
+    parent = start_parent_secp(_build, cs)  # builds while the keys are made
+    try:
+        return secp_checks(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
+                           max_clock_mhz, tag, parent)
+    finally:
+        proc, _, tmp = parent
+        if proc is not None:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+def secp_checks(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
+                max_clock_mhz, tag, parent) -> dict:
     import numpy as np
 
     from cometbft_tpu_torch.crypto import secp256k1 as s
+    from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import cuda_secp as cs
     from cometbft_tpu_torch.ops import secp_verify as sv
 
@@ -885,27 +972,18 @@ def secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
         kb = kb.cpu().numpy()
         for i in range(min(k, 64)):
             check(bool(kb[i]) == bool(bits[i]), f"secp n={k}: lane {i}")
-    # the x >= n branch of the compare, at the ladder's own inputs: Q with
-    # x >= n, u1 = 0, u2 = 1, r = x - n (accept) and x - n + 1 (reject)
-    x = s.N
-    while s.pt_decompress(b"\x02" + x.to_bytes(32, "big")) is None:
-        x += 1
-    row = lambda v: list(v.to_bytes(32, "big"))
-    q = torch.tensor([list(b"\x02" + x.to_bytes(32, "big"))] * 2, dtype=torch.uint8)
-    edge = {"q33": q, "u1": torch.zeros(2, 32, dtype=torch.uint8),
-            "u2": torch.tensor([row(1)] * 2, dtype=torch.uint8),
-            "r": torch.tensor([row(x - s.N), row(x - s.N + 1)], dtype=torch.uint8),
-            "ok": torch.ones(2, dtype=torch.uint8)}
-    edge = {k: v.to(dev) for k, v in edge.items()}
+    # the edges of the scalars and points, and the x >= n compare branch
+    edge, want = cs.edge_lanes(SECP_EDGE_SEED)
+    edge = sv.batch_to_device(edge, dev)
     got = cs.verify_core_cuda(**edge).tolist()
-    check(got == sv.verify_core(**edge).tolist() == [True, False],
-          f"secp x >= n branch: kernel {got}")
+    check(got == sv.verify_core(**edge).tolist() == want,
+          f"secp edge lanes: kernel {got}, want {want}")
     print(f"secp: kernel: {n} mixed lanes, kernel == plain version bit for "
           f"bit (max_abs_err {max_abs_err}), {n_ok} accepted; {len(sample)}-"
           f"lane sample (every kind of bad and structurally bad lane) == "
-          f"oracle; n = {', '.join(map(str, SECP_SMALL_N))} == plain; the "
-          f"x >= n compare branch (Q.x = n + {x - s.N}) == plain == [True, "
-          f"False]")
+          f"oracle; n = {', '.join(map(str, SECP_SMALL_N))} == plain; "
+          f"{len(want)} edge lanes (u1 = 0, Q = G, Q = -G with u1 = u2, "
+          f"u1 or u2 = n - 1, x(R') >= n) == plain == {want}")
 
     # the commit through the entry points
     cache = sigcache.get_cache()
@@ -974,6 +1052,27 @@ def secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
     good = sv.batch_to_device(host, dev)
     check(bool(cs.verify_core_cuda(**good).all()), "secp: valid lanes rejected")
     kernel_ms = cuda_ms(torch, lambda: cs.verify_core_cuda(**good), KERNEL_RUNS, 3)
+    # the parent's kernel, in turns with this one on the same lanes
+    proc, lib, _ = parent
+    if proc is None:
+        print(f"secp: parent: not measured: {lib}")
+    else:
+        run_parent, ptxas = parent_secp_launcher(torch, proc, lib)
+        check(torch.equal(run_parent(**good), cs.verify_core_cuda(**good)) and
+              torch.equal(run_parent(**t), kern),
+              "secp: the parent's kernel disagrees with this one")
+        fns = {"parent": lambda: run_parent(**good),
+               "new": lambda: cs.verify_core_cuda(**good)}
+        turns = [(k, cuda_ms(torch, fns[k], SECP_AB_RUNS, 1))
+                 for k in ("parent", "new", "new", "parent")]
+        parent_ms = statistics.median(v for k, v in turns if k == "parent")
+        new_ms = statistics.median(v for k, v in turns if k == "new")
+        print(f"secp: parent: the kernel of {SECP_PARENT} (one thread per "
+              f"signature; {'; '.join(ptxas)}) == this one on the mixed and "
+              f"valid lanes; in turns at {n} lanes (median of {SECP_AB_RUNS} "
+              f"one-call samples each): " + ", ".join(
+                  f"{k} {v}" for k, v in turns) + f" ms; parent {parent_ms} "
+              f"ms, this kernel {new_ms} ms, {parent_ms / new_ms:.3f}x {tag}")
     plain_ms = cuda_ms(torch, lambda: sv.verify_core(**good), 1, 0)
     prep_ms = median_ms(lambda: sv.prepare_batch(pubs, sign_bytes, sigs), HOST_RUNS)
     # the bound: the work the function needs on this run's lanes
@@ -981,11 +1080,9 @@ def secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
     muls, squares, products = cs.needed_work(host["q33"], host["u1"], host["u2"],
                                              host["ok"])
     bound_ms, bound_by = bound(products, n * cs.BYTES_PER_SIG, sms, max_clock_mhz)
-    # the kernel's own work, from its host build's tally; the (r + n) * Z
-    # multiply runs where r + n < p
-    extra = sum(int.from_bytes(host["r"][i].tobytes(), "big") < s.P - s.N
-                for i in range(n))
-    tally = n * cs.WIDE_PRODUCTS_PER_SIG + extra * cs.PRODUCTS_PER_MUL
+    # the kernel's own work, from its host build's tally (the same for
+    # every lane with ok set)
+    tally = int(host["ok"].sum()) * cs.WIDE_PRODUCTS_PER_SIG
     tally_ms, _ = bound(tally, n * cs.BYTES_PER_SIG, sms, max_clock_mhz)
     occ = cs.occupancy()
     commit_ms = statistics.median(commit_samples)
@@ -1010,17 +1107,29 @@ def secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
     print(f"secp: time: the kernel's own work (its host build's tally): "
           f"{tally} products ({cs.FIELD_MULS_PER_SIG} multiplies, "
           f"{cs.FIELD_SQUARES_PER_SIG} squares, {cs.FIELD_SMALLS_PER_SIG} "
-          f"small multiplies per signature; {extra} lanes with r + n < p), "
+          f"small multiplies and {cs.THREADS_PER_SIG} x "
+          f"{cs.KERNEL_SPLIT_PRODUCTS} split products per signature), "
           f"{tally / products:.3f}x the bound's, {tally_ms} ms at the same "
           f"rates; kernel at {tally_ms / kernel_ms:.2%} of that {tag}")
     print("secp: library_ms is null: no PyTorch library call computes "
           "secp256k1 ECDSA verification")
-    grid = -(-n // occ["threads"])
-    print(f"occupancy: {cs.NAME}: 1 thread per signature, {occ['threads']} "
-          f"threads per block, {occ['regs']} registers and "
-          f"{occ['local_bytes']} bytes of local memory per thread; "
+    grid = -(-n * cs.THREADS_PER_SIG // occ["threads"])
+    waves = -(-grid // (occ["blocks_per_sm"] * sms))
+    print(f"occupancy: {cs.NAME}: {cs.THREADS_PER_SIG} threads per signature, "
+          f"{occ['threads']} threads per block, {occ['regs']} registers and "
+          f"{occ['local_bytes']} bytes of local memory per thread, "
+          f"{occ['shared_bytes']} bytes of shared memory per block; "
           f"{occ['blocks_per_sm']} blocks resident per SM; {n} lanes -> "
-          f"{grid} blocks, {min(grid, sms)} of {sms} SMs with work {tag}")
+          f"{grid} blocks, {waves} wave(s) on {sms} SMs {tag}")
+    check(occ["local_bytes"] == 0 and waves == 1,
+          f"secp: {occ['local_bytes']} local bytes, {waves} waves")
+    mix = sass_mix(_build.lib_path(cs.NAME), "secp256k1_verify_kernel", True)
+    total = sum(mix.values())
+    wide = sum(v for k, v in mix.items() if k.startswith("IMAD.WIDE"))
+    top = sorted(mix.items(), key=lambda kv: -kv[1])[:8]
+    print(f"secp: sass: {total} instructions of machine code, {wide} "
+          f"IMAD.WIDE (one 32x32->64-bit product each): {total / wide:.2f} "
+          f"instructions per product in the code; most common {top} {tag}")
     return {
         "name": cs.NAME, "route": "cuda", "source": cs.SOURCE,
         "replaces": cs.REPLACES, "launches": launches,
@@ -1174,9 +1283,10 @@ def word_levels(st, words, n):
     return levels
 
 
-def sass_mix(lib, kernel: str) -> dict:
+def sass_mix(lib, kernel: str, modifiers: bool = False) -> dict:
     """Opcode counts of ``kernel``'s machine code in the built library
-    ``lib`` (``cuobjdump -sass``; an opcode without its modifiers)."""
+    ``lib`` (``cuobjdump -sass``; an opcode without its modifiers unless
+    ``modifiers``)."""
     from pathlib import Path
 
     from cometbft_tpu_torch.ops import _build
@@ -1190,9 +1300,10 @@ def sass_mix(lib, kernel: str) -> dict:
             inside = kernel in line
             continue
         m = inside and re.match(
-            r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m:
-            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+            op = m.group(1) if modifiers else m.group(1).split(".")[0]
+            counts[op] = counts.get(op, 0) + 1
     return counts
 
 

@@ -2,8 +2,12 @@
 
 Counterpart of the XLA ladder ``_ladder_kernel`` of
 ``cometbft_tpu/ops/secp_verify.py`` (with the host decompression and
-compare around it there): raw bytes in, accept bits out, one thread per
-signature.  For CUDA tensors the wrapper launches the kernel or raises;
+compare around it there): raw bytes in, accept bits out.  The kernel runs a
+quad of four threads per signature: u1 in two 128-bit halves over G and
+2^128*G, u2 split by the GLV endomorphism on the card over Q and lambda*Q,
+each thread one short scalar in signed radix-8 digits over its own table
+in shared memory, the four partial points added at the end through warp
+shuffles.  For CUDA tensors the wrapper launches the kernel or raises;
 for CPU tensors it runs the kernel's plain PyTorch version,
 ``ops.secp_verify.verify_core``.  ``launches`` counts kernel launches (and
 nothing else), so a run can show that its main path went through the
@@ -18,7 +22,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from cometbft_tpu_torch.crypto.secp256k1 import N, pt_decompress
+from cometbft_tpu_torch.crypto.secp256k1 import (G, N, P, double_mul, g_mul,
+                                                  pt_compress, pt_decompress)
 from cometbft_tpu_torch.ops import _build
 from cometbft_tpu_torch.ops import secp_verify as _plain
 
@@ -27,22 +32,30 @@ SOURCE = "cometbft_tpu_torch/csrc/secp256k1_verify.cu"
 REPLACES = "cometbft_tpu/ops/secp_verify.py:117"
 
 # The kernel's own work per signature, counted by a host build of its
-# source: the 256-step ladder (a doubling: 6 squares + 6 multiplies, an
-# addition: 12 multiplies, 2 small multiplies by b3 each), G + Q, the square
-# root of decompression (253 squares + 13 multiplies), x^3, y^2 and r*Z (one
-# more multiply, (r + n)*Z, where r + n < p).  A multiply takes 64
-# 32x32->64-bit products and 8 more to reduce, a square 36 + 8, a small
-# multiply 8.  This is more than the function needs (``needed_work``).
-FIELD_MULS_PER_SIG = 4635
-FIELD_SQUARES_PER_SIG = 1791
-FIELD_SMALLS_PER_SIG = 1026
+# source (``-DSECP_TALLY``), which runs a lane's four threads in turn and then
+# the combine and compare as each of them runs it on the card.  Per thread:
+# the square root of decompression (253 squares + 13 multiplies) with x^3,
+# y^2 and beta*x; its table {1..4}*P (2 doublings, 1 addition); the walk of
+# 43 positions (3 doublings and 1 addition each, after the top digit's
+# lookup); the two additions of the combine; r*Z and (r + n)*Z.  A doubling
+# is 6 squares, 6 multiplies and 2 small multiplies by b3, an addition 12
+# multiplies and 2 small ones.  A multiply takes 64 32x32->64-bit products
+# and 8 more to reduce, a square 36 + 8, a small multiply 8; the GLV split
+# takes two 8 x 8-word products and four 160-bit low halves of 4 x 5 words
+# (14 products each), outside the field tally.  Every lane with ``ok`` set
+# costs the same.  This is more than the function needs (``needed_work``).
+THREADS_PER_SIG = 4
+FIELD_MULS_PER_SIG = 4 * 1355
+FIELD_SQUARES_PER_SIG = 4 * 1041
+FIELD_SMALLS_PER_SIG = 4 * 354
 PRODUCTS_PER_MUL = 72
 PRODUCTS_PER_SQUARE = 44
 PRODUCTS_PER_SMALL = 8
+KERNEL_SPLIT_PRODUCTS = 2 * 64 + 4 * 14
 WIDE_PRODUCTS_PER_SIG = (PRODUCTS_PER_MUL * FIELD_MULS_PER_SIG
                          + PRODUCTS_PER_SQUARE * FIELD_SQUARES_PER_SIG
-                         + PRODUCTS_PER_SMALL * FIELD_SMALLS_PER_SIG)
-THREADS_PER_SIG = 1
+                         + PRODUCTS_PER_SMALL * FIELD_SMALLS_PER_SIG
+                         + THREADS_PER_SIG * KERNEL_SPLIT_PRODUCTS)
 # bytes each signature moves: the 33-byte key, u1, u2, r, ok, one int32 out
 BYTES_PER_SIG = 33 + 3 * 32 + 1 + 4
 
@@ -167,6 +180,39 @@ def needed_work(q33, u1, u2, ok) -> tuple[int, int, int]:
             add(FINISH_MS)
     return muls, squares, (PRODUCTS_PER_MUL * muls + PRODUCTS_PER_SQUARE * squares
                            + split)
+
+
+def edge_lanes(seed: int) -> tuple[dict, list]:
+    """Lanes at the edges of the kernel's scalars and points, as numpy
+    arrays in ``secp_verify.prepare_batch``'s form, and the verdicts they
+    must get: u1 = 0 (two partial points O); Q = G; u1 = n - 1 (both halves
+    of u1 full); u2 = n - 1; x(R') >= n, so that only X = (r + n)*Z holds
+    (Q.x >= n, u1 = 0, u2 = 1); each with r = x(R') mod n (accepted) and
+    with r + 1 (rejected); and Q = -G with u1 = u2, so R' = O (rejected,
+    r = 0 = X)."""
+    rng = np.random.default_rng(seed)
+    rand = lambda: int.from_bytes(rng.bytes(32), "big") % N
+    key = g_mul(rand())
+    x = N
+    while pt_decompress(b"\x02" + x.to_bytes(32, "big")) is None:
+        x += 1
+    big = pt_decompress(b"\x02" + x.to_bytes(32, "big"))
+    u = rand()
+    cases = [(key, 0, rand()), (G, rand(), rand()), (key, N - 1, rand()),
+             (key, rand(), N - 1), (big, 0, 1)]
+    lanes = [c + (dr,) for c in cases for dr in (0, 1)]
+    lanes.append(((G[0], P - G[1]), u, u, 0))
+    rows, want = {"q33": [], "u1": [], "u2": [], "r": []}, []
+    for q, u1, u2, dr in lanes:
+        point = double_mul(u1, u2, q)
+        r = (point[0] % N if point is not None else 0) + dr
+        want.append(point is not None and dr == 0)
+        rows["q33"].append(list(pt_compress(q)))
+        for name, v in (("u1", u1), ("u2", u2), ("r", r)):
+            rows[name].append(list(v.to_bytes(32, "big")))
+    arrays = {k: np.array(v, np.uint8) for k, v in rows.items()}
+    arrays["ok"] = np.ones(len(want), bool)
+    return arrays, want
 
 
 def verify_core_cuda(q33, u1, u2, r, ok) -> torch.Tensor:

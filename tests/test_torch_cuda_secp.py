@@ -1,11 +1,15 @@
 """The hand-written secp256k1 ECDSA kernel (cometbft_tpu_torch/csrc/
 secp256k1_verify.cu).
 
-Its source also builds for the host (no ``__CUDACC__``), one lane after
-another, so here its field arithmetic is held against Python integers
-(edge values included: 0, p - 1, p, 2^256 - 1), its point formulas
-against the plain curve layer (the same field elements), and its verify
-against the pure-Python oracle, with the kernel's own field-op tally.
+The kernel runs a quad of four threads per signature.  Its source also
+builds for the host (no ``__CUDACC__``), where each lane runs the quad's
+four threads in turn and then the combine, so here its field arithmetic is
+held against Python integers (edge values included: 0, p - 1, p,
+2^256 - 1), its point formulas against the plain curve layer (the same
+field elements), its GLV split, signed radix-8 recoding and four partial
+points against Python integers and the port's ``crypto/secp256k1``, and
+its verify against the pure-Python oracle and the plain version (mixed
+and edge lanes), with the kernel's own field-op tally.
 The roofline bound counts the work the function needs instead
 (``cuda_secp.needed_work``: the GLV split, the wNAF weights and the work
 per kind of lane are checked here).  The tests marked ``cuda`` run the kernel itself against its
@@ -61,6 +65,9 @@ def host_lib(tmp_path_factory):
     lib.secp256k1_fe_op_host.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.secp256k1_pt_op_host.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int]
     lib.secp256k1_tally.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 3
+    lib.secp256k1_glv_split_host.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
+    lib.secp256k1_recode_host.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int]
+    lib.secp256k1_partials_host.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int]
     return lib
 
 
@@ -181,13 +188,102 @@ def test_kernel_source_on_host_matches_oracle_and_tally(host_lib):
                                    out.ctypes.data, len(pubs))
     assert (out != 0).tolist() == _oracle(pubs, msgs, sigs)
     assert (out != 0).tolist() == [True] * 4 + [False] * 12
-    # a lane with ok clear costs nothing; every other lane the counted work
-    # (no lane here has r + n < p)
+    # a lane with ok clear costs nothing; every other lane the same counted
+    # work, its four threads' (keys off the curve included)
     lanes = int(a["ok"].sum())
     assert _tally(host_lib) == (lanes * tcs.FIELD_MULS_PER_SIG,
                                 lanes * tcs.FIELD_SQUARES_PER_SIG,
                                 lanes * tcs.FIELD_SMALLS_PER_SIG)
-    assert tcs.WIDE_PRODUCTS_PER_SIG == 72 * 4635 + 44 * 1791 + 8 * 1026
+    assert (tcs.FIELD_MULS_PER_SIG, tcs.FIELD_SQUARES_PER_SIG,
+            tcs.FIELD_SMALLS_PER_SIG) == (5420, 4164, 1416)
+    assert tcs.WIDE_PRODUCTS_PER_SIG == 72 * 5420 + 44 * 4164 + 8 * 1416 + 4 * 184
+    assert tcs.THREADS_PER_SIG == 4
+
+
+# -- the quad's scalars and partial points ----------------------------------------
+
+
+def _split_host(lib, ks):
+    kb = np.array([list(k.to_bytes(32, "big")) for k in ks], np.uint8)
+    m1, m2 = np.zeros((len(ks), 5), np.uint32), np.zeros((len(ks), 5), np.uint32)
+    negs = np.zeros((len(ks), 2), np.int32)
+    lib.secp256k1_glv_split_host(kb.ctypes.data, m1.ctypes.data, m2.ctypes.data,
+                                 negs.ctypes.data, len(ks))
+    return [(-a if n1 else a, -b if n2 else b)
+            for a, b, (n1, n2) in zip(_ints(m1), _ints(m2), negs)]
+
+
+def test_glv_split_on_host(host_lib):
+    """k1 + k2*lambda = k (mod n) with |k1|, |k2| < 2^129, on 64 seeded
+    scalars and the edges."""
+    n = tsv.N
+    rng = np.random.default_rng(6)
+    ks = [0, 1, 2, n - 1, (n - 1) // 2, tcs.LAMBDA, n - tcs.LAMBDA, 1 << 128,
+          (1 << 129) - 1]
+    ks += [int.from_bytes(rng.bytes(32), "big") % n for _ in range(64)]
+    for k, (k1, k2) in zip(ks, _split_host(host_lib, ks)):
+        assert (k1 + k2 * tcs.LAMBDA - k) % n == 0
+        assert abs(k1) < 1 << 129 and abs(k2) < 1 << 129
+
+
+def test_signed_radix8_recoding_on_host(host_lib):
+    """44 digits in [-4, 4] that recombine to each scalar below 2^129."""
+    rng = np.random.default_rng(7)
+    ss = [0, 1, 4, 5, 7, 8, (1 << 128) - 1, 1 << 128, (1 << 129) - 1] + [
+        int.from_bytes(rng.bytes(17), "big") >> 7 for _ in range(64)]
+    words, digits = _words(ss, 5), np.zeros((len(ss), 44), np.int32)
+    host_lib.secp256k1_recode_host(words.ctypes.data, digits.ctypes.data, len(ss))
+    for v, row in zip(ss, digits.tolist()):
+        assert all(-4 <= d <= 4 for d in row)
+        assert sum(d * 8 ** i for i, d in enumerate(row)) == v
+
+
+def test_partial_points_on_host_sum_to_the_double_mul(host_lib):
+    """Thread j of a lane's quad ends with s_j*P_j: u1's halves times G and
+    2^128*G, |k1| times +-Q, |k2| times +-lambda*Q; the four add up to
+    u1*G + u2*Q (the port's ``crypto/secp256k1``)."""
+    pubs, msgs, sigs = mixed_lanes()
+    a = tsv.prepare_batch(pubs[:3], msgs[:3], sigs[:3])
+    edge, _ = tcs.edge_lanes(8)
+    q33 = np.concatenate([a["q33"], edge["q33"][:1]])  # and u1 = 0
+    u1s, u2s = (np.concatenate([a[k], edge[k][:1]]) for k in ("u1", "u2"))
+    out = np.zeros((len(q33), 4, 24), np.uint32)
+    host_lib.secp256k1_partials_host(q33.ctypes.data, u1s.ctypes.data,
+                                     u2s.ctypes.data, out.ctypes.data, len(q33))
+    g128 = tsecp.g_mul(1 << 128)
+    big = lambda row: int.from_bytes(row.tobytes(), "big")
+    signed = lambda pt, k: pt if k >= 0 else (pt[0], P - pt[1])
+    for i in range(len(q33)):
+        q = tsecp.pt_decompress(q33[i].tobytes())
+        u1, u2 = big(u1s[i]), big(u2s[i])
+        (k1, k2), = _split_host(host_lib, [u2])
+        lq = (tcs.BETA * q[0] % P, q[1])
+        want = [tsecp.double_mul(0, u1 & ((1 << 128) - 1), tsv.G),
+                tsecp.double_mul(0, u1 >> 128, g128),
+                tsecp.double_mul(0, abs(k1), signed(q, k1)),
+                tsecp.double_mul(0, abs(k2), signed(lq, k2))]
+        coords = [[v % P for v in _ints(out[i, :, 8 * c:8 * c + 8])] for c in range(3)]
+        got = affine(Point(*(tsv.FIELD.pack(vals) for vals in coords)))
+        assert got == want
+        total = (0, 1, 0)  # Jacobian, the identity
+        for pt in got:
+            if pt is not None:
+                total = tsecp._jac_add(total, (pt[0], pt[1], 1))
+        assert tsecp._to_affine(total) == tsecp.double_mul(u1, u2, q)
+
+
+def test_edge_lanes_on_host_equal_the_plain_version(host_lib):
+    """u1 = 0; Q = G; Q = -G with u1 = u2 (R' = O, rejected); u1 = n - 1;
+    u2 = n - 1; r + n < p: the host build, the plain version and the
+    expected verdicts agree bit for bit."""
+    arrays, want = tcs.edge_lanes(8)
+    ins = [np.ascontiguousarray(arrays[k], np.uint8) for k in tsv.KEYS]
+    out = np.zeros(len(want), np.int32)
+    host_lib.secp256k1_verify_host(*(x.ctypes.data for x in ins), out.ctypes.data,
+                                   len(want))
+    plain = tsv.verify_core(**tsv.batch_to_device(arrays, "cpu"))
+    assert (out != 0).tolist() == plain.tolist() == want
+    assert want.count(True) == 5 and not want[-1]
 
 
 # -- the bound's work model ------------------------------------------------------
@@ -294,7 +390,7 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 3, 12, 31, 33, 65])
+@pytest.mark.parametrize("n", [1, 3, 12, 15, 16, 17, 31, 33, 65])
 def test_kernel_matches_plain_and_oracle(card, n):
     pubs, msgs, sigs = (x * 5 for x in mixed_lanes())
     pubs, msgs, sigs = pubs[:n], msgs[:n], sigs[:n]
@@ -312,4 +408,16 @@ def test_kernel_entry_points_and_occupancy(card):
     pubs, msgs, sigs = mixed_lanes()
     assert tsv.verify_batch(pubs, msgs, sigs).tolist() == _oracle(pubs, msgs, sigs)
     occ = tcs.occupancy()
-    assert occ["threads"] == 64 and occ["local_bytes"] == 0 and occ["blocks_per_sm"] >= 1
+    assert occ["threads"] == 64 and occ["local_bytes"] == 0
+    assert occ["shared_bytes"] == (4 * 24 + 7) * 4 * 64 and occ["regs"] <= 204
+    # a 10,240-signature commit (640 blocks) in one wave on 132 SMs
+    assert occ["blocks_per_sm"] >= 5
+
+
+@pytest.mark.cuda
+def test_kernel_edge_lanes_match_plain(card):
+    arrays, want = tcs.edge_lanes(8)
+    t = tsv.batch_to_device(arrays, card)
+    kern = tcs.verify_core_cuda(**t)
+    torch.cuda.synchronize()
+    assert kern.cpu().tolist() == tsv.verify_core(**t).cpu().tolist() == want

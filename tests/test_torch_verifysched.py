@@ -11,6 +11,7 @@ bucket mirrors, the kill switch, the bridge from the batch verifier.
 
 import hashlib
 import threading
+import time
 import types
 
 import numpy as np
@@ -361,14 +362,28 @@ def test_batch_verifier_bridge(pkgs):
 
 def test_verify_many_cached_rides_one_flush(pkgs):
     """Several independent checks submitted before any wait (evidence's
-    two votes): one flush, verdicts as the JAX package's."""
+    two votes): one flush, verdicts as the JAX package's.  The process-wide
+    scheduler is paused until all four items are queued, so no flush window
+    can close between the submits however slow the host is."""
     pubs, msgs, sigs = _triples(4, b"many", invalid_every=2)
 
     def run(p):
         keys = [p.Pub(x) for x in pubs]
-        with p.vs.priority_class(p.vs.PRIO_EVIDENCE):
-            got = p.vs.verify_many_cached(keys, msgs, sigs)
-        return got, sum(p.vs.stats.snapshot()["flushes"].values())
+        sched, got = p.vs.get_scheduler(), []
+
+        def verify():
+            with p.vs.priority_class(p.vs.PRIO_EVIDENCE):
+                got.append(p.vs.verify_many_cached(keys, msgs, sigs))
+
+        sched.pause()
+        caller = threading.Thread(target=verify)
+        caller.start()
+        deadline = time.monotonic() + 30
+        while sched.pending() < len(keys) and time.monotonic() < deadline:
+            time.sleep(0.001)
+        sched.resume()
+        caller.join(30)
+        return got[0], sum(p.vs.stats.snapshot()["flushes"].values())
 
     assert _same(pkgs, run) == (_oracle(pubs, msgs, sigs), 1)
     assert tvs.stats.snapshot()["submitted"]["evidence_light"] == 4
