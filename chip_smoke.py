@@ -101,10 +101,12 @@ served by the torch or host tier, or one that raised, fails the run.
               1 and 16 adjacent headers, the set changed at height 9
               (``update_with_change_set``: 100 leave, 100 join, one changes
               power; header 8 names the new set), every commit signed by its
-              whole set.  The SHA-256 tree kernel (``csrc/sha256_tree.cu``)
-              against its plain PyTorch version bit for bit and both against
-              ``crypto/merkle`` on the validator set, on sets of 1-129 leaves,
-              on the block-edge leaf lengths and on 16,384 leaves; then the
+              whole set.  The SHA-256 tree kernel (``csrc/sha256_tree.cu``,
+              one launch per tree) against its plain PyTorch version bit for
+              bit, every level of both against ``crypto/merkle`` on the
+              validator set, on sets of 1-129 leaves, at the edges of its
+              chunks of C leaves, on the block-edge leaf lengths and on
+              16,384 leaves; then the
               sync through ``light/verifier``: ``verify_adjacent_chain``
               cold and warm (every header's ``ValidatorSet.hash`` through the
               hashing plane -> ``ops/sha256_tree`` -> the tree kernel, the
@@ -117,11 +119,16 @@ served by the torch or host tier, or one that raised, fails the run.
               before them, with the self-check undone, ``verify_adjacent``
               opens the gate itself so that its first set hash is the
               card's; every tree pass and signature batch served by
-              ``cuda``; times of the tree kernel at 1,000 and 16,384 leaves
-              beside its plain version, the host ``crypto/merkle`` and its
-              bound, the layer kernel's instruction mix (``cuobjdump``), and of
-              the sync (per header, cold and warm) with where a header's time
-              goes.
+              ``cuda``, one tree launch per validator-set hash; times of the
+              tree kernel at 1,000 and 16,384 leaves beside its critical
+              path, its plain version, the host ``crypto/merkle`` and its
+              bound; the tree of TREE_PARENT (a leaf kernel and a layer
+              launch per level; its source from ``git show`` or
+              $COMETBFT_TPU_TREE_PARENT_SRC) and builds of this source at
+              each C of TREE_CHUNKS, each timed in turns with this kernel;
+              the kernel's spills (none), instruction mix (``cuobjdump``)
+              and occupancy; and times of the sync (per header, cold and
+              warm) with where a header's time goes.
 
 Usage, from the repository root, on a machine with a CUDA card:
 
@@ -206,6 +213,11 @@ LIGHT_UNTRUSTED_SIGNERS = 300  # of the trusted set's 1,000, on the target
 TREE_BIG = 16_384  # the JAX bucket cap, the proof-serving size
 TREE_SMALL_N = (1, 2, 3, 8, 9, 31, 32, 33, 63, 65, 127, 129)
 TREE_EDGE_LENS = (0, 1, 54, 55, 56, 63, 64, 65, 118, 119, 120)
+TREE_PARENT = "4eacead"  # its tree: a leaf kernel and a layer kernel per level
+TREE_CHUNKS = (128, 256, 512, 1024)  # leaves per block C, timed in turns
+TREE_AB_RUNS = 10  # samples of each tree per turn
+TREE_DEPTHS = (1, 2, 4, 16, 64, 256)  # leaves of one-block trees, 1-9 levels
+QUEUE_CYCLES = 1_000_000  # the sleep kernel in front of a queued sample
 
 
 class SmokeError(AssertionError):
@@ -238,12 +250,15 @@ def median_ms(fn, runs: int) -> float:
     return statistics.median(ts)
 
 
-def cuda_ms(torch, fn, runs: int, warmup: int, per: int = 1) -> float:
+def cuda_ms(torch, fn, runs: int, warmup: int, per: int = 1,
+            queued: bool = False) -> float:
     """Median device time of one ``fn`` over ``runs`` samples, CUDA events.
     A sample times ``per`` calls back to back and divides.  With ``per`` = 1,
     the method of every ``ms`` this script reports, a sample also counts the
     card's wait for the host to launch the call (Python, ctypes); with
-    ``per`` > 1 that wait hides behind the previous call's work."""
+    ``per`` > 1 that wait hides behind the previous call's work.  With
+    ``queued`` a sample starts behind a sleep kernel of ~0.5 ms, so the call
+    is queued before the card reaches it: its device time alone."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -251,6 +266,8 @@ def cuda_ms(torch, fn, runs: int, warmup: int, per: int = 1) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
         start.record()
         for _ in range(per):
             fn()
@@ -848,33 +865,64 @@ def secp_mixed(s, pubs, msgs, sigs):
     return pubs, msgs, sigs
 
 
-def start_parent_secp(_build, cs):
-    """Start nvcc on the secp256k1 kernel of commit SECP_PARENT, to time it
-    beside the current one: its source from $COMETBFT_TPU_SECP_PARENT_SRC
-    or ``git show``, built with the package's flags into a temporary
-    directory.  Returns (process, library, directory), or (None, why not,
-    None)."""
-    path = os.environ.get("COMETBFT_TPU_SECP_PARENT_SRC")
+def start_nvcc(_build, src: bytes, stem: str, *defines):
+    """Start nvcc on the kernel source ``src`` with the package's flags and
+    ``defines``, into a temporary directory.  Returns (process, library,
+    directory)."""
+    tmp = tempfile.mkdtemp(prefix=f"{stem}-")
+    cu = os.path.join(tmp, f"{stem}.cu")
+    with open(cu, "wb") as f:
+        f.write(src)
+    lib = os.path.join(tmp, f"lib{stem}.so")
+    proc = subprocess.Popen(
+        [_build.nvcc(), *_build.NVCC_FLAGS, *defines, "-o", lib, cu],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib, tmp
+
+
+def start_parent(_build, env: str, commit: str, source: str):
+    """Start nvcc on the kernel ``source`` (a path in the repository) of
+    ``commit``, to time it beside the current one: its source from the file
+    that $``env`` names or from ``git show`` (a copy of the repository that
+    is not a git checkout needs the file), built with the package's flags
+    into a temporary directory.  Returns (process, library, directory), or
+    (None, why not, None)."""
+    path = os.environ.get(env)
     try:
         if path:
             with open(path, "rb") as f:
                 src = f.read()
         else:
             src = subprocess.run(
-                ["git", "show", f"{SECP_PARENT}:{cs.SOURCE}"],
+                ["git", "show", f"{commit}:{source}"],
                 cwd=os.path.dirname(os.path.abspath(__file__)),
                 capture_output=True, check=True, timeout=60).stdout
     except (OSError, subprocess.SubprocessError) as e:
-        return None, f"no source of {SECP_PARENT}'s kernel ({type(e).__name__})", None
-    tmp = tempfile.mkdtemp(prefix="secp-parent-")
-    cu = os.path.join(tmp, "secp256k1_verify.cu")
-    with open(cu, "wb") as f:
-        f.write(src)
-    lib = os.path.join(tmp, "libsecp256k1_parent.so")
-    proc = subprocess.Popen([_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib, cu],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-    return proc, lib, tmp
+        return None, f"no source of {commit}'s kernel ({type(e).__name__})", None
+    return start_nvcc(_build, src, os.path.basename(source).split(".")[0])
+
+
+def start_parent_secp(_build, cs):
+    """The secp256k1 kernel of commit SECP_PARENT (start_parent), from
+    $COMETBFT_TPU_SECP_PARENT_SRC or ``git show``."""
+    return start_parent(_build, "COMETBFT_TPU_SECP_PARENT_SRC", SECP_PARENT,
+                        cs.SOURCE)
+
+
+def stop_build(build) -> None:
+    """Stop a build of start_nvcc or start_parent and remove its directory."""
+    proc, _, tmp = build
+    if proc is not None:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ptxas_lines(log: str) -> list:
+    """The register and spill lines of an nvcc log (-Xptxas -v)."""
+    return [line.strip() for line in log.splitlines()
+            if "registers" in line or "stack frame" in line]
 
 
 def parent_secp_launcher(torch, proc, lib):
@@ -898,8 +946,7 @@ def parent_secp_launcher(torch, proc, lib):
         check(rc == 0, f"secp: the parent's kernel: CUDA error {rc}")
         return out != 0
 
-    return run, [line.strip() for line in log.splitlines()
-                 if "registers" in line or "stack frame" in line]
+    return run, ptxas_lines(log)
 
 
 def secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
@@ -915,12 +962,7 @@ def secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
         return secp_checks(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
                            max_clock_mhz, tag, parent)
     finally:
-        proc, _, tmp = parent
-        if proc is not None:
-            if proc.poll() is None:
-                proc.kill()
-            proc.wait()
-            shutil.rmtree(tmp, ignore_errors=True)
+        stop_build(parent)
 
 
 def secp_checks(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
@@ -1307,16 +1349,81 @@ def sass_mix(lib, kernel: str, modifiers: bool = False) -> dict:
     return counts
 
 
+def tree_launcher(torch, dev, build, parent: bool):
+    """A tree kernel being built by ``build`` (start_nvcc, start_parent) as
+    a function of (data, offs) on ``dev`` that returns every level's words:
+    TREE_PARENT's leaf launch and one layer launch per level (``parent``),
+    or one launch of a build of the current kernel with a ticket of its own.
+    Returns (function, ptxas lines); raises if the build failed."""
+    import ctypes
+
+    from cometbft_tpu_torch.ops import sha256_tree as st
+
+    proc, lib, _ = build
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"light: a tree kernel did not build:\n{log}")
+    so, vp, i32 = ctypes.CDLL(lib), ctypes.c_void_p, ctypes.c_int
+    if parent:
+        leaf, layer = so.sha256_leaf_launch, so.sha256_layer_launch
+        leaf.argtypes = [vp, vp, i32, vp, vp]
+        layer.argtypes = [vp, i32, vp, vp]
+    else:
+        tree = so.sha256_tree_launch
+        tree.argtypes = [vp, vp, i32, vp, vp, vp]
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def run(data, offs):
+        n = offs.numel() - 1
+        sizes = st.level_sizes(n)
+        out = torch.empty((sum(sizes), 8), dtype=torch.int32, device=dev)
+        base = out.data_ptr()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if parent:
+            rc = [leaf(data.data_ptr(), offs.data_ptr(), n, base, stream)]
+            o = 0
+            for k in sizes[:-1]:
+                rc.append(layer(base + 32 * o, k, base + 32 * (o + k), stream))
+                o += k
+        else:
+            rc = [tree(data.data_ptr(), offs.data_ptr(), n, base,
+                       ticket.data_ptr(), stream)]
+        check(not any(rc), f"light: a tree kernel's launch: CUDA errors {rc}")
+        return out
+
+    return run, ptxas_lines(log)
+
+
 def light_phase(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
                 tag) -> dict:
     """Phase 12: light-client header sync (BASELINE config 3) through the
     SHA-256 tree kernel and the Ed25519 kernel.  Returns the tree kernel's
     entry of the kernels line."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+
+    # TREE_PARENT's tree and the current source at each C of TREE_CHUNKS,
+    # built while the chain is signed
+    src = (_build.CSRC_DIR / "sha256_tree.cu").read_bytes()
+    builds = {"parent": start_parent(_build, "COMETBFT_TPU_TREE_PARENT_SRC",
+                                     TREE_PARENT, csh.SOURCE)}
+    builds.update({c: start_nvcc(_build, src, "sha256_tree", f"-DSHA256_CHUNK={c}")
+                   for c in TREE_CHUNKS})
+    try:
+        return light_checks(torch, dev, cbatch, cv, ds, sigcache, sms,
+                            max_clock_mhz, tag, builds)
+    finally:
+        for build in builds.values():
+            stop_build(build)
+
+
+def light_checks(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
+                 tag, builds) -> dict:
     import numpy as np
 
     from cometbft_tpu_torch import verifysched
     from cometbft_tpu_torch.crypto import merkle
     from cometbft_tpu_torch.light import verifier as lv
+    from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import cuda_sha256 as csh
     from cometbft_tpu_torch.ops import sha256_tree as st
     from cometbft_tpu_torch.ops import verify as ov
@@ -1335,14 +1442,18 @@ def light_phase(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
           f"signed votes in {setup_s:.2f} s (pure-Python signing; data "
           f"set-up, not verification)")
 
-    # the tree kernel against its plain version and crypto/merkle
+    # the tree kernel against its plain version and crypto/merkle, at the
+    # chunk edges too (C leaves per block)
+    chunk = csh.occupancy()["threads"]
+    edges = (1, chunk - 1, chunk, chunk + 1, 2 * chunk + 1, 4 * chunk - 1)
     rng = np.random.default_rng(LIGHT_SEED + 1)
     cycle = lambda k: [rng.bytes(TREE_EDGE_LENS[x % len(TREE_EDGE_LENS)])
                        for x in range(k)]
     validators = [v.simple_encode() for v in before.validators]
     big = [rng.bytes(int(ln)) for ln in rng.integers(0, 128, TREE_BIG)]
     sets = {"the validator set": validators}
-    sets.update({f"{k} leaves": cycle(k) for k in TREE_SMALL_N})
+    sets.update({f"{k} leaves": cycle(k)
+                 for k in sorted(set(TREE_SMALL_N) | set(edges))})
     sets.update({f"9 leaves of {ln} bytes": [rng.bytes(ln) for _ in range(9)]
                  for ln in TREE_EDGE_LENS})
     sets[f"{TREE_BIG} leaves"] = big
@@ -1365,7 +1476,8 @@ def light_phase(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
     print(f"light: tree kernel == plain version bit for bit (max_abs_err "
           f"{worst}), every level == crypto/merkle's leaf and inner hashes, "
           f"the device pass's root == crypto/merkle's, on {len(sets)} leaf "
-          f"sets: {', '.join(sets)}")
+          f"sets (C = {chunk} leaves per block; chunk edges "
+          f"{', '.join(map(str, edges))}, {TREE_BIG}): {', '.join(sets)}")
 
     # the sync through the entry points
     trusted, news = lbs[0], lbs[1:]
@@ -1475,8 +1587,7 @@ def light_phase(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
           f"validator-set hashes")
     check(ed["cuda"][0] > 0 and ed["torch"] == ed["host"] == (0, 0),
           f"light: signature batches by tier {ed}")
-    levels_per_tree = len(st.level_sizes(LIGHT_VALIDATORS))
-    check(cv.launches > 0 and launches == made[0] * levels_per_tree > 0,
+    check(cv.launches > 0 and launches == made[0] > 0,
           f"light: {launches} tree launches for {made[0]} validator-set "
           f"hashes, {cv.launches} Ed25519 launches")
     leaked = [m for m in sys.modules
@@ -1490,13 +1601,15 @@ def light_phase(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
           f"sequential agreeing, as (error, index): {seen}; "
           f"{made[0]} validator-set hashes, tree passes by tier (passes, "
           f"leaves) {tree}, oversize {over}; signature batches by tier {ed}; "
-          f"launches: tree kernels {launches} ({levels_per_tree} per "
-          f"{LIGHT_VALIDATORS}-leaf tree), Ed25519 {cv.launches}; jax not imported")
+          f"launches: tree kernel {launches} (one per validator-set hash), "
+          f"Ed25519 {cv.launches}; jax not imported")
 
     # times: the tree kernel, its plain version and the host merkle
     def tree_times(items):
         data, offs = st.pack_leaves(items, dev)
-        ms = cuda_ms(torch, lambda: csh.tree_words(data, offs), KERNEL_RUNS, 3)
+        fn = lambda: csh.tree_words(data, offs)
+        ms = cuda_ms(torch, fn, KERNEL_RUNS, 3)
+        device_ms = cuda_ms(torch, fn, KERNEL_RUNS, 3, queued=True)
         plain_ms = cuda_ms(torch, lambda: st.tree_words_plain(data, offs), 3, 1)
         host_ms = median_ms(lambda: merkle.hash_from_byte_slices(items), 5)
         lens = [len(x) for x in items]
@@ -1505,37 +1618,117 @@ def light_phase(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
                   + 32 * sum(st.level_sizes(len(items))))
         b_ms, b_by = bound(comps * csh.OPS_PER_COMPRESSION, nbytes, sms,
                            max_clock_mhz)
-        print(f"light: time: tree kernel {ms} ms at {len(items)} leaves "
-              f"({len(st.level_sizes(len(items)))} launches; median of "
-              f"{KERNEL_RUNS} samples of one call, CUDA events); plain PyTorch "
-              f"version {plain_ms} ms; host crypto/merkle (the host path, not a "
-              f"card number) {host_ms} ms; bound {b_ms} ms by {b_by}: {comps} "
-              f"compressions x {csh.OPS_PER_COMPRESSION} sm_90 integer instructions (SHF, "
-              f"LOP3, IADD3, IADD) over "
+        # the longest chain of dependent compressions: a leaf's blocks, then
+        # two per level above it
+        levels = len(st.level_sizes(len(items)))
+        crit = max((ln + 9) // 64 + 1 for ln in lens) + 2 * (levels - 1)
+        print(f"light: time: tree kernel {ms} ms at {len(items)} leaves (1 "
+              f"launch, {-(-len(items) // chunk)} blocks of {chunk}; median of "
+              f"{KERNEL_RUNS} samples of one call, CUDA events), its device "
+              f"time alone {device_ms} ms (queued behind a sleep kernel); "
+              f"critical path {crit} dependent compressions ({levels} "
+              f"levels): {ms / crit * 1e3:.4f} us per critical compression, "
+              f"{device_ms / crit * 1e3:.4f} us of device time; plain "
+              f"PyTorch version {plain_ms} ms; host crypto/merkle (the host "
+              f"path, not a card number) {host_ms} ms; bound {b_ms} ms by "
+              f"{b_by}: {comps} compressions x {csh.OPS_PER_COMPRESSION} sm_90 "
+              f"integer instructions (SHF, LOP3, IADD3, IADD) over "
               f"{sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x "
               f"{max_clock_mhz:.0f} MHz, or {nbytes} bytes; kernel at "
-              f"{b_ms / ms:.2%} of its bound {tag}")
+              f"{b_ms / ms:.2%} of its bound ({b_ms / device_ms:.2%} of its "
+              f"device time) {tag}")
         return ms, plain_ms, b_ms, b_by
 
     kernel_ms, plain_ms, bound_ms, bound_by = tree_times(validators)
     tree_times(big)
     print("light: library_ms is null: no PyTorch library call computes SHA-256")
-    from cometbft_tpu_torch.ops import _build
 
-    mix = sass_mix(_build.lib_path(csh.NAME), "sha256_layer_kernel")
+    # device time against depth: trees of one block, 1 to 9 levels
+    depth = {}
+    for k in TREE_DEPTHS:
+        data, offs = st.pack_leaves(validators[:k], dev)
+        depth[k] = cuda_ms(torch, lambda: csh.tree_words(data, offs),
+                           KERNEL_RUNS, 3, queued=True)
+    top = len(st.level_sizes(TREE_DEPTHS[-1])) - 1
+    per_level = (depth[TREE_DEPTHS[-1]] - depth[1]) / top
+    print(f"light: depth: device time alone (queued) of the first k "
+          f"validators' tree: " + ", ".join(
+              f"k = {k} ({len(st.level_sizes(k))} levels) {v} ms"
+              for k, v in depth.items())
+          + f"; {per_level * 1e3:.4f} us per level above the leaves (two "
+          f"dependent compressions, a barrier), {depth[1] * 1e3:.4f} us for "
+          f"the launch and one leaf {tag}")
+
+    def in_turns(items, fns, order):
+        """Medians per tree of ``fns`` over ``items``, one-call and queued
+        (device time alone), sampled in ``order`` (TREE_AB_RUNS samples of
+        each a turn), each tree first held to this kernel's words."""
+        data, offs = st.pack_leaves(items, dev)
+        want = csh.tree_words(data, offs)
+        for k, fn in fns.items():
+            check(torch.equal(fn(data, offs), want),
+                  f"light: tree {k} != this kernel on {len(items)} leaves")
+        turns = [(k, cuda_ms(torch, lambda: fns[k](data, offs), TREE_AB_RUNS, 1),
+                  cuda_ms(torch, lambda: fns[k](data, offs), TREE_AB_RUNS, 1,
+                          queued=True))
+                 for k in order]
+        med = {k: (statistics.median(a for j, a, _ in turns if j == k),
+                   statistics.median(b for j, _, b in turns if j == k))
+               for k in fns}
+        return med, "; ".join(f"{k} {a} / {b}" for k, a, b in turns)
+
+    # TREE_PARENT's two-kernel tree, in turns with this one
+    if builds["parent"][0] is None:
+        print(f"light: parent: not measured: {builds['parent'][1]}")
+    else:
+        run_parent, ptxas = tree_launcher(torch, dev, builds["parent"], True)
+        fns = {"parent": run_parent, "new": csh.tree_words}
+        for items in (validators, big):
+            med, turns = in_turns(items, fns, ("parent", "new", "new", "parent"))
+            (p1, pq), (n1, nq) = med["parent"], med["new"]
+            print(f"light: parent: the tree of {TREE_PARENT} (a leaf launch "
+                  f"and one layer launch per level, "
+                  f"{len(st.level_sizes(len(items)))} launches; "
+                  f"{'; '.join(ptxas)}) == this kernel; in turns at "
+                  f"{len(items)} leaves, one-call / queued ms (medians of "
+                  f"{TREE_AB_RUNS} samples each): {turns}; parent {p1} / {pq} "
+                  f"ms, this kernel {n1} / {nq} ms: {p1 / n1:.3f}x one-call, "
+                  f"{pq / nq:.3f}x device time {tag}")
+
+    # C, the leaves per block: each of TREE_CHUNKS built from this source
+    runs = {}
+    for c in TREE_CHUNKS:
+        runs[c], ptxas = tree_launcher(torch, dev, builds[c], False)
+        print(f"light: chunks: C = {c}: {'; '.join(ptxas)}")
+    order = TREE_CHUNKS + TREE_CHUNKS[::-1]
+    for items in (validators, big):
+        med, turns = in_turns(items, runs, order)
+        print(f"light: chunks: in turns at {len(items)} leaves, one-call / "
+              f"queued ms (medians of {TREE_AB_RUNS} samples a turn; turns "
+              f"{turns}): " + ", ".join(f"C = {k} {a} / {b} ms"
+                                        for k, (a, b) in med.items())
+              + f"; the package builds C = {chunk} {tag}")
+
+    log = _build.build_log(csh.NAME)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    check(spills and not any(int(a) or int(b) for a, b in spills),
+          f"light: the tree kernel spills: {ptxas_lines(log)}")
+    mix = sass_mix(_build.lib_path(csh.NAME), "sha256_tree_kernel")
     alu = {k: mix.get(k, 0) for k in ("SHF", "LOP3", "IADD3", "IADD", "IMAD",
-                                      "PRMT", "SHL", "SHR", "LEA")}
-    check(sum(mix.values()) > 0, "light: cuobjdump showed no sha256_layer_kernel")
-    print(f"sass: sha256_layer_kernel (one parent per thread: two "
-          f"compressions, the second over a schedule of constant words): "
-          f"{sum(mix.values())} instructions, of them {alu}; the bound counts "
-          f"2 x {csh.OPS_PER_COMPRESSION} = {2 * csh.OPS_PER_COMPRESSION} per "
-          f"parent {tag}")
+                                      "PRMT", "SHL", "SHR", "LEA", "BAR", "LDS",
+                                      "STS")}
+    check(sum(mix.values()) > 0, "light: cuobjdump showed no sha256_tree_kernel")
+    print(f"sass: sha256_tree_kernel (a leaf, then one parent per level, per "
+          f"thread): {sum(mix.values())} instructions, of them {alu}; the "
+          f"bound counts {csh.OPS_PER_COMPRESSION} per compression {tag}")
     occ = csh.occupancy()
-    print(f"occupancy: {csh.NAME}: 1 thread per leaf (and per parent), "
-          f"{occ['threads']} threads per block, {occ['regs']} registers and "
-          f"{occ['local_bytes']} bytes of local memory per thread; "
-          f"{occ['blocks_per_sm']} blocks resident per SM {tag}")
+    print(f"occupancy: {csh.NAME}: 1 thread per leaf, C = {occ['threads']} "
+          f"threads per block, {occ['regs']} registers and "
+          f"{occ['local_bytes']} bytes of local memory per thread, "
+          f"{occ['shared_bytes']} bytes of shared memory per block; "
+          f"{occ['blocks_per_sm']} blocks resident per SM; ptxas: "
+          f"{'; '.join(ptxas_lines(log))} {tag}")
+    check(occ["local_bytes"] == 0, f"light: {occ['local_bytes']} local bytes")
 
     # times: the sync, and where a header's time goes
     per_cold = statistics.median(cold) / LIGHT_HEADERS
@@ -1636,9 +1829,8 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
              else f"compiled by g++ in {host_build_s:.2f} s"))
     native.lib()  # loads it and binds its three functions
     for name in _build.sources():
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "stack frame" in line:
-                print(f"build: {name}: {line.strip()}")
+        for line in ptxas_lines(_build.build_log(name)):
+            print(f"build: {name}: {line}")
 
     # -- set-up: keys, commit, signatures ------------------------------------
     t0 = time.perf_counter()

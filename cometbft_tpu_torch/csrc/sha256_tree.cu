@@ -1,37 +1,67 @@
-// RFC 6962 SHA-256 Merkle tree levels for NVIDIA Hopper (sm_90a).
+// RFC 6962 SHA-256 Merkle tree, every level, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the XLA programs of cometbft_tpu/ops/sha256_tree.py: _leaf_fn
-// (:227) and _layer_fn (:252) over _compress (:204).  Two kernels:
+// (:227) and _layer_fn (:252) over _compress (:204).  One kernel, one
+// launch per tree:
 //
-//   * sha256_leaf_kernel: one thread per leaf, SHA-256(0x00 || leaf) over
-//     the leaf's raw bytes (one byte buffer and per-leaf offsets); the
-//     thread pads the message itself, so the host packs nothing;
-//   * sha256_layer_kernel: one thread per parent, SHA-256(0x01 || L || R)
-//     of two adjacent digests of the level below; an odd tail is promoted
-//     unchanged.
+//   * the grid is ceil(n / C) blocks of C threads, one thread per leaf.
+//     Block b owns the aligned chunk of leaves [b * C, b * C + C): under
+//     bottom-up pairing with the odd tail promoted that chunk is a complete
+//     subtree (the last, partial chunk sits at the right edge, so its odd
+//     tails are the tree's own), and it reduces to one digest without
+//     seeing any other block;
+//   * each thread hashes its leaf, SHA-256(0x00 || leaf), from the leaf's
+//     raw bytes (one byte buffer and per-leaf offsets), padding it itself;
+//   * the block pairs its level in shared memory, SHA-256(0x01 || L || R),
+//     one __syncthreads() per level, ping-ponging between two buffers of
+//     C digests; log2(C) levels bring the chunk to its root;
+//   * every digest of every level is also written to its row of `out`
+//     (leaves first, the rows of ops/sha256_tree.level_sizes);
+//   * the last block to finish, by a ticket taken with atomicAdd after a
+//     __threadfence(), reads the ceil(n / C) chunk roots past L1 and
+//     reduces them in shared memory the same way (C at a time, should there
+//     be more than C), and sets the ticket back to 0.  A tree of n <= C is
+//     one block and takes no ticket.
 //
 // Digests are 8 uint32 words, big-endian values as SHA-256 defines them
-// (the JAX kernel's (B, 8) uint32 rows).  A tree is one leaf launch and one
-// layer launch per level, all queued on one stream by the wrapper
-// (ops/cuda_sha256.py); the tree plane copies the root back.
+// (the JAX kernel's (B, 8) uint32 rows).
 //
 // What bounds it: a compression is 1,384 instructions of sm_90's integer
 // ISA (48 schedule words of 10, 64 rounds of 14, 8 final additions; a
 // rotate or a shift is one SHF, any three-input logic function one LOP3,
 // three addends one IADD3; counted by the host build below), so a
 // 1,000-leaf tree (~3,000 compressions) is ~0.25 us of the card's INT32
-// lanes and a few hundred kilobytes of memory traffic.
-// At that width the tree is bound by launch latency: 11 dependent
-// launches.  The design keeps each lane's 64 rounds in registers (the
+// lanes and a few hundred kilobytes of memory traffic.  At that width the
+// tree is bound by its depth: a leaf's blocks, then two dependent
+// compressions per level (21 at 1,000 leaves), each a chain of 64 rounds
+// that one warp issues alone near the top of the tree (~25 instructions a
+// round with the schedule's; ~3.4 us of device time per level on the
+// card, PERF.md).  The design keeps each lane's rounds in registers (the
 // message schedule as a rolling window of 16 words, rotates as
-// __funnelshift_r, K in constant memory) and does nothing about the
-// launches yet.
+// __funnelshift_r, K in constant memory) and the levels on the card, in
+// one launch: with a launch per level (11 at 1,000 leaves) each level
+// would wait for the whole level below to drain.
 //
-// Without __CUDACC__ the same source builds for the host (one leaf after
-// another); with -DSHA256_TALLY the host build counts every instruction
-// of the compressions (one per helper below), for the bound's tally.
+// C = 128 by default (-DSHA256_CHUNK=k builds another power of two up to
+// 1,024), chosen by measurement: chip_smoke.py's light phase times C =
+// 128, 256, 512 and 1,024 in turns at 1,000 and 16,384 leaves, and 128
+// had the least device time at both, 3-5% below 256 (its warps share an
+// SM's four schedulers with fewer others; 512 spills, 1,024 is held to 64
+// registers; PERF.md).  Shared memory is 2 x C x 32 bytes (8 KiB at 128),
+// dynamic above 48 KiB.
+//
+// Without __CUDACC__ the same source builds for the host, running the
+// kernel's block schedule in turn: each chunk's leaves, its levels, then
+// the last block's pass over the chunk roots, each step for every thread
+// of the block between two barriers.  With -DSHA256_TALLY the host build
+// counts every instruction of the compressions (one per helper below), for
+// the bound's tally.
 
 #include <stdint.h>
+
+#if !defined(__CUDACC__)
+#include <vector>
+#endif
 
 #if defined(__CUDACC__)
 #define DEV __device__ __forceinline__
@@ -41,9 +71,17 @@
 #define CONST_MEM static const
 #endif
 
-#define THREADS 128  // threads per block
+#ifndef SHA256_CHUNK
+#define SHA256_CHUNK 128  // C: leaves (threads) per block
+#endif
+static_assert(SHA256_CHUNK >= 2 && SHA256_CHUNK <= 1024 &&
+                  (SHA256_CHUNK & (SHA256_CHUNK - 1)) == 0,
+              "SHA256_CHUNK: a power of two from 2 to 1,024");
 
 namespace {
+
+constexpr int CHUNK = SHA256_CHUNK;  // C
+constexpr int SHARED_BYTES = 2 * 8 * CHUNK * 4;  // two buffers of C digests
 
 CONST_MEM uint32_t K[64] = {
     0x428A2F98u, 0x71374491u, 0xB5C0FBCFu, 0xE9B5DBA5u, 0x3956C25Bu,
@@ -212,13 +250,147 @@ DEV void inner_digest(const uint32_t* l, const uint32_t* r, uint32_t* out) {
   for (int j = 0; j < 8; j++) out[j] = value(s[j]);
 }
 
-// Parent j of a level of k digests: the pair (2j, 2j + 1), or the promoted
-// odd tail.
-DEV void parent(const uint32_t* in, int k, int j, uint32_t* out) {
-  if (2 * j + 1 < k) {
-    inner_digest(in + 16 * j, in + 16 * j + 8, out);
+// The block schedule.  EACH_THREAD(t) runs its body as thread t of the
+// block: on the card as the thread itself, in the host build for every t
+// in turn.  BARRIER() separates two steps of the block.  No thread returns
+// before a barrier: threads past a level's count skip its work and fall
+// through.
+#if defined(__CUDACC__)
+#define EACH_THREAD(t) for (int t = threadIdx.x; t < (int)threadIdx.x + 1; t++)
+#define BARRIER() __syncthreads()
+#else
+#define EACH_THREAD(t) for (int t = 0; t < CHUNK; t++)
+#define BARRIER() ((void)0)
+#endif
+
+DEV int imin(int a, int b) { return a < b ? a : b; }
+
+// A word of a digest another block wrote: read past L1 (which is not kept
+// coherent across SMs), from L2.
+DEV uint32_t load_cg(const uint32_t* p) {
+#if defined(__CUDACC__)
+  return __ldcg(p);
+#else
+  return *p;
+#endif
+}
+
+// A level of the tree: its first row in `out` and its digests.
+struct Level {
+  int64_t base;
+  int size;
+};
+
+DEV Level up(Level lv) { return Level{lv.base + lv.size, (lv.size + 1) / 2}; }
+
+// Digest slot j of a shared buffer: 8 words, word c at [c * CHUNK + j]
+// (so that a warp's reads of adjacent children hit two banks at most),
+// and the same digest into its row of `out`.
+DEV void put(uint32_t* buf, int j, const uint32_t* d, uint32_t* row) {
+  for (int c = 0; c < 8; c++) {
+    buf[c * CHUNK + j] = d[c];
+    row[c] = d[c];
+  }
+}
+
+// Thread t's parent of the k digests in `a`: the pair (2t, 2t + 1), or the
+// promoted odd tail, into slot t of `b` and `row`.
+DEV void parent_step(const uint32_t* a, int k, int t, uint32_t* b,
+                     uint32_t* row) {
+  uint32_t l[8], r[8], d[8];
+  for (int c = 0; c < 8; c++) l[c] = a[c * CHUNK + 2 * t];
+  if (2 * t + 1 < k) {
+    for (int c = 0; c < 8; c++) r[c] = a[c * CHUNK + 2 * t + 1];
+    inner_digest(l, r, d);
+    put(b, t, d, row);
   } else {
-    for (int c = 0; c < 8; c++) out[c] = in[16 * j + c];
+    put(b, t, l, row);
+  }
+}
+
+// The levels above k digests in `a` that begin at index `start` of level
+// `lv`: up to log2(C) levels, fewer where the tree's root comes first.
+// Leaves the top digests in `a` and `lv` at the last level written.
+DEV void chunk_levels(uint32_t*& a, uint32_t*& b, int k, int start, Level& lv,
+                      uint32_t* out) {
+  for (int span = 1; span < CHUNK && lv.size > 1; span *= 2) {
+    const int64_t row = lv.base + lv.size + start / 2;
+    EACH_THREAD(t) {
+      if (t < (k + 1) / 2) parent_step(a, k, t, b, out + 8 * (row + t));
+    }
+    BARRIER();
+    uint32_t* s = a;
+    a = b;
+    b = s;
+    lv = up(lv);
+    start /= 2;
+    k = (k + 1) / 2;
+  }
+}
+
+// Whether the calling block is the last of `blocks` to finish its chunk.
+// The last one sets the ticket back to 0, so a launch leaves it as it
+// found it.
+DEV bool last_ticket(int* ticket, int blocks) {
+#if defined(__CUDACC__)
+  const bool last = atomicAdd(ticket, 1) == blocks - 1;
+  if (last) {
+    *ticket = 0;
+    __threadfence();  // the chunk roots are read after the ticket
+  }
+  return last;
+#else
+  const bool last = (*ticket)++ == blocks - 1;
+  if (last) *ticket = 0;
+  return last;
+#endif
+}
+
+// Block `blk` of `blocks`: the chunk's leaves and levels; then, in the last
+// block to finish, the levels above the chunk roots.  `smem`: two buffers
+// of 8 x CHUNK words; `last`: one int the block shares.
+DEV void tree_block(int blk, int blocks, const uint8_t* data,
+                    const int64_t* offs, int n, uint32_t* out, int* ticket,
+                    uint32_t* smem, int* last) {
+  uint32_t* a = smem;
+  uint32_t* b = smem + 8 * CHUNK;
+  const int first = blk * CHUNK;
+  const int m = imin(CHUNK, n - first);
+  EACH_THREAD(t) {
+    if (t < m) {
+      const int64_t off = offs[first + t];
+      uint32_t d[8];
+      leaf_digest(data + off, offs[first + t + 1] - off, d);
+      put(a, t, d, out + 8 * (int64_t)(first + t));
+    }
+  }
+  BARRIER();
+  Level lv = {0, n};
+  chunk_levels(a, b, m, first, lv, out);  // lv: the chunk roots' level
+  if (blocks == 1) return;
+#if defined(__CUDACC__)
+  __threadfence();  // this chunk's rows, the root among them, before the ticket
+#endif
+  BARRIER();
+  EACH_THREAD(t) {
+    if (t == 0) *last = last_ticket(ticket, blocks);
+  }
+  BARRIER();
+  if (!*last) return;
+  while (lv.size > 1) {
+    const Level top = lv;
+    for (int g = 0; g < top.size; g += CHUNK) {
+      const int k = imin(CHUNK, top.size - g);
+      EACH_THREAD(t) {
+        if (t < k) {
+          for (int c = 0; c < 8; c++)
+            a[c * CHUNK + t] = load_cg(out + 8 * (top.base + g + t) + c);
+        }
+      }
+      BARRIER();
+      lv = top;
+      chunk_levels(a, b, k, g, lv, out);
+    }
   }
 }
 
@@ -226,80 +398,77 @@ DEV void parent(const uint32_t* in, int k, int j, uint32_t* out) {
 
 #if defined(__CUDACC__)
 
-__global__ void __launch_bounds__(THREADS)
-    sha256_leaf_kernel(const uint8_t* __restrict__ data,
-                       const int64_t* __restrict__ offs, int n,
-                       uint32_t* __restrict__ out) {
-  const int i = blockIdx.x * THREADS + threadIdx.x;
-  if (i >= n) return;
-  const int64_t off = offs[i];
-  leaf_digest(data + off, offs[i + 1] - off, out + 8 * i);
+__global__ void __launch_bounds__(CHUNK)
+    sha256_tree_kernel(const uint8_t* __restrict__ data,
+                       const int64_t* __restrict__ offs, int n, uint32_t* out,
+                       int* ticket) {
+  extern __shared__ uint32_t smem[];
+  __shared__ int last;
+  tree_block(blockIdx.x, gridDim.x, data, offs, n, out, ticket, smem, &last);
 }
 
-__global__ void __launch_bounds__(THREADS)
-    sha256_layer_kernel(const uint32_t* __restrict__ in, int k,
-                        uint32_t* __restrict__ out) {
-  const int j = blockIdx.x * THREADS + threadIdx.x;
-  if (j >= (k + 1) / 2) return;
-  parent(in, k, j, out + 8 * j);
+// Above 48 KiB a block's dynamic shared memory has to be allowed first.
+static cudaError_t allow_shared() {
+  if (SHARED_BYTES <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(sha256_tree_kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              SHARED_BYTES);
 }
 
 // data: the leaves' bytes back to back; offs: (n + 1,) int64, leaf i is
-// data[offs[i]:offs[i + 1]]; out: (n, 8) uint32 leaf digests.  Launches on
-// `stream`, does not synchronise, allocates nothing; returns
+// data[offs[i]:offs[i + 1]]; out: (sum of level_sizes(n), 8) uint32, every
+// level's digests, leaves first; ticket: one int32, 0, that no other
+// stream's launch uses (the last block sets it back to 0).  n >= 1.
+// Launches on `stream`, does not synchronise, allocates nothing; returns
 // cudaGetLastError().
-extern "C" int sha256_leaf_launch(const void* data, const void* offs, int n,
-                                  void* out, void* stream) {
-  if (n > 0) {
-    const int blocks = (n + THREADS - 1) / THREADS;
-    sha256_leaf_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)data, (const int64_t*)offs, n, (uint32_t*)out);
-  }
+extern "C" int sha256_tree_launch(const void* data, const void* offs, int n,
+                                  void* out, void* ticket, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t e = allow_shared();
+  if (e != cudaSuccess) return (int)e;
+  sha256_tree_kernel<<<(n + CHUNK - 1) / CHUNK, CHUNK, SHARED_BYTES,
+                       (cudaStream_t)stream>>>(
+      (const uint8_t*)data, (const int64_t*)offs, n, (uint32_t*)out,
+      (int*)ticket);
   return (int)cudaGetLastError();
 }
 
-// in: (k, 8) uint32 digests of one level; out: (ceil(k / 2), 8) uint32, the
-// level above.  Launches on `stream`; returns cudaGetLastError().
-extern "C" int sha256_layer_launch(const void* in, int k, void* out,
-                                   void* stream) {
-  if (k > 1) {
-    const int parents = (k + 1) / 2;
-    const int blocks = (parents + THREADS - 1) / THREADS;
-    sha256_layer_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-        (const uint32_t*)in, k, (uint32_t*)out);
-  }
-  return (int)cudaGetLastError();
-}
-
-// The leaf kernel's launch resources: blocks resident per SM, threads per
-// block, and the compiled kernel's registers, local memory bytes per thread
-// and static shared memory bytes per block.  Returns a CUDA error code.
+// The kernel's launch resources: blocks resident per SM, threads per block
+// (C), and the compiled kernel's registers, local memory bytes per thread
+// and shared memory bytes per block (static and dynamic).  Returns a CUDA
+// error code.
 extern "C" int sha256_tree_occupancy(int* blocks_per_sm, int* threads,
                                      int* regs, int* local_bytes,
                                      int* shared_bytes) {
   cudaFuncAttributes fa;
-  cudaError_t e = cudaFuncGetAttributes(&fa, sha256_leaf_kernel);
+  cudaError_t e = allow_shared();
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, sha256_tree_kernel);
   if (e != cudaSuccess) return (int)e;
-  *threads = THREADS;
+  *threads = CHUNK;
   *regs = fa.numRegs;
   *local_bytes = (int)fa.localSizeBytes;
-  *shared_bytes = (int)fa.sharedSizeBytes;
+  *shared_bytes = (int)fa.sharedSizeBytes + SHARED_BYTES;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, sha256_leaf_kernel, THREADS, 0);
+      blocks_per_sm, sha256_tree_kernel, CHUNK, SHARED_BYTES);
 }
 
-#else  // host build: one leaf, then one parent, after another
+#else  // host build: the blocks one after another, in the kernel's schedule
 
-extern "C" void sha256_leaf_host(const uint8_t* data, const int64_t* offs,
-                                 int n, uint32_t* out) {
-  for (int i = 0; i < n; i++)
-    leaf_digest(data + offs[i], offs[i + 1] - offs[i], out + 8 * i);
+// The kernel's output for the n leaves of data/offs into out (every level,
+// leaves first), computed block by block as the launch schedules it, the
+// last block last.  Returns the ticket after the run: 0, as before it.
+extern "C" int sha256_tree_host(const uint8_t* data, const int64_t* offs,
+                                int n, uint32_t* out) {
+  std::vector<uint32_t> smem(2 * 8 * CHUNK);
+  const int blocks = (n + CHUNK - 1) / CHUNK;
+  int ticket = 0, last = 0;
+  for (int blk = 0; blk < blocks; blk++)
+    tree_block(blk, blocks, data, offs, n, out, &ticket, smem.data(), &last);
+  return ticket;
 }
 
-extern "C" void sha256_layer_host(const uint32_t* in, int k, uint32_t* out) {
-  if (k < 2) return;
-  for (int j = 0; j < (k + 1) / 2; j++) parent(in, k, j, out + 8 * j);
-}
+// C: leaves per block of this build.
+extern "C" int sha256_tree_chunk(void) { return CHUNK; }
 
 #if defined(SHA256_TALLY)
 // Compressions and counted 32-bit operations since the last call; resets.

@@ -1,13 +1,20 @@
-"""The SHA-256 Merkle tree kernels' wrapper (``csrc/sha256_tree.cu``).
+"""The SHA-256 Merkle tree kernel's wrapper (``csrc/sha256_tree.cu``).
 
 Counterpart of the XLA programs ``_leaf_fn`` and ``_layer_fn`` (over
 ``_compress``) of ``cometbft_tpu/ops/sha256_tree.py``: raw leaf bytes and
 offsets in, every level's digests out.  For CUDA tensors the wrapper
-queues the leaf launch and one layer launch per level on the current
-stream, or raises; for CPU tensors it runs the plain PyTorch version,
+queues one launch per tree on the current stream, or raises; for CPU
+tensors it runs the plain PyTorch version,
 ``ops.sha256_tree.tree_words_plain``.  ``launches`` counts kernel launches
-(leaf and layer, and nothing else), so a run can show that its main path
-went through the kernels.
+(one per tree, and nothing else), so a run can show that its main path
+went through the kernel.
+
+The kernel's last block finds itself by a ticket, one int32 in device
+memory that every launch leaves at 0.  The wrapper keeps one per (device,
+stream), made once, so that trees on two streams never share one.  (A
+memset of a fresh ticket before each launch would put a second operation
+on the stream in front of every tree, the very cost one launch per tree
+removes.)
 """
 
 from __future__ import annotations
@@ -31,9 +38,9 @@ REPLACES = "cometbft_tpu/ops/sha256_tree.py:227 (_leaf_fn), :252 (_layer_fn)"
 # the two sigma XORs, Ch and Maj; three IADD3 and an IADD) and the 8 IADD
 # into the state.
 OPS_PER_COMPRESSION = 1384
-DIGEST_BYTES = 32
 
 launches = 0
+_tickets: "dict[tuple[int, int], torch.Tensor]" = {}
 
 
 def reset_launches() -> None:
@@ -42,22 +49,27 @@ def reset_launches() -> None:
 
 
 @lru_cache(maxsize=1)
-def _launchers():
-    lib = _build.load(NAME)
-    leaf = lib.sha256_leaf_launch
-    leaf.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_void_p, ctypes.c_void_p]
-    leaf.restype = ctypes.c_int
-    layer = lib.sha256_layer_launch
-    layer.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p]
-    layer.restype = ctypes.c_int
-    return leaf, layer
+def _launcher():
+    fn = _build.load(NAME).sha256_tree_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _ticket(index: int, stream: int) -> torch.Tensor:
+    """The zeroed int32 ticket of card ``index``'s ``stream``."""
+    t = _tickets.get((index, stream))
+    if t is None:
+        zero = torch.zeros(1, dtype=torch.int32, device=f"cuda:{index}")
+        t = _tickets.setdefault((index, stream), zero)
+    return t
 
 
 def occupancy() -> dict:
-    """The leaf kernel's launch resources on the current card
-    (``_build.occupancy``)."""
+    """The kernel's launch resources on the current card
+    (``_build.occupancy``); ``threads`` is C, the leaves per block, and
+    ``shared_bytes`` counts the dynamic shared memory too."""
     return _build.occupancy(NAME)
 
 
@@ -86,8 +98,8 @@ def tree_words(data: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     offs[i + 1]]``, leaves first, as (sum of ``level_sizes(n)``, 8) int32
     words (the bits of uint32).
 
-    CUDA tensors: 1 + (levels - 1) launches on the current stream, no
-    synchronisation.  CPU tensors: the plain version."""
+    CUDA tensors: one launch on the current stream, no synchronisation.
+    CPU tensors: the plain version."""
     n = _check(data, offs)
     dev = data.device
     if dev.type == "cpu":
@@ -95,22 +107,16 @@ def tree_words(data: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device: {dev}")
     data, offs = data.contiguous(), offs.contiguous()
-    sizes = _plain.level_sizes(n)
-    out = torch.empty((sum(sizes), 8), dtype=torch.int32, device=dev)
-    leaf, layer = _launchers()
+    out = torch.empty((sum(_plain.level_sizes(n)), 8), dtype=torch.int32,
+                      device=dev)
+    launch = _launcher()
     global launches
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = leaf(data.data_ptr(), offs.data_ptr(), n, out.data_ptr(), stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        ticket = _ticket(torch.cuda.current_device(), stream)
+        rc = launch(data.data_ptr(), offs.data_ptr(), n, out.data_ptr(),
+                    ticket.data_ptr(), stream)
         if rc != 0:
-            raise RuntimeError(f"{NAME} leaf launch failed: CUDA error {rc}")
+            raise RuntimeError(f"{NAME} launch failed: CUDA error {rc}")
         launches += 1
-        base, o = out.data_ptr(), 0
-        for k in sizes[:-1]:
-            rc = layer(base + o * DIGEST_BYTES, k,
-                       base + (o + k) * DIGEST_BYTES, stream)
-            if rc != 0:
-                raise RuntimeError(f"{NAME} layer launch failed: CUDA error {rc}")
-            launches += 1
-            o += k
     return out

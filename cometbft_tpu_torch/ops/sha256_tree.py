@@ -2,12 +2,11 @@
 of the JAX package's ``ops/sha256_tree.py``.
 
 A leaf set is hashed in one device pass: the leaves' raw bytes and their
-offsets go to the card, the leaf kernel hashes every ``SHA-256(0x00 ||
-leaf)``, one layer launch per level hashes adjacent pairs
-``SHA-256(0x01 || L || R)``, an odd tail promoted unchanged
-(``ops/cuda_sha256.py`` + ``csrc/sha256_tree.cu``), and the root's 32
-bytes come back.  Bottom-up adjacent
-pairing with odd-tail promotion is structurally equal to
+offsets go to the card, one kernel launch hashes every ``SHA-256(0x00 ||
+leaf)`` and every level above, adjacent pairs ``SHA-256(0x01 || L ||
+R)``, an odd tail promoted unchanged (``ops/cuda_sha256.py`` +
+``csrc/sha256_tree.cu``), and the root's 32 bytes come back.  Bottom-up
+adjacent pairing with odd-tail promotion is structurally equal to
 ``crypto/merkle``'s split-point recursion, which is the oracle.
 
 ``leaf_core`` / ``layer_core`` are the kernel's plain PyTorch version:
@@ -241,9 +240,9 @@ def tree_words_plain(data: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
 
 def device_root(items, device=None) -> bytes:
     """The unguarded device tree pass: the leaves' bytes to ``device``
-    (None: the card), the leaf launch and one layer launch per level on
-    one stream, one copy of the root back.  CPU tensors run the plain
-    version.  Raises on any failure; ``tree_root`` supervises it."""
+    (None: the card), one launch of the tree kernel, one copy of the root
+    back.  CPU tensors run the plain version.  Raises on any failure;
+    ``tree_root`` supervises it."""
     from cometbft_tpu_torch.ops import cuda_sha256
     from cometbft_tpu_torch.ops.verify import resolve_device
 
