@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero.  The
 main-path phases (5-8) must be served by the cuda tier alone: a batch
 served by the torch or host tier, or one that raised, fails the run.
   1. device — the card's name and power limit;
-  2. build  — g++ builds the host library (``csrc/host_prep.cpp``) and
-              nvcc every kernel, all from the repository's sources;
+  2. build  — g++ builds the host libraries (``csrc/host_prep.cpp``,
+              ``csrc/bls12381.cpp``) and nvcc every kernel, all from the
+              repository's sources;
   3. host   — the host library on the commit: C++ ``prepare_batch`` ==
               the Python ``_pack_plain`` on the mixed lanes, C++ sign bytes
               == the per-index Python encoder for every signature and for
@@ -128,16 +129,42 @@ served by the torch or host tier, or one that raised, fails the run.
               each C of TREE_CHUNKS, each timed in turns with this kernel;
               the kernel's spills (none), instruction mix (``cuobjdump``)
               and occupancy; and times of the sync (per header, cold and
-              warm) with where a header's time goes.
+              warm) with where a header's time goes;
+ 13. bls    — BLS12-381 commit verification (BASELINE config 5), a path of
+              its own: the G1 scalar-multiplication kernel
+              (``csrc/bls_g1.cu``, one thread per lane) against its plain
+              PyTorch version bit for bit in canonical X, Y, Z on 10,240
+              seeded lanes (pubkeys of the host library, 128-bit scalars;
+              the identity, the generator, a repeated point and the scalars
+              0, 1 and 2^128 - 1 among them) and on 1-129 lanes, and
+              against the host library's ``bls_g1_scalar_mul`` on a
+              256-lane sample; then a 256-validator commit (keys from
+              ``Bls12381PrivKey.from_secret``) through ``verify_commit`` and
+              ``verify_commit_light`` -> ``BlsBatchVerifier`` (self-check,
+              signature cache, the host library's structural checks) -> the
+              supervisor's single-tier call (breaker ``bls_g1``) ->
+              ``ops/bls_g1.neg_scaled_pubkeys`` -> the kernel, with the
+              hashes to G2, the G2 scaling and the pairing product in the
+              host library (``csrc/bls12381.cpp``): cold and warm, a
+              tampered commit rejected at exactly 0, 128 and 255 (128 by
+              the per-signature attribution after the combination fails),
+              one launch per cold batch and every G1 call on ``cuda``; the
+              kernel against its plain version bit for bit at the main
+              path's widths (the commit's 256 keys and the light commit's
+              lanes, fresh 128-bit r_i), then its times at 256 and 10,240
+              lanes beside its bound
+              (``cuda_bls.needed_work``), its tally, its plain version,
+              registers, spills and occupancy; the cold commit's wall and
+              its host parts, with a cProfile top 5.
 
 Usage, from the repository root, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
 Set-up signs 10,240 votes with the pure-Python oracle (~1.6 ms each on one
-host core, ~17 s in all), 10,240 secp256k1 votes (~5 s) and the light
-chain's 17,000 votes (~30 s): the cost of making the data, not of
-verifying it.
+host core, ~17 s in all), 10,240 secp256k1 votes (~5 s), the light
+chain's 17,000 votes (~30 s) and 256 BLS12-381 votes in the host library
+(~1 s): the cost of making the data, not of verifying it.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -218,6 +245,17 @@ TREE_CHUNKS = (128, 256, 512, 1024)  # leaves per block C, timed in turns
 TREE_AB_RUNS = 10  # samples of each tree per turn
 TREE_DEPTHS = (1, 2, 4, 16, 64, 256)  # leaves of one-block trees, 1-9 levels
 QUEUE_CYCLES = 1_000_000  # the sleep kernel in front of a queued sample
+BLS_SEED = SEED + 9  # the BLS validators' keys and the G1 lanes
+BLS_VALIDATORS = 256  # BASELINE config 5, cut from 10,240 (host pairing)
+BLS_LANES = 10_240  # the G1 kernel against its plain version
+BLS_SMALL_N = (1, 31, 32, 33, 129)
+BLS_SAMPLE = 256  # lanes held to the host library's G1 scalar mul
+BLS_BAD = (0, 128, 255)  # 0 and 255 flipped bytes, 128 signs other bytes
+BLS_COLD_RUNS = 3  # cold verify_commit / verify_commit_light samples
+BLS_HOST_RUNS = 3  # samples of each host part of the commit
+# main-path launches: self-check 1 + 3 cold + 3 cold light + warm 0 + bad
+# commit 1 + the good commit after it 1 + batch-verifier bits 1
+BLS_LAUNCHES = 1 + 2 * BLS_COLD_RUNS + 3
 
 
 class SmokeError(AssertionError):
@@ -1782,6 +1820,328 @@ def light_checks(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
     }
 
 
+def bls_tampered(commit, sign_bytes, privs):
+    """A copy of ``commit`` with the signatures at BLS_BAD damaged: the
+    last byte flipped at the first and the last (not a point: the
+    structural filter drops them) and, at the middle one, the validator's
+    signature of other bytes (a valid point: the random linear combination
+    fails and every signature is verified on its own)."""
+    out = tampered(commit, (BLS_BAD[0], BLS_BAD[-1]))
+    mid = BLS_BAD[1]
+    out.signatures[mid].signature = privs[mid].sign(sign_bytes[mid] + b"!")
+    return out
+
+
+def bls_lanes(native, n: int):
+    """``n`` seeded G1 lanes: 96-byte pubkeys of seeded secret keys (the
+    host library's ``bls_pubkey_from_sk``) and 128-bit scalars from numpy,
+    the edge lanes first: the identity, the generator, one point repeated,
+    scalars 0, 1 and 2^128 - 1."""
+    import ctypes
+
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import bls12381 as bls
+    from cometbft_tpu_torch.ops import bls_g1
+
+    rng = np.random.default_rng(BLS_SEED + 1)
+    lib = native.bls()
+    pubs = []
+    for _ in range(n):
+        sk = int.from_bytes(rng.bytes(32), "big") % (bls.R - 1) + 1
+        out = ctypes.create_string_buffer(96)
+        check(lib.bls_pubkey_from_sk(sk.to_bytes(32, "big"), out) == 0,
+              "bls: bls_pubkey_from_sk failed")
+        pubs.append(out.raw)
+    ks = [int.from_bytes(rng.bytes(16), "big") for _ in range(n)]
+    check(n >= 8, f"bls: {n} lanes leave no room for the edge lanes")
+    pubs[:4] = [bls_g1.INFINITY, bls.g1_serialize(bls.G1_GEN), pubs[6], pubs[6]]
+    ks[3:6] = [0, 1, (1 << 128) - 1]
+    return pubs, ks
+
+
+def bls_phase(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
+              tag) -> dict:
+    """Phase 13: BLS12-381 commit verification (BASELINE config 5) through
+    the hand-written G1 scalar-multiplication kernel and the host library.
+    Returns its entry of the kernels line."""
+    import ctypes
+    import secrets
+
+    import numpy as np
+
+    from cometbft_tpu_torch import native
+    from cometbft_tpu_torch.crypto import bls12381 as bls
+    from cometbft_tpu_torch.crypto.keys import Bls12381PrivKey
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import bls_g1
+    from cometbft_tpu_torch.ops import cuda_bls as cb
+
+    lib = native.bls()
+
+    # the kernel against its plain version, the host library and the oracle
+    t0 = time.perf_counter()
+    pubs, ks = bls_lanes(native, BLS_LANES)
+    lanes_s = time.perf_counter() - t0
+
+    def inputs(pubs, ks):
+        pts = np.frombuffer(b"".join(pubs), np.uint8).reshape(len(pubs), 96)
+        return (torch.from_numpy(pts.copy()).to(dev),
+                torch.from_numpy(bls_g1.scalars_to_bytes(ks).copy()).to(dev))
+
+    pts, sc = inputs(pubs, ks)
+    kern = cb.scalar_mul_cuda(pts, sc)
+    torch.cuda.synchronize()
+    plain = bls_g1.batch_scalar_mul_plain(pts, sc)
+    torch.cuda.synchronize()
+    max_abs_err = int((kern.int() - plain.int()).abs().max())
+    check(torch.equal(kern, plain), f"bls: kernel != plain on "
+          f"{int((kern != plain).any(1).sum())} of {BLS_LANES} lanes")
+    for k in BLS_SMALL_N:
+        kb = cb.scalar_mul_cuda(pts[:k].contiguous(), sc[:k].contiguous())
+        check(torch.equal(kb, kern[:k]) and
+              torch.equal(kb, bls_g1.batch_scalar_mul_plain(pts[:k], sc[:k])),
+              f"bls: n={k}: kernel != plain")
+    rng = np.random.default_rng(BLS_SEED + 2)
+    sample = list(range(8)) + sorted(
+        rng.choice(range(8, BLS_LANES), BLS_SAMPLE - 8, replace=False).tolist())
+    got = bls_g1.affine(kern[sample].cpu().numpy())
+    for i, g in zip(sample, got):
+        out = ctypes.create_string_buffer(96)
+        check(lib.bls_g1_scalar_mul(pubs[i], ks[i].to_bytes(16, "big"), 16, out) == 0,
+              f"bls: bls_g1_scalar_mul failed on lane {i}")
+        want = (bls_g1.INFINITY if g is None else
+                g[0].to_bytes(48, "big") + g[1].to_bytes(48, "big"))
+        check(out.raw == want, f"bls: lane {i}: kernel != host library")
+    check(got[0] is None and got[3] is None and got[4] is not None,
+          "bls: the identity and scalar 0 lanes are not the identity")
+    check(got[4] == bls.E1.affine(bls.g1_deserialize(pubs[4])),
+          "bls: scalar 1 does not give the point back")
+    gen = bls.E1.affine(bls.G1_GEN)
+    known = bls_g1.batch_scalar_mul([gen], [0x1234], nbits=16, device=dev)
+    check(known == [bls.E1.affine(bls.E1.mul_scalar(bls.G1_GEN, 0x1234))],
+          "bls: G * 0x1234 at 16 bits")
+    print(f"bls: kernel: {BLS_LANES} seeded lanes (pubkeys of the host "
+          f"library, {lanes_s:.2f} s; the identity, the generator, a repeated "
+          f"point, scalars 0, 1 and 2^128 - 1 among them) == plain version bit "
+          f"for bit in canonical X, Y, Z (max_abs_err {max_abs_err}); n = "
+          f"{', '.join(map(str, BLS_SMALL_N))} == plain; {BLS_SAMPLE}-lane "
+          f"sample == the host library's bls_g1_scalar_mul; G * 0x1234 at 16 "
+          f"bits == the oracle")
+
+    # the commit through the entry points
+    t0 = time.perf_counter()
+    vals, commit, block_id, sign_bytes = make_commit(
+        BLS_VALIDATORS, Bls12381PrivKey.from_secret, BLS_SEED)
+    setup_s = time.perf_counter() - t0
+    seeds = np.random.default_rng(BLS_SEED)  # make_commit's keys, again
+    keys = [Bls12381PrivKey.from_secret(seeds.bytes(32))
+            for _ in range(BLS_VALIDATORS)]
+    by_addr = {k.pub_key().address(): k for k in keys}
+    privs = [by_addr[v.address] for v in vals.validators]
+    bad_commit = bls_tampered(commit, sign_bytes, privs)
+    vpubs = [v.pub_key.bytes() for v in vals.validators]
+    vsigs = [c.signature for c in commit.signatures]
+    cache = sigcache.get_cache()
+    full = lambda: val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, commit)
+    light = lambda: val.verify_commit_light(CHAIN_ID, vals, block_id, HEIGHT, commit)
+
+    def cold_ms(fn) -> float:
+        cache.clear()
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    check(isinstance(cbatch.create_batch_verifier(vals.validators[0].pub_key),
+                     cbatch.BlsBatchVerifier),
+          "bls: the default verifier is not the BLS one")
+    tiers0 = ds.tier_counts("bls12_381")
+    cb.reset_launches()
+    commit_samples = [cold_ms(full) for _ in range(BLS_COLD_RUNS)]
+    before = cb.launches
+    t0 = time.perf_counter()
+    full()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    check(cb.launches == before, f"bls: warm commit made {cb.launches - before} launches")
+    light_samples = [cold_ms(light) for _ in range(BLS_COLD_RUNS)]
+    cache.clear()
+    t0 = time.perf_counter()
+    try:
+        val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, bad_commit)
+    except val.InvalidSignatureError as e:
+        check(e.index == BLS_BAD[0], f"bls: InvalidSignatureError({e.index})")
+    else:
+        raise SmokeError("bls: a commit with bad signatures verified")
+    bad_ms = (time.perf_counter() - t0) * 1e3
+    misses, before = cache.stats()["misses"], cb.launches
+    full()
+    check(cache.stats()["misses"] - misses == len(BLS_BAD) and
+          cb.launches - before == 1,
+          "bls: the bad commit's verdicts changed how the good commit verified")
+    cache.clear()
+    bv = cbatch.create_batch_verifier(vals.validators[0].pub_key)
+    for v, sb, c in zip(vals.validators, sign_bytes, bad_commit.signatures):
+        bv.add(v.pub_key, sb, c.signature)
+    ok, bad_bits = bv.verify()
+    false_at = [i for i, b in enumerate(bad_bits) if not b]
+    check(not ok and false_at == list(BLS_BAD), f"bls: false bits at {false_at}")
+    launches = cb.launches
+    check(launches == BLS_LAUNCHES, f"bls: {launches} kernel launches, want "
+          f"{BLS_LAUNCHES}")
+    tiers = {k: (v[0] - tiers0[k][0], v[1] - tiers0[k][1])
+             for k, v in ds.tier_counts("bls12_381").items()}
+    check(tiers["torch"] == (0, 0) and tiers["host"] == (0, 0) and
+          tiers["cuda"][0] == BLS_LAUNCHES - 1,
+          f"bls: G1 calls served below the cuda tier or missing: {tiers}")
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
+    check(not leaked, f"bls: imported {leaked}")
+    print(f"bls: slice: {BLS_VALIDATORS}-validator BLS12-381 commit "
+          f"(keys and signatures in {setup_s:.2f} s, data set-up): "
+          f"verify_commit and verify_commit_light passed on the BLS verifier, "
+          f"{BLS_COLD_RUNS} cold samples each (signature cache cleared before "
+          f"each); a warm verify_commit made 0 launches; bad indices "
+          f"{list(BLS_BAD)} ({BLS_BAD[1]} a valid point over other bytes) -> "
+          f"InvalidSignatureError({BLS_BAD[0]}) in {bad_ms:.1f} ms (the "
+          f"combination fails, each signature verified on its own); the good "
+          f"commit after it passed with {len(BLS_BAD)} misses and 1 launch; "
+          f"batch-verifier bits false exactly at {list(BLS_BAD)}; {launches} "
+          f"G1 launches (self-check 1, one per cold batch); jax not imported; "
+          f"G1 calls served by tier (calls, keys): {tiers}")
+
+    # the kernel at the main path's widths (the commit's keys, fresh r_i:
+    # the whole commit and verify_commit_light's lanes), held to its plain
+    # version bit for bit before it is timed there and at 10,240 lanes
+    rs = [secrets.randbits(128) | 1 for _ in vpubs]
+    cp, ck = inputs(vpubs, rs)
+    light_n = len(val._collect_entries(vals, commit,
+                                       vals.total_voting_power() * 2 // 3,
+                                       False, False)[0])
+    errs = {}
+    for n in (BLS_VALIDATORS, light_n):
+        kb = cb.scalar_mul_cuda(cp[:n].contiguous(), ck[:n].contiguous())
+        pb = bls_g1.batch_scalar_mul_plain(cp[:n], ck[:n])
+        torch.cuda.synchronize()
+        errs[n] = int((kb.int() - pb.int()).abs().max())
+        check(torch.equal(kb, pb), f"bls: kernel != plain on "
+              f"{int((kb != pb).any(1).sum())} of the main path's {n} lanes")
+    print(f"bls: kernel at the main path's widths: the commit's {BLS_VALIDATORS} "
+          f"keys and fresh 128-bit r_i, and the first {light_n} of them "
+          f"(verify_commit_light's lanes), == plain version bit for bit in "
+          f"canonical X, Y, Z (max_abs_err {errs})")
+    per = {}
+    for n, (p, k), scal in ((BLS_VALIDATORS, (cp, ck), rs),
+                            (BLS_LANES, (pts, sc), ks)):
+        ms = cuda_ms(torch, lambda: cb.scalar_mul_cuda(p, k), KERNEL_RUNS, 3)
+        plain_ms = cuda_ms(torch, lambda: bls_g1.batch_scalar_mul_plain(p, k), 1, 0)
+        muls, squares, products = cb.needed_work(scal)
+        bound_ms, bound_by = bound(products, n * cb.BYTES_PER_LANE, sms,
+                                   max_clock_mhz)
+        tally_ms, _ = bound(n * cb.WIDE_PRODUCTS_PER_LANE, n * cb.BYTES_PER_LANE,
+                            sms, max_clock_mhz)
+        per[n] = (ms, plain_ms, bound_ms, bound_by)
+        print(f"bls: time: kernel {ms} ms at {n} lanes (median of {KERNEL_RUNS} "
+              f"samples of one call, CUDA events) = {n / ms * 1e3:.0f} scalar "
+              f"multiplications/s; plain PyTorch version {plain_ms} ms; bound "
+              f"{bound_ms} ms by {bound_by} ({products} 32x32->64-bit products "
+              f"that these {n} 128-bit scalar multiplications need: {muls} "
+              f"multiplies, {squares} squares, the cheapest width-w NAF ladder "
+              f"per scalar in Jacobian coordinates over a one-Z table), "
+              f"kernel at {bound_ms / ms:.2%} of it; the kernel's own tally "
+              f"{n * cb.WIDE_PRODUCTS_PER_LANE} products "
+              f"({n * cb.WIDE_PRODUCTS_PER_LANE / products:.3f}x), {tally_ms} "
+              f"ms at the same rates, kernel at {tally_ms / ms:.2%} of that {tag}")
+    print("bls: library_ms is null: no PyTorch library call computes a "
+          "BLS12-381 G1 scalar multiplication")
+    occ = cb.occupancy()
+    log = _build.build_log(cb.NAME)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    for n in (BLS_VALIDATORS, BLS_LANES):
+        grid = -(-n // occ["threads"])
+        waves = -(-grid // max(1, occ["blocks_per_sm"] * sms))
+        print(f"occupancy: {cb.NAME}: one thread per lane, {occ['threads']} "
+              f"threads per block, {occ['regs']} registers and "
+              f"{occ['local_bytes']} bytes of local memory per thread (spill "
+              f"stores, loads: {spills}), {occ['shared_bytes']} bytes of shared "
+              f"memory per block; {occ['blocks_per_sm']} blocks resident per "
+              f"SM; {n} lanes -> {grid} blocks, {min(grid, sms)} of {sms} SMs "
+              f"with work, {waves} wave(s) {tag}")
+
+    # the cold commit's wall and its host parts
+    rb = [r.to_bytes(16, "big") for r in rs]
+
+    def validation():
+        for p, g in zip(vpubs, vsigs):
+            lib.bls_pubkey_validate(p, 96)
+            lib.bls_sig_validate(g)
+
+    def hashes():
+        out = ctypes.create_string_buffer(96)
+        for m in sign_bytes:
+            lib.bls_hash_to_g2(m, len(m), out)
+
+    def g2_scaling():
+        out = ctypes.create_string_buffer(96)
+        for g, r in zip(vsigs, rb):
+            lib.bls_g2_scalar_mul_compressed(g, r, 16, out)
+
+    # the random linear combination of the commit by hand: the kernel's
+    # -(r_i * pk_i), the host library's H(m_i) and sum r_i * S_i
+    g1_parts = bls_g1.neg_scaled_pubkeys(vpubs, rs, dev)
+    hs, scaled = [], []
+    for m, g, r in zip(sign_bytes, vsigs, rb):
+        h, s2 = ctypes.create_string_buffer(96), ctypes.create_string_buffer(96)
+        check(lib.bls_hash_to_g2(m, len(m), h) == 0 and
+              lib.bls_g2_scalar_mul_compressed(g, r, 16, s2) == 0,
+              "bls: host library G2 op failed")
+        hs.append(h.raw)
+        scaled.append(s2.raw)
+    agg = ctypes.create_string_buffer(96)
+    check(lib.bls_aggregate_sigs(b"".join(scaled), len(scaled), agg) == 0,
+          "bls: bls_aggregate_sigs failed")
+    g1cat = b"".join(g1_parts) + bls.g1_serialize(bls.G1_GEN)
+    g2cat = b"".join(hs) + agg.raw
+    n_pairs = len(vpubs) + 1
+
+    def pairing():
+        return lib.bls_pairing_product_is_one_serialized(g1cat, g2cat, n_pairs)
+
+    check(pairing() == 1, "bls: the product over the kernel's G1 points is not 1")
+
+    parts = {
+        "validation (KeyValidate, SigValidate)": median_ms(validation, BLS_HOST_RUNS),
+        "hash_to_g2": median_ms(hashes, BLS_HOST_RUNS),
+        "G2 scaling r_i * S_i": median_ms(g2_scaling, BLS_HOST_RUNS),
+        f"pairing product ({n_pairs} pairs)": median_ms(pairing, BLS_HOST_RUNS),
+        "G1 call (neg_scaled_pubkeys: packing, one launch, affine)": median_ms(
+            lambda: bls_g1.neg_scaled_pubkeys(vpubs, rs, dev), BLS_HOST_RUNS),
+    }
+    commit_ms = statistics.median(commit_samples)
+    rest_ms = commit_ms - sum(parts.values())
+    cache.clear()
+    by_cum, by_own = top_host_functions(full)
+    print(f"bls: time: verify_commit cold wall {commit_ms} ms (median of "
+          f"{BLS_COLD_RUNS}; all {commit_samples}; the first with the "
+          f"self-check) = {BLS_VALIDATORS / commit_ms * 1e3:.0f} verifies/s; "
+          f"warm (0 launches) {warm_ms} ms; verify_commit_light cold wall "
+          f"{statistics.median(light_samples)} ms (all {light_samples}); the bad "
+          f"commit (attribution) {bad_ms} ms {tag}")
+    print(f"bls: time: host parts of a cold commit, medians of "
+          f"{BLS_HOST_RUNS} (ms): " + "; ".join(
+              f"{k} {v}" for k, v in parts.items())
+          + f"; remainder of the wall {rest_ms} ms {tag}")
+    print(f"bls: time: cProfile of one cold verify_commit, top 5 by cumulative "
+          f"ms: {by_cum}")
+    print(f"bls: time: cProfile of the same run, top 5 by own ms: {by_own}")
+    ms, plain_ms, bound_ms, bound_by = per[BLS_VALIDATORS]
+    return {
+        "name": cb.NAME, "route": "cuda", "source": cb.SOURCE,
+        "replaces": cb.REPLACES, "launches": launches,
+        "max_abs_err": errs[BLS_VALIDATORS], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -1828,6 +2188,11 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           + ("already built" if host_build_s is None
              else f"compiled by g++ in {host_build_s:.2f} s"))
     native.lib()  # loads it and binds its three functions
+    bls_build_s = built.get(native.BLS_NAME)
+    print(f"build: BLS host library {native.BLS_SOURCE}: "
+          + ("already built" if bls_build_s is None
+             else f"compiled by g++ in {bls_build_s:.2f} s"))
+    native.bls()  # loads it, binds it and runs its pairing self-check
     for name in _build.sources():
         for line in ptxas_lines(_build.build_log(name)):
             print(f"build: {name}: {line}")
@@ -2055,6 +2420,10 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     light_entry = light_phase(torch, dev, cbatch, cv, ds, sigcache, sms,
                               max_clock_mhz, tag)
 
+    # -- 13. bls: BLS12-381 commits (config 5) through the G1 kernel ---------
+    bls_entry = bls_phase(torch, dev, cbatch, val, ds, sigcache, sms,
+                          max_clock_mhz, tag)
+
     print("host: " + json.dumps({
         "name": native.NAME,
         "source": native.SOURCE,
@@ -2078,7 +2447,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, chain_entry, secp_entry, light_entry]}))
+    }, chain_entry, secp_entry, light_entry, bls_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

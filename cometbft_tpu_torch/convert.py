@@ -29,10 +29,10 @@ def batch_from_numpy(arrays: dict, device) -> dict:
 
 
 def validator_set_from(obj) -> ValidatorSet:
-    """A validator set with the same validators (Ed25519 or secp256k1
-    keys, by their ``type_``), order, voting powers, proposer priorities
-    and proposer.  The set is rebuilt as it stands: the constructor's
-    proposer-priority increment is not run again."""
+    """A validator set with the same validators (Ed25519, secp256k1 or
+    BLS12-381 keys, by their ``type_``), order, voting powers, proposer
+    priorities and proposer.  The set is rebuilt as it stands: the
+    constructor's proposer-priority increment is not run again."""
     vals = [
         Validator(
             pub_key_from_type(v.pub_key.type_, bytes(v.pub_key.bytes())),

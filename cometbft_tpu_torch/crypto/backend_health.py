@@ -52,6 +52,9 @@ _STATE_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 SECP_DEVICE = "secp_device"
 # ... and of the SHA-256 Merkle tree kernel (``ops/sha256_tree``).
 MERKLE_DEVICE = "merkle_device"
+# ... and of the BLS12-381 G1 scalar-multiplication kernel
+# (``crypto/batch.BlsBatchVerifier``; the JAX package's breaker name).
+BLS_G1 = "bls_g1"
 
 
 class BackendError(RuntimeError):

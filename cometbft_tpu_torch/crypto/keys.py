@@ -1,23 +1,28 @@
-"""Key interfaces, the Ed25519 implementation and the key-type registry.
+"""Key interfaces, the Ed25519 and BLS12-381 implementations and the
+key-type registry.
 
 Mirrors the reference seam (crypto/crypto.go:22-52): ``PubKey`` /
-``PrivKey`` with 20-byte addresses (SHA-256-truncated for Ed25519,
-RIPEMD160(SHA256) for secp256k1, ``crypto.secp256k1``).
+``PrivKey`` with 20-byte addresses (SHA-256-truncated for Ed25519 and
+BLS12-381, RIPEMD160(SHA256) for secp256k1, ``crypto.secp256k1``).
 
-Single verification runs the port's own pure-Python oracles
-(``crypto.ed25519_ref``, ZIP-215; ``crypto.secp256k1``, low-S ECDSA): the
-port depends on no host crypto library, so it behaves the same on every
-machine it runs on.
+Single verification runs the port's own code: the pure-Python oracles
+(``crypto.ed25519_ref``, ZIP-215; ``crypto.secp256k1``, low-S ECDSA) and,
+for BLS12-381, the port's host library behind ``crypto.bls12381`` (the
+pairing in C++, built from the repository's sources): the port depends on
+no installed crypto library, so it behaves the same on every machine it
+runs on.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+from cometbft_tpu_torch.crypto import bls12381 as _bls
 from cometbft_tpu_torch.crypto import ed25519_ref, tmhash
 from cometbft_tpu_torch.crypto.secp256k1 import SECP256K1_KEY_TYPE, Secp256k1PubKey
 
 ED25519_KEY_TYPE = "ed25519"
+BLS12381_KEY_TYPE = "bls12_381"
 
 
 @dataclass(frozen=True)
@@ -68,16 +73,83 @@ class Ed25519PrivKey:
         return self.seed
 
 
+@dataclass(frozen=True)
+class Bls12381PubKey:
+    """96-byte uncompressed-G1 public key (min-pubkey-size convention).
+
+    Reference: crypto/bls12381/key_bls12381.go:150-216 (blst-backed) and
+    const.go PubKeySize = 96; verification in the port's host library
+    (``crypto.bls12381.verify``)."""
+
+    data: bytes
+
+    type_ = BLS12381_KEY_TYPE
+
+    def __post_init__(self):
+        if len(self.data) != _bls.PUB_KEY_SIZE:
+            raise ValueError("bls12_381 pubkey must be 96 bytes")
+
+    def address(self) -> bytes:
+        addr = self.__dict__.get("_addr")
+        if addr is None:
+            addr = tmhash.sum_truncated(self.data)
+            self.__dict__["_addr"] = addr
+        return addr
+
+    def verify_signature(self, msg: bytes, sig: bytes) -> bool:
+        return _bls.verify(self.data, msg, sig)
+
+    def bytes(self) -> bytes:
+        return self.data
+
+
+@dataclass(frozen=True)
+class Bls12381PrivKey:
+    """32-byte BLS secret scalar (big-endian), reference PrivKey.Bytes."""
+
+    data: bytes
+
+    type_ = BLS12381_KEY_TYPE
+
+    @staticmethod
+    def generate() -> "Bls12381PrivKey":
+        return Bls12381PrivKey(_bls.sk_to_bytes(_bls.gen_privkey()))
+
+    @staticmethod
+    def from_secret(secret: bytes) -> "Bls12381PrivKey":
+        """Reference GenPrivKeyFromSecret (key_bls12381.go:66-74)."""
+        return Bls12381PrivKey(
+            _bls.sk_to_bytes(_bls.gen_privkey_from_secret(secret))
+        )
+
+    def _sk(self) -> int:
+        sk = _bls.sk_from_bytes(self.data)
+        if sk is None:
+            raise ValueError("invalid bls12_381 private key bytes")
+        return sk
+
+    def pub_key(self) -> Bls12381PubKey:
+        return Bls12381PubKey(_bls.pubkey(self._sk()))
+
+    def sign(self, msg: bytes) -> bytes:
+        return _bls.sign(self._sk(), msg)
+
+    def bytes(self) -> bytes:
+        return self.data
+
+
 def pub_key_from_type(key_type: str, data: bytes):
     """The public key of ``key_type`` over its encoded bytes (the JAX
-    package's registry without BLS, which the port does not have yet)."""
+    package's registry)."""
     if key_type == ED25519_KEY_TYPE:
         return Ed25519PubKey(data)
     if key_type == SECP256K1_KEY_TYPE:
         return Secp256k1PubKey(data)
+    if key_type == BLS12381_KEY_TYPE:
+        return Bls12381PubKey(data)
     raise ValueError(f"unsupported key type: {key_type}")
 
 
 def supported_key_types() -> list[str]:
-    """The key types the port has: Ed25519 and secp256k1."""
-    return [ED25519_KEY_TYPE, SECP256K1_KEY_TYPE]
+    """The key types the port has: Ed25519, secp256k1 and BLS12-381."""
+    return [ED25519_KEY_TYPE, SECP256K1_KEY_TYPE, BLS12381_KEY_TYPE]

@@ -136,7 +136,8 @@ def build_all(names: "list[str] | None" = None) -> dict:
 
 def _compile(todo: list[str]) -> dict:
     tmps = {n: lib_path(n).with_suffix(f".so.tmp{os.getpid()}") for n in todo}
-    commands = {n: _command(n, tmps[n]) for n in todo}  # raises before any starts
+    # raises before any starts, naming a missing nvcc before a missing g++
+    commands = {n: _command(n, tmps[n]) for n in sorted(todo, key=is_host)}
     procs = {}
     t0 = time.perf_counter()
     for name in todo:

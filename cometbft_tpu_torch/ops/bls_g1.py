@@ -1,0 +1,162 @@
+"""Batched BLS12-381 G1 scalar multiplication: the host API and the plain
+PyTorch version of the Hopper kernel (``csrc/bls_g1.cu``).
+
+The port's counterpart of ``cometbft_tpu/ops/bls_g1.py``'s
+``batch_scalar_mul``: per lane s_i * P_i on y^2 = x^3 + 4 over GF(P381),
+the curve layer of ``ops.wcurve`` bound to ``ops.fp381``, for the
+random-linear-combination check of ``crypto.batch.BlsBatchVerifier``
+(r_i * pk_i with 128-bit r_i).  The JAX module's ``msm`` and
+``sum_points`` (a lane sum after the ladder) have no caller on a verify
+path and are not ported.
+
+Division of labour, redesigned from the JAX package's (host packs
+Montgomery limbs and (nbits, B) bit rows, the device program runs the
+ladder, the host unpacks):
+
+  * host: points as raw 96-byte uncompressed G1 (x || y big-endian, byte
+    0 = 0x40 for the point at infinity) and scalars as 16-byte big-endian
+    rows;
+  * device (``ops.cuda_bls.scalar_mul_cuda``: the kernel on a card, its
+    plain version here for CPU tensors): into the Montgomery domain, the
+    MSB-first double-and-add of ``wcurve.Curve.scalar_mul`` over the low
+    ``nbits`` bits, and out of it: canonical X || Y || Z, 144 bytes a lane;
+  * host: affine coordinates (``affine``), or, for the verifier, the
+    negated points serialized for the pairing product
+    (``neg_scaled_pubkeys``).
+
+Both the kernel and the plain version run the JAX ladder's sequence of
+field operations, so their canonical (X, Y, Z) are equal byte for byte,
+and equal to the JAX program's as ints.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from cometbft_tpu_torch.ops import fp381
+from cometbft_tpu_torch.ops.fpgen import F, select
+from cometbft_tpu_torch.ops.wcurve import Curve, Point
+
+P = fp381.P_INT
+B3 = 12  # 3 * b for y^2 = x^3 + 4
+FIELD = fp381.FIELD
+CURVE = Curve(FIELD, B3)
+
+MAX_BITS = 128  # the kernel's scalar row: 16 bytes
+INFINITY = b"\x40" + bytes(95)  # ZCash flags: uncompressed point at infinity
+
+
+# -- the plain PyTorch version ----------------------------------------------------
+
+
+def scalar_bits(scalars: torch.Tensor, nbits: int) -> torch.Tensor:
+    """(nbits, n) int64 rows of 0/1, MSB first, of the low ``nbits`` bits
+    of (n, 16) uint8 big-endian scalars."""
+    n = scalars.shape[0]
+    shifts = torch.arange(7, -1, -1, device=scalars.device)
+    bits = (scalars.to(torch.int64)[:, :, None] >> shifts) & 1
+    return bits.reshape(n, 8 * scalars.shape[1])[:, -nbits:].T
+
+
+def canonical_be(f: F) -> torch.Tensor:
+    """(B, 48) uint8: the fully reduced values of ``f``, big-endian."""
+    v = FIELD.canonical(f)[:24]  # 16-bit limbs; the top two are 0 below p
+    le = torch.stack([v & 0xFF, v >> 8], 1).reshape(48, -1)
+    return le.flip(0).T.to(torch.uint8)
+
+
+def batch_scalar_mul_plain(pts: torch.Tensor, scalars: torch.Tensor,
+                           nbits: int = MAX_BITS) -> torch.Tensor:
+    """The kernel's plain version: (n, 144) uint8 canonical X || Y || Z of
+    s_i * P_i for (n, 96) uint8 points and (n, 16) uint8 scalars."""
+    n, dev = pts.shape[0], pts.device
+    inf = (pts[:, 0] & 0x40) != 0
+    xb = pts[:, :48].clone()
+    xb[:, 0] &= 0x1F  # the flag bits
+    x = FIELD.from_bytes_be(xb)
+    y = FIELD.from_bytes_be(pts[:, 48:])
+    zero, one = FIELD.const(0, n, dev), FIELD.const(1, n, dev)
+    base = Point(select(inf, zero, x), select(inf, one, y), select(inf, zero, one))
+    acc = CURVE.scalar_mul(base, scalar_bits(scalars, nbits))
+    return torch.cat([canonical_be(c) for c in acc], 1)
+
+
+# -- the host API -------------------------------------------------------------------
+
+
+def points_to_bytes(points: Sequence[Optional[tuple]]) -> np.ndarray:
+    """Affine (x, y) int pairs (None = infinity) -> (n, 96) uint8 rows."""
+    rows = [INFINITY if pt is None else
+            (pt[0] % P).to_bytes(48, "big") + (pt[1] % P).to_bytes(48, "big")
+            for pt in points]
+    return np.frombuffer(b"".join(rows), np.uint8).reshape(len(rows), 96)
+
+
+def scalars_to_bytes(scalars: Sequence[int], nbits: int = MAX_BITS) -> np.ndarray:
+    """Scalars below 2^nbits -> (n, 16) uint8 big-endian rows."""
+    if not 1 <= nbits <= MAX_BITS:
+        raise ValueError(f"nbits {nbits} outside 1..{MAX_BITS}")
+    for j, s in enumerate(scalars):
+        if not 0 <= s < 1 << nbits:
+            raise ValueError(f"scalar {j} exceeds {nbits} bits")
+    rows = b"".join(s.to_bytes(16, "big") for s in scalars)
+    return np.frombuffer(rows, np.uint8).reshape(len(scalars), 16)
+
+
+def _coords(xyz: np.ndarray) -> list:
+    """(n, 144) uint8 X || Y || Z -> [(X, Y, Z)] ints."""
+    return [tuple(int.from_bytes(row[48 * c:48 * c + 48].tobytes(), "big")
+                  for c in range(3)) for row in xyz]
+
+
+def affine(xyz: np.ndarray) -> list:
+    """(n, 144) uint8 projective X || Y || Z -> affine (x, y) int pairs,
+    None where Z = 0."""
+    out = []
+    for x, y, z in _coords(xyz):
+        zi = pow(z, -1, P) if z else 0
+        out.append((x * zi % P, y * zi % P) if z else None)
+    return out
+
+
+def _run(pts: np.ndarray, scalars: np.ndarray, nbits: int, device) -> np.ndarray:
+    """One launch of the kernel on a card, the plain version on the CPU."""
+    from cometbft_tpu_torch.ops import cuda_bls
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    dev = resolve_device(device)
+    if pts.shape[0] == 0:
+        return np.zeros((0, 144), np.uint8)
+    t = [torch.from_numpy(a.copy()).to(dev) for a in (pts, scalars)]
+    return cuda_bls.scalar_mul_cuda(*t, nbits).cpu().numpy()
+
+
+def batch_scalar_mul(points: Sequence[Optional[tuple]], scalars: Sequence[int],
+                     nbits: int = MAX_BITS, device=None) -> list:
+    """Per lane scalar_i * point_i, affine (x, y) ints or None for
+    infinity (the JAX ``batch_scalar_mul``).  ``device=None`` means the
+    card (one launch of the kernel); ``device="cpu"`` runs the plain
+    version; a CUDA request without a card raises."""
+    if len(points) != len(scalars):
+        raise ValueError(f"{len(points)} points, {len(scalars)} scalars")
+    xyz = _run(points_to_bytes(points), scalars_to_bytes(scalars, nbits),
+               nbits, device)
+    return affine(xyz)
+
+
+def neg_scaled_pubkeys(pubs: Sequence[bytes], scalars: Sequence[int],
+                       device=None) -> list:
+    """[-(r_i * pk_i)] as 96-byte uncompressed G1 (0x40 || 0... for the
+    identity), ready for the host library's pairing product, for 96-byte
+    uncompressed pubkeys (already validated) and 128-bit scalars: one
+    launch on a card, the plain version on the CPU."""
+    if len(pubs) != len(scalars):
+        raise ValueError(f"{len(pubs)} pubkeys, {len(scalars)} scalars")
+    pts = np.frombuffer(b"".join(pubs), np.uint8).reshape(len(pubs), 96)
+    xyz = _run(pts, scalars_to_bytes(scalars), MAX_BITS, device)
+    return [INFINITY if a is None else
+            a[0].to_bytes(48, "big") + ((P - a[1]) % P).to_bytes(48, "big")
+            for a in affine(xyz)]

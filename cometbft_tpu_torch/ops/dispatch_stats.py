@@ -21,7 +21,10 @@ Counters:
     per key type and tier (``cuda`` on a card; ``torch``, then ``host``
     below it, on the CPU).  A card's batch that the kernel did not serve
     raises and shows under no tier; on the CPU a batch the plain version
-    did not serve shows under ``host``.  The SHA-256 tree plane
+    did not serve shows under ``host``.  A BLS12-381 batch
+    (``crypto/batch.BlsBatchVerifier``) records its G1 call under the key
+    type ``bls12_381``, counting the batch's structurally valid entries
+    (the host library answers under ``host``).  The SHA-256 tree plane
     (``ops/sha256_tree``) records its tree passes and leaves under the key
     ``merkle`` (``host`` for the sets it routes to the host), and the
     oversize ones also under ``merkle_oversize``.

@@ -1,10 +1,10 @@
 """Batched prime-field arithmetic over any odd prime, in plain PyTorch.
 
 The port's counterpart of ``cometbft_tpu/ops/fpgen.py``: one ``Field(p)``
-serves every prime the curve layer needs (secp256k1's now, BLS12-381's
-next), with the JAX class's API: ``pack``/``unpack``, ``to_mont``/
-``from_mont``, ``add``, ``sub``, ``neg``, ``mul_small``, ``mul``,
-``square`` and ``carry``.  ``unpack`` gives the same canonical ints as the
+serves every prime the curve layer needs (secp256k1's in
+``ops.secp_verify``, BLS12-381's in ``ops.fp381``), with the JAX class's
+API: ``pack``/``unpack``, ``to_mont``/``from_mont``, ``add``, ``sub``,
+``neg``, ``mul_small``, ``mul``, ``square`` and ``carry``.  ``unpack`` gives the same canonical ints as the
 JAX ``Field.unpack`` for the same field elements.
 
 Layout (chosen for torch, not carried over from the TPU's 21 x 13-bit

@@ -335,8 +335,9 @@ def supervised_device_call(
     inputs: Optional[tuple] = None,
 ):
     """One breaker-gated, watchdogged device call: the shared protocol for
-    single-tier device paths (secp256k1, ``crypto.batch``; BLS G1 once
-    ported, ROADMAP §1 item 9).  Returns the call's result.
+    single-tier device paths (secp256k1 and BLS12-381 G1 in
+    ``crypto.batch``, the SHA-256 tree in ``ops.sha256_tree``).  Returns
+    the call's result.
 
     A call the device did not serve — it raised, wedged past the watchdog,
     returned a malformed result (``validate(result)`` raises, e.g.

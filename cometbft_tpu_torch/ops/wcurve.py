@@ -1,6 +1,6 @@
 """Batched short-Weierstrass (a = 0) curve arithmetic over an
 ``ops.fpgen.Field``, in plain PyTorch: the curve layer of secp256k1
-(b = 7) now and BLS12-381 G1 (b = 4) next.
+(b = 7, ``ops.secp_verify``) and BLS12-381 G1 (b = 4, ``ops.bls_g1``).
 
 The port's counterpart of ``cometbft_tpu/ops/wcurve.py``.  Points are
 projective (X : Y : Z) batches, one point per lane, with the complete
@@ -15,9 +15,10 @@ addition or a doubling, where the JAX module makes twelve calls).
 The JAX module clamps loop-carried coordinates to fixed static bounds
 (``fix_point``) because ``fori_loop`` needs one signature per iteration;
 a Python loop needs none, and ``ops.fpgen``'s bounds settle by themselves
-(REDC contracts), so nothing is clamped here.  ``lane_sum``, the
-single-scalar ladder and the host packing of points and scalar bits wait
-for BLS, their first caller (secp256k1 takes raw bytes on the device).
+(REDC contracts), so nothing is clamped here.  ``scalar_mul`` is the JAX
+single-scalar ladder (the plain version of the BLS G1 kernel; its host
+side packs raw bytes, ``ops.bls_g1``).  ``lane_sum`` waits for its first
+caller (the JAX ``msm``/``sum_points``, which no verify path calls).
 """
 
 from __future__ import annotations
@@ -113,4 +114,14 @@ class Curve:
             addend = self.select(pb & (1 - qb), p, addend)
             addend = self.select((1 - pb) & qb, q, addend)
             acc = self.add(acc, addend)
+        return acc
+
+    def scalar_mul(self, base: Point, bits: torch.Tensor) -> Point:
+        """Per-lane double-and-add, MSB first.  ``bits``: (nbits, B) int
+        rows of 0/1.  Branch-free: the add always runs and the bit
+        selects (the JAX ``scalar_mul``, op for op)."""
+        acc = self.identity(bits.shape[1], bits.device)
+        for i in range(bits.shape[0]):
+            acc = self.double(acc)
+            acc = self.select(bits[i], self.add(acc, base), acc)
         return acc

@@ -6,7 +6,9 @@ An AST scan checks every import statement, and the native sources
 runs gossip-time ``Vote.verify`` through the verify scheduler, the
 supervisor and the plain version on the CPU (the C++ packer included),
 a secp256k1 batch through its verifier, the supervisor's single-tier
-call and the plain ECDSA version, and a validator-set hash at the tree
+call and the plain ECDSA version, a BLS12-381 batch through its verifier
+(the host library, the supervisor's single-tier call and the plain G1
+ladder), and a validator-set hash at the tree
 plane's width (on the host and on the plain tree version), and checks
 that neither name reached ``sys.modules``.
 """
@@ -82,11 +84,15 @@ def test_port_files_exist():
         "cometbft_tpu_torch/proofserve/plane.py",
         "cometbft_tpu_torch/types/light.py",
         "cometbft_tpu_torch/light/verifier.py",
+        "cometbft_tpu_torch/crypto/bls12381.py",
+        "cometbft_tpu_torch/ops/fp381.py",
+        "cometbft_tpu_torch/ops/bls_g1.py",
+        "cometbft_tpu_torch/ops/cuda_bls.py",
     ):
         assert need in names
     assert {p.name for p in NATIVE_FILES} >= {
         "host_prep.cpp", "ed25519_verify.cu", "secp256k1_verify.cu",
-        "sha256_tree.cu"}
+        "sha256_tree.cu", "bls12381.cpp", "bls_g1.cu"}
 
 
 @pytest.mark.parametrize(
@@ -164,6 +170,17 @@ for m in (b"a", b"b"):
     bv.add(spriv.pub_key(), m, spriv.sign(b"a"))
 assert bv.verify() == (False, [True, False])
 assert dispatch_stats.tier_counts("secp256k1")["torch"] == (1, 2)
+# a BLS12-381 batch: the host library's checks, hashes and pairing, the
+# supervisor's single-tier call and the plain G1 ladder (two of three
+# signatures good, so the combination fails and each is verified alone)
+from cometbft_tpu_torch.crypto.keys import Bls12381PrivKey
+import cometbft_tpu_torch.ops.cuda_bls
+bprivs = [Bls12381PrivKey.from_secret(b"audit-%d" % k) for k in range(3)]
+bv = batch.create_batch_verifier(bprivs[0].pub_key(), backend="cpu")
+for k, p in enumerate(bprivs):
+    bv.add(p.pub_key(), b"bls %d" % k, p.sign(b"bls %d" % min(k, 1)))
+assert bv.verify() == (False, [True, True, False])
+assert dispatch_stats.tier_counts("bls12_381")["torch"] == (1, 3)
 # a validator-set hash at the tree plane's width (the gate is closed on a
 # machine with no trusted card: the host), the plain tree version, and the
 # light verifier's module

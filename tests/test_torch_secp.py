@@ -119,11 +119,14 @@ def test_ripemd160_pure_equals_hashlib():
 
 def test_key_registry():
     pub = tsecp.Secp256k1PrivKey.from_secret(b"reg").pub_key()
-    assert tkeys.supported_key_types() == ["ed25519", "secp256k1"]
+    assert tkeys.supported_key_types() == ["ed25519", "secp256k1", "bls12_381"]
+    assert tkeys.supported_key_types() == jkeys.supported_key_types()
     assert tkeys.pub_key_from_type("secp256k1", pub.bytes()) == pub
     assert tkeys.pub_key_from_type("ed25519", b"\x01" * 32).type_ == "ed25519"
     with pytest.raises(ValueError):
-        tkeys.pub_key_from_type("bls12_381", b"\x00" * 48)
+        tkeys.pub_key_from_type("bls12_381", b"\x00" * 48)  # 96 bytes
+    with pytest.raises(ValueError):
+        tkeys.pub_key_from_type("sr25519", b"\x00" * 32)
     with pytest.raises(ValueError):
         tsecp.Secp256k1PubKey(b"\x02" * 32)
     assert jkeys.SECP256K1_KEY_TYPE == tkeys.SECP256K1_KEY_TYPE
