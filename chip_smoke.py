@@ -132,13 +132,21 @@ served by the torch or host tier, or one that raised, fails the run.
               warm) with where a header's time goes;
  13. bls    — BLS12-381 commit verification (BASELINE config 5), a path of
               its own: the G1 scalar-multiplication kernel
-              (``csrc/bls_g1.cu``, one thread per lane) against its plain
-              PyTorch version bit for bit in canonical X, Y, Z on 10,240
-              seeded lanes (pubkeys of the host library, 128-bit scalars;
-              the identity, the generator, a repeated point and the scalars
-              0, 1 and 2^128 - 1 among them) and on 1-129 lanes, and
-              against the host library's ``bls_g1_scalar_mul`` on a
-              256-lane sample; then a 256-validator commit (keys from
+              (``csrc/bls_g1.cu``: a group of G threads per lane over a
+              schedule of field-operation levels, Jacobian formulas, signed
+              4-bit windows, a lazy PTX carry-chain field) against its plain
+              PyTorch version as points (the kernel's bytes are another
+              representative) on 10,240 seeded lanes (pubkeys of the host
+              library, 128-bit scalars; the identity, the generator, a
+              repeated point and the scalars 0, 1 and 2^128 - 1 among them),
+              on 1-129 lanes (G - 1, G, G + 1 and a block's edge among
+              them) and on edge lanes (the order-3 point (0, 2), which
+              takes both H = 0 branches, the identity, the scalar edges at
+              1, 7, 16 and 128 bits) also against the oracle; against the
+              host library's ``bls_g1_scalar_mul`` on a 256-lane sample;
+              its field operations on the card (``cuda_bls.fe_op_cuda``)
+              against Python integers at the extreme operands; then a
+              256-validator commit (keys from
               ``Bls12381PrivKey.from_secret``) through ``verify_commit`` and
               ``verify_commit_light`` -> ``BlsBatchVerifier`` (self-check,
               signature cache, the host library's structural checks) -> the
@@ -149,12 +157,17 @@ served by the torch or host tier, or one that raised, fails the run.
               tampered commit rejected at exactly 0, 128 and 255 (128 by
               the per-signature attribution after the combination fails),
               one launch per cold batch and every G1 call on ``cuda``; the
-              kernel against its plain version bit for bit at the main
+              kernel against its plain version as points at the main
               path's widths (the commit's 256 keys and the light commit's
               lanes, fresh 128-bit r_i), then its times at 256 and 10,240
-              lanes beside its bound
-              (``cuda_bls.needed_work``), its tally, its plain version,
-              registers, spills and occupancy; the cold commit's wall and
+              lanes beside its bound (``cuda_bls.needed_work``), its tally
+              and its critical path (dependent multiplies per lane); the
+              kernel of BLS_PARENT (its source from ``git show`` or
+              $COMETBFT_TPU_BLS_PARENT_SRC) and builds of this source at
+              each G of BLS_GROUPS, each timed in turns with this kernel;
+              registers, spills (none), occupancy and waves, the
+              instruction mix (``cuobjdump``) and the instructions per
+              product of the field multiply's body; the cold commit's wall and
               its host parts, with a cProfile top 5.
 
 Usage, from the repository root, on a machine with a CUDA card:
@@ -172,6 +185,7 @@ The last line of standard output is
 from __future__ import annotations
 
 import cProfile
+import collections
 import contextlib
 import hashlib
 import json
@@ -248,11 +262,14 @@ QUEUE_CYCLES = 1_000_000  # the sleep kernel in front of a queued sample
 BLS_SEED = SEED + 9  # the BLS validators' keys and the G1 lanes
 BLS_VALIDATORS = 256  # BASELINE config 5, cut from 10,240 (host pairing)
 BLS_LANES = 10_240  # the G1 kernel against its plain version
-BLS_SMALL_N = (1, 31, 32, 33, 129)
+BLS_SMALL_N = (1, 31, 32, 33, 129)  # with G - 1, G, G + 1 and a block's edge
 BLS_SAMPLE = 256  # lanes held to the host library's G1 scalar mul
 BLS_BAD = (0, 128, 255)  # 0 and 255 flipped bytes, 128 signs other bytes
 BLS_COLD_RUNS = 3  # cold verify_commit / verify_commit_light samples
 BLS_HOST_RUNS = 3  # samples of each host part of the commit
+BLS_PARENT = "cb829e7"  # its G1 kernel: one thread per lane, RCB15 formulas
+BLS_GROUPS = (1, 2, 4)  # threads per lane, built and timed in turns
+BLS_AB_RUNS = 10  # samples of each kernel per turn
 # main-path launches: self-check 1 + 3 cold + 3 cold light + warm 0 + bad
 # commit 1 + the good commit after it 1 + batch-verifier bits 1
 BLS_LAUNCHES = 1 + 2 * BLS_COLD_RUNS + 3
@@ -1363,10 +1380,9 @@ def word_levels(st, words, n):
     return levels
 
 
-def sass_mix(lib, kernel: str, modifiers: bool = False) -> dict:
-    """Opcode counts of ``kernel``'s machine code in the built library
-    ``lib`` (``cuobjdump -sass``; an opcode without its modifiers unless
-    ``modifiers``)."""
+def sass_ops(lib, kernel: str) -> list:
+    """The opcodes, with their modifiers and in order, of ``kernel``'s
+    machine code in the built library ``lib`` (``cuobjdump -sass``)."""
     from pathlib import Path
 
     from cometbft_tpu_torch.ops import _build
@@ -1374,7 +1390,7 @@ def sass_mix(lib, kernel: str, modifiers: bool = False) -> dict:
     tool = Path(_build.nvcc()).parent / "cuobjdump"
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, check=True, timeout=120).stdout
-    counts, inside = {}, False
+    ops, inside = [], False
     for line in out.splitlines():
         if "Function :" in line:
             inside = kernel in line
@@ -1382,9 +1398,34 @@ def sass_mix(lib, kernel: str, modifiers: bool = False) -> dict:
         m = inside and re.match(
             r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m:
-            op = m.group(1) if modifiers else m.group(1).split(".")[0]
-            counts[op] = counts.get(op, 0) + 1
-    return counts
+            ops.append(m.group(1))
+    return ops
+
+
+def sass_mix(lib, kernel: str, modifiers: bool = False) -> dict:
+    """Opcode counts of ``kernel``'s machine code in the built library
+    ``lib`` (an opcode without its modifiers unless ``modifiers``)."""
+    ops = sass_ops(lib, kernel)
+    return dict(collections.Counter(ops if modifiers else
+                                    (o.split(".")[0] for o in ops)))
+
+
+MUL_BODY_GAP = 24  # instructions between two products of one multiply, at most
+
+
+def mul_body(ops: list) -> list:
+    """The instructions of a field multiply's body in a kernel's opcodes:
+    from the first IMAD.WIDE to the last of the longest run of them in
+    which no two are more than MUL_BODY_GAP instructions apart."""
+    at = [i for i, o in enumerate(ops) if o.startswith("IMAD.WIDE")]
+    runs = [[at[0]]] if at else []
+    for i in at[1:]:
+        if i - runs[-1][-1] <= MUL_BODY_GAP:
+            runs[-1].append(i)
+        else:
+            runs.append([i])
+    best = max(runs, key=len, default=None)
+    return ops[best[0]:best[-1] + 1] if best else []
 
 
 def tree_launcher(torch, dev, build, parent: bool):
@@ -1860,11 +1901,145 @@ def bls_lanes(native, n: int):
     return pubs, ks
 
 
+def bls_edge_lanes():
+    """[(pubs, scalars, nbits)]: the order-3 point (0, 2) of y^2 = x^3 + 4
+    and its negation (outside the subgroup: both H = 0 branches, a table
+    entry at infinity) at scalars 1-7 and a 128-bit one; the identity at
+    several scalars; the generator at the scalar edges of each width: 0,
+    1, 2, 2^w - 1, 2^w, 2^(w-1), 2^nbits - 1 and 0x1234 at nbits 1, 7 (not
+    a multiple of w), 16 (the self-check's) and 128."""
+    from cometbft_tpu_torch.crypto import bls12381 as bls
+    from cometbft_tpu_torch.ops import bls_g1
+    from cometbft_tpu_torch.ops import cuda_bls as cb
+
+    p = bls.P
+    raw = lambda x, y: x.to_bytes(48, "big") + y.to_bytes(48, "big")
+    ks = list(range(1, 8)) + [(1 << 127) | 0xF00D]
+    pubs = [raw(0, 2)] * len(ks) + [raw(0, p - 2)] * len(ks) + [bls_g1.INFINITY] * 3
+    out = [(pubs, ks + ks + [0, 1, (1 << 128) - 1], 128)]
+    gen = bls.g1_serialize(bls.G1_GEN)
+    w = cb.config()["window"]
+    for nbits in (1, 7, 16, 128):
+        edge = [0, 1, 2, 2 ** w - 1, 2 ** w, 2 ** (w - 1), (1 << nbits) - 1, 0x1234]
+        ks = sorted({k & ((1 << nbits) - 1) for k in edge})
+        out.append(([gen] * len(ks), ks, nbits))
+    return out
+
+
+def bls_affine_err(a, b) -> int:
+    """The largest |difference| of the affine coordinates of two (n, 144)
+    X || Y || Z arrays, lane by lane (0 where both are the identity; p
+    where one is and the other is not): 0 when they are the same points."""
+    from cometbft_tpu_torch.crypto import bls12381 as bls
+    from cometbft_tpu_torch.ops import bls_g1
+
+    err = 0
+    for u, v in zip(bls_g1.affine(a), bls_g1.affine(b)):
+        if (u is None) != (v is None):
+            err = max(err, bls.P)
+        elif u is not None:
+            err = max(err, abs(u[0] - v[0]), abs(u[1] - v[1]))
+    return err
+
+
+def bls_launcher(torch, build, what: str):
+    """A G1 kernel being built by ``build`` (start_nvcc, start_parent) as a
+    function of the device inputs (pts, scalars) returning (n, 144) uint8;
+    raises if its build or a launch failed.  Returns (function, ptxas
+    lines, its occupancy query or None)."""
+    import ctypes
+
+    proc, lib, _ = build
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"bls: {what} did not build:\n{log}")
+    so = ctypes.CDLL(lib)
+    fn = so.bls_g1_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(pts, sc, nbits=128):
+        out = torch.empty((pts.shape[0], 144), dtype=torch.uint8, device=pts.device)
+        rc = fn(pts.data_ptr(), sc.data_ptr(), out.data_ptr(), pts.shape[0],
+                nbits, torch.cuda.current_stream(pts.device).cuda_stream)
+        check(rc == 0, f"bls: {what}: CUDA error {rc}")
+        return out
+
+    occ = None
+    if hasattr(so, "bls_g1_config"):  # this source: its G and occupancy too
+        def occ():
+            q = so.bls_g1_occupancy
+            q.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+            vals = [ctypes.c_int() for _ in range(5)]
+            check(q(*map(ctypes.byref, vals)) == 0, f"bls: {what}: occupancy")
+            keys = ("blocks_per_sm", "threads", "regs", "local_bytes", "shared_bytes")
+            out = dict(zip(keys, (v.value for v in vals)))
+            cfg = [ctypes.c_int() for _ in range(4)]
+            so.bls_g1_config(*map(ctypes.byref, cfg))
+            out["threads_per_lane"] = cfg[0].value
+            return out
+    return run, ptxas_lines(log), occ
+
+
 def bls_phase(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
               tag) -> dict:
     """Phase 13: BLS12-381 commit verification (BASELINE config 5) through
     the hand-written G1 scalar-multiplication kernel and the host library.
     Returns its entry of the kernels line."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import cuda_bls as cb
+
+    # BLS_PARENT's kernel and this source at each G of BLS_GROUPS, built
+    # while the keys are made
+    src = (_build.CSRC_DIR / "bls_g1.cu").read_bytes()
+    builds = {"parent": start_parent(_build, "COMETBFT_TPU_BLS_PARENT_SRC",
+                                     BLS_PARENT, cb.SOURCE)}
+    builds.update({g: start_nvcc(_build, src, "bls_g1", f"-DBLS_GROUP={g}")
+                   for g in BLS_GROUPS})
+    try:
+        return bls_checks(torch, dev, cbatch, val, ds, sigcache, sms,
+                          max_clock_mhz, tag, builds)
+    finally:
+        for build in builds.values():
+            stop_build(build)
+
+
+def bls_field_check(torch, dev, cb) -> str:
+    """The kernel's field operations on the card (``cuda_bls.fe_op_cuda``,
+    the PTX carry chains) against Python integers at the extreme operands
+    of ``cuda_bls.FE_EDGES``: results below their bound and equal mod p."""
+    import random
+
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import bls12381 as bls
+
+    p, rng, n = bls.P, random.Random(BLS_SEED + 3), 0
+
+    def words(vals):
+        w = np.array([[(v >> (32 * i)) & 0xFFFFFFFF for i in range(12)]
+                      for v in vals], np.uint32)
+        return torch.from_numpy(w.view(np.int32)).to(dev)
+
+    for name, (code, want, top_out, top_in) in cb.FE_OPS.items():
+        xs = list(cb.FE_EDGES) + list(cb.FE_RAW_EDGES if top_in > 2 * p else ())
+        xs += [rng.randrange(top_in) for _ in range(64 - len(xs))]
+        ys = list(cb.FE_EDGES[::-1])
+        ys += [rng.randrange(2 * p) for _ in range(64 - len(ys))]
+        a, b = words(xs), words(ys)
+        got = cb.fe_op_cuda(code, a, b).cpu().numpy().view(np.uint32)
+        got = [sum(int(w) << (32 * i) for i, w in enumerate(row)) for row in got]
+        if name == "is_zero":
+            ok = got == [want(x, 0) for x in xs]
+        else:
+            ok = all(g < top_out and g % p == want(x, y)
+                     for g, x, y in zip(got, xs, ys))
+        check(ok, f"bls: the card's field op '{name}' disagrees with the ints")
+        n += len(xs)
+    return f"{len(cb.FE_OPS)} operations, {n} operand pairs"
+
+
+def bls_checks(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
+               tag, builds) -> dict:
     import ctypes
     import secrets
 
@@ -1878,34 +2053,61 @@ def bls_phase(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
     from cometbft_tpu_torch.ops import cuda_bls as cb
 
     lib = native.bls()
+    group = cb.THREADS_PER_LANE
 
-    # the kernel against its plain version, the host library and the oracle
+    # the kernel against its plain version (as points), the host library,
+    # the oracle and Python integers
     t0 = time.perf_counter()
     pubs, ks = bls_lanes(native, BLS_LANES)
     lanes_s = time.perf_counter() - t0
 
-    def inputs(pubs, ks):
+    def inputs(pubs, ks, nbits=128):
         pts = np.frombuffer(b"".join(pubs), np.uint8).reshape(len(pubs), 96)
         return (torch.from_numpy(pts.copy()).to(dev),
-                torch.from_numpy(bls_g1.scalars_to_bytes(ks).copy()).to(dev))
+                torch.from_numpy(bls_g1.scalars_to_bytes(ks, nbits).copy()).to(dev))
 
+    def same(a, b) -> bool:
+        return bool(bls_g1.points_equal(a.cpu().numpy(), b.cpu().numpy()).all())
+
+    field = bls_field_check(torch, dev, cb)
     pts, sc = inputs(pubs, ks)
     kern = cb.scalar_mul_cuda(pts, sc)
     torch.cuda.synchronize()
     plain = bls_g1.batch_scalar_mul_plain(pts, sc)
     torch.cuda.synchronize()
-    max_abs_err = int((kern.int() - plain.int()).abs().max())
-    check(torch.equal(kern, plain), f"bls: kernel != plain on "
-          f"{int((kern != plain).any(1).sum())} of {BLS_LANES} lanes")
-    for k in BLS_SMALL_N:
+    kern_np, plain_np = kern.cpu().numpy(), plain.cpu().numpy()
+    eq = bls_g1.points_equal(kern_np, plain_np)
+    check(eq.all(), f"bls: kernel != plain (as points) on {int((~eq).sum())} of "
+          f"{BLS_LANES} lanes")
+    block = cb.config()["lanes_per_block"]
+    small_n = sorted({1, max(1, group - 1), group, group + 1, block - 1, block,
+                      block + 1, *BLS_SMALL_N})
+    for k in small_n:
         kb = cb.scalar_mul_cuda(pts[:k].contiguous(), sc[:k].contiguous())
-        check(torch.equal(kb, kern[:k]) and
-              torch.equal(kb, bls_g1.batch_scalar_mul_plain(pts[:k], sc[:k])),
+        check((kb == kern[:k]).all() and
+              same(kb, bls_g1.batch_scalar_mul_plain(pts[:k], sc[:k])),
               f"bls: n={k}: kernel != plain")
+    edges = 0
+    for epubs, eks, nbits in bls_edge_lanes():
+        ep, es = inputs(epubs, eks, nbits)
+        kb = cb.scalar_mul_cuda(ep, es, nbits)
+        check(same(kb, bls_g1.batch_scalar_mul_plain(ep, es, nbits)),
+              f"bls: edge lanes at {nbits} bits: kernel != plain")
+        want = []
+        for pb, k in zip(epubs, eks):
+            if pb == bls_g1.INFINITY:
+                want.append(None)
+                continue
+            xy = (int.from_bytes(pb[:48], "big") & ((1 << 381) - 1),
+                  int.from_bytes(pb[48:], "big"))
+            want.append(bls.E1.affine(bls.E1.mul_scalar((*xy, 1), k)))
+        check(bls_g1.affine(kb.cpu().numpy()) == want,
+              f"bls: edge lanes at {nbits} bits: kernel != the oracle")
+        edges += len(eks)
     rng = np.random.default_rng(BLS_SEED + 2)
     sample = list(range(8)) + sorted(
         rng.choice(range(8, BLS_LANES), BLS_SAMPLE - 8, replace=False).tolist())
-    got = bls_g1.affine(kern[sample].cpu().numpy())
+    got = bls_g1.affine(kern_np[sample])
     for i, g in zip(sample, got):
         out = ctypes.create_string_buffer(96)
         check(lib.bls_g1_scalar_mul(pubs[i], ks[i].to_bytes(16, "big"), 16, out) == 0,
@@ -1923,11 +2125,16 @@ def bls_phase(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
           "bls: G * 0x1234 at 16 bits")
     print(f"bls: kernel: {BLS_LANES} seeded lanes (pubkeys of the host "
           f"library, {lanes_s:.2f} s; the identity, the generator, a repeated "
-          f"point, scalars 0, 1 and 2^128 - 1 among them) == plain version bit "
-          f"for bit in canonical X, Y, Z (max_abs_err {max_abs_err}); n = "
-          f"{', '.join(map(str, BLS_SMALL_N))} == plain; {BLS_SAMPLE}-lane "
-          f"sample == the host library's bls_g1_scalar_mul; G * 0x1234 at 16 "
-          f"bits == the oracle")
+          f"point, scalars 0, 1 and 2^128 - 1 among them) == plain version as "
+          f"points (X1 Z2 = X2 Z1, Y1 Z2 = Y2 Z1, Z = 0 matched; affine "
+          f"max_abs_err {bls_affine_err(kern_np, plain_np)}); n = "
+          f"{', '.join(map(str, small_n))} == plain; {edges} edge lanes (the "
+          f"order-3 point (0, 2) and its negation at scalars 1-7 and a 128-bit "
+          f"one, the identity, the generator at the scalar edges of 1, 7, 16 "
+          f"and 128 bits) == plain == the oracle; {BLS_SAMPLE}-lane sample == "
+          f"the host library's bls_g1_scalar_mul; G * 0x1234 at 16 bits == the "
+          f"oracle; field ops on the card == Python ints at the extreme "
+          f"operands ({field})")
 
     # the commit through the entry points
     t0 = time.perf_counter()
@@ -2011,7 +2218,7 @@ def bls_phase(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
 
     # the kernel at the main path's widths (the commit's keys, fresh r_i:
     # the whole commit and verify_commit_light's lanes), held to its plain
-    # version bit for bit before it is timed there and at 10,240 lanes
+    # version as points before it is timed there and at 10,240 lanes
     rs = [secrets.randbits(128) | 1 for _ in vpubs]
     cp, ck = inputs(vpubs, rs)
     light_n = len(val._collect_entries(vals, commit,
@@ -2022,14 +2229,16 @@ def bls_phase(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
         kb = cb.scalar_mul_cuda(cp[:n].contiguous(), ck[:n].contiguous())
         pb = bls_g1.batch_scalar_mul_plain(cp[:n], ck[:n])
         torch.cuda.synchronize()
-        errs[n] = int((kb.int() - pb.int()).abs().max())
-        check(torch.equal(kb, pb), f"bls: kernel != plain on "
-              f"{int((kb != pb).any(1).sum())} of the main path's {n} lanes")
+        kb, pb = kb.cpu().numpy(), pb.cpu().numpy()
+        eq = bls_g1.points_equal(kb, pb)
+        errs[n] = bls_affine_err(kb, pb)
+        check(eq.all() and errs[n] == 0, f"bls: kernel != plain on "
+              f"{int((~eq).sum())} of the main path's {n} lanes")
     print(f"bls: kernel at the main path's widths: the commit's {BLS_VALIDATORS} "
           f"keys and fresh 128-bit r_i, and the first {light_n} of them "
-          f"(verify_commit_light's lanes), == plain version bit for bit in "
-          f"canonical X, Y, Z (max_abs_err {errs})")
-    per = {}
+          f"(verify_commit_light's lanes), == plain version as points "
+          f"(affine max_abs_err {errs})")
+    per, dep = {}, cb.MUL_ROUNDS_PER_LANE[group]
     for n, (p, k), scal in ((BLS_VALIDATORS, (cp, ck), rs),
                             (BLS_LANES, (pts, sc), ks)):
         ms = cuda_ms(torch, lambda: cb.scalar_mul_cuda(p, k), KERNEL_RUNS, 3)
@@ -2037,8 +2246,8 @@ def bls_phase(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
         muls, squares, products = cb.needed_work(scal)
         bound_ms, bound_by = bound(products, n * cb.BYTES_PER_LANE, sms,
                                    max_clock_mhz)
-        tally_ms, _ = bound(n * cb.WIDE_PRODUCTS_PER_LANE, n * cb.BYTES_PER_LANE,
-                            sms, max_clock_mhz)
+        own = n * cb.WIDE_PRODUCTS_PER_LANE
+        tally_ms, _ = bound(own, n * cb.BYTES_PER_LANE, sms, max_clock_mhz)
         per[n] = (ms, plain_ms, bound_ms, bound_by)
         print(f"bls: time: kernel {ms} ms at {n} lanes (median of {KERNEL_RUNS} "
               f"samples of one call, CUDA events) = {n / ms * 1e3:.0f} scalar "
@@ -2048,24 +2257,108 @@ def bls_phase(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
               f"multiplies, {squares} squares, the cheapest width-w NAF ladder "
               f"per scalar in Jacobian coordinates over a one-Z table), "
               f"kernel at {bound_ms / ms:.2%} of it; the kernel's own tally "
-              f"{n * cb.WIDE_PRODUCTS_PER_LANE} products "
-              f"({n * cb.WIDE_PRODUCTS_PER_LANE / products:.3f}x), {tally_ms} "
-              f"ms at the same rates, kernel at {tally_ms / ms:.2%} of that {tag}")
+              f"for {n} full lanes {own} products ({own / products:.3f}x; "
+              f"{cb.WIDE_PRODUCTS_PER_LANE} a lane), {tally_ms} ms at "
+              f"the same rates, kernel at {tally_ms / ms:.2%} of that {tag}")
+    ms256 = per[BLS_VALIDATORS][0]
+    deps = {g: cb.MUL_ROUNDS_PER_LANE[g] for g in BLS_GROUPS}
+    print(f"bls: critical path: {dep} dependent field multiplies per full "
+          f"lane at G = {group} (the schedule's multiply levels, ceil(n / G) "
+          f"each; {', '.join(f'G = {g}: {d}' for g, d in deps.items())}) "
+          f"and {cb.ADD_ROUNDS_PER_LANE[group]} addition levels: "
+          f"{ms256 / dep * 1e3:.4f} us per dependent multiply at "
+          f"{BLS_VALIDATORS} lanes, the latency floor the throughput bound "
+          f"does not see {tag}")
     print("bls: library_ms is null: no PyTorch library call computes a "
           "BLS12-381 G1 scalar multiplication")
+
+    # BLS_PARENT's kernel, then this source at each G, in turns
+    def in_turns(fns, order, n, p, k):
+        turns = [(o, cuda_ms(torch, lambda: fns[o](p, k), BLS_AB_RUNS, 1))
+                 for o in order]
+        med = {o: statistics.median(v for j, v in turns if j == o) for o in fns}
+        return med, ", ".join(f"{o} {v}" for o, v in turns)
+
+    sizes = ((BLS_VALIDATORS, cp, ck), (BLS_LANES, pts, sc))
+    if builds["parent"][0] is None:
+        print(f"bls: parent: not measured: {builds['parent'][1]}")
+    else:
+        run_parent, ptxas, _ = bls_launcher(torch, builds["parent"],
+                                            f"the kernel of {BLS_PARENT}")
+        for n, p, k in sizes:
+            check(same(run_parent(p, k), cb.scalar_mul_cuda(p, k)),
+                  f"bls: the parent's kernel disagrees with this one at {n} lanes")
+        for n, p, k in sizes:
+            fns = {"parent": run_parent, "new": cb.scalar_mul_cuda}
+            med, turns = in_turns(fns, ("parent", "new", "new", "parent"), n, p, k)
+            print(f"bls: parent: the kernel of {BLS_PARENT} (one thread per "
+                  f"lane, RCB15's complete formulas, fully reduced C++ field; "
+                  f"{'; '.join(ptxas)}) == this one as points; in turns at {n} "
+                  f"lanes (median of {BLS_AB_RUNS} one-call samples each): "
+                  f"{turns} ms; parent {med['parent']} ms, this kernel "
+                  f"{med['new']} ms, {med['parent'] / med['new']:.3f}x {tag}")
+    runs, per_g = {}, {}
+    for g in BLS_GROUPS:
+        run, ptxas, occ = bls_launcher(torch, builds[g], f"G = {g}")
+        check(occ is not None, f"bls: G = {g}: no occupancy query in the build")
+        o = occ()
+        check(o["local_bytes"] == 0 and o["threads_per_lane"] == g,
+              f"bls: G = {g}: {o['local_bytes']} local bytes, "
+              f"{o['threads_per_lane']} threads per lane")
+        print(f"bls: groups: G = {g}: {'; '.join(ptxas)}; {o['threads']} "
+              f"threads per block, {o['blocks_per_sm']} blocks per SM")
+        runs[f"G={g}"] = run
+        per_g[f"G={g}"] = deps[g]
+    for n, p, k in sizes:
+        for name, run in runs.items():
+            check(same(run(p, k), kern[:n] if n == BLS_LANES else
+                       cb.scalar_mul_cuda(p, k)),
+                  f"bls: {name} disagrees with the package's kernel at {n} lanes")
+        order = list(runs) + list(runs)[::-1]
+        med, turns = in_turns(runs, order, n, p, k)
+        print(f"bls: groups: in turns at {n} lanes (medians of {BLS_AB_RUNS} "
+              f"one-call samples a turn; turns {turns}): " + ", ".join(
+                  f"{name} {v} ms ({v / per_g[name] * 1e3:.4f} us per dependent "
+                  f"multiply)" for name, v in med.items())
+              + f"; the package builds G = {group} {tag}")
+
     occ = cb.occupancy()
     log = _build.build_log(cb.NAME)
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+    check(spills and not any(int(a) or int(b) for a, b in spills),
+          f"bls: the G1 kernel spills: {ptxas_lines(log)}")
+    check(occ["local_bytes"] == 0, f"bls: {occ['local_bytes']} local bytes")
     for n in (BLS_VALIDATORS, BLS_LANES):
-        grid = -(-n // occ["threads"])
+        grid = -(-n // occ["lanes_per_block"])
         waves = -(-grid // max(1, occ["blocks_per_sm"] * sms))
-        print(f"occupancy: {cb.NAME}: one thread per lane, {occ['threads']} "
+        print(f"occupancy: {cb.NAME}: {occ['threads_per_lane']} threads per "
+              f"lane, {occ['lanes_per_block']} lanes and {occ['threads']} "
               f"threads per block, {occ['regs']} registers and "
               f"{occ['local_bytes']} bytes of local memory per thread (spill "
               f"stores, loads: {spills}), {occ['shared_bytes']} bytes of shared "
               f"memory per block; {occ['blocks_per_sm']} blocks resident per "
               f"SM; {n} lanes -> {grid} blocks, {min(grid, sms)} of {sms} SMs "
               f"with work, {waves} wave(s) {tag}")
+    check(waves == 1, f"bls: {BLS_LANES} lanes take {waves} waves")
+    ops = sass_ops(_build.lib_path(cb.NAME), "bls_g1_kernel")
+    mix = dict(collections.Counter(ops))
+    total = sum(mix.values())
+    wide = sum(v for k, v in mix.items() if k.startswith("IMAD.WIDE"))
+    check(wide > 0, "bls: cuobjdump showed no wide multiply in bls_g1_kernel")
+    top = sorted(mix.items(), key=lambda kv: -kv[1])[:10]
+    body = mul_body(ops)
+    body_mix = collections.Counter(o.split(".")[0] for o in body)
+    print(f"bls: sass: bls_g1_kernel {total} instructions of machine code, "
+          f"{wide} IMAD.WIDE (one 32x32->64-bit product each; a field "
+          f"multiply issues {cb.PRODUCTS_PER_MUL - 12} of them, and an IMAD for "
+          f"each of its 12 m_i): {total / wide:.2f} instructions per product "
+          f"over the whole kernel; the field multiply's body (its first "
+          f"IMAD.WIDE to its last, the longest run of them with gaps under "
+          f"{MUL_BODY_GAP} instructions) {len(body)} instructions with "
+          f"{sum(o.startswith('IMAD.WIDE') for o in body)} IMAD.WIDE: "
+          f"{len(body) / cb.PRODUCTS_PER_MUL:.3f} SASS instructions per 32x32 "
+          f"product ({cb.PRODUCTS_PER_MUL} a multiply), "
+          f"{body_mix.most_common(6)}; most common in the kernel {top} {tag}")
 
     # the cold commit's wall and its host parts
     rb = [r.to_bytes(16, "big") for r in rs]

@@ -17,16 +17,21 @@ ladder, the host unpacks):
     0 = 0x40 for the point at infinity) and scalars as 16-byte big-endian
     rows;
   * device (``ops.cuda_bls.scalar_mul_cuda``: the kernel on a card, its
-    plain version here for CPU tensors): into the Montgomery domain, the
-    MSB-first double-and-add of ``wcurve.Curve.scalar_mul`` over the low
-    ``nbits`` bits, and out of it: canonical X || Y || Z, 144 bytes a lane;
+    plain version here for CPU tensors): s_i * P_i over the low ``nbits``
+    bits of s_i, out as canonical X || Y || Z, 144 bytes a lane, a
+    projective representative of the point;
   * host: affine coordinates (``affine``), or, for the verifier, the
     negated points serialized for the pairing product
     (``neg_scaled_pubkeys``).
 
-Both the kernel and the plain version run the JAX ladder's sequence of
-field operations, so their canonical (X, Y, Z) are equal byte for byte,
-and equal to the JAX program's as ints.
+The plain version runs the JAX ladder's sequence of field operations
+(MSB-first double-and-add of ``wcurve.Curve.scalar_mul``, RCB15's
+complete projective formulas), so its canonical (X, Y, Z) equal the JAX
+program's as ints.  The kernel computes the same points another way
+(Jacobian coordinates, signed windows) and hands out (X Z : Y : Z^3): its
+bytes equal the plain version's as points, X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1
+(mod p) with Z = 0 on both sides or neither (``points_equal``), not byte
+for byte.  Both give Z = 0 for the identity.
 """
 
 from __future__ import annotations
@@ -110,6 +115,21 @@ def _coords(xyz: np.ndarray) -> list:
     """(n, 144) uint8 X || Y || Z -> [(X, Y, Z)] ints."""
     return [tuple(int.from_bytes(row[48 * c:48 * c + 48].tobytes(), "big")
                   for c in range(3)) for row in xyz]
+
+
+def points_equal(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(n,) bool: lane i of the (n, 144) uint8 X || Y || Z arrays ``a`` and
+    ``b`` is the same projective point: X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1
+    (mod p), and Z1 = 0 exactly when Z2 = 0 (the identity)."""
+    if a.shape != b.shape:
+        raise ValueError(f"shapes {a.shape} and {b.shape}")
+    out = np.zeros(a.shape[0], bool)
+    for i, ((x1, y1, z1), (x2, y2, z2)) in enumerate(zip(_coords(a), _coords(b))):
+        if z1 % P == 0 or z2 % P == 0:
+            out[i] = z1 % P == z2 % P == 0
+        else:
+            out[i] = (x1 * z2 - x2 * z1) % P == 0 and (y1 * z2 - y2 * z1) % P == 0
+    return out
 
 
 def affine(xyz: np.ndarray) -> list:

@@ -4,12 +4,17 @@
 Counterpart of the XLA program ``_batch_mul_kernel`` of
 ``cometbft_tpu/ops/bls_g1.py``: raw 96-byte points and 16-byte scalars
 in, canonical projective X || Y || Z (144 bytes a lane) out.  The kernel
-runs one thread per lane over 12 x 32-bit Montgomery limbs, the MSB-first
-double-and-add of ``wcurve.Curve.scalar_mul``.  For CUDA tensors the
-wrapper launches the kernel or raises; for CPU tensors it runs the
-kernel's plain PyTorch version, ``ops.bls_g1.batch_scalar_mul_plain``.
-``launches`` counts kernel launches (and nothing else), so a run can show
-that its main path went through the kernel.
+runs a group of ``THREADS_PER_LANE`` threads per lane over 12 x 32-bit
+Montgomery limbs kept lazy in [0, 2p) (PTX carry chains): Jacobian
+dbl-2009-l and add-2007-bl over signed 4-bit digits and a per-lane
+table {1..8} P in shared memory, each formula a schedule of levels of
+independent field operations that the group shares.  It hands out (X Z :
+Y : Z^3) of its Jacobian result, so its bytes equal the plain version's
+(``ops.bls_g1.batch_scalar_mul_plain``, RCB15's projective ladder) as
+points, not as bytes: ``ops.bls_g1.points_equal`` compares them.  For CUDA
+tensors the wrapper launches the kernel or raises; for CPU tensors it runs
+the plain version.  ``launches`` counts kernel launches (and nothing
+else), so a run can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -27,23 +32,35 @@ NAME = "bls_g1"
 SOURCE = "cometbft_tpu_torch/csrc/bls_g1.cu"
 REPLACES = "cometbft_tpu/ops/bls_g1.py:91"
 
-# The kernel's own work per lane at 128 bits, counted by a host build of its
-# source (``-DBLS_TALLY``): 128 complete doublings (6 squares, 6 multiplies,
-# 2 small multiplies) and 128 complete additions (12 multiplies, 2 small
-# multiplies), and x, y into the Montgomery domain and X, Y, Z out of it
-# (5 multiplies).  A square is a multiply there, and a multiply is a 12-word
-# CIOS product: 144 products for a * b, 12 for the m_i and 144 for m_i * p.
-# A small multiply (by b3 = 12) is four modular additions, no product.
-# Every lane costs the same.  This is more than the function needs
-# (``needed_work``).
-FIELD_MULS_PER_LANE = 128 * 18 + 5
-FIELD_SQUARES_PER_LANE = 128 * 6
-FIELD_SMALLS_PER_LANE = 128 * 4
+THREADS_PER_LANE = 4  # BLS_GROUP of the package's build
+
+# The kernel's own work per lane, counted by a host build of its source
+# (``-DBLS_TALLY``, ``bls_g1_tally``) for a full 128-bit lane (the top bit
+# set, no digit 0: what every lane of a warp runs in step): 2 multiplies
+# into the domain, the table {1..8} P (4 doublings, 3 additions), 128
+# doublings (2M + 5S) and 32 additions (12M + 4S: add-2007-bl with Z3 = 2
+# (Z1 H) Z2), the top digit's copy, and 5M + 1S out to (X Z : Y : Z^3)
+# and out of the domain.  A square is the product code on one operand, so
+# every product is a 12-word CIOS product: 144 products for a * b, 12 for
+# the m_i and 144 for m_i * p, with no final subtraction (the lazy bound).
+# An addition (a sum or difference, doublings of it, 2p - y) takes no
+# product.  A lane with zero digits or a short scalar costs less.  This is
+# more than the function needs (``needed_work``).
+FIELD_MULS_PER_LANE = 691
+FIELD_SQUARES_PER_LANE = 801
+FIELD_SMALLS_PER_LANE = 1574
 PRODUCTS_PER_MUL = 2 * 144 + 12
 WIDE_PRODUCTS_PER_LANE = PRODUCTS_PER_MUL * (FIELD_MULS_PER_LANE
                                              + FIELD_SQUARES_PER_LANE)
+# The levels one thread of a group of G runs in a full lane, by G
+# (``bls_g1_rounds`` of the host build at each G): multiply levels (a level
+# of n products is ceil(n / G) of them: the lane's chain of dependent
+# multiplies) and levels of additions alone.
+MUL_ROUNDS_PER_LANE = {1: 1492, 2: 980, 4: 575}
+ADD_ROUNDS_PER_LANE = {1: 706, 2: 670, 4: 669}
 # bytes each lane moves: the point, the scalar, X || Y || Z out
 BYTES_PER_LANE = 96 + 16 + 144
+
 
 # The least work the function needs, for the roofline bound: s * P in
 # Jacobian coordinates (validated subgroup points need no complete
@@ -83,10 +100,81 @@ def _launcher():
     return fn
 
 
+def config() -> dict:
+    """The built kernel's threads per lane, bits per signed digit, lanes
+    per block and dynamic shared memory bytes per block
+    (``bls_g1_config``)."""
+    fn = _build.load(NAME).bls_g1_config
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+    vals = [ctypes.c_int() for _ in range(4)]
+    fn(*map(ctypes.byref, vals))
+    keys = ("threads_per_lane", "window", "lanes_per_block", "smem_bytes")
+    return dict(zip(keys, (v.value for v in vals)))
+
+
 def occupancy() -> dict:
     """The kernel's launch resources on the current card
-    (``_build.occupancy``)."""
-    return _build.occupancy(NAME)
+    (``_build.occupancy``: ``threads`` per block, ``shared_bytes`` static
+    and dynamic), with its threads per lane and lanes per block."""
+    cfg = config()
+    return dict(_build.occupancy(NAME), threads_per_lane=cfg["threads_per_lane"],
+                lanes_per_block=cfg["lanes_per_block"])
+
+
+# fe_op_cuda's operations, for the checks that hold it (and the host
+# build's bls_g1_fe_op_host) to Python integers: name -> (code, its value
+# mod p, the bound of its result, the bound of its operands).  Values below
+# 2p (the lazy domain); into and out of the Montgomery domain (R = 2^384)
+# take any value below R, out of it gives the canonical value.
+_P = _plain.P
+_R = 1 << 384
+_R_INV = pow(_R, -1, _P)
+FE_OPS = {
+    "add": (0, lambda a, b: (a + b) % _P, 2 * _P, 2 * _P),
+    "sub": (1, lambda a, b: (a - b) % _P, 2 * _P, 2 * _P),
+    "mul": (2, lambda a, b: a * b * _R_INV % _P, 2 * _P, 2 * _P),
+    "square": (3, lambda a, b: a * a * _R_INV % _P, 2 * _P, 2 * _P),
+    "times8": (4, lambda a, b: 8 * a % _P, 2 * _P, 2 * _P),
+    "to_mont": (5, lambda a, b: a * _R % _P, 2 * _P, _R),
+    "from_mont": (6, lambda a, b: a * _R_INV % _P, _P, _R),
+    "is_zero": (7, lambda a, b: int(a % _P == 0), 2, 2 * _P),
+}
+# the extremes of the lazy domain [0, 2p), and of the raw one [0, R)
+FE_EDGES = (0, 1, 2, _P - 1, _P, _P + 1, 2 * _P - 2, 2 * _P - 1, (_P + 1) // 2,
+            (1 << 381) - 1)
+FE_RAW_EDGES = (_R - 1, 1 << 383, _R - _P, 2 * _P, 4 * _P)
+
+
+@lru_cache(maxsize=1)
+def _fe_op():
+    fn = _build.load(NAME).bls_g1_fe_op
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fe_op_cuda(op: int, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's field operation ``op`` (``fe_op`` in the source: 0 add,
+    1 sub, 2 multiply, 3 square, 4 times 8, 5 into the Montgomery domain, 6
+    out of it, 7 the zero test) on the card, on (n, 12) int32 tensors of
+    little-endian 32-bit words: the PTX carry chains, which the host build
+    never runs.  A check, not the main path: it counts no launch."""
+    if a.shape != b.shape or a.dim() != 2 or a.shape[1] != 12 or \
+            a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise ValueError(f"want two (n, 12) int32 tensors, got {tuple(a.shape)}"
+                         f" {a.dtype} and {tuple(b.shape)} {b.dtype}")
+    if a.device.type != "cuda" or b.device != a.device:
+        raise ValueError(f"fe_op_cuda runs on a card, got {a.device}, {b.device}")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = _fe_op()(op, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                      a.shape[0], stream)
+    if rc != 0:
+        raise RuntimeError(f"{NAME} field op launch failed: CUDA error {rc}")
+    return out
 
 
 def _check(pts, scalars, nbits) -> int:
@@ -105,8 +193,9 @@ def _check(pts, scalars, nbits) -> int:
 
 
 def scalar_mul_cuda(pts, scalars, nbits: int = _plain.MAX_BITS) -> torch.Tensor:
-    """(n, 144) uint8 canonical X || Y || Z of s_i * P_i for (n, 96) uint8
-    points and (n, 16) uint8 big-endian scalars (their low ``nbits`` bits).
+    """(n, 144) uint8 canonical X || Y || Z, a projective representative
+    of s_i * P_i, for (n, 96) uint8 points and (n, 16) uint8 big-endian
+    scalars (their low ``nbits`` bits).
 
     CUDA tensors: one launch of the kernel on the current stream (no
     padding: the kernel masks the ragged edge).  CPU tensors: the plain

@@ -8,6 +8,8 @@
   ``wcurve.Curve.scalar_mul`` over it against the JAX ``g1.scalar_mul``
   called eagerly on packed points (equal canonical X, Y, Z);
   ``bls_g1.batch_scalar_mul`` on the CPU against the oracle at 128 bits;
+  the G1 kernel's source built for the host (``csrc/bls_g1.cu``) against
+  the same JAX call, as points;
 * ``BlsBatchVerifier`` verdicts against the JAX class on the cases of
   ``tests/test_bls_batch.py``; a BLS commit built with the JAX package's
   types, carried across by ``convert``, through ``verify_commit*`` of both
@@ -237,18 +239,26 @@ def _points(n, seed):
             for _ in range(n)]
 
 
-def test_scalar_mul_equals_jax_ladder():
-    """The plain ladder (``wcurve.Curve.scalar_mul`` over ``ops.fp381``,
-    behind ``bls_g1.batch_scalar_mul_plain`` on raw bytes) and the JAX
-    ``g1.scalar_mul``, called eagerly on packed points, give the same
-    canonical (X, Y, Z) on 8 lanes at 12 bits (an identity lane and
-    scalars 0 and 1 among them)."""
+@pytest.fixture(scope="module")
+def jax_ladder():
+    """The JAX ``g1.scalar_mul``, called eagerly on packed points, on 8
+    lanes at 12 bits (an identity lane and scalars 0 and 1 among them):
+    (points, scalars, bit rows, its output)."""
     pts = _points(7, 3) + [None]
     ks = [random.Random(4).getrandbits(12) for _ in pts]
     ks[1], ks[2] = 0, 1
     jp = jg1.pack_points(pts)
     bits = jg1.pack_scalar_bits(ks, 12, jp.x.v.shape[1])
-    jout = jg1.scalar_mul(jp, jnp.asarray(bits))
+    return pts, ks, bits, jg1.scalar_mul(jp, jnp.asarray(bits))
+
+
+def test_scalar_mul_equals_jax_ladder(jax_ladder):
+    """The plain ladder (``wcurve.Curve.scalar_mul`` over ``ops.fp381``,
+    behind ``bls_g1.batch_scalar_mul_plain`` on raw bytes) and the JAX
+    ``g1.scalar_mul``, called eagerly on packed points, give the same
+    canonical (X, Y, Z) on 8 lanes at 12 bits (an identity lane and
+    scalars 0 and 1 among them)."""
+    pts, ks, bits, jout = jax_ladder
     want = list(zip(*(jfp.unpack(c) for c in jout)))
     sc = torch.from_numpy(tg1.scalars_to_bytes(ks, 12).copy())
     assert (tg1.scalar_bits(sc, 12).numpy() == bits).all()
@@ -256,6 +266,39 @@ def test_scalar_mul_equals_jax_ladder():
         torch.from_numpy(tg1.points_to_bytes(pts).copy()), sc, 12)
     assert tg1._coords(raw.numpy()) == want
     assert tg1.affine(raw.numpy()) == jg1.unpack_points(jout)
+
+
+def test_kernel_host_build_equals_jax_ladder(jax_ladder, tmp_path):
+    """The G1 kernel's source built for the host (``csrc/bls_g1.cu``
+    without ``__CUDACC__``: its schedule, formulas and field, the group's
+    threads in turn) against the JAX ``g1.scalar_mul`` on the same lanes:
+    the same points (the kernel's Jacobian representative differs from
+    the JAX ladder's projective one, so not the same bytes)."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from cometbft_tpu_torch.ops import _build
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build the kernel source for the CPU")
+    lib = tmp_path / "libbls_g1_host.so"
+    subprocess.run([cxx, "-O1", "-std=c++17", "-x", "c++", "-shared", "-fPIC",
+                    "-o", str(lib), str(_build.CSRC_DIR / "bls_g1.cu")],
+                   check=True, capture_output=True)
+    so = ctypes.CDLL(str(lib))
+    so.bls_g1_host.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    pts, ks, _, jout = jax_ladder
+    raw = tg1.points_to_bytes(pts).copy()
+    sc = tg1.scalars_to_bytes(ks, 12).copy()
+    out = np.zeros((len(pts), 144), np.uint8)
+    assert so.bls_g1_host(raw.ctypes.data, sc.ctypes.data, out.ctypes.data,
+                          len(pts), 12) == 0
+    jxyz = np.array([[b for c in xyz for b in c.to_bytes(48, "big")]
+                     for xyz in zip(*(jfp.unpack(c) for c in jout))], np.uint8)
+    assert tg1.points_equal(out, jxyz).all()
+    assert tg1.affine(out) == jg1.unpack_points(jout)
 
 
 def test_batch_scalar_mul_on_the_cpu_equals_oracle():
