@@ -169,6 +169,34 @@ served by the torch or host tier, or one that raised, fails the run.
               instruction mix (``cuobjdump``) and the instructions per
               product of the field multiply's body; the cold commit's wall and
               its host parts, with a cProfile top 5.
+ 14. transport — the encrypted transport plane at CometBFT's defaults, a
+              path of its own: the ChaCha20-Poly1305 kernel
+              (``csrc/chacha20_poly1305.cu``, a warp per lane) against its
+              plain PyTorch version bit for bit at 1,024 lanes of mixed
+              lengths (0 to 2,048 bytes, the block edges among them), seal
+              and open with tampered ciphertexts and tags, both against
+              ``aead_ref`` on a 64-lane sample; the X25519 ladder kernel
+              (``csrc/x25519_ladder.cu``, a thread per lane) against its
+              plain version at 256 lanes and n = 1, 7, 8, 9, 33, and against
+              ``aead_ref.x25519`` on the RFC 7748 5.2 and 6.1 vectors, u with
+              bit 255 set, u >= p and the low-order points (zero out); then
+              50 ``SecretConnection`` pairs (40 inbound + 10 outbound peers)
+              over socket pairs, all 100 handshakes dialing at once through
+              ``p2p/handshake_pool`` -> ``ops/x25519_ladder`` -> the ladder
+              kernel, each connection carrying a 4 MiB block as 64
+              ``write_frames`` flushes of 64 frames of 1,024 bytes (a 64 KiB
+              block part a flush) through ``p2p/transportplane`` ->
+              ``ops/chacha_aead`` -> the AEAD kernel, read back by
+              ``read_frame`` and compared; a flush with a tampered frame
+              delivers its exact prefix, then a sticky
+              ``SecretConnectionError``; every batched seal and open and every
+              pool flush served by ``cuda``; both kernels against their plain
+              versions again, bit for bit, on the first inputs the path gave
+              them at each of its shapes (seal and open lanes x blocks, ladder
+              lanes), kept as it ran; times of both kernels and their
+              plain versions beside their bounds, occupancy, the handshake
+              storm's wall and handshakes/s, the transfer's wall and MB/s,
+              host pack and unpack per flush.
 
 Usage, from the repository root, on a machine with a CUDA card:
 
@@ -177,7 +205,8 @@ Usage, from the repository root, on a machine with a CUDA card:
 Set-up signs 10,240 votes with the pure-Python oracle (~1.6 ms each on one
 host core, ~17 s in all), 10,240 secp256k1 votes (~5 s), the light
 chain's 17,000 votes (~30 s) and 256 BLS12-381 votes in the host library
-(~1 s): the cost of making the data, not of verifying it.
+(~1 s), and 100 node keys for the transport phase: the cost of making the
+data, not of verifying it.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -273,6 +302,23 @@ BLS_AB_RUNS = 10  # samples of each kernel per turn
 # main-path launches: self-check 1 + 3 cold + 3 cold light + warm 0 + bad
 # commit 1 + the good commit after it 1 + batch-verifier bits 1
 BLS_LAUNCHES = 1 + 2 * BLS_COLD_RUNS + 3
+TRANSPORT_SEED = SEED + 11  # the transport phase's keys, frames and block
+# CometBFT's defaults: max_num_inbound_peers 40 + max_num_outbound_peers 10
+# (config/config.go DefaultP2PConfig), dataMaxSize 1,024
+# (p2p/conn/secret_connection.go:47), MaxBytes 4 MiB (types/params.go
+# DefaultBlockParams), block parts of 64 KiB (types.BlockPartSizeBytes)
+TRANSPORT_PEERS = 50
+TRANSPORT_FRAME = 1024
+TRANSPORT_BLOCK = 4 << 20
+TRANSPORT_PART = 64 << 10
+TRANSPORT_BYTES = TRANSPORT_BLOCK  # per connection; the one size the phase may cut
+TRANSPORT_FLUSH = TRANSPORT_PART // TRANSPORT_FRAME  # frames per write_frames
+TRANSPORT_TAMPER_AT = 37  # the tampered frame of the tampered flush
+AEAD_LANES = 1024  # the JAX package's lane ceiling (COMETBFT_TPU_AEAD_MAX_LANES)
+AEAD_EDGE_LENS = (0, 1, 15, 16, 17, 63, 64, 65, 1023, 1024, 2048)
+AEAD_SAMPLE = 64  # lanes held to aead_ref
+LADDER_LANES = 256  # the JAX package's lane ceiling (COMETBFT_TPU_X25519_MAX_LANES)
+LADDER_SMALL_N = (1, 7, 8, 9, 33)
 
 
 class SmokeError(AssertionError):
@@ -2435,6 +2481,418 @@ def bls_checks(torch, dev, cbatch, val, ds, sigcache, sms, max_clock_mhz,
     }
 
 
+def aead_mixed_frames(rng, lanes: int):
+    """``lanes`` frames with the lengths of AEAD_EDGE_LENS first, the rest
+    random in [0, 2,048], each with its own key and nonce."""
+    lens = list(AEAD_EDGE_LENS) + rng.integers(0, 2049, lanes - len(AEAD_EDGE_LENS)).tolist()
+    return [(rng.bytes(32), rng.bytes(12), rng.bytes(int(n))) for n in lens]
+
+
+def transport_vectors():
+    """(scalar, u, want) of RFC 7748 5.2 and 6.1, u with bit 255 set, u >= p
+    and the low-order points 0 and 1 (the ladder gives 0 for them)."""
+    p = 2**255 - 19
+    a = bytes.fromhex("77076d0a7318a57d3c16c17251b26645df4c2f87ebc0992ab177fba51db92c2a")
+    b_pub = bytes.fromhex("de9edb7d7b7dc1b4d35b61c2ece435373f8343c85b78674dadfc7e146f882b4f")
+    rfc = [
+        ("a546e36bf0527c9d3b16154b82465edd62144c0ac1fc5a18506a2244ba449ac4",
+         "e6db6867583030db3594c1a424b15f7c726624ec26b3353b10a903a6d0ab1c4c",
+         "c3da55379de9c6908e94ea4df28d084f32eccf03491c71f754b4075577a28552"),
+        ("4b66e9d4d1b4673c5ad22691957d6af5c11b6421e0ea01d42ca4169e7918ba0d",
+         "e5210f12786811d3f4b7959d0538ae2c31dbe7106fc03c3efc4cd549c715a493",
+         "95cbde9476e8907d7aade45cb4b873f88b595a68799fa152e6f8f7647aac7957"),
+        (a.hex(), (9).to_bytes(32, "little").hex(),
+         "8520f0098930a754748b7ddcb43ef75a0dbf3a0d26381af4eba4a98eaa9b4e6a"),
+        (a.hex(), b_pub.hex(),
+         "4a5d9d5ba4ce2de1728e3bf480350f25e07e21c947d19e3376f09b3c1e161742"),
+    ]
+    out = [tuple(bytes.fromhex(x) for x in v) for v in rfc]
+    for u in (2**255 + 12345, p + 7, 2**255 - 1, 0, 1):
+        want = None if u > 1 else bytes(32)
+        out.append((hashlib.sha256(b"edge-%d" % u).digest(),
+                    u.to_bytes(32, "little"), want))
+    return out
+
+
+@contextlib.contextmanager
+def keeping_inputs(mod, name: str, key):
+    """While the block runs, ``mod.name`` keeps a clone of the first
+    arguments of each shape ``key(args, kwargs)`` in the dict it yields,
+    then calls the wrapper it replaced, which launches and counts as
+    before."""
+    fn, kept = getattr(mod, name), {}
+
+    def keep(*args, **kwargs):
+        k = key(args, kwargs)
+        if k not in kept:
+            kept[k] = ([a.clone() for a in args], kwargs)
+        return fn(*args, **kwargs)
+
+    setattr(mod, name, keep)
+    try:
+        yield kept
+    finally:
+        setattr(mod, name, fn)
+
+
+def transport_phase(torch, dev, cbatch, ds, sms, max_clock_mhz, tag):
+    """Phase 14: the encrypted transport plane at CometBFT's defaults:
+    SecretConnection frames through the ChaCha20-Poly1305 kernel, dials
+    through the X25519 ladder kernel.  Returns the two kernels' entries of
+    the kernels line."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import aead_ref
+    from cometbft_tpu_torch.ops import chacha_aead as ca
+    from cometbft_tpu_torch.ops import cuda_aead
+    from cometbft_tpu_torch.ops import cuda_x25519
+    from cometbft_tpu_torch.ops import x25519_ladder as xl
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(TRANSPORT_SEED)
+
+    # -- 1. the kernels against their plain versions and the reference
+    frames = aead_mixed_frames(rng, AEAD_LANES)
+    lanes, blocks = ca._bucket_shape(frames)
+    check(lanes == AEAD_LANES, f"transport: AEAD bucket {lanes}x{blocks}")
+    packed = [torch.from_numpy(a).to(dev) for a in ca._pack_frames(frames, lanes, blocks)]
+    sealed_out, sealed_tag = cuda_aead.aead(*packed, seal=True)
+    plain = ca.aead_core(*packed, seal=True)
+    torch.cuda.synchronize()
+    aead_err = max(int((sealed_out.long() - plain[0].long()).abs().max()),
+                   int((sealed_tag.long() - plain[1].long()).abs().max()))
+    check(torch.equal(sealed_out, plain[0]) and torch.equal(sealed_tag, plain[1]),
+          "transport: AEAD kernel != plain version (seal)")
+    sealed = ca._unpack_outputs(sealed_out.cpu().numpy(), sealed_tag.cpu().numpy(), frames)
+    # open: every frame's ciphertext, some tampered in a byte, against the
+    # received tags, some tampered: a frame authenticates iff the kernel's
+    # tag equals the received one
+    bad_ct = {i for i in range(3, lanes, 97) if frames[i][2]}
+    bad_tag = set(range(5, lanes, 89)) - bad_ct
+    opened_in, tags_in = [], []
+    for i, ((key, nonce, _), (ct, tg)) in enumerate(zip(frames, sealed)):
+        if i in bad_ct:
+            ct = bytes([ct[0] ^ 0x20]) + ct[1:]
+        if i in bad_tag:
+            tg = tg[:-1] + bytes([tg[-1] ^ 1])
+        opened_in.append((key, nonce, ct))
+        tags_in.append(tg)
+    packed_o = [torch.from_numpy(a).to(dev)
+                for a in ca._pack_frames(opened_in, lanes, blocks)]
+    open_out, open_tag = cuda_aead.aead(*packed_o, seal=False)
+    plain = ca.aead_core(*packed_o, seal=False)
+    torch.cuda.synchronize()
+    aead_err = max(aead_err, int((open_out.long() - plain[0].long()).abs().max()),
+                   int((open_tag.long() - plain[1].long()).abs().max()))
+    check(torch.equal(open_out, plain[0]) and torch.equal(open_tag, plain[1]),
+          "transport: AEAD kernel != plain version (open)")
+    opened = ca._unpack_outputs(open_out.cpu().numpy(), open_tag.cpu().numpy(), opened_in)
+    for i, ((_, _, data), (pt, tg)) in enumerate(zip(frames, opened)):
+        accept = tg == tags_in[i]
+        check(accept == (i not in bad_ct and i not in bad_tag)
+              and (not accept or pt == data), f"transport: AEAD open verdict of lane {i}")
+    sample = sorted(rng.choice(lanes, AEAD_SAMPLE, replace=False).tolist())
+    for op, fs, got in (("seal", frames, sealed), ("open", opened_in, opened)):
+        ref = ca._host_pass(op, [fs[i] for i in sample])
+        check([got[i] for i in sample] == ref, f"transport: AEAD {op} != aead_ref")
+    print(f"transport: AEAD kernel == plain version bit for bit at {lanes} lanes "
+          f"x {blocks} blocks (lengths {list(AEAD_EDGE_LENS)} and random in "
+          f"[0, 2048]), seal and open; {len(bad_ct)} tampered ciphertexts and "
+          f"{len(bad_tag)} tampered tags rejected, the rest accepted (max_abs_err {aead_err}); {AEAD_SAMPLE}-lane sample "
+          f"== aead_ref, seal and open")
+
+    vecs = transport_vectors()
+    pairs = [(s, u) for s, u, _ in vecs]
+    pairs += [(rng.bytes(32), rng.bytes(32)) for _ in range(LADDER_LANES - len(pairs))]
+    scalars, us = (torch.from_numpy(a).to(dev) for a in xl._pack_pairs(pairs, LADDER_LANES))
+    kout = cuda_x25519.ladder(scalars, us)
+    pout = xl.ladder_plain(scalars, us)
+    torch.cuda.synchronize()
+    ladder_err = int((kout.long() - pout.long()).abs().max())
+    check(torch.equal(kout, pout), "transport: ladder kernel != plain version")
+    got = kout.cpu().numpy()
+    for i, (s, u, want) in enumerate(vecs):
+        ref = aead_ref.x25519(s, u)
+        check(got[i].tobytes() == ref and (want is None or ref == want),
+              f"transport: ladder vector {i}")
+    rest = range(len(vecs), LADDER_LANES)
+    for i in rng.choice(rest, min(32, len(rest)), replace=False).tolist():
+        check(got[i].tobytes() == aead_ref.x25519(*pairs[i]), f"transport: ladder lane {i}")
+    for k in LADDER_SMALL_N:
+        sub = cuda_x25519.ladder(scalars[:k].contiguous(), us[:k].contiguous())
+        check(torch.equal(sub, pout[:k]), f"transport: ladder n={k}")
+    torch.cuda.synchronize()
+    print(f"transport: ladder kernel == plain version at {LADDER_LANES} lanes and "
+          f"n = {', '.join(map(str, LADDER_SMALL_N))} (max_abs_err {ladder_err}); "
+          f"the RFC 7748 5.2 and 6.1 vectors, u with bit 255 set, u >= p and the "
+          f"low-order points 0 and 1 (zero out) and 32 random lanes == aead_ref")
+
+    # -- 2. the path: 50 peers' handshakes and a 4 MiB block to each, the
+    # kernels' first inputs of each shape kept for the checks below
+    with keeping_inputs(cuda_aead, "aead", lambda a, kw: (
+            "seal" if kw["seal"] else "open", a[2].shape[1], a[2].shape[0])) as kept_aead, \
+            keeping_inputs(cuda_x25519, "ladder", lambda a, kw: a[0].shape[0]) as kept_ladder:
+        path = transport_path(torch, cbatch, ds)
+
+    # -- the kernels against their plain versions at the path's own shapes,
+    # on the inputs the path gave them (these launches are not counted)
+    check(any(op == "seal" for op, _, _ in kept_aead)
+          and any(op == "open" for op, _, _ in kept_aead) and kept_ladder,
+          f"transport: the path's kernel shapes {sorted(kept_aead)}, {sorted(kept_ladder)}")
+    for (op, sl, sb), (args, kw) in sorted(kept_aead.items()):
+        got, want = cuda_aead.aead(*args, **kw), ca.aead_core(*args, **kw)
+        torch.cuda.synchronize()
+        aead_err = max(aead_err, *(int((g.long() - w.long()).abs().max())
+                                   for g, w in zip(got, want)))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"transport: AEAD kernel != plain version on the path's {op} "
+              f"inputs at {sl} x {sb}")
+    for ll, (args, _) in sorted(kept_ladder.items()):
+        got, want = cuda_x25519.ladder(*args), xl.ladder_plain(*args)
+        torch.cuda.synchronize()
+        ladder_err = max(ladder_err, int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want),
+              f"transport: ladder kernel != plain version on the path's inputs at {ll} lanes")
+    print(f"transport: on the inputs the path gave them, AEAD kernel == plain "
+          f"version bit for bit at each of its shapes (op, lanes, blocks) "
+          f"{sorted(kept_aead)}; ladder kernel == plain version at each of its "
+          f"lane buckets {sorted(kept_ladder)} (max_abs_err {aead_err}, {ladder_err})")
+
+    # -- 3. times
+    full = [(rng.bytes(32), rng.bytes(12), rng.bytes(TRANSPORT_FRAME))
+            for _ in range(AEAD_LANES)]
+    fl, fb = ca._bucket_shape(full)
+    pf = [torch.from_numpy(a).to(dev) for a in ca._pack_frames(full, fl, fb)]
+    aead_ms = cuda_ms(torch, lambda: cuda_aead.aead(*pf, seal=True), KERNEL_RUNS, 3)
+    aead_plain_ms = cuda_ms(torch, lambda: ca.aead_core(*pf, seal=True), 3, 1)
+    flush = full[:TRANSPORT_FLUSH]
+    ql, qb = ca._bucket_shape(flush)
+    pq = [torch.from_numpy(a).to(dev) for a in ca._pack_frames(flush, ql, qb)]
+    got, want = cuda_aead.aead(*pq, seal=True), ca.aead_core(*pq, seal=True)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"transport: AEAD kernel != plain version at the timed flush's {ql} x {qb}")
+    flush_ms = cuda_ms(torch, lambda: cuda_aead.aead(*pq, seal=True), KERNEL_RUNS, 3)
+    ops, products = cuda_aead.needed_work([TRANSPORT_FRAME] * fl)
+    aead_bytes = sum(t.numel() * t.element_size() for t in pf) + (fl * fb * 16 + fl * 4) * 4
+    aead_bound, aead_by = bound(ops + products, aead_bytes, sms, max_clock_mhz)
+    ladder_ms = cuda_ms(torch, lambda: cuda_x25519.ladder(scalars, us), KERNEL_RUNS, 3)
+    ladder_plain_ms = cuda_ms(torch, lambda: xl.ladder_plain(scalars, us), 1, 1)
+    ladder_products = LADDER_LANES * cuda_x25519.WIDE_PRODUCTS_PER_LANE
+    ladder_bound, ladder_by = bound(ladder_products,
+                                    LADDER_LANES * cuda_x25519.BYTES_PER_LANE,
+                                    sms, max_clock_mhz)
+    out_np = [t.cpu().numpy() for t in cuda_aead.aead(*pq, seal=True)]
+    pack_ms = median_ms(lambda: ca._pack_frames(flush, ql, qb), HOST_RUNS * 4)
+    unpack_ms = median_ms(lambda: ca._unpack_outputs(*out_np, flush), HOST_RUNS * 4)
+    print(f"transport: time: AEAD kernel {aead_ms} ms at {fl} lanes x {fb} blocks "
+          f"(frames of {TRANSPORT_FRAME} bytes, seal; median of {KERNEL_RUNS} "
+          f"one-call samples, CUDA events), {flush_ms} ms at a flush's {ql} x {qb}; "
+          f"plain version {aead_plain_ms} ms; bound {aead_bound} ms by {aead_by} "
+          f"({ops} 32-bit ChaCha operations + {products} Poly1305 products over "
+          f"{sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x {max_clock_mhz:.0f} MHz, "
+          f"or {aead_bytes} bytes at {H100_HBM_BYTES_PER_S:.3g} B/s): the kernel "
+          f"at {aead_bound / aead_ms:.2%} of it {tag}")
+    print(f"transport: time: ladder kernel {ladder_ms} ms at {LADDER_LANES} lanes "
+          f"(median of {KERNEL_RUNS}); plain version {ladder_plain_ms} ms; bound "
+          f"{ladder_bound} ms by {ladder_by} ({ladder_products} 32x32->64-bit "
+          f"products, {cuda_x25519.WIDE_PRODUCTS_PER_LANE} a lane): the kernel at "
+          f"{ladder_bound / ladder_ms:.2%} of it {tag}")
+    for w in (cuda_aead, cuda_x25519):
+        occ = w.occupancy()
+        n = AEAD_LANES if w is cuda_aead else LADDER_LANES
+        grid = n if w is cuda_aead else -(-n // occ["threads"])
+        print(f"occupancy: {w.NAME}: {'a warp' if w is cuda_aead else 'one thread'} "
+              f"per lane, {occ['threads']} threads per block, {occ['regs']} "
+              f"registers and {occ['local_bytes']} bytes of local memory per "
+              f"thread, {occ['shared_bytes']} bytes of static shared memory per "
+              f"block; {occ['blocks_per_sm']} blocks resident per SM; {n} lanes -> "
+              f"{grid} blocks, {min(grid, sms)} of {sms} SMs with work"
+              f"{'' if grid <= occ['blocks_per_sm'] * sms else ' (more than one wave)'} {tag}")
+    moved = TRANSPORT_PEERS * TRANSPORT_BYTES
+    kernel_share = path["aead_launches"] * flush_ms / (path["transfer_s"] * 1e3)
+    print(f"transport: time: {2 * TRANSPORT_PEERS} handshakes in "
+          f"{path['storm_s'] * 1e3:.2f} ms of wall = "
+          f"{2 * TRANSPORT_PEERS / path['storm_s']:.1f} handshakes/s; "
+          f"{moved / 2**20:.0f} MiB ({TRANSPORT_PEERS} x {TRANSPORT_BYTES} bytes) in "
+          f"{path['transfer_s'] * 1e3:.2f} ms of wall = "
+          f"{moved / path['transfer_s'] / 1e6:.2f} MB/s; host pack "
+          f"{pack_ms} ms and unpack {unpack_ms} ms per flush of "
+          f"{TRANSPORT_FLUSH} frames (medians of {HOST_RUNS * 4}); the AEAD "
+          f"kernel's share of the transfer wall ~{kernel_share:.2%} (derived: "
+          f"{path['aead_launches']} launches x {flush_ms} ms) {tag}")
+    print(f"transport: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return ({"name": cuda_aead.NAME, "route": "cuda", "source": cuda_aead.SOURCE,
+             "replaces": cuda_aead.REPLACES, "launches": path["aead_launches"],
+             "max_abs_err": aead_err, "ms": aead_ms, "plain_ms": aead_plain_ms,
+             "bound_ms": aead_bound, "bound_by": aead_by, "library_ms": None},
+            {"name": cuda_x25519.NAME, "route": "cuda", "source": cuda_x25519.SOURCE,
+             "replaces": cuda_x25519.REPLACES, "launches": path["ladder_launches"],
+             "max_abs_err": ladder_err, "ms": ladder_ms,
+             "plain_ms": ladder_plain_ms, "bound_ms": ladder_bound,
+             "bound_by": ladder_by, "library_ms": None})
+
+
+def transport_path(torch, cbatch, ds) -> dict:
+    """The main path of phase 14: TRANSPORT_PEERS SecretConnection pairs
+    over socket pairs, every handshake dialing at once through the
+    handshake pool and the ladder kernel, then each connection carrying
+    TRANSPORT_BYTES of a block as flushes of TRANSPORT_FLUSH frames through
+    the plane and the AEAD kernel, and one tampered flush.  Returns the
+    launch counts and walls."""
+    import socket
+    import struct
+    import threading
+
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import backend_health
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.ops import chacha_aead as ca
+    from cometbft_tpu_torch.ops import cuda_aead
+    from cometbft_tpu_torch.ops import cuda_x25519
+    from cometbft_tpu_torch.ops import x25519_ladder as xl
+    from cometbft_tpu_torch.p2p import handshake_pool
+    from cometbft_tpu_torch.p2p import transport_stats as tstats
+    from cometbft_tpu_torch.p2p.secret_connection import (SecretConnection,
+                                                            SecretConnectionError)
+    from cometbft_tpu_torch.verifysched import service
+
+    if not service.backend_trusted():
+        cbatch.default_backend()  # the batch seam's self-check opens the gate
+    check(service.backend_trusted(), "transport: the gate is closed")
+    n = TRANSPORT_PEERS
+    privs = [Ed25519PrivKey.from_seed(hashlib.sha256(b"peer-%d" % i).digest())
+             for i in range(2 * n)]
+    block = np.random.default_rng(TRANSPORT_SEED + 1).bytes(TRANSPORT_BLOCK)
+    data = block[:TRANSPORT_BYTES]
+    socks = [socket.socketpair() for _ in range(n)]
+    conns = [None] * (2 * n)
+    errors = []
+    handshake_pool.reset_pool()
+    backend_health.reset()
+    tstats.reset()
+    ds.reset()
+    cuda_aead.reset_launches()
+    cuda_x25519.reset_launches()
+    barrier = threading.Barrier(2 * n + 1)
+
+    def dial(i):
+        try:
+            barrier.wait()
+            conns[i] = SecretConnection(socks[i // 2][i % 2], privs[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=dial, args=(i,)) for i in range(2 * n)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(120)
+    storm_s = time.perf_counter() - t0
+    check(not errors and all(conns), f"transport: handshakes failed: {errors[:3]}")
+    for i in range(0, 2 * n, 2):
+        check(conns[i + 1].remote_pub_key == privs[i].pub_key()
+              and conns[i].remote_pub_key == privs[i + 1].pub_key(),
+              f"transport: pair {i // 2} authenticated the wrong keys")
+    hs = tstats.snapshot()
+
+    chunk = TRANSPORT_FLUSH * TRANSPORT_FRAME
+
+    def send(sc):
+        try:
+            for off in range(0, len(data), chunk):
+                part = data[off:off + chunk]
+                sc.write_frames([part[k:k + TRANSPORT_FRAME]
+                                 for k in range(0, len(part), TRANSPORT_FRAME)])
+        except Exception as e:  # noqa: BLE001
+            errors.append(repr(e))
+
+    def recv(sc):
+        try:
+            view = memoryview(data)
+            for off in range(0, len(data), TRANSPORT_FRAME):
+                if view[off:off + TRANSPORT_FRAME] != sc.read_frame():
+                    errors.append(f"frame at {off} differs")
+                    return
+        except Exception as e:  # noqa: BLE001
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=send, args=(conns[i],)) for i in range(0, 2 * n, 2)]
+    threads += [threading.Thread(target=recv, args=(conns[i],)) for i in range(1, 2 * n, 2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    transfer_s = time.perf_counter() - t0
+    check(not errors, f"transport: the transfer failed: {errors[:3]}")
+
+    # one flush with a frame tampered at TRANSPORT_TAMPER_AT: the exact
+    # prefix, then a sticky error
+    a, b = conns[0], conns[1]
+    part = [bytes([k % 251]) * TRANSPORT_FRAME for k in range(TRANSPORT_FLUSH)]
+    sealed = a._send.seal_batch(part)
+    s = sealed[TRANSPORT_TAMPER_AT]
+    sealed[TRANSPORT_TAMPER_AT] = s[:-1] + bytes([s[-1] ^ 1])
+    a._sock.sendall(b"".join(struct.pack(">I", len(x)) + x for x in sealed))
+    got = []
+    try:
+        while True:
+            got.append(b.read_frame())
+    except SecretConnectionError:
+        pass
+    check(got == part[:TRANSPORT_TAMPER_AT],
+          f"transport: {len(got)} frames before the tampered one, want "
+          f"{TRANSPORT_TAMPER_AT}")
+    try:
+        b.read_frame()
+        raise SmokeError("transport: the error after a tampered frame is not sticky")
+    except SecretConnectionError:
+        pass
+
+    aead_launches, ladder_launches = cuda_aead.launches, cuda_x25519.launches
+    snap = tstats.snapshot()
+    aead_tiers, ladder_tiers = ds.tier_counts(ca.AEAD), ds.tier_counts(xl.X25519)
+    for c in conns:
+        c.close()
+    handshake_pool.reset_pool()
+    check(aead_tiers["torch"] == aead_tiers["host"] == (0, 0) and aead_tiers["cuda"][0]
+          == snap["dispatches"]["device"] == aead_launches > 0,
+          f"transport: AEAD passes by tier {aead_tiers}, {aead_launches} launches")
+    check(ladder_tiers["torch"] == ladder_tiers["host"] == (0, 0)
+          and ladder_tiers["cuda"] == (snap["hs_device"], 4 * n)
+          and snap["hs_device"] == ladder_launches > 0,
+          f"transport: ladder passes by tier {ladder_tiers}, {ladder_launches} launches")
+    check(snap["dispatches"]["host"] == 0
+          and snap["bad_tags"] == 1 and snap["reject_confirms"] == 1,
+          f"transport: counters {snap}")
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
+    check(not leaked, f"imported {leaked}")
+    print(f"transport: {n} SecretConnection pairs over socket pairs, "
+          f"{2 * n} handshakes dialed at once: {2 * n} public keys and "
+          f"{2 * n} exchanges through the handshake pool in "
+          f"{sum(hs['hs_flushes'].values())} flushes {hs['hs_flushes']} "
+          f"({hs['handshakes_per_flush']:.1f} exchanges a flush), "
+          f"{hs['hs_shed']} shed; then {TRANSPORT_BYTES} bytes of a "
+          f"{TRANSPORT_BLOCK}-byte block per connection"
+          + ("" if TRANSPORT_BYTES == TRANSPORT_BLOCK
+             else f" (cut from {TRANSPORT_BLOCK}: the phase's time)")
+          + f" as {TRANSPORT_BYTES // chunk} write_frames flushes of "
+          f"{TRANSPORT_FLUSH} frames of {TRANSPORT_FRAME} bytes (block parts of "
+          f"{TRANSPORT_PART} bytes), read back by read_frame equal; a frame "
+          f"tampered at {TRANSPORT_TAMPER_AT} of a flush: that prefix, then a "
+          f"sticky SecretConnectionError.  Frames batched {snap['frames']['batched']}"
+          f", serial {snap['frames']['serial']}; AEAD passes {snap['batches']} "
+          f"({snap['frames_per_batch']:.1f} frames each), launches: "
+          f"{cuda_aead.NAME} {aead_launches}, {cuda_x25519.NAME} {ladder_launches}; "
+          f"served by tier (passes, items): aead {aead_tiers}, x25519 "
+          f"{ladder_tiers}; jax not imported")
+    return {"aead_launches": aead_launches, "ladder_launches": ladder_launches,
+            "storm_s": storm_s, "transfer_s": transfer_s}
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -2717,6 +3175,10 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     bls_entry = bls_phase(torch, dev, cbatch, val, ds, sigcache, sms,
                           max_clock_mhz, tag)
 
+    # -- 14. transport: SecretConnection frames and dials through the kernels
+    aead_entry, ladder_entry = transport_phase(torch, dev, cbatch, ds, sms,
+                                               max_clock_mhz, tag)
+
     print("host: " + json.dumps({
         "name": native.NAME,
         "source": native.SOURCE,
@@ -2740,7 +3202,8 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, chain_entry, secp_entry, light_entry, bls_entry]}))
+    }, chain_entry, secp_entry, light_entry, bls_entry, aead_entry,
+        ladder_entry]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,7 +1,8 @@
 """Carry state from the JAX package's objects into the port's.
 
 This system has no weights: its state is the validator set, the commit and
-the packed signature batch, and the votes gossiped between validators.
+the packed signature batch, the votes gossiped between validators, a
+node's key and the keys and nonce counters of its encrypted streams.
 The readers below are duck-typed — they read
 only plain attributes (``pub_key.bytes()``, ``voting_power``, ``height``,
 ``block_id.hash``, ``signatures[i].timestamp.seconds``, ...) — so the port
@@ -11,7 +12,11 @@ it in both.
 
 from __future__ import annotations
 
-from cometbft_tpu_torch.crypto.keys import pub_key_from_type
+from cometbft_tpu_torch.crypto.keys import (
+    ED25519_KEY_TYPE,
+    Ed25519PrivKey,
+    pub_key_from_type,
+)
 from cometbft_tpu_torch.ops.verify import batch_to_device
 from cometbft_tpu_torch.types.basic import BlockID, PartSetHeader, Timestamp
 from cometbft_tpu_torch.types.block import Commit, ConsensusVersion, Header
@@ -117,3 +122,22 @@ def vote_from(obj) -> Vote:
         extension=bytes(obj.extension),
         extension_signature=bytes(obj.extension_signature),
     )
+
+
+def priv_key_from(obj) -> Ed25519PrivKey:
+    """A node key (Ed25519, the key a SecretConnection authenticates with)
+    with the same 32-byte seed."""
+    if getattr(obj, "type_", None) != ED25519_KEY_TYPE:
+        raise ValueError(f"a node key is Ed25519, not {getattr(obj, 'type_', None)!r}")
+    return Ed25519PrivKey(bytes(obj.bytes()))
+
+
+def half_duplex_from(obj, device=None):
+    """One direction of a SecretConnection carried across: the same AEAD
+    key and nonce counter, so the port seals and opens the frames that
+    stream would seal and open next."""
+    from cometbft_tpu_torch.p2p.secret_connection import _HalfDuplex
+
+    hd = _HalfDuplex(bytes(obj._key), device)
+    hd.nonce = int(obj.nonce)
+    return hd

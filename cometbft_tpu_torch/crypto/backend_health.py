@@ -55,6 +55,10 @@ MERKLE_DEVICE = "merkle_device"
 # ... and of the BLS12-381 G1 scalar-multiplication kernel
 # (``crypto/batch.BlsBatchVerifier``; the JAX package's breaker name).
 BLS_G1 = "bls_g1"
+# ... and of the transport plane's kernels: ChaCha20-Poly1305
+# (``ops/chacha_aead``) and the X25519 ladder (``ops/x25519_ladder``).
+AEAD_DEVICE = "aead_device"
+X25519_DEVICE = "x25519_device"
 
 
 class BackendError(RuntimeError):
@@ -167,7 +171,7 @@ class CircuitBreaker:
     def record_success(self) -> None:
         # The JAX package journals a re-promotion as a "breaker_close"
         # event here; it goes in with the port of libs/tracing (ROADMAP
-        # item 10).
+        # "Node assembly").
         with self._lock:
             repromoted = self._state != CLOSED
             self._state = CLOSED
@@ -194,7 +198,7 @@ class CircuitBreaker:
     def record_failure(self, err: Optional[BaseException] = None) -> None:
         # The JAX package records a "breaker_open" anomaly (a flight-recorder
         # dump) when this call newly opens the breaker; it goes in with the
-        # port of libs/tracing (ROADMAP item 10).
+        # port of libs/tracing (ROADMAP "Node assembly").
         with self._lock:
             self._failures += 1
             self._failures_total += 1

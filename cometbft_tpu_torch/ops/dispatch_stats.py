@@ -27,7 +27,12 @@ Counters:
     (the host library answers under ``host``).  The SHA-256 tree plane
     (``ops/sha256_tree``) records its tree passes and leaves under the key
     ``merkle`` (``host`` for the sets it routes to the host), and the
-    oversize ones also under ``merkle_oversize``.
+    oversize ones also under ``merkle_oversize``.  The transport plane
+    records its AEAD passes and frames under ``aead`` (``ops/chacha_aead``;
+    oversize batches also under ``aead_oversize``) and its ladder passes
+    and exchanges under ``x25519`` (``ops/x25519_ladder``; oversize under
+    ``x25519_oversize``), ``host`` for what the gate, a kill switch or the
+    bucket rules route to the host.
 
 Histograms:
   * ``buckets[lanes]``            — dispatch count per lane count
@@ -35,7 +40,7 @@ Histograms:
   * ``verify_hist``               — commit verification latency
 
 The mesh and shard counters of the JAX package wait for the port of
-``parallel/mesh`` and ``parallel/elastic`` (ROADMAP §1 item 4).
+``parallel/mesh`` and ``parallel/elastic`` (ROADMAP "Multi-GPU lanes").
 """
 
 from __future__ import annotations

@@ -55,14 +55,14 @@ standard shim (modes: raise / hang / wrong_shape / flap).
 (tests), leaving every mechanism above it unchanged.
 
 Single-tier device paths (secp256k1's ``Secp256k1BatchVerifier``, breaker
-``secp_device``) go through ``supervised_device_call`` under the same
-rule: on a card the kernel serves the call or it raises ``BackendError``.
+``secp_device``; the tree, BLS G1 and transport planes) go through
+``supervised_device_call`` under the same rule: on a card the kernel serves the call or it raises ``BackendError``.
 
 Kill switch: ``COMETBFT_TPU_SUPERVISOR=0`` restores the raw dispatch path.
 
 The JAX package's spans and anomaly records (``libs/tracing``) are left
-out until that module is ported (ROADMAP §1 item 10); so is its elastic
-mesh routing (``parallel/elastic``, item 4).
+out until that module is ported (ROADMAP "Node assembly"); so is its
+elastic mesh routing (``parallel/elastic``, "Multi-GPU lanes").
 """
 
 from __future__ import annotations
@@ -336,7 +336,8 @@ def supervised_device_call(
 ):
     """One breaker-gated, watchdogged device call: the shared protocol for
     single-tier device paths (secp256k1 and BLS12-381 G1 in
-    ``crypto.batch``, the SHA-256 tree in ``ops.sha256_tree``).  Returns
+    ``crypto.batch``, the SHA-256 tree in ``ops.sha256_tree``, the AEAD
+    and the X25519 ladder in ``ops.chacha_aead``/``ops.x25519_ladder``).  Returns
     the call's result.
 
     A call the device did not serve — it raised, wedged past the watchdog,
@@ -806,8 +807,8 @@ class _InflightVerify:
 def dispatch_verify(pubs, msgs, sigs, lane=None, device=None) -> _InflightVerify:
     """Route one batch without blocking on its verdict: the first
     breaker-allowed device backend takes it.  ``lane`` pins a mesh
-    ordinal in the JAX package; with no mesh (ROADMAP §1 item 4) the chain
-    takes the batch, as there when the mesh is inactive.  Pair every
+    ordinal in the JAX package; with no mesh (ROADMAP "Multi-GPU lanes")
+    the chain takes the batch, as there when the mesh is inactive.  Pair every
     handle with exactly one ``fetch_verify`` — in-flight depth accounting
     balances on fetch."""
     from cometbft_tpu_torch.ops import verify as ov

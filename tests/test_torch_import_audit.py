@@ -9,8 +9,10 @@ a secp256k1 batch through its verifier, the supervisor's single-tier
 call and the plain ECDSA version, a BLS12-381 batch through its verifier
 (the host library, the supervisor's single-tier call and the plain G1
 ladder), and a validator-set hash at the tree
-plane's width (on the host and on the plain tree version), and checks
-that neither name reached ``sys.modules``.
+plane's width (on the host and on the plain tree version), and a
+``SecretConnection`` round trip on the plain versions of the transport
+kernels (the handshake's ladders through the pool, frames through the
+plane), and checks that neither name reached ``sys.modules``.
 """
 
 import ast
@@ -88,11 +90,21 @@ def test_port_files_exist():
         "cometbft_tpu_torch/ops/fp381.py",
         "cometbft_tpu_torch/ops/bls_g1.py",
         "cometbft_tpu_torch/ops/cuda_bls.py",
+        "cometbft_tpu_torch/crypto/aead_ref.py",
+        "cometbft_tpu_torch/ops/chacha_aead.py",
+        "cometbft_tpu_torch/ops/cuda_aead.py",
+        "cometbft_tpu_torch/ops/x25519_ladder.py",
+        "cometbft_tpu_torch/ops/cuda_x25519.py",
+        "cometbft_tpu_torch/p2p/transport_stats.py",
+        "cometbft_tpu_torch/p2p/transportplane.py",
+        "cometbft_tpu_torch/p2p/handshake_pool.py",
+        "cometbft_tpu_torch/p2p/secret_connection.py",
     ):
         assert need in names
     assert {p.name for p in NATIVE_FILES} >= {
         "host_prep.cpp", "ed25519_verify.cu", "secp256k1_verify.cu",
-        "sha256_tree.cu", "bls12381.cpp", "bls_g1.cu"}
+        "sha256_tree.cu", "bls12381.cpp", "bls_g1.cu", "chacha20_poly1305.cu",
+        "x25519_ladder.cu"}
 
 
 @pytest.mark.parametrize(
@@ -197,6 +209,27 @@ assert root == merkle.hash_from_byte_slices(leaves)
 assert sha256_tree.tree_root(leaves, device="cpu") == root
 assert dispatch_stats.tier_counts("merkle") == {
     "cuda": (0, 0), "torch": (1, 40), "host": (1, 40)}
+# a SecretConnection pair on the plain versions of the transport kernels:
+# both handshakes' ladders through the pool, 16 frames through the plane
+import os, socket
+os.environ["COMETBFT_TPU_HANDSHAKE_TIMEOUT_S"] = "300"  # a slow flush, not a shed
+from cometbft_tpu_torch.p2p.secret_connection import SecretConnection
+import cometbft_tpu_torch.ops.cuda_aead, cometbft_tpu_torch.ops.cuda_x25519
+s1, s2 = socket.socketpair()
+ends = {}
+t = threading.Thread(target=lambda: ends.__setitem__("b", SecretConnection(
+    s2, Ed25519PrivKey.from_seed(b"\x07" * 32), device="cpu")))
+t.start()
+a = SecretConnection(s1, priv, device="cpu")
+t.join(120)
+frames = [bytes([k]) * 1024 for k in range(16)]
+a.write_frames(frames)
+assert [ends["b"].read_frame() for _ in frames] == frames
+assert ends["b"].remote_pub_key == priv.pub_key()
+assert dispatch_stats.tier_counts("x25519")["torch"][1] == 4
+assert dispatch_stats.tier_counts("aead")["torch"][1] >= 16
+from cometbft_tpu_torch.p2p import handshake_pool
+handshake_pool.reset_pool()
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)
