@@ -171,12 +171,14 @@ served by the torch or host tier, or one that raised, fails the run.
               its host parts, with a cProfile top 5.
  14. transport — the encrypted transport plane at CometBFT's defaults, a
               path of its own: the ChaCha20-Poly1305 kernel
-              (``csrc/chacha20_poly1305.cu``, a warp per lane) against its
+              (``csrc/chacha20_poly1305.cu``: a block's threads share its
+              frames' ChaCha blocks, a warp per frame runs Poly1305 by
+              powers of r) against its
               plain PyTorch version bit for bit at 1,024 lanes of mixed
               lengths (0 to 2,048 bytes, the block edges among them), seal
               and open with tampered ciphertexts and tags, both against
               ``aead_ref`` on a 64-lane sample; the X25519 ladder kernel
-              (``csrc/x25519_ladder.cu``, a thread per lane) against its
+              (``csrc/x25519_ladder.cu``, a quad of threads per lane) against its
               plain version at 256 lanes and n = 1, 7, 8, 9, 33, and against
               ``aead_ref.x25519`` on the RFC 7748 5.2 and 6.1 vectors, u with
               bit 255 set, u >= p and the low-order points (zero out); then
@@ -194,9 +196,20 @@ served by the torch or host tier, or one that raised, fails the run.
               versions again, bit for bit, on the first inputs the path gave
               them at each of its shapes (seal and open lanes x blocks, ladder
               lanes), kept as it ran; times of both kernels and their
-              plain versions beside their bounds, occupancy, the handshake
-              storm's wall and handshakes/s, the transfer's wall and MB/s,
-              host pack and unpack per flush.
+              plain versions beside their bounds and the kernels' own
+              tallies, the MAC's dependent multiplies per frame and the
+              ladder's dependent field operations per lane, registers,
+              spills (none) and occupancy; the kernels of TRANSPORT_PARENT
+              (their sources from ``git show`` or
+              $COMETBFT_TPU_AEAD_PARENT_SRC / $COMETBFT_TPU_LADDER_PARENT_SRC,
+              the ladder's with the parent's ``fe25519.cuh`` beside it) and
+              builds of this source at each block shape, each held to the
+              package's kernel and timed in turns with it at 1,024 x 16 and
+              64 x 16 (AEAD) and 256, 8 and 128 lanes (ladder): one call,
+              the device time alone and calls back to back; the AEAD's
+              stage builds (AEAD_STAGE) in turns, where its device time
+              goes; the handshake storm's wall and handshakes/s, the
+              transfer's wall and MB/s, host pack and unpack per flush.
 
 Usage, from the repository root, on a machine with a CUDA card:
 
@@ -319,6 +332,12 @@ AEAD_EDGE_LENS = (0, 1, 15, 16, 17, 63, 64, 65, 1023, 1024, 2048)
 AEAD_SAMPLE = 64  # lanes held to aead_ref
 LADDER_LANES = 256  # the JAX package's lane ceiling (COMETBFT_TPU_X25519_MAX_LANES)
 LADDER_SMALL_N = (1, 7, 8, 9, 33)
+TRANSPORT_PARENT = "be4273a"  # its kernels: one thread's Poly1305, one thread a ladder
+AEAD_FRAME_CHOICES = (1, 2, 4, 8)  # frames (warps) per CUDA block, timed in turns
+LADDER_THREAD_CHOICES = (32, 64, 128)  # threads per block (8-32 quads), in turns
+LADDER_PATH_BUCKETS = (8, 128)  # the pool's buckets on the path, timed too
+TRANSPORT_AB_RUNS = 10  # samples of each kernel per turn
+TRANSPORT_PER = 8  # calls per sample of the back-to-back reading
 
 
 class SmokeError(AssertionError):
@@ -966,14 +985,17 @@ def secp_mixed(s, pubs, msgs, sigs):
     return pubs, msgs, sigs
 
 
-def start_nvcc(_build, src: bytes, stem: str, *defines):
+def start_nvcc(_build, src: bytes, stem: str, *defines, headers=None):
     """Start nvcc on the kernel source ``src`` with the package's flags and
-    ``defines``, into a temporary directory.  Returns (process, library,
-    directory)."""
+    ``defines``, into a temporary directory, with ``headers`` ({file name:
+    bytes}) beside it.  Returns (process, library, directory)."""
     tmp = tempfile.mkdtemp(prefix=f"{stem}-")
     cu = os.path.join(tmp, f"{stem}.cu")
     with open(cu, "wb") as f:
         f.write(src)
+    for name, text in (headers or {}).items():
+        with open(os.path.join(tmp, name), "wb") as f:
+            f.write(text)
     lib = os.path.join(tmp, f"lib{stem}.so")
     proc = subprocess.Popen(
         [_build.nvcc(), *_build.NVCC_FLAGS, *defines, "-o", lib, cu],
@@ -981,26 +1003,33 @@ def start_nvcc(_build, src: bytes, stem: str, *defines):
     return proc, lib, tmp
 
 
-def start_parent(_build, env: str, commit: str, source: str):
+def start_parent(_build, env: str, commit: str, source: str, headers=()):
     """Start nvcc on the kernel ``source`` (a path in the repository) of
     ``commit``, to time it beside the current one: its source from the file
     that $``env`` names or from ``git show`` (a copy of the repository that
     is not a git checkout needs the file), built with the package's flags
-    into a temporary directory.  Returns (process, library, directory), or
-    (None, why not, None)."""
+    into a temporary directory, the ``headers`` it includes (paths in the
+    repository) beside it, from that file's directory or ``git show`` too.
+    Returns (process, library, directory), or (None, why not, None)."""
     path = os.environ.get(env)
-    try:
+
+    def read(repo_path, file):
         if path:
-            with open(path, "rb") as f:
-                src = f.read()
-        else:
-            src = subprocess.run(
-                ["git", "show", f"{commit}:{source}"],
-                cwd=os.path.dirname(os.path.abspath(__file__)),
-                capture_output=True, check=True, timeout=60).stdout
+            with open(file, "rb") as f:
+                return f.read()
+        return subprocess.run(
+            ["git", "show", f"{commit}:{repo_path}"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, check=True, timeout=60).stdout
+
+    try:
+        src = read(source, path)
+        hdrs = {os.path.basename(h): read(h, os.path.join(
+            os.path.dirname(path or "."), os.path.basename(h))) for h in headers}
     except (OSError, subprocess.SubprocessError) as e:
         return None, f"no source of {commit}'s kernel ({type(e).__name__})", None
-    return start_nvcc(_build, src, os.path.basename(source).split(".")[0])
+    return start_nvcc(_build, src, os.path.basename(source).split(".")[0],
+                      headers=hdrs)
 
 
 def start_parent_secp(_build, cs):
@@ -2535,14 +2564,97 @@ def keeping_inputs(mod, name: str, key):
         setattr(mod, name, fn)
 
 
+def transport_launcher(torch, build, what: str, kind: str):
+    """A transport kernel being built by ``build`` (start_nvcc,
+    start_parent) as a function of the wrapper's device inputs: ``kind``
+    "aead" (key, nonce, data, nbytes, seal) -> (out, tag), "ladder"
+    (scalars, us) -> out; raises if its build or a launch failed.  Returns
+    (function, ptxas lines, its occupancy)."""
+    import ctypes
+
+    proc, lib, _ = build
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"transport: {what} did not build:\n{log}")
+    so = ctypes.CDLL(lib)
+    if kind == "aead":
+        fn = so.chacha20_poly1305_launch
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+
+        def run(key, nonce, data, nbytes, seal):
+            out = torch.empty_like(data)
+            tg = torch.empty((data.shape[1], 4), dtype=torch.int32, device=data.device)
+            rc = fn(key.data_ptr(), nonce.data_ptr(), data.data_ptr(),
+                    nbytes.data_ptr(), data.shape[0], data.shape[1], int(seal),
+                    out.data_ptr(), tg.data_ptr(),
+                    torch.cuda.current_stream(data.device).cuda_stream)
+            check(rc == 0, f"transport: {what}: CUDA error {rc}")
+            return out, tg
+    else:
+        fn = so.x25519_ladder_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p]
+
+        def run(scalars, us):
+            out = torch.empty_like(scalars)
+            rc = fn(scalars.data_ptr(), us.data_ptr(), scalars.shape[0],
+                    out.data_ptr(), torch.cuda.current_stream(scalars.device).cuda_stream)
+            check(rc == 0, f"transport: {what}: CUDA error {rc}")
+            return out
+    fn.restype = ctypes.c_int
+    q = getattr(so, "chacha20_poly1305_occupancy" if kind == "aead"
+                else "x25519_ladder_occupancy")
+    q.argtypes = [ctypes.POINTER(ctypes.c_int)] * 5
+    vals = [ctypes.c_int() for _ in range(5)]
+    check(q(*map(ctypes.byref, vals)) == 0, f"transport: {what}: occupancy")
+    keys = ("blocks_per_sm", "threads", "regs", "local_bytes", "shared_bytes")
+    return run, ptxas_lines(log), dict(zip(keys, (v.value for v in vals)))
+
+
 def transport_phase(torch, dev, cbatch, ds, sms, max_clock_mhz, tag):
     """Phase 14: the encrypted transport plane at CometBFT's defaults:
     SecretConnection frames through the ChaCha20-Poly1305 kernel, dials
     through the X25519 ladder kernel.  Returns the two kernels' entries of
     the kernels line."""
+    from cometbft_tpu_torch.ops import _build
+    from cometbft_tpu_torch.ops import cuda_aead
+    from cometbft_tpu_torch.ops import cuda_x25519
+
+    # TRANSPORT_PARENT's two kernels (its ladder includes its own
+    # fe25519.cuh) and this source at each block shape, built while the
+    # phase checks and drives the path
+    aead_src = (_build.CSRC_DIR / "chacha20_poly1305.cu").read_bytes()
+    ladder_src = (_build.CSRC_DIR / "x25519_ladder.cu").read_bytes()
+    builds = {
+        ("aead", "parent"): start_parent(
+            _build, "COMETBFT_TPU_AEAD_PARENT_SRC", TRANSPORT_PARENT, cuda_aead.SOURCE),
+        ("ladder", "parent"): start_parent(
+            _build, "COMETBFT_TPU_LADDER_PARENT_SRC", TRANSPORT_PARENT,
+            cuda_x25519.SOURCE, headers=("cometbft_tpu_torch/csrc/fe25519.cuh",)),
+    }
+    builds.update({("aead", f): start_nvcc(_build, aead_src, "chacha20_poly1305",
+                                           f"-DAEAD_FRAMES={f}")
+                   for f in AEAD_FRAME_CHOICES})
+    builds.update({("aead", f"stage {k}"): start_nvcc(
+        _build, aead_src, "chacha20_poly1305", f"-DAEAD_STAGE={k}") for k in (0, 1, 2)})
+    builds.update({("ladder", t): start_nvcc(_build, ladder_src, "x25519_ladder",
+                                             f"-DX25519_THREADS={t}",
+                                             f"-I{_build.CSRC_DIR}")
+                   for t in LADDER_THREAD_CHOICES})
+    try:
+        return transport_checks(torch, dev, cbatch, ds, sms, max_clock_mhz, tag,
+                                builds)
+    finally:
+        for build in builds.values():
+            stop_build(build)
+
+
+def transport_checks(torch, dev, cbatch, ds, sms, max_clock_mhz, tag, builds):
+    """Phase 14's checks, path and times, with the parent and block-shape
+    builds ``builds`` of transport_phase."""
     import numpy as np
 
     from cometbft_tpu_torch.crypto import aead_ref
+    from cometbft_tpu_torch.ops import _build
     from cometbft_tpu_torch.ops import chacha_aead as ca
     from cometbft_tpu_torch.ops import cuda_aead
     from cometbft_tpu_torch.ops import cuda_x25519
@@ -2673,17 +2785,22 @@ def transport_phase(torch, dev, cbatch, ds, sms, max_clock_mhz, tag):
           f"transport: AEAD kernel != plain version at the timed flush's {ql} x {qb}")
     flush_ms = cuda_ms(torch, lambda: cuda_aead.aead(*pq, seal=True), KERNEL_RUNS, 3)
     ops, products = cuda_aead.needed_work([TRANSPORT_FRAME] * fl)
+    k_ops, k_products = cuda_aead.kernel_work([TRANSPORT_FRAME] * fl)
     aead_bytes = sum(t.numel() * t.element_size() for t in pf) + (fl * fb * 16 + fl * 4) * 4
     aead_bound, aead_by = bound(ops + products, aead_bytes, sms, max_clock_mhz)
+    aead_own, _ = bound(k_ops + k_products, aead_bytes, sms, max_clock_mhz)
     ladder_ms = cuda_ms(torch, lambda: cuda_x25519.ladder(scalars, us), KERNEL_RUNS, 3)
     ladder_plain_ms = cuda_ms(torch, lambda: xl.ladder_plain(scalars, us), 1, 1)
     ladder_products = LADDER_LANES * cuda_x25519.WIDE_PRODUCTS_PER_LANE
     ladder_bound, ladder_by = bound(ladder_products,
                                     LADDER_LANES * cuda_x25519.BYTES_PER_LANE,
                                     sms, max_clock_mhz)
+    ladder_own, _ = bound(LADDER_LANES * cuda_x25519.KERNEL_PRODUCTS_PER_LANE,
+                          LADDER_LANES * cuda_x25519.BYTES_PER_LANE, sms, max_clock_mhz)
     out_np = [t.cpu().numpy() for t in cuda_aead.aead(*pq, seal=True)]
     pack_ms = median_ms(lambda: ca._pack_frames(flush, ql, qb), HOST_RUNS * 4)
     unpack_ms = median_ms(lambda: ca._unpack_outputs(*out_np, flush), HOST_RUNS * 4)
+    levels, parent_levels = cuda_aead.mac_levels(TRANSPORT_FRAME), -(-TRANSPORT_FRAME // 16) + 1
     print(f"transport: time: AEAD kernel {aead_ms} ms at {fl} lanes x {fb} blocks "
           f"(frames of {TRANSPORT_FRAME} bytes, seal; median of {KERNEL_RUNS} "
           f"one-call samples, CUDA events), {flush_ms} ms at a flush's {ql} x {qb}; "
@@ -2691,23 +2808,43 @@ def transport_phase(torch, dev, cbatch, ds, sms, max_clock_mhz, tag):
           f"({ops} 32-bit ChaCha operations + {products} Poly1305 products over "
           f"{sms} SMs x {INT32_LANES_PER_SM} INT32 lanes x {max_clock_mhz:.0f} MHz, "
           f"or {aead_bytes} bytes at {H100_HBM_BYTES_PER_S:.3g} B/s): the kernel "
-          f"at {aead_bound / aead_ms:.2%} of it {tag}")
+          f"at {aead_bound / aead_ms:.2%} of it; the kernel's own tally {k_ops} "
+          f"operations + {k_products} products ({k_products / products:.3f}x the "
+          f"products: the scan and the padded blocks), {aead_own} ms at the same "
+          f"rates; a frame's MAC {levels} dependent multiplies (log2 T + m; "
+          f"one thread's chain in {TRANSPORT_PARENT}: {parent_levels}) {tag}")
     print(f"transport: time: ladder kernel {ladder_ms} ms at {LADDER_LANES} lanes "
           f"(median of {KERNEL_RUNS}); plain version {ladder_plain_ms} ms; bound "
           f"{ladder_bound} ms by {ladder_by} ({ladder_products} 32x32->64-bit "
           f"products, {cuda_x25519.WIDE_PRODUCTS_PER_LANE} a lane): the kernel at "
-          f"{ladder_bound / ladder_ms:.2%} of it {tag}")
+          f"{ladder_bound / ladder_ms:.2%} of it; the kernel's own tally "
+          f"{cuda_x25519.KERNEL_PRODUCTS_PER_LANE} products a lane "
+          f"({cuda_x25519.KERNEL_PRODUCTS_PER_LANE / cuda_x25519.WIDE_PRODUCTS_PER_LANE:.3f}x"
+          f"), {ladder_own} ms at the same rates; "
+          f"{cuda_x25519.DEPENDENT_OPS_PER_LANE} dependent field operations a "
+          f"lane ({cuda_x25519.ONE_THREAD_DEPENDENT_OPS_PER_LANE} in one thread): "
+          f"{ladder_ms * 1e3 / cuda_x25519.DEPENDENT_OPS_PER_LANE:.4f} us each {tag}")
+    spills = {}
     for w in (cuda_aead, cuda_x25519):
+        log = _build.build_log(w.NAME)
+        spills[w.NAME] = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
+        check(spills[w.NAME] and not any(int(a) or int(b) for a, b in spills[w.NAME]),
+              f"transport: {w.NAME} spills: {ptxas_lines(log)}")
         occ = w.occupancy()
+        check(occ["local_bytes"] == 0, f"transport: {w.NAME}: {occ['local_bytes']} local bytes")
         n = AEAD_LANES if w is cuda_aead else LADDER_LANES
-        grid = n if w is cuda_aead else -(-n // occ["threads"])
-        print(f"occupancy: {w.NAME}: {'a warp' if w is cuda_aead else 'one thread'} "
-              f"per lane, {occ['threads']} threads per block, {occ['regs']} "
-              f"registers and {occ['local_bytes']} bytes of local memory per "
-              f"thread, {occ['shared_bytes']} bytes of static shared memory per "
+        per = occ["threads"] // w.THREADS_PER_LANE
+        shape = (f"a warp per frame, {per} frames" if w is cuda_aead
+                 else f"a quad per lane, {per} lanes")
+        grid = -(-n // per)
+        print(f"occupancy: {w.NAME}: {shape} and {occ['threads']} threads per "
+              f"block, {occ['regs']} registers and {occ['local_bytes']} bytes of "
+              f"local memory per thread (spill stores, loads: {spills[w.NAME]}), "
+              f"{occ['shared_bytes']} bytes of static shared memory per "
               f"block; {occ['blocks_per_sm']} blocks resident per SM; {n} lanes -> "
               f"{grid} blocks, {min(grid, sms)} of {sms} SMs with work"
               f"{'' if grid <= occ['blocks_per_sm'] * sms else ' (more than one wave)'} {tag}")
+    transport_turns(torch, builds, pf, pq, scalars, us, tag)
     moved = TRANSPORT_PEERS * TRANSPORT_BYTES
     kernel_share = path["aead_launches"] * flush_ms / (path["transfer_s"] * 1e3)
     print(f"transport: time: {2 * TRANSPORT_PEERS} handshakes in "
@@ -2730,6 +2867,116 @@ def transport_phase(torch, dev, cbatch, ds, sms, max_clock_mhz, tag):
              "max_abs_err": ladder_err, "ms": ladder_ms,
              "plain_ms": ladder_plain_ms, "bound_ms": ladder_bound,
              "bound_by": ladder_by, "library_ms": None})
+
+
+def transport_turns(torch, builds, pf, pq, scalars, us, tag) -> None:
+    """Phase 14's kernels in turns on one card.  Each against
+    TRANSPORT_PARENT's (parent, new, new, parent) at the AEAD's 1,024 x 16
+    and a flush's 64 x 16 (seal) and the ladder's 256 lanes and the path's
+    buckets, three readings each: one call, the device time alone (queued
+    behind a sleep kernel) and TRANSPORT_PER calls back to back.  Then
+    this source at each block shape of AEAD_FRAME_CHOICES and
+    LADDER_THREAD_CHOICES, one-call and device alone, every build first
+    held to the package's kernel bit for bit."""
+    from cometbft_tpu_torch.ops import cuda_aead
+    from cometbft_tpu_torch.ops import cuda_x25519
+
+    readings = (("one-call", {}), ("device alone", {"queued": True}),
+                (f"back to back x{TRANSPORT_PER}", {"per": TRANSPORT_PER}))
+
+    def in_turns(fns, order, call, ways):
+        med, seq = {}, {}
+        for way, kw in ways:
+            turns = [(o, cuda_ms(torch, lambda: call(fns[o]), TRANSPORT_AB_RUNS, 1, **kw))
+                     for o in order]
+            med[way] = {o: statistics.median(v for j, v in turns if j == o) for o in fns}
+            seq[way] = ", ".join(f"{o} {v}" for o, v in turns)
+        return med, seq
+
+    def same(a, b):
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    aead_shapes = {f"{t[2].shape[1]} x {t[2].shape[0]}": t for t in (pf, pq)}
+    ladder_shapes = {n: (scalars[:n].contiguous(), us[:n].contiguous())
+                     for n in (LADDER_LANES,) + LADDER_PATH_BUCKETS}
+    kinds = (
+        ("aead", "AEAD", cuda_aead.aead, aead_shapes, lambda f, a: f(*a, seal=True),
+         "frames per block", AEAD_FRAME_CHOICES, cuda_aead.FRAMES_PER_BLOCK),
+        ("ladder", "ladder", cuda_x25519.ladder, ladder_shapes, lambda f, a: f(*a),
+         "threads per block", LADDER_THREAD_CHOICES, cuda_x25519.THREADS_PER_BLOCK),
+    )
+    for kind, label, package_fn, shapes, call, knob, choices, chosen in kinds:
+        # this source at each block shape, held to the package's kernel
+        runs = {}
+        for c in choices:
+            run, ptxas, occ = transport_launcher(
+                torch, builds[(kind, c)], f"the {label} kernel at {c} {knob}", kind)
+            check(occ["local_bytes"] == 0,
+                  f"transport: {label} at {c} {knob}: {occ['local_bytes']} local bytes")
+            print(f"transport: shapes: {label} at {c} {knob}: {'; '.join(ptxas)}; "
+                  f"{occ['threads']} threads per block, {occ['blocks_per_sm']} "
+                  f"blocks per SM")
+            runs[c] = run
+        for name, args in shapes.items():
+            for c, run in runs.items():
+                check(same(call(run, args), call(package_fn, args)),
+                      f"transport: {label} at {c} {knob} disagrees with the "
+                      f"package's kernel at {name}")
+            med, _ = in_turns(runs, list(runs) + list(runs)[::-1],
+                              lambda f: call(f, args), readings[:2])
+            print(f"transport: shapes: {label} at {name}, by {knob} in turns "
+                  f"(medians of {TRANSPORT_AB_RUNS} samples a turn): " + "; ".join(
+                      f"{way}: " + ", ".join(f"{c} {v} ms" for c, v in m.items())
+                      for way, m in med.items())
+                  + f"; the package builds {chosen} {tag}")
+        # TRANSPORT_PARENT's kernel against this one, both launched by the
+        # same glue (transport_launcher), so that the host side is alike
+        parent = builds[(kind, "parent")]
+        if parent[0] is None:
+            print(f"transport: {label} parent: not measured: {parent[1]}")
+            continue
+        run, ptxas, occ = transport_launcher(
+            torch, parent, f"the {label} kernel of {TRANSPORT_PARENT}", kind)
+        for name, args in shapes.items():
+            check(same(call(run, args), call(package_fn, args)),
+                  f"transport: the {label} kernel of {TRANSPORT_PARENT} "
+                  f"disagrees with this one at {name}")
+            med, seq = in_turns({"parent": run, "new": runs[chosen]},
+                                ("parent", "new", "new", "parent"),
+                                lambda f: call(f, args), readings)
+            extra = ""
+            if kind == "aead":
+                one, alone = med["one-call"]["new"], med["device alone"]["new"]
+                extra = (f"; this kernel's launch wait in a one-call sample "
+                         f"{one - alone:.4f} ms ({(one - alone) / one:.1%} of it; "
+                         f"derived: one-call - device alone), the parent's "
+                         f"{med['one-call']['parent'] - med['device alone']['parent']:.4f} ms")
+            print(f"transport: parent: the {label} kernel of {TRANSPORT_PARENT} "
+                  f"({'; '.join(ptxas)}; {occ['threads']} threads per block) "
+                  f"== this one at {name}; in turns (medians of "
+                  f"{TRANSPORT_AB_RUNS} samples a turn): " + "; ".join(
+                      f"{way}: parent {m['parent']} ms, new {m['new']} ms, "
+                      f"{m['parent'] / m['new']:.3f}x (turns {seq[way]})"
+                      for way, m in med.items()) + f"{extra} {tag}")
+    # where the AEAD's device time goes: the kernel stopped at once, after
+    # the keys' loads and after the keystream (AEAD_STAGE), in turns with
+    # the whole
+    stages = {k: transport_launcher(torch, builds[("aead", f"stage {k}")],
+                                    f"the AEAD kernel's stage {k}", "aead")[0]
+              for k in (0, 1, 2)}
+    stages[3] = cuda_aead.aead
+    for name, args in aead_shapes.items():
+        med, _ = in_turns(stages, (0, 1, 2, 3, 3, 2, 1, 0),
+                          lambda f: f(*args, seal=True), readings[1:2])
+        m = med["device alone"]
+        levels = cuda_aead.mac_levels(int(args[3][0]))
+        print(f"transport: AEAD stages at {name}, device time alone in turns: an "
+              f"empty launch {m[0]} ms; + the keys loaded (one load, a barrier) "
+              f"{m[1]} ms (+{m[1] - m[0]:.4f}); + the keystream {m[2]} ms "
+              f"(+{m[2] - m[1]:.4f}); + the MAC (the whole kernel) {m[3]} ms "
+              f"(+{m[3] - m[2]:.4f}: a frame's {levels} dependent multiplies, "
+              f"{(m[3] - m[2]) * 1e3 / levels:.4f} us each) {tag}")
 
 
 def transport_path(torch, cbatch, ds) -> dict:

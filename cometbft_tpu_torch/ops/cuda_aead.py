@@ -4,11 +4,12 @@ Counterpart of the XLA program ``_aead_fn`` of
 ``cometbft_tpu/ops/chacha_aead.py`` (jitted as ``_seal_fn`` /
 ``_open_fn``), on its layout: key, nonce, payload words and byte lengths
 in, masked output words and tag words out, all int32 (the bits of
-uint32).  The kernel runs one warp per lane: its threads make the lane's
-ChaCha blocks, one thread its Poly1305 chain over the ciphertext kept in
-shared memory.  For CUDA tensors the wrapper launches the kernel on the
-current stream or raises; for CPU tensors it runs the kernel's plain
-PyTorch version, ``ops.chacha_aead.aead_core``.  ``launches`` counts
+uint32).  A CUDA block of the kernel takes ``FRAMES_PER_BLOCK`` frames,
+a warp each: all its threads share the frames' ChaCha blocks, and each
+warp runs its frame's Poly1305 by powers of r, its lanes over interleaved
+blocks (``mac_shape``).  For CUDA tensors the wrapper launches the kernel
+on the current stream or raises; for CPU tensors it runs the kernel's
+plain PyTorch version, ``ops.chacha_aead.aead_core``.  ``launches`` counts
 kernel launches (and nothing else), so a run can show that its main path
 went through the kernel.
 """
@@ -29,7 +30,8 @@ SOURCE = "cometbft_tpu_torch/csrc/chacha20_poly1305.cu"
 REPLACES = ("cometbft_tpu/ops/chacha_aead.py:289 (_aead_fn, via _seal_fn "
             ":401 / _open_fn :405)")
 
-THREADS_PER_LANE = 32
+THREADS_PER_LANE = 32  # a warp per frame
+FRAMES_PER_BLOCK = 2  # AEAD_FRAMES in the source
 MAX_BLOCKS = 32
 # The work of one lane, counted by a host build of the source
 # (``-DAEAD_TALLY``): a ChaCha block is 976 32-bit operations (80 quarter
@@ -60,6 +62,38 @@ def needed_work(nbytes) -> "tuple[int, int]":
         ops += CHACHA_OPS_PER_BLOCK + -(-n // 64) * (CHACHA_OPS_PER_BLOCK
                                                       + XOR_OPS_PER_BLOCK)
         products += (-(-n // 16) + 1) * POLY_PRODUCTS_PER_BLOCK
+    return ops, products
+
+
+def mac_shape(n: int) -> "tuple[int, int]":
+    """(T, m) of a frame of ``n`` bytes in the kernel's warp-wide Poly1305:
+    its k = ceil(n / 16) + 1 MAC blocks padded at the front to m * T, T the
+    least power of two >= k and at most 32.  A lane runs m Horner steps in
+    r^T after a scan of log2 T multiplies."""
+    k = -(-n // 16) + 1
+    t = min(32, 1 << (k - 1).bit_length())
+    return t, -(-k // t)
+
+
+def mac_levels(n: int) -> int:
+    """Dependent multiplies of a frame's MAC in the kernel: log2 T + m,
+    against the ceil(n / 16) + 1 of one thread's Horner chain."""
+    t, m = mac_shape(n)
+    return t.bit_length() - 1 + m
+
+
+def kernel_work(nbytes) -> "tuple[int, int]":
+    """(32-bit operations, products) the kernel computes for the lanes of
+    byte lengths ``nbytes``, as its host build counts them: the ChaCha
+    blocks of ``needed_work``, and per frame the products of the lanes
+    whose results are used: at scan level d the T - d lanes >= d, then T
+    lanes x m Horner steps."""
+    ops, _ = needed_work(nbytes)
+    products = 0
+    for n in nbytes:
+        t, m = mac_shape(int(n))
+        scan = sum(t - (1 << j) for j in range(t.bit_length() - 1))
+        products += (scan + t * m) * POLY_PRODUCTS_PER_BLOCK
     return ops, products
 
 
@@ -114,7 +148,9 @@ def aead(key_words, nonce_words, data_words, nbytes, seal: bool):
         return _plain.aead_core(key_words, nonce_words, data_words, nbytes, seal)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device: {dev}")
+    # the kernel moves keys, payload and tags as 16-byte vectors
     ins = [t.contiguous() for t in (key_words, nonce_words, data_words, nbytes)]
+    ins = [t if t.data_ptr() % 16 == 0 else t.clone() for t in ins]
     out = torch.empty_like(ins[2])
     tag = torch.empty((lanes, 4), dtype=torch.int32, device=dev)
     launch = _launcher()

@@ -3,8 +3,10 @@
 Counterpart of the XLA program ``_ladder_fn`` (with ``_inv``) of
 ``cometbft_tpu/ops/x25519_ladder.py``: (lanes, 32) uint8 clamped scalars
 and u-coordinates in, (lanes, 32) uint8 canonical shared u out.  The
-kernel runs one thread per lane: the RFC 7748 ladder over bits 254..0
-with arithmetic swaps, the 2^255 - 21 inversion, a freeze.  For CUDA
+kernel runs a quad of four threads per lane, one coordinate of x2, z2,
+x3, z3 each: the RFC 7748 ladder over bits 254..0 in levels of one field
+operation per thread (swaps by masks on values taken from the partner),
+then the 2^255 - 21 inversion in lockstep and a freeze.  For CUDA
 tensors the wrapper launches the kernel on the current stream or raises;
 for CPU tensors it runs the kernel's plain PyTorch version,
 ``ops.x25519_ladder.ladder_plain`` (``ladder_core`` on the scalars' bits).
@@ -38,6 +40,24 @@ FIELD_SMALLS_PER_LANE = 255
 WIDE_PRODUCTS_PER_LANE = (100 * FIELD_MULS_PER_LANE + 55 * FIELD_SQUARES_PER_LANE
                           + 10 * FIELD_SMALLS_PER_LANE)
 BYTES_PER_LANE = 3 * 32  # scalar and u in, the shared u out
+
+THREADS_PER_LANE = 4  # a quad
+THREADS_PER_BLOCK = 128  # X25519_THREADS in the source
+# The kernel's own work per lane, counted by its host build (the results
+# that are used): a step's 4 + 4 + 1 multiplies (levels 2-4; AA and BB as
+# multiplies, so that the quad runs one operation) and a small multiply;
+# the inversion once; x2 times the inverse.
+KERNEL_MULS_PER_LANE = 255 * 9 + 12
+KERNEL_SQUARES_PER_LANE = 254
+KERNEL_SMALLS_PER_LANE = 255
+KERNEL_PRODUCTS_PER_LANE = (100 * KERNEL_MULS_PER_LANE
+                            + 55 * KERNEL_SQUARES_PER_LANE
+                            + 10 * KERNEL_SMALLS_PER_LANE)
+# Field operations one after another in a lane: 3 multiplies and a small
+# multiply a step in the quad, the inversion's 265 and the last multiply;
+# 10 a step in one thread.
+DEPENDENT_OPS_PER_LANE = 255 * 4 + 266
+ONE_THREAD_DEPENDENT_OPS_PER_LANE = 255 * 10 + 266
 
 launches = 0
 _COUNT_LOCK = threading.Lock()  # the transport plane launches from many threads
@@ -85,7 +105,7 @@ def ladder(scalars: torch.Tensor, u_bytes: torch.Tensor) -> torch.Tensor:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device: {dev}")
     scalars, u_bytes = scalars.contiguous(), u_bytes.contiguous()
-    out = torch.empty_like(scalars)
+    out = torch.empty_like(scalars)  # 8-byte aligned: a thread stores 8 bytes
     launch = _launcher()
     global launches
     with torch.cuda.device(dev):

@@ -2,15 +2,18 @@
 (cometbft_tpu_torch/csrc/chacha20_poly1305.cu, csrc/x25519_ladder.cu).
 
 Without a card the kernels cannot run, but both sources also build for the
-host (no ``__CUDACC__``): the AEAD build runs each lane's threads in turn
-and then its MAC thread, the ladder build the lanes one after another.  So
-their arithmetic is held here against ``aead_ref`` (RFC 8439 and 7748),
-Python integers and the plain PyTorch versions, at the block edges, with
-tampered inputs and at the lane counts around a block, and their op
-tallies (``-DAEAD_TALLY``, ``-DX25519_TALLY``) against the counts the
-wrappers price the bound with.  The tests marked ``cuda`` run the kernels
-against their plain versions and the entry points on the card, and skip
-where there is none.
+host (no ``__CUDACC__``): the AEAD build runs each CUDA block's threads in
+turn between its barriers and each frame's warp-wide Poly1305 with the
+warp's lanes held in arrays (a shuffle reads the array), the ladder build
+each block's quads in lockstep the same way.  So their arithmetic is held
+here against ``aead_ref`` (RFC 8439 and 7748), Python integers and the
+plain PyTorch versions: at every MAC block count, at the largest clamped
+r, on an h that lies in [p, 2^130) before the reduction (the host build
+also fails a call whose limbs break their stated bounds), with tampered
+inputs and at the lane counts around a block; and their op tallies
+(``-DAEAD_TALLY``, ``-DX25519_TALLY``) against the wrappers' counts.  The
+tests marked ``cuda`` run the kernels against their plain versions and the
+entry points on the card, and skip where there is none.
 """
 
 import ctypes
@@ -87,6 +90,10 @@ def aead_lib(tmp_path_factory):
         + [ctypes.c_void_p] * 2
     lib.chacha20_poly1305_host.restype = ctypes.c_int
     lib.chacha20_poly1305_tally.argtypes = [ctypes.POINTER(ctypes.c_longlong)] * 2
+    lib.chacha20_poly1305_levels.restype = ctypes.c_longlong
+    lib.poly1305_warp_host.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_void_p]
+    lib.poly1305_warp_host.restype = ctypes.c_int
     return lib
 
 
@@ -146,7 +153,100 @@ def test_aead_host_build_equals_reference_and_plain(aead_lib, op):
     pout, ptag = ca.aead_core(*map(torch.from_numpy, packed), op == "seal")
     assert np.array_equal(pout.numpy(), out) and np.array_equal(ptag.numpy(), tag)
     ops, products = _tally(aead_lib, "chacha20_poly1305_tally", 2)
-    assert (ops, products) == cuda_aead.needed_work(packed[3])
+    assert (ops, products) == cuda_aead.kernel_work(packed[3])
+    assert aead_lib.chacha20_poly1305_levels() == sum(map(cuda_aead.mac_levels, lens))
+
+
+def _mac_block_lengths():
+    """A length for every MAC block count k = 1..129 (0, then one in
+    (16 (k - 2), 16 (k - 1)], full and partial blocks in turn), and the 16-
+    and 64-byte edges."""
+    lens = [0] + [16 * (k - 1) - (k * 7) % 16 * (k % 2) for k in range(2, 130)]
+    return lens + [1, 15, 17, 31, 33, 63, 65, 127, 129, 1023, 1025, 2047]
+
+
+@pytest.mark.parametrize("op", ["seal", "open"])
+def test_aead_host_build_every_mac_block_count(aead_lib, op):
+    """The warp-wide MAC at every block count 1-129: every T and m of its
+    padded interleave, seal and open, equal to the plain version and
+    aead_ref, with every limb bound held."""
+    lens = _mac_block_lengths()
+    assert sorted({-(-n // 16) + 1 for n in lens}) == list(range(1, 130))
+    frames = _frames(11, lens)
+    lanes, blocks = ca._bucket_shape(frames)
+    packed = ca._pack_frames(frames, lanes, blocks)
+    rc, out, tag = _aead_host(aead_lib, packed, op == "seal")
+    assert rc == 0
+    assert ca._unpack_outputs(out, tag, frames) == ca._host_pass(op, frames)
+    pout, ptag = ca.aead_core(*map(torch.from_numpy, packed), op == "seal")
+    assert np.array_equal(pout.numpy(), out) and np.array_equal(ptag.numpy(), tag)
+    _tally(aead_lib, "chacha20_poly1305_tally", 2)
+    aead_lib.chacha20_poly1305_levels()
+
+
+P1305 = 2**130 - 5
+
+
+def _poly_warp(lib, otk: bytes, msg: bytes):
+    """The host build's warp-wide Poly1305 of ``msg`` (the AEAD's MAC
+    input, empty AAD) under the one-time key ``otk``: (rc, tag, h before
+    the mod-p select)."""
+    words = np.frombuffer(msg + bytes(-len(msg) % 16 + 16), dtype="<u4").copy()
+    key = np.frombuffer(otk, dtype="<u4").copy()
+    tag, pre = np.zeros(4, np.uint32), np.zeros(5, np.uint32)
+    rc = lib.poly1305_warp_host(key.ctypes.data, words.ctypes.data, len(msg),
+                                tag.ctypes.data, pre.ctypes.data)
+    return rc, tag.tobytes(), sum(int(x) << (26 * i) for i, x in enumerate(pre))
+
+
+def _ref_mac(otk: bytes, msg: bytes) -> bytes:
+    """aead_ref's Poly1305 of the AEAD's MAC input (empty AAD)."""
+    return aead_ref._poly1305(otk, msg + aead_ref._pad16(msg) + bytes(8)
+                              + len(msg).to_bytes(8, "little"))
+
+
+def test_poly1305_warp_at_the_largest_clamped_r(aead_lib):
+    """r = 0x0ffffffc0ffffffc0ffffffc0fffffff (every bit clamping leaves)
+    and all-ones messages: the largest limbs every step can see."""
+    otk = b"\xff" * 16 + os.urandom(16)
+    for n in (0, 1, 16, 17, 63, 64, 65, 496, 497, 1024, 1040, 2047, 2048):
+        msg = b"\xff" * n
+        rc, tag, _ = _poly_warp(aead_lib, otk, msg)
+        assert rc == 0 and tag == _ref_mac(otk, msg), n
+    _tally(aead_lib, "chacha20_poly1305_tally", 2)
+    aead_lib.chacha20_poly1305_levels()
+
+
+def test_poly1305_warp_reduces_an_h_in_p_to_2_130(aead_lib):
+    """r = 1 and two message blocks m1, m2 chosen so that h = c1 + c2 +
+    c3 (the length block) = p + v, v = 0..4: the warp's sum before the
+    reduction lies in [p, 2^130) and the g = h + 5 - 2^130 select must
+    take it to v."""
+    otk = (1).to_bytes(16, "little") + os.urandom(16)
+    s = int.from_bytes(otk[16:], "little")
+    for v in range(5):
+        m1 = 2**127
+        m2 = P1305 + v - 3 * 2**128 - (32 << 64) - m1
+        msg = m1.to_bytes(16, "little") + m2.to_bytes(16, "little")
+        rc, tag, pre = _poly_warp(aead_lib, otk, msg)
+        assert rc == 0 and P1305 <= pre < 2**130 and pre == P1305 + v
+        assert tag == _ref_mac(otk, msg) == ((v + s) % 2**128).to_bytes(16, "little")
+    _tally(aead_lib, "chacha20_poly1305_tally", 2)
+    aead_lib.chacha20_poly1305_levels()
+
+
+def test_poly1305_warp_carries_a_sum_past_2_130(aead_lib):
+    """r = 1, m1 = 2^128 - 1 and m2 = 2^128 - 2^27: the lanes' sum has a
+    carry out of limb 4 that leaves limb 0 at 2^26 + 4 after one carry
+    pass, with limb 1's low bit set, so a single pass packs a wrong tag."""
+    otk = (1).to_bytes(16, "little") + os.urandom(16)
+    msg = (2**128 - 1).to_bytes(16, "little") + (2**128 - 2**27).to_bytes(16, "little")
+    rc, tag, pre = _poly_warp(aead_lib, otk, msg)
+    h = (2**128 - 1 + 2**128 - 2**27 + (32 << 64) + 3 * 2**128) % P1305
+    assert rc == 0 and pre % P1305 == h and pre < 2**130
+    assert tag == _ref_mac(otk, msg)
+    _tally(aead_lib, "chacha20_poly1305_tally", 2)
+    aead_lib.chacha20_poly1305_levels()
 
 
 def test_aead_host_build_rfc8439_and_tampering(aead_lib):
@@ -178,6 +278,17 @@ def test_aead_work_counts():
     assert cuda_aead.needed_work([0]) == (976, 25)
     assert cuda_aead.needed_work([1024]) == (976 + 16 * 992, 65 * 25)
     assert cuda_aead.needed_work([65]) == (976 + 2 * 992, 6 * 25)
+
+
+def test_aead_mac_shape_and_kernel_work():
+    """T, m and the dependent multiply levels of the warp-wide MAC, and
+    the products its lanes compute (scan and Horner)."""
+    assert [cuda_aead.mac_shape(n) for n in (0, 1, 16, 17, 48, 49, 1024, 2048)] == \
+        [(1, 1), (2, 1), (2, 1), (4, 1), (4, 1), (8, 1), (32, 3), (32, 5)]
+    assert [cuda_aead.mac_levels(n) for n in (0, 17, 1024, 2048)] == [1, 3, 8, 10]
+    # 1 KiB: scan 31 + 30 + 28 + 24 + 16 products, Horner 32 lanes x 3
+    assert cuda_aead.kernel_work([1024]) == (976 + 16 * 992, (129 + 96) * 25)
+    assert cuda_aead.kernel_work([0]) == (976, 25)
 
 
 def test_aead_wrapper_takes_the_plain_version_on_the_cpu_and_checks_inputs():
@@ -233,10 +344,13 @@ def test_ladder_host_build_equals_reference_ints_and_plain(ladder_lib):
     plain = xl.ladder_plain(torch.from_numpy(scalars), torch.from_numpy(us)).numpy()
     assert np.array_equal(plain, out)
     muls, squares, smalls = _tally(ladder_lib, "x25519_tally", 3)
-    assert (muls, squares, smalls) == (16 * cuda_x25519.FIELD_MULS_PER_LANE,
-                                       16 * cuda_x25519.FIELD_SQUARES_PER_LANE,
-                                       16 * cuda_x25519.FIELD_SMALLS_PER_LANE)
+    assert (muls, squares, smalls) == (16 * cuda_x25519.KERNEL_MULS_PER_LANE,
+                                       16 * cuda_x25519.KERNEL_SQUARES_PER_LANE,
+                                       16 * cuda_x25519.KERNEL_SMALLS_PER_LANE)
     assert cuda_x25519.WIDE_PRODUCTS_PER_LANE == 201320
+    assert cuda_x25519.KERNEL_PRODUCTS_PER_LANE == 247220
+    assert (cuda_x25519.DEPENDENT_OPS_PER_LANE,
+            cuda_x25519.ONE_THREAD_DEPENDENT_OPS_PER_LANE) == (1286, 2816)
 
 
 @pytest.mark.parametrize("n", LANE_COUNTS)
@@ -246,7 +360,10 @@ def test_ladder_host_build_lane_counts(ladder_lib, n):
     scalars, us = xl._pack_pairs(pairs, n)
     out = _ladder_host(ladder_lib, scalars, us)
     assert [out[i].tobytes() for i in range(n)] == xl.host_exchange(pairs)
-    _tally(ladder_lib, "x25519_tally", 3)
+    # padding quads (past n in the last block) run but are not counted
+    assert _tally(ladder_lib, "x25519_tally", 3) == [
+        n * cuda_x25519.KERNEL_MULS_PER_LANE, n * cuda_x25519.KERNEL_SQUARES_PER_LANE,
+        n * cuda_x25519.KERNEL_SMALLS_PER_LANE]
 
 
 def test_ladder_edge_u_values(ladder_lib):
@@ -353,6 +470,8 @@ def test_entry_points_on_the_card(card):
 @pytest.mark.cuda
 def test_occupancy(card):
     occ = cuda_aead.occupancy()
-    assert occ["threads"] == cuda_aead.THREADS_PER_LANE and occ["blocks_per_sm"] >= 8
+    assert occ["threads"] == cuda_aead.THREADS_PER_LANE * cuda_aead.FRAMES_PER_BLOCK
+    assert occ["blocks_per_sm"] >= 8 and occ["local_bytes"] == 0
     occ = cuda_x25519.occupancy()
-    assert occ["threads"] == 64 and occ["blocks_per_sm"] >= 1
+    assert occ["threads"] == cuda_x25519.THREADS_PER_BLOCK and occ["blocks_per_sm"] >= 1
+    assert occ["local_bytes"] == 0
