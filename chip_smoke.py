@@ -210,6 +210,51 @@ served by the torch or host tier, or one that raised, fails the run.
               stage builds (AEAD_STAGE) in turns, where its device time
               goes; the handshake storm's wall and handshakes/s, the
               transfer's wall and MB/s, host pack and unpack per flush.
+ 15. proofs — inclusion proofs and the coalescing proof server, a path of
+              its own: eight seeded 4 MiB blocks (``MaxBytes``) of 16,384
+              txs of 256 bytes (the tree kernel's lane ceiling);
+              ``ops/sha256_tree.tree_proofs`` on the card (one launch of
+              the tree kernel, its whole output copied back once, the
+              proofs assembled on the host) equal to
+              ``crypto/merkle.proofs_from_byte_slices`` in every field of
+              every proof of a block, of sets of 1-129 leaves and of the
+              SHA block-edge leaf lengths; the kernel's levels equal to its
+              plain version bit for bit on the block, the edge lengths and
+              sets at the edges of 1-129 (PROOF_PLAIN_N); where a build's
+              time goes (packing and H2D, the kernel, the D2H of the
+              levels, splitting, ``proofs_from_levels``) beside the host's
+              build; then a ``ProofServer`` at its defaults over a store of
+              the eight blocks, with header and validator-set hashers
+              through the hashing plane, and 64 light-client threads asking
+              10,000 queries (``prove_tx``, about 10% header and valset):
+              every proof equal to the host oracle's and verified against
+              its root, exactly 8 tx builds, every tree pass on ``cuda``,
+              nothing shed, no serial fallback; queries/s and the cold
+              queries' latency; a build under ``FaultyBackend`` (raise) on
+              ``merkle_device`` raising ``BackendError`` through
+              ``prove_tx`` with no serial answer; 200 serial ``prove_tx``
+              with the kill switch off;
+ 16. warmboot — the build cache and the warm-boot pass: the build seconds
+              phase 2 recorded per library (the cost of a boot with an
+              empty build directory); two fresh processes
+              (``--warm-child``) sharing the build directory and verifying
+              the same commit, read from a file this process writes: one
+              runs ``ops/warmboot.run()`` (every library ``hit``, 0
+              failures, one self-check launch per kernel, each family's
+              seconds) and then its first cold ``verify_commit`` runs no
+              build, load or self-check; the other, without warm boot,
+              times the same first commit; in this process the AEAD
+              kernel's launch made to fail: the family's breaker records it,
+              the others are warmed, the next AEAD pass raises
+              ``BackendError``; ``ops/bls_g1.msm`` and ``sum_points`` on
+              the card at 256 and 10,240 lanes (the products one G1 launch,
+              the lane sum a torch tier on the card) against the
+              pure-Python oracle's sums at 256 lanes and the host's sum of
+              the kernel's products at 10,240, with their times and bound.
+
+The script sets ``COMETBFT_TPU_WARMBOOT=0`` for its own process: a
+background warm pass would add self-check launches to the phases'
+counts.
 
 Usage, from the repository root, on a machine with a CUDA card:
 
@@ -338,6 +383,23 @@ LADDER_THREAD_CHOICES = (32, 64, 128)  # threads per block (8-32 quads), in turn
 LADDER_PATH_BUCKETS = (8, 128)  # the pool's buckets on the path, timed too
 TRANSPORT_AB_RUNS = 10  # samples of each kernel per turn
 TRANSPORT_PER = 8  # calls per sample of the back-to-back reading
+PROOF_SEED = SEED + 13  # the proof phase's blocks, stores and queries
+PROOF_TXS = 16_384  # a 4 MiB block (MaxBytes) of 256-byte txs: the tree's lane ceiling
+PROOF_TX_BYTES = 256
+PROOF_HEIGHTS = 8  # blocks in the proof server's store
+PROOF_VALIDATORS = 1_000  # leaves of each height's validator-set hash
+PROOF_CLIENTS = 64  # light-client threads
+PROOF_QUERIES = 10_000
+PROOF_OTHER = 0.1  # the share of header and valset queries
+PROOF_SMALL_N = range(1, 130)
+PROOF_EDGE_LENS = (0, 1, 31, 32, 54, 55, 56, 63, 64, 65, 118, 119, 120)
+PROOF_PLAIN_N = (1, 2, 3, 31, 32, 33, 127, 128, 129)  # also held to the plain version
+PROOF_RUNS = 5  # samples of each part of a proof build
+PROOF_SERIAL = 200  # serial prove_tx queries with the kill switch off
+WARM_CHILD_TIMEOUT_S = 300
+MSM_LANES = (256, 10_240)
+MSM_SAMPLE = 256  # lanes of msm and sum_points held to the pure-Python oracle
+MSM_RUNS = 3
 
 
 class SmokeError(AssertionError):
@@ -1429,32 +1491,6 @@ def light_cases(lbs):
     }
 
 
-def merkle_levels(merkle, items):
-    """Every level of the tree from ``crypto/merkle``'s leaf and inner
-    hashes, leaves first: adjacent pairs, the odd tail promoted."""
-    level = [merkle._leaf_hash(it) for it in items]
-    levels = [level]
-    while len(level) > 1:
-        nxt = [merkle._inner_hash(level[j], level[j + 1])
-               for j in range(0, len(level) - 1, 2)]
-        level = nxt + level[2 * len(nxt):]
-        levels.append(level)
-    return levels
-
-
-def word_levels(st, words, n):
-    """The digests of a tree's words (every level, leaves first) as bytes,
-    level by level."""
-    import numpy as np
-
-    raw = words.cpu().numpy().astype(np.uint32).astype(">u4").tobytes()
-    levels, o = [], 0
-    for k in st.level_sizes(n):
-        levels.append([raw[32 * i : 32 * i + 32] for i in range(o, o + k)])
-        o += k
-    return levels
-
-
 def sass_ops(lib, kernel: str) -> list:
     """The opcodes, with their modifiers and in order, of ``kernel``'s
     machine code in the built library ``lib`` (``cuobjdump -sass``)."""
@@ -1621,8 +1657,8 @@ def light_checks(torch, dev, cbatch, cv, ds, sigcache, sms, max_clock_mhz,
         worst = max(worst, err)
         check(torch.equal(kern, plain), f"light: tree kernel != plain on {name} "
               f"(max_abs_err {err})")
-        levels = word_levels(st, kern, len(items))
-        check(levels == merkle_levels(merkle, items),
+        levels = st.split_levels(kern.cpu().numpy(), len(items))
+        check(levels == st.host_levels(items),
               f"light: tree levels != crypto/merkle's on {name}")
         check(st.device_root(items) == levels[-1][0]
               == merkle.hash_from_byte_slices(items),
@@ -3140,6 +3176,461 @@ def transport_path(torch, cbatch, ds) -> dict:
             "storm_s": storm_s, "transfer_s": transfer_s}
 
 
+def proof_fields(proofs) -> list:
+    return [(p.total, p.index, p.leaf_hash, list(p.aunts)) for p in proofs]
+
+
+def proofs_phase(torch, dev, ds, tag) -> int:
+    """Phase 15: proofs and the coalescing proof server through the
+    SHA-256 tree kernel, every level of its output copied back.  Returns
+    the tree kernel's launches on the server's path."""
+    import threading
+
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import backend_health as bh
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.crypto.backend_health import BackendError
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.ops import supervisor as sup
+    from cometbft_tpu_torch.proofserve import plane
+    from cometbft_tpu_torch.proofserve import service as psvc
+    from cometbft_tpu_torch.proofserve import stats as proof_stats
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(PROOF_SEED)
+    size = PROOF_TXS * PROOF_TX_BYTES
+    raw = rng.bytes(PROOF_HEIGHTS * size)
+    blocks = {h: [raw[o : o + PROOF_TX_BYTES]
+                  for o in range((h - 1) * size, h * size, PROOF_TX_BYTES)]
+              for h in range(1, PROOF_HEIGHTS + 1)}
+    block = blocks[1]
+    big = f"the {PROOF_TXS}-tx block"
+
+    def merkle_only(where: str) -> tuple:
+        counts = ds.tier_counts(st.MERKLE)
+        check(counts["cuda"][0] > 0 and all(
+            v == (0, 0) for t, v in counts.items() if t != "cuda"),
+            f"proofs: {where}: tree passes served below the cuda tier: {counts}")
+        return counts["cuda"]
+
+    # every proof == crypto/merkle's; the kernel's levels == its plain version
+    cases = {big: block}
+    cases.update({f"{k} leaves": [rng.bytes(int(ln)) for ln in rng.integers(0, 130, k)]
+                  for k in PROOF_SMALL_N})
+    cases["the block-edge lengths"] = [rng.bytes(ln) for ln in PROOF_EDGE_LENS * 3]
+    ds.reset()
+    n_proofs = 0
+    for name, items in cases.items():
+        root, proofs = st.tree_proofs(items)
+        want_root, want = merkle.proofs_from_byte_slices(items)
+        check(root == want_root and proof_fields(proofs) == proof_fields(want),
+              f"proofs: tree_proofs != crypto/merkle on {name}")
+        n_proofs += len(proofs)
+    served = merkle_only("the proof checks")
+    check(served[0] == len(cases), f"proofs: {served[0]} tree passes for "
+          f"{len(cases)} leaf sets")
+    worst = 0
+    plain_cases = [big, "the block-edge lengths"] + [f"{k} leaves" for k in PROOF_PLAIN_N]
+    for name in plain_cases:
+        data, offs = st.pack_leaves(cases[name], dev)
+        kern = csh.tree_words(data, offs)
+        plain = st.tree_words_plain(data, offs)
+        err = int((kern.long() - plain.long()).abs().max())
+        worst = max(worst, err)
+        check(torch.equal(kern, plain), f"proofs: tree kernel != plain on {name} "
+              f"(max_abs_err {err})")
+    print(f"proofs: tree_proofs on the card == crypto/merkle's "
+          f"proofs_from_byte_slices in every field (total, index, leaf_hash, "
+          f"every aunt) of all {n_proofs} proofs of {len(cases)} leaf sets "
+          f"({big} of {PROOF_TX_BYTES} bytes, 1-{PROOF_SMALL_N[-1]} leaves of "
+          f"0-129 bytes, leaves of {', '.join(map(str, PROOF_EDGE_LENS))} bytes), "
+          f"one tree pass each on cuda; the kernel's levels == its plain version "
+          f"bit for bit (max_abs_err {worst}) on {', '.join(plain_cases)}")
+
+    # where a proof build's time goes, at the block
+    data, offs = st.pack_leaves(block, dev)
+    pack_ms = median_ms(lambda: (st.pack_leaves(block, dev),
+                                 torch.cuda.synchronize()), PROOF_RUNS)
+    kernel_ms = cuda_ms(torch, lambda: csh.tree_words(data, offs), KERNEL_RUNS, 3)
+    out = csh.tree_words(data, offs)
+    torch.cuda.synchronize()
+    d2h_ms = median_ms(lambda: out.cpu(), PROOF_RUNS)
+    words = out.cpu().numpy()
+    split_ms = median_ms(lambda: st.split_levels(words, PROOF_TXS), PROOF_RUNS)
+    levels = st.split_levels(words, PROOF_TXS)
+    assemble_ms = median_ms(lambda: st.proofs_from_levels(levels), PROOF_RUNS)
+    build_ms = median_ms(lambda: st.tree_proofs(block), PROOF_RUNS)
+    host_ms = median_ms(lambda: merkle.proofs_from_byte_slices(block), PROOF_RUNS)
+    rest_ms = build_ms - pack_ms - kernel_ms - d2h_ms - split_ms - assemble_ms
+    print(f"proofs: time: one proof build of {PROOF_TXS} txs (medians of "
+          f"{PROOF_RUNS} samples, the kernel's of {KERNEL_RUNS}): the whole "
+          f"tree_proofs {build_ms} ms = leaves packed and copied to the card "
+          f"{pack_ms} ms + the tree kernel {kernel_ms} ms (device time, one "
+          f"call) + the D2H of every level ({words.nbytes} bytes) {d2h_ms} ms + "
+          f"split into levels {split_ms} ms + proofs_from_levels {assemble_ms} "
+          f"ms + the rest (supervisor, validation) {rest_ms} ms; the host's "
+          f"merkle.proofs_from_byte_slices on the same block {host_ms} ms {tag}")
+
+    # the server: 64 light clients over 8 heights
+    headers = {h: [rng.bytes(32) for _ in range(14)] for h in blocks}
+    valsets = {h: [rng.bytes(46) for _ in range(PROOF_VALIDATORS)] for h in blocks}
+    oracle = {h: merkle.proofs_from_byte_slices(blocks[h]) for h in blocks}
+    want_other = {"header": {h: merkle.hash_from_byte_slices(headers[h]) for h in blocks},
+                  "valset": {h: merkle.hash_from_byte_slices(valsets[h]) for h in blocks}}
+    draw = rng.random(PROOF_QUERIES)
+    plan = [("header" if d < PROOF_OTHER / 2 else "valset" if d < PROOF_OTHER else "tx",
+             int(h), int(i))
+            for d, h, i in zip(draw, rng.integers(1, PROOF_HEIGHTS + 1, PROOF_QUERIES),
+                               rng.integers(0, PROOF_TXS, PROOF_QUERIES))]
+    hashers = [lambda h, src=src: plane.tree_hash(src[h]) if h in src else None
+               for src in (headers, valsets)]
+    server = psvc.configure(blocks.get, *hashers)
+    check((server.flush_s, server.queue_cap, server.cache_cap) == (
+        psvc.DEFAULT_FLUSH_US / 1e6, psvc.DEFAULT_QUEUE_CAP, psvc.DEFAULT_CACHE_CAP),
+        "proofs: the server is not at its defaults")
+    results, lat, cold, errors = ([None] * PROOF_QUERIES, [0.0] * PROOF_QUERIES,
+                                  [False] * PROOF_QUERIES, [])
+
+    def client(k: int) -> None:
+        try:
+            for q in range(k, PROOF_QUERIES, PROOF_CLIENTS):
+                kind, h, i = plan[q]
+                t0 = time.perf_counter()
+                if kind == "tx":
+                    cold[q] = not server.cached("tx", h)
+                    results[q] = psvc.prove_tx(blocks.get, h, i)
+                else:
+                    results[q] = server.submit(kind, h).result(60)
+                lat[q] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    proof_stats.reset()
+    ds.reset()
+    csh.reset_launches()
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(PROOF_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    launches = csh.launches
+    snap = proof_stats.snapshot()
+    check(not errors, f"proofs: {len(errors)} clients failed: {errors[:3]}")
+    for q, (kind, h, i) in enumerate(plan):
+        got = results[q]
+        if kind != "tx":
+            check(got == want_other[kind][h], f"proofs: {kind} {h} != its hash")
+            continue
+        root, proof = got
+        check(root == oracle[h][0] and proof_fields([proof]) == proof_fields(
+            [oracle[h][1][i]]) and proof.verify(root, blocks[h][i]),
+            f"proofs: query {q} (height {h}, tx {i}) != the host oracle's")
+    served = merkle_only("the server")
+    check(snap["tree_builds"]["tx"] == PROOF_HEIGHTS,
+          f"proofs: {snap['tree_builds']['tx']} tx tree builds")
+    check(snap["shed_total"] == 0 and snap["serial_fallbacks"] == 0,
+          f"proofs: shed {snap['shed']}, serial {snap['serial_fallbacks']}")
+    check(launches == served[0] == snap["trees_device"] and snap["trees_host"] == 0
+          and launches >= PROOF_HEIGHTS,
+          f"proofs: {launches} tree launches, {served} cuda passes, {snap}")
+    n_tx = sum(kind == "tx" for kind, _, _ in plan)
+    cold_ms = [lat[q] * 1e3 for q in range(PROOF_QUERIES) if cold[q]]
+    all_ms = [x * 1e3 for x in lat]
+    p50, p99 = np.percentile(cold_ms, [50, 99]) if cold_ms else (None, None)
+    print(f"proofs: server: {PROOF_CLIENTS} light-client threads, {PROOF_QUERIES} "
+          f"queries ({n_tx} tx through prove_tx, the rest header and valset) over "
+          f"{PROOF_HEIGHTS} heights of {PROOF_TXS} txs, the default flush "
+          f"({psvc.DEFAULT_FLUSH_US:.0f} us), queue ({psvc.DEFAULT_QUEUE_CAP}) and "
+          f"cache ({psvc.DEFAULT_CACHE_CAP}): every proof == the host oracle's "
+          f"and verifies against its root; {snap['tree_builds']} builds, "
+          f"{launches} tree launches (every tree pass on cuda), shed "
+          f"{snap['shed_total']}, serial fallbacks {snap['serial_fallbacks']}, "
+          f"{snap['flushes']} flushes, {snap['cache_hits_total']} cache hits, "
+          f"{snap['queries_per_flush']:.2f} queries per flush")
+    print(f"proofs: time: {PROOF_QUERIES / wall:.1f} coalesced queries/s "
+          f"({PROOF_QUERIES} in {wall:.3f} s); cold tx queries (height not yet "
+          f"cached when asked: {len(cold_ms)}) latency p50 {p50} ms, p99 {p99} "
+          f"ms; every query p50 {np.percentile(all_ms, 50)} ms, p99 "
+          f"{np.percentile(all_ms, 99)} ms {tag}")
+
+    # a faulted build: BackendError reaches prove_tx, no serial answer
+    server = psvc.configure(blocks.get, *hashers)  # a fresh cache
+    before = proof_stats.snapshot()["serial_fallbacks"]
+    sup.set_fault_injector(sup.FaultyBackend("raise", backends=(bh.MERKLE_DEVICE,)))
+    try:
+        psvc.prove_tx(blocks.get, 1, 0)
+    except BackendError as e:
+        raised = e
+    else:
+        raised = None
+    finally:
+        sup.clear_fault_injector()
+    failures = bh.snapshot()["breakers"][bh.MERKLE_DEVICE]["failures_total"]
+    check(raised is not None, "proofs: a faulted build was answered")
+    check(proof_stats.snapshot()["serial_fallbacks"] == before,
+          "proofs: a faulted build was answered by the serial path")
+    check(failures == 1, f"proofs: the merkle_device breaker saw {failures} failures")
+    bh.reset()
+    print(f"proofs: FaultyBackend(raise) on {bh.MERKLE_DEVICE}: prove_tx raised "
+          f"{type(raised).__name__} ({raised}); serial fallbacks unchanged, the "
+          f"breaker recorded 1 failure (reset after)")
+
+    # the serial path with the kill switch off
+    pick = rng.integers(0, PROOF_QUERIES, PROOF_SERIAL)
+    with environ({"COMETBFT_TPU_PROOFSERVE": "0"}):
+        check(not psvc.server_active(), "proofs: the kill switch left the server on")
+        t0 = time.perf_counter()
+        for q in pick:
+            _, h, i = plan[q]
+            root, proof = psvc.prove_tx(blocks.get, h, i)
+            check(root == oracle[h][0], "proofs: serial root")
+        serial_s = time.perf_counter() - t0
+    psvc.reset_server()
+    print(f"proofs: time: serial prove_tx (COMETBFT_TPU_PROOFSERVE=0: one "
+          f"merkle.proofs_from_byte_slices of the whole block per query), "
+          f"{PROOF_SERIAL} queries in {serial_s:.3f} s = {PROOF_SERIAL / serial_s:.2f} "
+          f"queries/s; the coalesced server {PROOF_QUERIES / wall / (PROOF_SERIAL / serial_s):.1f}x "
+          f"that {tag}")
+    print(f"proofs: phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def warm_child(path: str, mode: str) -> int:
+    """One fresh process of phase 16: unpickle the commit, warm boot
+    (``mode`` "warm": ``warmboot.run()``) or not ("cold"), then the first
+    cold ``verify_commit``; prints one JSON line."""
+    t_boot = time.perf_counter()
+    import pickle
+
+    import torch
+
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import _build, cuda_aead, cuda_bls, cuda_secp
+    from cometbft_tpu_torch.ops import cuda_sha256, cuda_verify, cuda_x25519, warmboot
+    from cometbft_tpu_torch.types import validation as val
+
+    check(torch.cuda.is_available(), "warmboot child: no CUDA device")
+    with open(path, "rb") as f:
+        vals, commit, block_id = pickle.load(f)
+    mods = (cuda_verify, cuda_secp, cuda_bls, cuda_sha256, cuda_aead, cuda_x25519)
+    t0 = time.perf_counter()
+    report = warmboot.run() if mode == "warm" else None
+    warm_s = time.perf_counter() - t0
+    warm_launches = {m.NAME: m.launches for m in mods}
+    ran = []
+    for name in ("gpu_self_check", "secp_self_check", "bls_self_check"):
+        real = getattr(cbatch, name)
+        setattr(cbatch, name, lambda dev=None, real=real, name=name:
+                (ran.append(name), real(dev))[1])
+    before = _build.statuses(_build.sources())
+    t0 = time.perf_counter()
+    val.verify_commit(CHAIN_ID, vals, block_id, HEIGHT, commit)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    after = _build.statuses(_build.sources())
+    print(json.dumps({
+        "mode": mode, "report": report, "warm_s": warm_s,
+        "warm_launches": warm_launches, "self_checks": ran,
+        "loaded_by_commit": {n: s for n, s in after.items() if before[n] != s},
+        "first_commit_ms": first_ms,
+        "commit_launches": cuda_verify.launches - warm_launches[cuda_verify.NAME],
+        "boot_to_commit_s": time.perf_counter() - t_boot,
+    }))
+    return 0
+
+
+def run_warm_child(path: str, mode: str) -> dict:
+    script = os.path.abspath(__file__)
+    env = dict(os.environ, COMETBFT_TPU_WARMBOOT="0")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, script, "--warm-child", path, mode],
+                          cwd=os.path.dirname(script), env=env, capture_output=True,
+                          text=True, timeout=WARM_CHILD_TIMEOUT_S)
+    check(proc.returncode == 0, f"warmboot: the {mode} child failed "
+          f"(rc {proc.returncode}): {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def bls_point(pub: bytes):
+    """A 96-byte uncompressed G1 point as affine ints (None: infinity)."""
+    if pub[0] & 0x40:
+        return None
+    return (int.from_bytes(pub[:48], "big") & ((1 << 381) - 1),
+            int.from_bytes(pub[48:], "big"))
+
+
+def warmboot_phase(torch, dev, ds, vals, commit, block_id, n, sms,
+                   max_clock_mhz, tag) -> None:
+    """Phase 16: the build cache and the warm-boot pass in two fresh
+    processes, a failed family in this one, and ``msm``/``sum_points``."""
+    import pickle
+
+    from cometbft_tpu_torch import native
+    from cometbft_tpu_torch.crypto import backend_health as bh
+    from cometbft_tpu_torch.crypto import bls12381 as bls
+    from cometbft_tpu_torch.crypto.backend_health import BackendError
+    from cometbft_tpu_torch.ops import _build, bls_g1, chacha_aead, cuda_aead
+    from cometbft_tpu_torch.ops import cuda_bls as cb
+    from cometbft_tpu_torch.ops import warm_stats, warmboot
+
+    t_phase = time.perf_counter()
+    infos = {name: _build.info(name) for name in _build.sources()}
+    costs = {name: (f"{i['build_s']:.2f} s" if i.get("build") == "built"
+                    else i.get("build", "not loaded"))
+             for name, i in infos.items()}
+    print(f"warmboot: build cost of a boot with an empty build directory, "
+          f"per library as phase 2 recorded it (compilers in parallel: seconds "
+          f"until each finished; 'hit' where phase 2 found it built): {costs} {tag}")
+
+    # two fresh processes sharing the build directory
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-warm-")
+    try:
+        path = os.path.join(tmp, "commit.pickle")
+        with open(path, "wb") as f:
+            pickle.dump((vals, commit, block_id), f)
+        warm = run_warm_child(path, "warm")
+        cold = run_warm_child(path, "cold")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rep = warm["report"]
+    families = {f for f, _, _ in warmboot.FAMILIES}
+    libs = {k: v for k, v in rep["statuses"].items() if k not in families}
+    check(rep["failures"] == 0 and set(rep["family_seconds"]) == families,
+          f"warmboot: warm pass {rep}")
+    check(libs and all(s == "hit" for s in libs.values()) and len(libs) == 8,
+          f"warmboot: library statuses {rep['statuses']}")
+    check(all(v == 1 for v in warm["warm_launches"].values()),
+          f"warmboot: self-check launches {warm['warm_launches']}")
+    check(warm["self_checks"] == [] and warm["loaded_by_commit"] == {},
+          f"warmboot: the first commit after warm boot ran self-checks "
+          f"{warm['self_checks']} or loaded {warm['loaded_by_commit']}")
+    check(cold["self_checks"] == ["gpu_self_check"]
+          and set(cold["loaded_by_commit"]) == {"host_prep", "ed25519_verify"},
+          f"warmboot: the cold child's first commit ran {cold['self_checks']}, "
+          f"loaded {cold['loaded_by_commit']}")
+    check(warm["commit_launches"] == 1 and cold["commit_launches"] == 2,
+          f"warmboot: first-commit Ed25519 launches {warm['commit_launches']} "
+          f"after warm boot (the commit), {cold['commit_launches']} without "
+          f"(the self-check and the commit)")
+    fam = {k: f"{v * 1e3:.1f} ms" for k, v in rep["family_seconds"].items()}
+    print(f"warmboot: a fresh process (COMETBFT_TPU_WARMBOOT=0, warmboot.run() "
+          f"called): statuses {rep['statuses']}, failures {rep['failures']}, "
+          f"each family's load and self-check {fam}, the pass {rep['seconds']:.3f} "
+          f"s; one self-check launch per kernel {warm['warm_launches']}; then "
+          f"the first cold verify_commit of {n} signatures ran no build, no "
+          f"load and no self-check: {warm['first_commit_ms']} ms (process start "
+          f"to its end {warm['boot_to_commit_s']:.2f} s, the process "
+          f"{warm['process_s']:.2f} s) {tag}")
+    print(f"warmboot: a fresh process without warm boot: the same first cold "
+          f"verify_commit {cold['first_commit_ms']} ms, which loaded "
+          f"{cold['loaded_by_commit']} and ran {cold['self_checks']} (process "
+          f"start to its end {cold['boot_to_commit_s']:.2f} s, the process "
+          f"{cold['process_s']:.2f} s); warm boot took "
+          f"{cold['first_commit_ms'] - warm['first_commit_ms']:.1f} ms off the "
+          f"first commit {tag}")
+
+    # a failed family in this process: the AEAD kernel's launch fails
+    bh.reset()
+    warm_stats.reset()
+    real = cuda_aead.aead
+
+    def failing(*args, **kwargs):
+        raise RuntimeError("injected: the AEAD kernel's launch fails")
+
+    cuda_aead.aead = failing
+    try:
+        rep = warmboot.run()
+        wsnap = warm_stats.snapshot()
+        frame = (bytes(32), bytes(12), b"warm-boot fault")
+        try:
+            chacha_aead.seal_frames([frame])
+        except BackendError as e:
+            raised = e
+        else:
+            raised = None
+        snap = bh.snapshot()
+    finally:
+        cuda_aead.aead = real
+        bh.reset()
+        warm_stats.reset()
+    others = {k: v for k, v in rep["statuses"].items() if k != "aead"}
+    check(rep["statuses"].get("aead") == "error:RuntimeError" and rep["failures"] == 1,
+          f"warmboot: fault: {rep}")
+    check(wsnap["warm_failures"] == 1 and snap["demotions"] == 2
+          and snap["breakers"][bh.AEAD_DEVICE]["failures_total"] == 2,
+          f"warmboot: fault: {wsnap}, {snap['breakers'].get(bh.AEAD_DEVICE)}")
+    check(len(others) == 7 and all(v in ("hit", "built") for v in others.values()),
+          f"warmboot: fault: the other families {others}")
+    check(raised is not None, "warmboot: an AEAD pass after the failed family "
+          "did not raise")
+    print(f"warmboot: the AEAD hook's launch made to fail in this process: "
+          f"statuses {rep['statuses']}, warm_failures {wsnap['warm_failures']}, "
+          f"{bh.AEAD_DEVICE} failures {snap['breakers'][bh.AEAD_DEVICE]['failures_total']} "
+          f"and demotions {snap['demotions']} (the warm pass's and the next "
+          f"pass's); the other families warmed; "
+          f"the next AEAD pass raised {type(raised).__name__}; reset after")
+
+    # msm and sum_points on the card
+    pubs, ks = bls_lanes(native, BLS_LANES)
+    pts = [bls_point(p) for p in pubs]
+    cb.reset_launches()
+    got = {m: bls_g1.msm(pts[:m], ks[:m]) for m in MSM_LANES}
+    sums = {m: bls_g1.sum_points(pts[:m]) for m in MSM_LANES}
+    torch.cuda.synchronize()
+    launches = cb.launches
+    check(launches == len(MSM_LANES), f"msm: {launches} G1 launches")
+
+    def host_sum(points, scalars=None):
+        acc = bls.E1.infinity()
+        for i, p in enumerate(points):
+            if p is not None:
+                q = (p[0], p[1], 1)
+                acc = bls.E1.add_pts(acc, q if scalars is None
+                                     else bls.E1.mul_scalar(q, scalars[i]))
+        return bls.E1.affine(acc)
+
+    s = MSM_SAMPLE
+    check(got[s] == host_sum(pts[:s], ks[:s]), f"msm: {s} lanes != the oracle")
+    check(sums[s] == host_sum(pts[:s]), f"sum_points: {s} lanes != the oracle")
+    big = MSM_LANES[-1]
+    check(got[big] == host_sum(bls_g1.batch_scalar_mul(pts[:big], ks[:big])),
+          f"msm: {big} lanes != the host sum of the kernel's products")
+    check(sums[big] == host_sum(pts[:big]), f"sum_points: {big} lanes != the oracle")
+    print(f"msm: msm and sum_points on the card ({launches} G1 launches for "
+          f"{len(MSM_LANES)} msm calls, the lane sums a torch tier on the card) "
+          f"== the pure-Python oracle's sums at {s} lanes; at {big} lanes msm == "
+          f"the host's sum of the kernel's per-lane products and sum_points == "
+          f"the oracle's sum")
+    for m in MSM_LANES:
+        cp = torch.from_numpy(bls_g1.points_to_bytes(pts[:m]).copy()).to(dev)
+        ck = torch.from_numpy(bls_g1.scalars_to_bytes(ks[:m]).copy()).to(dev)
+        mul_ms = cuda_ms(torch, lambda: cb.scalar_mul_cuda(cp, ck), KERNEL_RUNS, 3)
+        xyz = cb.scalar_mul_cuda(cp, ck)
+        fold_ms = cuda_ms(torch, lambda: bls_g1.lane_sum_xyz(bls_g1.points_from_xyz(xyz)),
+                          MSM_RUNS, 1)
+        msm_ms = median_ms(lambda: bls_g1.msm(pts[:m], ks[:m]), MSM_RUNS)
+        bsm_ms = median_ms(lambda: bls_g1.batch_scalar_mul(pts[:m], ks[:m]), MSM_RUNS)
+        sum_ms = median_ms(lambda: bls_g1.sum_points(pts[:m]), MSM_RUNS)
+        muls, squares, products = cb.msm_needed_work(ks[:m])
+        bound_ms, bound_by = bound(products, m * (96 + 16) + 96, sms, max_clock_mhz)
+        print(f"msm: time at {m} lanes: msm {msm_ms} ms (host wall, median of "
+              f"{MSM_RUNS}: packing, the G1 kernel, the lane sum, the copy back) "
+              f"beside batch_scalar_mul {bsm_ms} ms; on the card the G1 kernel "
+              f"{mul_ms} ms and the lane sum (torch tier, {max(m - 1, 0).bit_length()} "
+              f"levels of complete additions) {fold_ms} ms; sum_points {sum_ms} ms; "
+              f"bound {bound_ms} ms by {bound_by} ({products} products: "
+              f"the G1 row's work and {m - 1} additions, add-2007-bl), msm's "
+              f"device time at {bound_ms / (mul_ms + fold_ms):.2%} of it; "
+              f"library_ms null: no PyTorch call computes a G1 multi-scalar "
+              f"multiplication {tag}")
+    print(f"warmboot: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -3147,6 +3638,10 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    # no background warm-boot pass in this process: its self-check launches
+    # would land in the phases' launch counts (phase 16 warms in processes
+    # of its own and calls the pass here by hand)
+    os.environ["COMETBFT_TPU_WARMBOOT"] = "0"
 
     from cometbft_tpu_torch import native
     from cometbft_tpu_torch.crypto import batch as cbatch
@@ -3426,6 +3921,16 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     aead_entry, ladder_entry = transport_phase(torch, dev, cbatch, ds, sms,
                                                max_clock_mhz, tag)
 
+    # -- 15. proofs: the proof server through the tree kernel's levels -------
+    proof_launches = proofs_phase(torch, dev, ds, tag)
+    light_entry["launches"] += proof_launches
+    print(f"proofs: the tree kernel's launches on its paths: light "
+          f"{light_entry['launches'] - proof_launches} + proofs {proof_launches}")
+
+    # -- 16. warmboot: the build cache, the warm pass, msm -------------------
+    warmboot_phase(torch, dev, ds, vals, commit, block_id, n, sms,
+                   max_clock_mhz, tag)
+
     print("host: " + json.dumps({
         "name": native.NAME,
         "source": native.SOURCE,
@@ -3458,4 +3963,6 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--warm-child"]:
+        sys.exit(warm_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -152,6 +152,21 @@ def bls_self_check(device=None) -> None:
         )
 
 
+def self_check_once(latch: str, check, dev) -> None:
+    """Run ``check(dev)`` unless ``dev`` already passed it in this process,
+    and latch it when it passes.  ``latch`` names one of this module's
+    process-wide sets (``_SELF_CHECKED``, ``_SECP_SELF_CHECKED``,
+    ``_BLS_SELF_CHECKED``), read by name at each call: the batch seam and
+    the warm-boot hooks (``ops/warmboot``) fill the same sets, so a card
+    checked at boot is not checked again by its first batch."""
+    key = str(dev)
+    with _LOCK:
+        done = globals()[latch]
+        if key not in done:
+            check(dev)
+            done.add(key)
+
+
 def env_backend() -> Optional[str]:
     """The backend that ``COMETBFT_TPU_CRYPTO_BACKEND`` asks for: ``"cpu"``,
     ``"gpu"`` (also for ``tpu``, the JAX package's accelerator), or None
@@ -177,12 +192,7 @@ def default_backend() -> str:
 
     if env_backend() == "cpu":
         return "cpu"
-    dev = ov.resolve_device(None)
-    key = str(dev)
-    with _LOCK:
-        if key not in _SELF_CHECKED:
-            gpu_self_check(dev)
-            _SELF_CHECKED.add(key)
+    self_check_once("_SELF_CHECKED", gpu_self_check, ov.resolve_device(None))
     return "gpu"
 
 
@@ -321,10 +331,7 @@ class Secp256k1BatchVerifier(_CollectingVerifier):
         dev = resolve_device(self.device)
         n = len(pubs)
         if dev.type == "cuda":
-            with _LOCK:
-                if str(dev) not in _SECP_SELF_CHECKED:
-                    secp_self_check(dev)
-                    _SECP_SELF_CHECKED.add(str(dev))
+            self_check_once("_SECP_SELF_CHECKED", secp_self_check, dev)
         if not supervisor.enabled():
             return [bool(b) for b in sv.verify_batch(pubs, msgs, sigs, dev)]
 
@@ -452,10 +459,7 @@ class BlsBatchVerifier(_CollectingVerifier):
 
         n = len(pubs)
         if dev.type == "cuda":
-            with _LOCK:
-                if str(dev) not in _BLS_SELF_CHECKED:
-                    bls_self_check(dev)
-                    _BLS_SELF_CHECKED.add(str(dev))
+            self_check_once("_BLS_SELF_CHECKED", bls_self_check, dev)
         if not supervisor.enabled():
             return bls_g1.neg_scaled_pubkeys(pubs, rs, dev)
 

@@ -10,6 +10,13 @@ kernel's stage builds).  Libraries go to ``cometbft_tpu_torch/build/``,
 named by a hash of the sources and that build's flags, so an edited
 source is rebuilt and an unchanged one is not.  Only sources in the
 repository are built; a missing compiler or a failed build raises.
+
+The directory is the build cache: a library built by an earlier process
+(or an earlier call) is found, not rebuilt.  Each build's outcome in this
+process is kept for the warm-boot pass (``ops/warmboot``) to read, the
+counterpart of the JAX package's ``ops/aot_cache`` info dicts: ``status``
+is ``hit`` (found built), ``built`` (compiled now; ``info`` has its
+seconds) or ``error:<Type>``, and the counters are in ``ops/warm_stats``.
 """
 
 from __future__ import annotations
@@ -119,6 +126,34 @@ def _command(name: str, out: Path) -> list[str]:
     return [nvcc(), *NVCC_FLAGS, *defines, "-o", str(out), str(src)]
 
 
+_INFO: "dict[str, dict]" = {}  # build name -> its outcome in this process
+
+
+def _record(name: str, outcome: str, seconds: "float | None" = None) -> None:
+    """Keep a build's first outcome in this process (an error may be
+    followed by a success), and count it."""
+    from cometbft_tpu_torch.ops import warm_stats
+
+    prev = _INFO.get(name)
+    if prev is None or prev["build"].startswith("error"):
+        _INFO[name] = ({"build": outcome} if seconds is None
+                       else {"build": outcome, "build_s": seconds})
+        warm_stats.record_build(outcome, seconds)
+
+
+def info(name: str) -> dict:
+    """The outcome of build ``name`` in this process: {"build": "hit"},
+    {"build": "built", "build_s": seconds} or {"build": "error:<Type>"};
+    empty before its first build."""
+    return dict(_INFO.get(name, {}))
+
+
+def statuses(names) -> "dict[str, str | None]":
+    """{name: its build status in this process, None before its first
+    build}."""
+    return {n: _INFO.get(n, {}).get("build") for n in names}
+
+
 def build_all(names: "list[str] | None" = None) -> dict:
     """Compile every named source that is not built yet, one compiler per
     source, all started together (under a lock, so that processes sharing
@@ -126,12 +161,22 @@ def build_all(names: "list[str] | None" = None) -> dict:
     for the ones compiled; raises with the compiler's output if any
     fails."""
     names = sources() if names is None else names
-    if all(lib_path(n).exists() for n in names):
-        return {}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        return _compile([n for n in names if not lib_path(n).exists()])
+    try:
+        if not all(lib_path(n).exists() for n in names):
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            with open(BUILD_DIR / "lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)
+                return _compile([n for n in names if not lib_path(n).exists()])
+    except Exception as e:
+        for n in names:
+            if not lib_path(n).exists():
+                _record(n, f"error:{type(e).__name__}")
+        raise
+    finally:
+        for n in names:
+            if lib_path(n).exists():
+                _record(n, "hit")
+    return {}
 
 
 def _compile(todo: list[str]) -> dict:
@@ -161,6 +206,7 @@ def _compile(todo: list[str]) -> dict:
             failed.append(f"--- {name} (exit {proc.returncode}) ---\n{out}")
             continue
         os.replace(tmp, lib_path(name))
+        _record(name, "built", seconds[name])
     if failed:
         raise RuntimeError("native build failed:\n" + "\n".join(failed))
     return seconds

@@ -5,9 +5,12 @@ The port's counterpart of ``cometbft_tpu/ops/bls_g1.py``'s
 ``batch_scalar_mul``: per lane s_i * P_i on y^2 = x^3 + 4 over GF(P381),
 the curve layer of ``ops.wcurve`` bound to ``ops.fp381``, for the
 random-linear-combination check of ``crypto.batch.BlsBatchVerifier``
-(r_i * pk_i with 128-bit r_i).  The JAX module's ``msm`` and
-``sum_points`` (a lane sum after the ladder) have no caller on a verify
-path and are not ported.
+(r_i * pk_i with 128-bit r_i), and its ``msm`` (sum s_i * P_i) and
+``sum_points`` (sum P_i).  Those two have no caller on a verify path (the
+JAX ones serve its tests and warm boot); on a card ``msm``'s products are
+one launch of the kernel, and the lane sum (``wcurve.Curve.lane_sum``, a
+log2(B) pairwise fold) runs as a torch tier on the same device: the JAX
+``_msm_kernel``/``_sum_kernel`` are XLA programs with no Pallas kernel.
 
 Division of labour, redesigned from the JAX package's (host packs
 Montgomery limbs and (nbits, B) bit rows, the device program runs the
@@ -73,10 +76,9 @@ def canonical_be(f: F) -> torch.Tensor:
     return le.flip(0).T.to(torch.uint8)
 
 
-def batch_scalar_mul_plain(pts: torch.Tensor, scalars: torch.Tensor,
-                           nbits: int = MAX_BITS) -> torch.Tensor:
-    """The kernel's plain version: (n, 144) uint8 canonical X || Y || Z of
-    s_i * P_i for (n, 96) uint8 points and (n, 16) uint8 scalars."""
+def points_from_bytes(pts: torch.Tensor) -> Point:
+    """(n, 96) uint8 uncompressed points (0x40 flag: infinity) -> a
+    projective batch on their device."""
     n, dev = pts.shape[0], pts.device
     inf = (pts[:, 0] & 0x40) != 0
     xb = pts[:, :48].clone()
@@ -84,9 +86,40 @@ def batch_scalar_mul_plain(pts: torch.Tensor, scalars: torch.Tensor,
     x = FIELD.from_bytes_be(xb)
     y = FIELD.from_bytes_be(pts[:, 48:])
     zero, one = FIELD.const(0, n, dev), FIELD.const(1, n, dev)
-    base = Point(select(inf, zero, x), select(inf, one, y), select(inf, zero, one))
-    acc = CURVE.scalar_mul(base, scalar_bits(scalars, nbits))
-    return torch.cat([canonical_be(c) for c in acc], 1)
+    return Point(select(inf, zero, x), select(inf, one, y), select(inf, zero, one))
+
+
+def points_from_xyz(xyz: torch.Tensor) -> Point:
+    """(n, 144) uint8 canonical X || Y || Z rows (the kernel's output) ->
+    a projective batch on their device."""
+    return Point(*(FIELD.from_bytes_be(xyz[:, 48 * c : 48 * c + 48])
+                   for c in range(3)))
+
+
+def xyz_bytes(p: Point) -> torch.Tensor:
+    """A projective batch -> (n, 144) uint8 canonical X || Y || Z."""
+    return torch.cat([canonical_be(c) for c in p], 1)
+
+
+def batch_scalar_mul_plain(pts: torch.Tensor, scalars: torch.Tensor,
+                           nbits: int = MAX_BITS) -> torch.Tensor:
+    """The kernel's plain version: (n, 144) uint8 canonical X || Y || Z of
+    s_i * P_i for (n, 96) uint8 points and (n, 16) uint8 scalars."""
+    base = points_from_bytes(pts)
+    return xyz_bytes(CURVE.scalar_mul(base, scalar_bits(scalars, nbits)))
+
+
+def lane_sum_xyz(p: Point) -> torch.Tensor:
+    """(1, 144) uint8 canonical X || Y || Z of the sum of a batch's points:
+    the batch padded with the identity to a power of two, then
+    ``Curve.lane_sum`` on its device."""
+    n, dev = p.x.v.shape[1], p.x.v.device
+    pad = (1 << max(n - 1, 0).bit_length()) - n
+    if pad:
+        ident = CURVE.identity(pad, dev)
+        p = Point(*(F(torch.cat([a.v, b.v], 1), max(a.hi, b.hi), max(a.val, b.val))
+                    for a, b in zip(p, ident)))
+    return xyz_bytes(CURVE.lane_sum(p))
 
 
 # -- the host API -------------------------------------------------------------------
@@ -142,16 +175,24 @@ def affine(xyz: np.ndarray) -> list:
     return out
 
 
-def _run(pts: np.ndarray, scalars: np.ndarray, nbits: int, device) -> np.ndarray:
-    """One launch of the kernel on a card, the plain version on the CPU."""
+def _products(pts: np.ndarray, scalars: np.ndarray, nbits: int,
+              dev: torch.device) -> torch.Tensor:
+    """(n, 144) uint8 X || Y || Z of s_i * P_i on ``dev``: one launch of the
+    kernel on a card, the plain version on the CPU."""
     from cometbft_tpu_torch.ops import cuda_bls
+
+    t = [torch.from_numpy(a.copy()).to(dev) for a in (pts, scalars)]
+    return cuda_bls.scalar_mul_cuda(*t, nbits)
+
+
+def _run(pts: np.ndarray, scalars: np.ndarray, nbits: int, device) -> np.ndarray:
+    """``_products`` on ``device`` (None: the card), copied back."""
     from cometbft_tpu_torch.ops.verify import resolve_device
 
     dev = resolve_device(device)
     if pts.shape[0] == 0:
         return np.zeros((0, 144), np.uint8)
-    t = [torch.from_numpy(a.copy()).to(dev) for a in (pts, scalars)]
-    return cuda_bls.scalar_mul_cuda(*t, nbits).cpu().numpy()
+    return _products(pts, scalars, nbits, dev).cpu().numpy()
 
 
 def batch_scalar_mul(points: Sequence[Optional[tuple]], scalars: Sequence[int],
@@ -180,3 +221,57 @@ def neg_scaled_pubkeys(pubs: Sequence[bytes], scalars: Sequence[int],
     return [INFINITY if a is None else
             a[0].to_bytes(48, "big") + ((P - a[1]) % P).to_bytes(48, "big")
             for a in affine(xyz)]
+
+
+def msm(points: Sequence[Optional[tuple]], scalars: Sequence[int],
+        nbits: int = MAX_BITS, device=None) -> Optional[tuple]:
+    """sum of scalar_i * point_i, affine (x, y) ints or None for infinity
+    (the JAX ``msm``).  ``device=None`` means the card: one launch of the
+    kernel for the products, then ``lane_sum`` on the card (a torch tier);
+    ``device="cpu"`` runs the plain version and the same fold; a CUDA
+    request without a card raises, and so does a failed launch."""
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    if len(points) != len(scalars):
+        raise ValueError(f"{len(points)} points, {len(scalars)} scalars")
+    if not points:
+        return None
+    dev = resolve_device(device)
+    xyz = _products(points_to_bytes(points), scalars_to_bytes(scalars, nbits),
+                    nbits, dev)
+    return affine(lane_sum_xyz(points_from_xyz(xyz)).cpu().numpy())[0]
+
+
+def sum_points(points: Sequence[Optional[tuple]], device=None) -> Optional[tuple]:
+    """sum of point_i, affine (x, y) ints or None for infinity (the JAX
+    ``sum_points``): ``lane_sum`` on ``device`` (None: the card; no
+    kernel, a torch tier)."""
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    if not points:
+        return None
+    dev = resolve_device(device)
+    pts = torch.from_numpy(points_to_bytes(points).copy()).to(dev)
+    return affine(lane_sum_xyz(points_from_bytes(pts)).cpu().numpy())[0]
+
+
+def warm_kernels(device=None) -> "dict[str, str]":
+    """The BLS12-381 family's warm-boot hook (``ops/warmboot``): load the
+    host library (``native.bls()``, which runs its pairing self-check)
+    and, on a card, the G1 kernel's, then the batch seam's known-answer
+    check (``crypto.batch.bls_self_check``) unless ``device`` passed it
+    already, latching it in ``crypto.batch._BLS_SELF_CHECKED``.  Returns
+    {library: build status}; raises whatever the build, the load or a
+    check raised."""
+    from cometbft_tpu_torch import native
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import _build, cuda_bls
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    dev = resolve_device(device)
+    names = [native.BLS_NAME] + ([cuda_bls.NAME] if dev.type == "cuda" else [])
+    native.bls()  # loads it, binds it and runs its pairing self-check
+    for name in names[1:]:
+        _build.load(name)
+    cbatch.self_check_once("_BLS_SELF_CHECKED", cbatch.bls_self_check, dev)
+    return _build.statuses(names)

@@ -40,9 +40,10 @@ being the gate, as in ``ops/sha256_tree.tree_root``):
 Batches served per tier are in ``ops/dispatch_stats.tier_counts("aead")``
 (oversize ones also under ``"aead_oversize"``), AEAD passes per tier in
 ``p2p/transport_stats``.  ``set_aead_runner`` replaces the device pass
-(tests).  The JAX package's executable cache and warm-boot hooks
-(``warm_kernels``) wait for the port of warm boot (ROADMAP "Build cache
-and warm boot"); its spans and anomaly records for ``libs/tracing`` ("Node
+(tests).  ``warm_kernels`` is the family's warm-boot hook
+(``ops/warmboot``): the JAX package's compiles executables, the port's
+loads the kernel's library and checks the RFC 8439 vector on the card.
+The JAX package's spans and anomaly records for ``libs/tracing`` ("Node
 assembly"): each site is a comment.
 """
 
@@ -498,3 +499,42 @@ def open_frames(frames, device=None) -> "list":
                 raise err
         tstats.record_bad_tag()
     return results
+
+
+# -- the warm-boot hook -------------------------------------------------------------
+
+# RFC 8439 2.8.2: key, nonce, plaintext and ciphertext.  The vector's tag
+# covers its AAD; transport frames carry none, so the check holds the tag
+# to the reference's empty-AAD tag of the same ciphertext.
+RFC8439_KEY = bytes(range(0x80, 0xA0))
+RFC8439_NONCE = bytes.fromhex("070000004041424344454647")
+RFC8439_PT = (b"Ladies and Gentlemen of the class of '99: If I could offer you "
+              b"only one tip for the future, sunscreen would be it.")
+RFC8439_CT = bytes.fromhex(
+    "d31a8d34648e60db7b86afbc53ef7ec2a4aded51296e08fea9e2b5a736ee62d6"
+    "3dbea45e8ca9671282fafb69da92728b1a71de0a9e060b2905d6a5b67ecd3b36"
+    "92ddbd7f2d778b8c9803aee328091b58fab324e4fad675945585808b4831d7bc"
+    "3ff4def08e4b7a9de576d26586cec64b6116")
+
+
+def warm_kernels(device=None) -> "dict[str, str]":
+    """The AEAD family's warm-boot hook (``ops/warmboot``): on a card, load
+    the kernel's library, then one unsupervised seal of the RFC 8439 2.8.2
+    plaintext, whose ciphertext must be the RFC's and whose tag the
+    reference's.  Returns {library: build status}; raises
+    ``SelfCheckError`` on a wrong answer and whatever the build, the load
+    or the launch raised."""
+    from cometbft_tpu_torch.crypto.batch import SelfCheckError
+    from cometbft_tpu_torch.ops import _build, cuda_aead
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    dev = resolve_device(device)
+    names = [cuda_aead.NAME] if dev.type == "cuda" else []
+    for name in names:
+        _build.load(name)
+    [(ct, tag)] = device_pass("seal", [(RFC8439_KEY, RFC8439_NONCE, RFC8439_PT)],
+                              dev)
+    if ct != RFC8439_CT or tag != _ref_tag(RFC8439_KEY, RFC8439_NONCE, RFC8439_CT):
+        raise SelfCheckError(f"the AEAD kernel failed the RFC 8439 vector on "
+                             f"{dev}: ciphertext right {ct == RFC8439_CT}")
+    return _build.statuses(names)

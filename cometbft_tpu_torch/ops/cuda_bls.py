@@ -247,6 +247,20 @@ def _products(work) -> int:
     return sum(k * c for k, c in zip(work, PRODUCTS_MS))
 
 
+# The lane sum of ``ops.bls_g1.msm`` folds B products with B - 1 additions
+# of two Jacobian points (add-2007-bl, the cheapest general addition).
+SUM_ADD_MS = (11, 5)
+
+
+def msm_needed_work(scalars) -> tuple[int, int, int]:
+    """(field multiplies, squares, products) that the sum of s_i * P_i
+    needs: ``needed_work`` and B - 1 additions."""
+    muls, squares, _ = needed_work(scalars)
+    adds = max(len(scalars) - 1, 0)
+    muls, squares = muls + adds * SUM_ADD_MS[0], squares + adds * SUM_ADD_MS[1]
+    return muls, squares, _products((muls, squares))
+
+
 def needed_work(scalars) -> tuple[int, int, int]:
     """(field multiplies, squares, 32x32->64-bit products) that s_i * P_i
     needs over these lanes' scalars (ints): the bound's work."""

@@ -27,7 +27,8 @@ compares on the host):
 
 ``decompress_pubkey`` is the JAX module's host decompression (the
 reference the tests hold the device's to).  ``verify_batch`` takes ``n``
-lanes unpadded (the JAX package pads to a power of two).
+lanes unpadded (the JAX package pads to a power of two).  ``warm_ladder``
+is the family's warm-boot hook (``ops/warmboot``).
 """
 
 from __future__ import annotations
@@ -201,3 +202,22 @@ def verify_batch(pubs: Sequence[bytes], msgs: Sequence[bytes],
         return np.zeros(0, bool)
     t = batch_to_device(prepare_batch(pubs, msgs, sigs), dev)
     return cuda_secp.verify_core_cuda(**t).cpu().numpy()
+
+
+def warm_ladder(device=None) -> "dict[str, str]":
+    """The secp256k1 family's warm-boot hook (``ops/warmboot``): on a card,
+    load the kernel's library, then the batch seam's known-answer check
+    (``crypto.batch.secp_self_check``) unless ``device`` passed it already,
+    latching it in ``crypto.batch._SECP_SELF_CHECKED``.  Returns {library:
+    build status}; raises whatever the build, the load or the check
+    raised."""
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import _build, cuda_secp
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    dev = resolve_device(device)
+    names = [cuda_secp.NAME] if dev.type == "cuda" else []
+    for name in names:
+        _build.load(name)
+    cbatch.self_check_once("_SECP_SELF_CHECKED", cbatch.secp_self_check, dev)
+    return _build.statuses(names)

@@ -1,13 +1,18 @@
-"""RFC 6962 SHA-256 Merkle tree roots on the card: the ``tree_root`` half
-of the JAX package's ``ops/sha256_tree.py``.
+"""RFC 6962 SHA-256 Merkle trees on the card: roots, every level and
+inclusion proofs, the port of the JAX package's ``ops/sha256_tree.py``.
 
 A leaf set is hashed in one device pass: the leaves' raw bytes and their
 offsets go to the card, one kernel launch hashes every ``SHA-256(0x00 ||
 leaf)`` and every level above, adjacent pairs ``SHA-256(0x01 || L ||
 R)``, an odd tail promoted unchanged (``ops/cuda_sha256.py`` +
-``csrc/sha256_tree.cu``), and the root's 32 bytes come back.  Bottom-up
-adjacent pairing with odd-tail promotion is structurally equal to
-``crypto/merkle``'s split-point recursion, which is the oracle.
+``csrc/sha256_tree.cu``).  ``tree_root`` copies back the root's 32 bytes
+(the light path); ``tree_levels`` copies back the kernel's whole output
+once and splits it by ``level_sizes``, and ``tree_proofs`` assembles every
+leaf's inclusion proof from those levels on the host
+(``proofs_from_levels``).  Bottom-up adjacent pairing with odd-tail
+promotion is structurally equal to ``crypto/merkle``'s split-point
+recursion, which is the oracle: ``host_levels`` and ``proofs_from_levels``
+give byte for byte what ``merkle.proofs_from_byte_slices`` gives.
 
 ``leaf_core`` / ``layer_core`` are the kernel's plain PyTorch version:
 32-bit words held in int64 and masked (torch on the CPU has no add and no
@@ -24,12 +29,13 @@ a card, a tree pass that the kernel fails, or that returns a malformed
 result, counts against the ``merkle_device`` breaker, logs a WARNING and
 raises ``BackendError`` (``ops/supervisor.supervised_device_call``); the
 JAX package recomputes that tree on the host instead.  On the CPU the
-host answers below the plain version, counted per tier.  Tree passes and
-leaves served per tier are in ``ops/dispatch_stats.tier_counts("merkle")``,
-oversize ones also under ``"merkle_oversize"``.
-
-``tree_proofs`` and ``proofs_from_levels``, and with them the copy of
-every level back, wait for the port of the proof service.
+host answers below the plain version, counted per tier.  ``tree_root`` and
+``tree_levels`` share this routing (``_route``).  Tree passes and leaves
+served per tier are in ``ops/dispatch_stats.tier_counts("merkle")``,
+oversize ones also under ``"merkle_oversize"``; the proof server's
+tree-pass counters (``proofserve/stats``) are written here too, as in the
+JAX package.  ``warm_kernels`` is the tree family's warm-boot hook
+(``ops/warmboot``).
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from cometbft_tpu_torch.crypto.backend_health import (
     MERKLE_DEVICE,
     BackendOutputError,
 )
+from cometbft_tpu_torch.proofserve import stats as pstats
 
 BREAKER = MERKLE_DEVICE
 MERKLE = "merkle"  # the dispatch_stats key of tree passes
@@ -235,6 +242,48 @@ def tree_words_plain(data: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
+# -- the host oracle -----------------------------------------------------------
+
+
+def host_levels(items) -> "list[list[bytes]]":
+    """Every level of the tree on the host, leaves first: ``levels[0]``
+    are the RFC 6962 leaf hashes, ``levels[-1]`` is ``[root]``; adjacent
+    pairs, the odd tail promoted."""
+    level = [merkle._leaf_hash(it) for it in items]
+    levels = [level]
+    while len(level) > 1:
+        nxt = [merkle._inner_hash(level[j], level[j + 1])
+               for j in range(0, len(level) - 1, 2)]
+        if len(level) % 2:
+            nxt.append(level[-1])
+        level = nxt
+        levels.append(level)
+    return levels
+
+
+def proofs_from_levels(levels) -> "list[merkle.Proof]":
+    """Every leaf's inclusion proof from the tree's levels: the aunts are
+    the siblings from the leaf up, skipping the levels where the node is a
+    promoted odd tail (it has no sibling there).  Byte for byte
+    ``merkle.proofs_from_byte_slices``'s proofs."""
+    n = len(levels[0])
+    proofs = []
+    for i in range(n):
+        aunts = []
+        idx, cnt = i, n
+        for level in levels[:-1]:
+            if cnt == 1:
+                break
+            sib = idx ^ 1
+            if sib < cnt:
+                aunts.append(level[sib])
+            idx //= 2
+            cnt = (cnt + 1) // 2
+        proofs.append(merkle.Proof(total=n, index=i, leaf_hash=levels[0][i],
+                                   aunts=aunts))
+    return proofs
+
+
 # -- the device pass -----------------------------------------------------------
 
 
@@ -251,10 +300,83 @@ def device_root(items, device=None) -> bytes:
     return root.cpu().numpy().astype(np.uint32).astype(">u4").tobytes()
 
 
-def _validate(root) -> None:
+def split_levels(words: np.ndarray, n: int) -> "list[list[bytes]]":
+    """The (sum of ``level_sizes(n)``, 8) int32 words of an ``n``-leaf
+    tree (the kernel's output, on the host) as its levels of 32-byte
+    digests, leaves first."""
+    raw = words.astype(np.uint32).astype(">u4").tobytes()
+    levels, o = [], 0
+    for k in level_sizes(n):
+        levels.append([raw[32 * i : 32 * i + 32] for i in range(o, o + k)])
+        o += k
+    return levels
+
+
+def device_levels(items, device=None) -> "list[list[bytes]]":
+    """The unguarded device pass of every level: the leaves' bytes to
+    ``device`` (None: the card), one launch of the tree kernel, one copy
+    of its whole output back, split by ``level_sizes``.  CPU tensors run
+    the plain version.  Raises on any failure; ``tree_levels`` supervises
+    it."""
+    from cometbft_tpu_torch.ops import cuda_sha256
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    data, offs = pack_leaves(items, resolve_device(device))
+    return split_levels(cuda_sha256.tree_words(data, offs).cpu().numpy(),
+                        len(items))
+
+
+def _validate_root(root) -> None:
     """A malformed result is an infrastructure failure, never a root."""
     if not (isinstance(root, bytes) and len(root) == 32):
         raise BackendOutputError(f"tree pass returned a malformed root: {root!r:.80}")
+
+
+def _validate_levels(levels, n: int) -> None:
+    """Every level must hold its ``level_sizes(n)`` rows of 32 bytes: a
+    dropped or short row would become a wrong proof."""
+    ok = (isinstance(levels, list)
+          and [len(lv) for lv in levels] == level_sizes(n)
+          and all(isinstance(d, bytes) and len(d) == 32
+                  for lv in levels for d in lv))
+    if not ok:
+        raise BackendOutputError(
+            f"tree pass returned malformed levels for {n} leaves: {levels!r:.80}")
+
+
+def _on_host(n: int, host):
+    from cometbft_tpu_torch.ops import dispatch_stats
+
+    dispatch_stats.record_tier("host", n, MERKLE)
+    pstats.record_tree(n, 0, device=False)
+    return host()
+
+
+def _route(items, device, run, validate, host):
+    """The routing of ``tree_root`` and ``tree_levels``: ``run`` is the
+    device pass, ``validate`` its result check, ``host`` the host oracle.
+    With no device named and the gate closed, or a set beyond the bucket
+    ladder, the host answers; otherwise one supervised pass under the
+    ``merkle_device`` breaker, which on a card answers or raises
+    ``BackendError``."""
+    from cometbft_tpu_torch.ops import dispatch_stats, supervisor
+
+    n = len(items)
+    if device is None and not device_active():
+        return _on_host(n, host)
+    if _bucket_shape(items) is None:
+        dispatch_stats.record_tier("host", n, MERKLE_OVERSIZE)
+        pstats.record_oversize()
+        return _on_host(n, host)
+    out = supervisor.supervised_device_call(BREAKER, run, validate, device=device)
+    if out is None:  # the CPU only: the host answers below the plain version
+        pstats.record_device_fallback()
+        return _on_host(n, host)
+    dispatch_stats.record_tier("cuda" if supervisor._on_card(device) else "torch",
+                               n, MERKLE)
+    pstats.record_tree(n, _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES),
+                       device=True)
+    return out
 
 
 def tree_root(items, device=None) -> bytes:
@@ -264,24 +386,58 @@ def tree_root(items, device=None) -> bytes:
     to the host.  On a card a failed pass raises ``BackendError``; on the
     CPU the host answers below the plain version.  The empty set's root is
     ``EMPTY_HASH`` and launches nothing."""
-    from cometbft_tpu_torch.ops import dispatch_stats, supervisor
+    if len(items) == 0:
+        return EMPTY_HASH
+    return _route(items, device, lambda: device_root(items, device),
+                  _validate_root, lambda: merkle.hash_from_byte_slices(items))
 
+
+def tree_levels(items, device=None) -> "list[list[bytes]]":
+    """Every level of a non-empty leaf set's tree, leaves first, routed as
+    ``tree_root`` is.  On a card the kernel's levels answer or the call
+    raises ``BackendError``: the JAX ``tree_levels`` recomputes a failed
+    pass on the host, which would hide the kernel's fault, so the port
+    does not (on the CPU the host still answers below the plain
+    version)."""
     n = len(items)
     if n == 0:
-        return EMPTY_HASH
-    if device is None and not device_active():
-        dispatch_stats.record_tier("host", n, MERKLE)
-        return merkle.hash_from_byte_slices(items)
-    if _bucket_shape(items) is None:
-        dispatch_stats.record_tier("host", n, MERKLE)
-        dispatch_stats.record_tier("host", n, MERKLE_OVERSIZE)
-        return merkle.hash_from_byte_slices(items)
-    root = supervisor.supervised_device_call(
-        BREAKER, lambda: device_root(items, device), _validate, device=device,
-    )
-    if root is None:  # the CPU only: the host answers below the plain version
-        dispatch_stats.record_tier("host", n, MERKLE)
-        return merkle.hash_from_byte_slices(items)
-    dispatch_stats.record_tier("cuda" if supervisor._on_card(device) else "torch",
-                               n, MERKLE)
-    return root
+        raise ValueError("tree_levels needs at least one leaf")
+    return _route(items, device, lambda: device_levels(items, device),
+                  lambda lv: _validate_levels(lv, n), lambda: host_levels(items))
+
+
+def tree_proofs(items, device=None) -> "tuple[bytes, list[merkle.Proof]]":
+    """(root, proofs), bit-identical to ``merkle.proofs_from_byte_slices``
+    on every input: ``tree_levels``, then ``proofs_from_levels``."""
+    if len(items) == 0:
+        return EMPTY_HASH, []
+    levels = tree_levels(items, device)
+    return levels[-1][0], proofs_from_levels(levels)
+
+
+# -- the warm-boot hook ----------------------------------------------------------
+
+WARM_LEAVES = 64  # the JAX package's warm bucket of the tree family
+
+
+def warm_kernels(device=None) -> "dict[str, str]":
+    """The tree family's warm-boot hook (``ops/warmboot``): on a card, load
+    the kernel's library, then one unsupervised pass over WARM_LEAVES
+    leaves of 0-32 bytes whose root must equal ``crypto/merkle``'s.
+    Returns {library: build status}; raises ``SelfCheckError`` on a wrong
+    root and whatever the build, the load or the launch raised."""
+    from cometbft_tpu_torch.crypto.batch import SelfCheckError
+    from cometbft_tpu_torch.ops import _build, cuda_sha256
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    dev = resolve_device(device)
+    names = [cuda_sha256.NAME] if dev.type == "cuda" else []
+    for name in names:
+        _build.load(name)
+    items = [hashlib.sha256(b"warm-%d" % i).digest()[: i % 33]
+             for i in range(WARM_LEAVES)]
+    root = device_root(items, dev)
+    if root != merkle.hash_from_byte_slices(items):
+        raise SelfCheckError(f"the tree kernel failed its known-answer check "
+                             f"on {dev}: root {root.hex()}")
+    return _build.statuses(names)

@@ -353,9 +353,10 @@ def supervised_device_call(
         ``fallback_units`` signatures are recorded as host work, as the
         verify chain's host tier does below the torch tier.
 
-    ``inputs`` (pubs, msgs, sigs), where given, are shown to the fault
-    injector inside the call, and with the device-runner seam installed the
-    runner answers in place of ``fn`` (tests)."""
+    The fault injector sees every call inside it, with ``inputs`` (pubs,
+    msgs, sigs) where given and empty ones where not (the tree and
+    transport planes'); where ``inputs`` are given and the device-runner
+    seam is installed, the runner answers in place of ``fn`` (tests)."""
     reg = backend_health.registry()
     br = reg.breaker(backend)
     err = None
@@ -390,11 +391,12 @@ def _single_tier(backend: str, fn: Callable, inputs: Optional[tuple]):
     """The body of a supervised single-tier call, on the watchdog worker:
     the fault injector first, as a device fault would, then ``fn`` or the
     device runner."""
-    if inputs is None:
-        return fn()
     inj, runner = _FAULT_INJECTOR, _DEVICE_RUNNER
-    transform = inj(backend, *inputs) if inj is not None else None
-    out = runner(backend, *inputs, len(inputs[0])) if runner is not None else fn()
+    transform = inj(backend, *(inputs or ((), (), ()))) if inj is not None else None
+    if inputs is not None and runner is not None:
+        out = runner(backend, *inputs, len(inputs[0]))
+    else:
+        out = fn()
     return transform(out) if transform is not None else out
 
 

@@ -502,3 +502,26 @@ def verify_pipelined(
     ]
     bits = verify_batches_overlapped(work, device, inflight or 2)
     return np.concatenate(bits) if bits else np.zeros(0, dtype=bool)
+
+
+# -- the warm-boot hook -------------------------------------------------------
+
+
+def warm_kernels(device=None) -> "dict[str, str]":
+    """The Ed25519 family's warm-boot hook (``ops/warmboot``): load the host
+    library and, on a card, the kernel's, then the batch seam's
+    known-answer check (``crypto.batch.gpu_self_check``) unless ``device``
+    passed it already.  A pass latches the device in
+    ``crypto.batch._SELF_CHECKED``, so the first commit runs neither the
+    build nor the check.  Returns {library: build status}; raises whatever
+    the build, the load or the check raised."""
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import _build, cuda_verify
+
+    dev = resolve_device(device)
+    names = [native.NAME] + ([cuda_verify.NAME] if dev.type == "cuda" else [])
+    native.lib()  # loads it and binds its functions
+    for name in names[1:]:
+        _build.load(name)
+    cbatch.self_check_once("_SELF_CHECKED", cbatch.gpu_self_check, dev)
+    return _build.statuses(names)

@@ -17,8 +17,8 @@ The JAX module clamps loop-carried coordinates to fixed static bounds
 a Python loop needs none, and ``ops.fpgen``'s bounds settle by themselves
 (REDC contracts), so nothing is clamped here.  ``scalar_mul`` is the JAX
 single-scalar ladder (the plain version of the BLS G1 kernel; its host
-side packs raw bytes, ``ops.bls_g1``).  ``lane_sum`` waits for its first
-caller (the JAX ``msm``/``sum_points``, which no verify path calls).
+side packs raw bytes, ``ops.bls_g1``), and ``lane_sum`` the JAX pairwise
+fold of the lane axis (``ops.bls_g1.msm``/``sum_points``).
 """
 
 from __future__ import annotations
@@ -125,3 +125,18 @@ class Curve:
             acc = self.double(acc)
             acc = self.select(bits[i], self.add(acc, base), acc)
         return acc
+
+    def lane_sum(self, p: Point) -> Point:
+        """Fold the lane axis down to one point by pairwise complete
+        additions: log2(B) additions over halving widths, the JAX
+        ``lane_sum``.  B must be a power of two (the caller pads with the
+        identity)."""
+        width = p.x.v.shape[1]
+        assert width and width & (width - 1) == 0, "lane_sum needs a power-of-two batch"
+        while width > 1:
+            half = width // 2
+            lo = Point(*(F(f.v[:, :half], f.hi, f.val) for f in p))
+            hi = Point(*(F(f.v[:, half:], f.hi, f.val) for f in p))
+            p = self.add(lo, hi)
+            width = half
+        return p

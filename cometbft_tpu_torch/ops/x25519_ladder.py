@@ -33,9 +33,11 @@ being the gate):
 Ladder passes and exchanges per tier are in
 ``ops/dispatch_stats.tier_counts("x25519")``.  ``p2p/handshake_pool.py`` is
 the production caller: it coalesces concurrent dials into these batches.
-``set_ladder_runner`` replaces the device pass (tests).  The JAX package's
-executable cache and ``warm_ladder`` wait for the port of warm boot
-(ROADMAP "Build cache and warm boot"); its spans and anomaly records for
+``set_ladder_runner`` replaces the device pass (tests).  ``warm_ladder``
+is the family's warm-boot hook (``ops/warmboot``): the JAX package's
+compiles an executable, the port's loads the kernel's library and checks
+the RFC 7748 vectors on the card.  The JAX package's spans and anomaly
+records for
 ``libs/tracing`` ("Node assembly"): each site is a comment.
 """
 
@@ -313,3 +315,38 @@ def exchange_batch(pairs, device=None) -> "list[bytes]":
     dispatch_stats.record_tier("cuda" if supervisor._on_card(device) else "torch",
                                n, X25519)
     return out
+
+
+# -- the warm-boot hook -------------------------------------------------------------
+
+# RFC 7748 5.2: (scalar, u, result)
+RFC7748_VECTORS = (
+    ("a546e36bf0527c9d3b16154b82465edd62144c0ac1fc5a18506a2244ba449ac4",
+     "e6db6867583030db3594c1a424b15f7c726624ec26b3353b10a903a6d0ab1c4c",
+     "c3da55379de9c6908e94ea4df28d084f32eccf03491c71f754b4075577a28552"),
+    ("4b66e9d4d1b4673c5ad22691957d6af5c11b6421e0ea01d42ca4169e7918ba0d",
+     "e5210f12786811d3f4b7959d0538ae2c31dbe7106fc03c3efc4cd549c715a493",
+     "95cbde9476e8907d7aade45cb4b873f88b595a68799fa152e6f8f7647aac7957"),
+)
+
+
+def warm_ladder(device=None) -> "dict[str, str]":
+    """The X25519 family's warm-boot hook (``ops/warmboot``): on a card,
+    load the kernel's library, then one unsupervised pass of the RFC 7748
+    5.2 vectors, which must give the RFC's results.  Returns {library:
+    build status}; raises ``SelfCheckError`` on a wrong answer and
+    whatever the build, the load or the launch raised."""
+    from cometbft_tpu_torch.crypto.batch import SelfCheckError
+    from cometbft_tpu_torch.ops import _build, cuda_x25519
+    from cometbft_tpu_torch.ops.verify import resolve_device
+
+    dev = resolve_device(device)
+    names = [cuda_x25519.NAME] if dev.type == "cuda" else []
+    for name in names:
+        _build.load(name)
+    vectors = [tuple(bytes.fromhex(x) for x in v) for v in RFC7748_VECTORS]
+    got = device_exchange([(k, u) for k, u, _ in vectors], dev)
+    if got != [w for _, _, w in vectors]:
+        raise SelfCheckError(f"the X25519 ladder kernel failed the RFC 7748 "
+                             f"vectors on {dev}")
+    return _build.statuses(names)

@@ -40,8 +40,10 @@ every wrapper here falls through to the pre-scheduler path, so the kill
 switch ``COMETBFT_TPU_VERIFY_SCHED=0`` restores it exactly.
 
 The JAX package's spans and anomaly records (``libs/tracing``) are left
-out until that module is ported (ROADMAP §1 item 10); its lane pinning
-over the elastic mesh waits for ROADMAP §1 item 4.
+out until that module is ported (ROADMAP "Node assembly"); its lane
+pinning over the elastic mesh waits for ROADMAP "Multi-GPU lanes".  The
+dispatcher starts the warm-boot pass (``ops/warmboot``) when it first
+runs, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ MAX_DRAIN = _FALLBACK_BUCKETS[-1]
 DEFAULT_QUEUE_CAP = 8192
 # flushes dispatched and not yet fetched: on one card the depth buys
 # host-prep/device overlap (the JAX package follows the live mesh width,
-# ROADMAP §1 item 4)
+# ROADMAP "Multi-GPU lanes")
 INFLIGHT = 2
 
 
@@ -392,7 +394,8 @@ class VerifyScheduler:
         costs no padding on the plain version's ladder, so waiting any
         longer only adds latency.  Computed once, off the submit path (the
         ops import pulls in torch).  The JAX package scales it by the live
-        elastic mesh width; the port has one card (ROADMAP §1 item 4)."""
+        elastic mesh width; the port has one card (ROADMAP "Multi-GPU
+        lanes")."""
         if self._full_target is None:
             try:
                 from cometbft_tpu_torch.ops import verify as ov
@@ -418,9 +421,13 @@ class VerifyScheduler:
         return out
 
     def _run(self) -> None:
-        # (the JAX package starts its warm boot here; the port's build
-        # cache and warm boot are ROADMAP §1 item 5)
         full = self._bucket_target()  # the torch import happens here, unlocked
+        # the dispatcher runs only once the card is trusted, the population
+        # warm boot serves: build, load and self-check every other key type
+        # and plane in the background before their first batch
+        from cometbft_tpu_torch.ops import warmboot
+
+        warmboot.ensure_started()
         while True:
             with self._cond:
                 while not self._stopped and (

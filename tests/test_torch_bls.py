@@ -4,10 +4,12 @@
   library (``csrc/bls12381.cpp``) against the JAX package's module and
   library, byte for byte: keys, signatures, hashes to G2, G1 and G2 scalar
   multiplications, aggregates, and pairing verdicts (a false product too);
-* ``ops/fp381`` against Python integers and the JAX ``fp381``;
+* ``ops/fp381`` against Python integers and the JAX ``fp381``, its
+  ``F2`` ops against the JAX ``f2_*`` called eagerly at 8 lanes;
   ``wcurve.Curve.scalar_mul`` over it against the JAX ``g1.scalar_mul``
   called eagerly on packed points (equal canonical X, Y, Z);
-  ``bls_g1.batch_scalar_mul`` on the CPU against the oracle at 128 bits;
+  ``bls_g1.batch_scalar_mul``, ``msm`` and ``sum_points`` on the CPU
+  against the oracle at 128 bits;
   the G1 kernel's source built for the host (``csrc/bls_g1.cu``) against
   the same JAX call, as points;
 * ``BlsBatchVerifier`` verdicts against the JAX class on the cases of
@@ -233,6 +235,27 @@ def test_fp381_equals_ints_and_jax():
     assert tfp.NLIMBS == 26 and tfp.R_INT == 1 << 416 and tfp.P_INT == jfp.P_INT
 
 
+def test_f2_ops_equal_ints_and_jax():
+    xs = list(zip(_field_values(8, 5), _field_values(8, 6)[::-1]))
+    ys = list(zip(_field_values(8, 7)[::-1], _field_values(8, 8)))
+    x, y = tfp.f2_pack(xs), tfp.f2_pack(ys)
+    jx, jy = jfp.f2_pack(xs), jfp.f2_pack(ys)
+    ints = {
+        "f2_add": [((a + c) % P, (b + d) % P) for (a, b), (c, d) in zip(xs, ys)],
+        "f2_sub": [((a - c) % P, (b - d) % P) for (a, b), (c, d) in zip(xs, ys)],
+        "f2_mul": [((a * c - b * d) % P, (a * d + b * c) % P)
+                   for (a, b), (c, d) in zip(xs, ys)],
+        "f2_square": [((a * a - b * b) % P, 2 * a * b % P) for a, b in xs],
+        "f2_neg": [(-a % P, -b % P) for a, b in xs],
+    }
+    for name, want in ints.items():
+        args = ((x, y), (jx, jy)) if name in ("f2_add", "f2_sub", "f2_mul") else ((x,), (jx,))
+        got = tfp.f2_unpack(getattr(tfp, name)(*args[0]))
+        assert got == jfp.f2_unpack(getattr(jfp, name)(*args[1])) == want, name
+    assert tfp.f2_unpack(tfp.f2_mul_small(x, 12)) == jfp.f2_unpack(
+        jfp.f2_mul_small(jx, 12)) == [(12 * a % P, 12 * b % P) for a, b in xs]
+
+
 def _points(n, seed):
     rng = random.Random(seed)
     return [jbls.E1.affine(jbls.E1.mul_scalar(jbls.G1_GEN, rng.randrange(1, jbls.R)))
@@ -317,6 +340,31 @@ def test_batch_scalar_mul_on_the_cpu_equals_oracle():
     assert tg1.batch_scalar_mul([], [], device="cpu") == []
     with pytest.raises(ValueError):
         tg1.batch_scalar_mul(pts[:1], [1 << 16], nbits=16, device="cpu")
+
+
+def _oracle_sum(pts, ks):
+    acc = jbls.E1.infinity()
+    for p, k in zip(pts, ks):
+        if p is not None:
+            acc = jbls.E1.add_pts(acc, jbls.E1.mul_scalar((p[0], p[1], 1), k))
+    return jbls.E1.affine(acc)
+
+
+def test_msm_and_sum_points_on_the_cpu_equal_oracle():
+    """``msm`` (the plain products, then ``lane_sum``) and ``sum_points``
+    at 7 lanes (padded to 8: the identity, a point and its negation, the
+    scalars 0 and 2^128 - 1 among them) against the oracle's sums."""
+    pts = _points(5, 9) + [None]
+    pts.append((pts[0][0], (P - pts[0][1]) % P))
+    ks = [random.Random(10).getrandbits(128) for _ in pts]
+    ks[1], ks[2] = 0, (1 << 128) - 1
+    assert tg1.msm(pts, ks, device="cpu") == _oracle_sum(pts, ks)
+    assert tg1.sum_points(pts, device="cpu") == _oracle_sum(pts, [1] * len(pts))
+    assert tg1.sum_points([pts[0], pts[-1]], device="cpu") is None
+    assert tg1.sum_points(pts[:1], device="cpu") == pts[0]
+    assert tg1.msm([], [], device="cpu") is None and tg1.sum_points([]) is None
+    with pytest.raises(ValueError):
+        tg1.msm(pts, ks[:2], device="cpu")
 
 
 def test_host_packing_round_trips():

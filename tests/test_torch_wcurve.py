@@ -117,3 +117,18 @@ def test_mul_many_equals_separate_products():
     for k, g in enumerate(got):
         assert FP.unpack(g) == FP.unpack(FP.mul(fs[2 * k], fs[2 * k + 1])) == [
             a * b % tsv.P for a, b in zip(vals[2 * k], vals[2 * k + 1])]
+
+
+def test_lane_sum_equals_the_oracle():
+    """``Curve.lane_sum`` (the JAX pairwise fold) at 8 lanes: a point and
+    its negation, a doubling and the identity among them; at 1 lane the
+    point itself."""
+    ps, qs = _points(15)
+    pts = ps[:4] + [_neg(ps[0]), ps[1], None, qs[0]]
+    want = None
+    for pt in pts:
+        want = jsecp._pt_add(want, pt)
+    assert affine(CV.lane_sum(pack_points(pts))) == [want]
+    assert affine(CV.lane_sum(pack_points(pts[:1]))) == pts[:1]
+    with pytest.raises(AssertionError):
+        CV.lane_sum(pack_points(pts[:3]))
