@@ -250,7 +250,32 @@ served by the torch or host tier, or one that raised, fails the run.
               the card at 256 and 10,240 lanes (the products one G1 launch,
               the lane sum a torch tier on the card) against the
               pure-Python oracle's sums at 256 lanes and the host's sum of
-              the kernel's products at 10,240, with their times and bound.
+              the kernel's products at 10,240, with their times and bound;
+ 17. blockexec — a blocksync joiner's apply path at BASELINE config 2's
+              width, a path of its own: 10,240 equal-power Ed25519 validators
+              (seed 20261031), a ``GenesisDoc`` with default consensus params
+              (validated, hashed), ``state_from_genesis`` and ``InitChain`` on a
+              ``KVStoreApplication`` through ``LocalClient``; a ``SqliteKV``
+              chain store in a temporary directory under ``BlockStore``,
+              ``StateStore`` and ``EvidencePool``, an ``EventBus`` with one
+              NewBlock subscriber, ``NopMempool``; five blocks of 10,240 txs of
+              256 bytes (each under ``MaxBytes``; block 2 carries a ``val:`` tx
+              that raises one validator's power, block 4 a
+              ``DuplicateVoteEvidence`` of height 2), each cut into 64 KiB
+              parts, saved with its seen commit (every validator but one
+              signs) and applied by ``BlockExecutor.apply_block`` with the
+              signature cache cleared (``validate_block``: the LastCommit in one
+              Ed25519 launch, the hashes through the tree kernel, the evidence's
+              pair in one scheduler flush at ``PRIO_EVIDENCE``; then
+              FinalizeBlock, the stores, the events); a copy of block 4 with
+              vote B tampered and a copy of block 5 with a bad LastCommit
+              signature at 5,000 rejected with the state and the stores
+              unchanged; every Ed25519 batch and tree pass of the path on
+              ``cuda``, each part set in one tree launch; both kernels
+              against their plain versions on the path's own inputs; the
+              SQLite files reopened: the state, ``load_validators`` and every
+              block equal to what was applied; each block's apply wall and
+              its parts, the part-set build, the loads' times.
 
 The script sets ``COMETBFT_TPU_WARMBOOT=0`` for its own process: a
 background warm pass would add self-check launches to the phases'
@@ -263,8 +288,10 @@ Usage, from the repository root, on a machine with a CUDA card:
 Set-up signs 10,240 votes with the pure-Python oracle (~1.6 ms each on one
 host core, ~17 s in all), 10,240 secp256k1 votes (~5 s), the light
 chain's 17,000 votes (~30 s) and 256 BLS12-381 votes in the host library
-(~1 s), and 100 node keys for the transport phase: the cost of making the
-data, not of verifying it.
+(~1 s), and 100 node keys for the transport phase, and for the blockexec
+phase 10,240 keys and five commits of 10,239 votes on up to 8 processes
+(the pure-Python oracle): the cost of making the data, not of verifying
+it.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -400,6 +427,23 @@ WARM_CHILD_TIMEOUT_S = 300
 MSM_LANES = (256, 10_240)
 MSM_SAMPLE = 256  # lanes of msm and sum_points held to the pure-Python oracle
 MSM_RUNS = 3
+BLOCKEXEC_SEED = 20261031  # the apply path's keys, txs and evidence
+BLOCKEXEC_CHAIN = "blockexec-chain"
+BLOCKEXEC_T0 = 1_760_000_000  # genesis time, s; block h at T0 + 6 h
+BLOCKEXEC_VALIDATORS = 10_240  # BASELINE config 2's width
+BLOCKEXEC_HEIGHTS = 5
+BLOCKEXEC_TXS = 10_240  # KVStore key=value txs a block
+BLOCKEXEC_TX_BYTES = 256  # 10,240 of them and the LastCommit: ~3.7 MiB < MaxBytes
+BLOCKEXEC_PART = 64 << 10  # CometBFT's BlockPartSizeBytes
+BLOCKEXEC_VAL_TX_AT = 2  # the block with the val: tx
+BLOCKEXEC_CHANGED = 7  # the validator (genesis order) whose power it raises
+BLOCKEXEC_CHANGED_POWER = 2
+BLOCKEXEC_EVIDENCE_AT = 4  # the block with the duplicate-vote evidence
+BLOCKEXEC_EVIDENCE_HEIGHT = 2  # the height its two precommits were signed at
+BLOCKEXEC_EQUIVOCATOR = 11  # the equivocating validator (set order, that height)
+BLOCKEXEC_ABSENT = 123  # the absent signer of every commit (set order)
+BLOCKEXEC_BAD_SIG = 5_000  # the tampered LastCommit signature of the bad block
+BLOCKEXEC_SIGNERS = min(8, os.cpu_count() or 1)  # signing processes (set-up only)
 
 
 class SmokeError(AssertionError):
@@ -3631,6 +3675,468 @@ def warmboot_phase(torch, dev, ds, vals, commit, block_id, n, sms,
     print(f"warmboot: phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+def _expand_chunk(seeds):
+    """Worker of phase 17: Ed25519 signing keys from seeds (``expand``)."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+
+    return [ref.expand(s) for s in seeds]
+
+
+def _sign_chunk(jobs):
+    """Worker of phase 17: (expanded key, message) pairs -> signatures."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+
+    return [ref.sign_expanded(key, msg) for key, msg in jobs]
+
+
+def in_chunks(pool, fn, items: list, workers: int) -> list:
+    """``fn`` over ``items`` in about 4 chunks per worker of ``pool``,
+    flattened back in order."""
+    k = max(1, -(-len(items) // (4 * workers)))
+    chunks = [items[i : i + k] for i in range(0, len(items), k)]
+    return [x for part in pool.map(fn, chunks) for x in part]
+
+
+class PartTimer:
+    """Wall ms of named calls, summed per window: ``wrap`` replaces
+    ``obj.name`` with a timing wrapper until ``restore``."""
+
+    def __init__(self):
+        self.ms = collections.Counter()
+        self.calls = collections.Counter()
+        self._undo = []
+
+    def wrap(self, obj, name: str, label: str) -> None:
+        real = getattr(obj, name)
+        ms, calls = self.ms, self.calls
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                ms[label] += (time.perf_counter() - t0) * 1e3
+                calls[label] += 1
+
+        self._undo.append((obj, name, name in vars(obj), vars(obj).get(name)))
+        setattr(obj, name, timed)
+
+    def window(self) -> dict:
+        out = {k: (round(self.ms[k], 3), self.calls[k]) for k in sorted(self.ms)}
+        self.ms.clear()
+        self.calls.clear()
+        return out
+
+    def restore(self) -> None:
+        for obj, name, had, old in reversed(self._undo):
+            if had:
+                setattr(obj, name, old)
+            else:
+                delattr(obj, name)
+        self._undo.clear()
+
+
+def blockexec_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
+    """Phase 17: a blocksync joiner's apply path at BASELINE config 2's
+    width.  Returns {"ed25519": launches, "tree": launches} of the path."""
+    import base64
+    import concurrent.futures
+    import dataclasses
+    import multiprocessing
+
+    import numpy as np
+
+    from cometbft_tpu_torch.abci import types as at
+    from cometbft_tpu_torch.abci.client import LocalClient
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch import verifysched
+    from cometbft_tpu_torch.crypto import tmhash
+    from cometbft_tpu_torch.crypto.ed25519_ref import sign_expanded as ref_sign
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+    from cometbft_tpu_torch.evidence.pool import EvidencePool
+    from cometbft_tpu_torch.mempool.clist_mempool import NopMempool
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.state import execution
+    from cometbft_tpu_torch.state.state import _params_to_json, state_from_genesis
+    from cometbft_tpu_torch.state.store import StateStore
+    from cometbft_tpu_torch.store.block_store import BlockStore
+    from cometbft_tpu_torch.store.kv import SqliteKV
+    from cometbft_tpu_torch.types import codec, events, validation
+    from cometbft_tpu_torch.types.basic import (
+        BLOCK_ID_FLAG_COMMIT, PRECOMMIT_TYPE, BlockID, PartSetHeader, Timestamp)
+    from cometbft_tpu_torch.types.block import Commit, Data
+    from cometbft_tpu_torch.types.evidence import (
+        DuplicateVoteEvidence, evidence_list_hash)
+    from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from cometbft_tpu_torch.types.validator import ValidatorSet
+    from cometbft_tpu_torch.types.vote import CommitSig, Vote
+    from cometbft_tpu_torch.verifysched import stats as vstats
+
+    n, heights = BLOCKEXEC_VALIDATORS, BLOCKEXEC_HEIGHTS
+    check(cbatch.default_backend() == "gpu", "blockexec: the default backend is not gpu")
+    rng = np.random.default_rng(BLOCKEXEC_SEED)
+    workers = BLOCKEXEC_SIGNERS
+    tmp = tempfile.mkdtemp(prefix="blockexec-")
+    ctx = multiprocessing.get_context("spawn")
+    pool_ex = concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx)
+    timer = PartTimer()
+    undo_keep = []
+    try:
+        # -- genesis: keys, the document, the state, InitChain -------------
+        t0 = time.perf_counter()
+        seeds = [rng.bytes(32) for _ in range(n)]
+        keys = in_chunks(pool_ex, _expand_chunk, seeds, workers)
+        key_s = time.perf_counter() - t0
+        pubs = [Ed25519PubKey(k[2]) for k in keys]
+        key_by_addr = {p.address(): k for p, k in zip(pubs, keys)}
+        t0 = time.perf_counter()
+        gdoc = GenesisDoc(chain_id=BLOCKEXEC_CHAIN, genesis_time=Timestamp(BLOCKEXEC_T0, 0),
+                          validators=[GenesisValidator(p, 1, f"v{i}")
+                                      for i, p in enumerate(pubs)])
+        gdoc.validate_and_complete()
+        genesis_hash = tmhash.sum256(gdoc.to_json().encode())
+        state = state_from_genesis(gdoc)
+        app = KVStoreApplication()
+        client = LocalClient(app)
+        res = client.init_chain(at.InitChainRequest(
+            time_unix_ns=gdoc.genesis_time.to_ns(), chain_id=gdoc.chain_id,
+            consensus_params=_params_to_json(gdoc.consensus_params),
+            validators=[at.ValidatorUpdate("ed25519", p.bytes(), 1) for p in pubs],
+            app_state_bytes=gdoc.app_state, initial_height=gdoc.initial_height))
+        state.app_hash = res.app_hash
+        path = os.path.join(tmp, "chain.db")
+        db = SqliteKV(path, surface="state")
+        bstore, sstore = BlockStore(db), StateStore(db)
+        sstore.bootstrap(state)
+        evpool = EvidencePool(db, sstore, bstore)
+        bus = events.EventBus()
+        sub = bus.subscribe("blockexec", events.query_for_event(events.EVENT_NEW_BLOCK),
+                            capacity=16)
+        ex = execution.BlockExecutor(sstore, bstore, client, NopMempool(),
+                                     evidence_pool=evpool, event_bus=bus)
+        genesis_s = time.perf_counter() - t0
+        params = state.consensus_params
+        print(f"blockexec: genesis of {n} equal-power Ed25519 validators (seed "
+              f"{BLOCKEXEC_SEED}; keys in {key_s:.2f} s on {workers} processes), "
+              f"default consensus params (block max_bytes {params.block.max_bytes}, "
+              f"evidence max_bytes {params.evidence.max_bytes}), validated, hash "
+              f"{genesis_hash.hex()[:16]}; state_from_genesis, InitChain on a "
+              f"KVStoreApplication through LocalClient (app hash "
+              f"{res.app_hash.hex()[:16]}), SqliteKV chain store in a temporary "
+              f"directory, BlockStore, StateStore, EvidencePool (device None: the "
+              f"card), EventBus with one NewBlock subscriber, NopMempool: "
+              f"{genesis_s:.2f} s")
+
+        def txs_at(h: int) -> list:
+            hexed = rng.bytes(BLOCKEXEC_TXS * BLOCKEXEC_TX_BYTES // 2).hex().encode()
+            out = []
+            for i in range(BLOCKEXEC_TXS):
+                head = b"h%d-%05d=" % (h, i)
+                o = i * BLOCKEXEC_TX_BYTES
+                out.append(head + hexed[o : o + BLOCKEXEC_TX_BYTES - len(head)])
+            return out
+
+        changed = pubs[BLOCKEXEC_CHANGED]
+        sign_s = {}
+
+        def sign_commit(h: int, bid, vals) -> Commit:
+            t0 = time.perf_counter()
+            base_ns = (BLOCKEXEC_T0 + 6 * h + 1) * 10**9
+            sigs = []
+            for i, v in enumerate(vals.validators):
+                if i == BLOCKEXEC_ABSENT:
+                    sigs.append(CommitSig.absent_sig())
+                    continue
+                ns = base_ns + 1_000_003 * i
+                sigs.append(CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                                      Timestamp(ns // 10**9, ns % 10**9), b""))
+            commit = Commit(h, 0, bid, sigs)
+            idx = [i for i, cs in enumerate(sigs) if not cs.absent()]
+            msgs = commit.all_vote_sign_bytes(BLOCKEXEC_CHAIN, idx)
+            jobs = [(key_by_addr[sigs[i].validator_address], m) for i, m in zip(idx, msgs)]
+            for i, s in zip(idx, in_chunks(pool_ex, _sign_chunk, jobs, workers)):
+                sigs[i].signature = s
+            sign_s[h] = time.perf_counter() - t0
+            return commit
+
+        def duplicate_vote(h: int):
+            vals = sstore.load_validators(h)
+            meta = bstore.load_block_meta(h)
+            who = vals.validators[BLOCKEXEC_EQUIVOCATOR]
+            votes = []
+            for c in (0xA0, 0xB0):
+                bid = BlockID(bytes([c]) * 32, PartSetHeader(1, bytes([c + 1]) * 32))
+                v = Vote(PRECOMMIT_TYPE, h, 0, bid, meta.header.time, who.address,
+                         BLOCKEXEC_EQUIVOCATOR)
+                v.signature = ref_sign(key_by_addr[who.address], v.sign_bytes(BLOCKEXEC_CHAIN))
+                votes.append(v)
+            return DuplicateVoteEvidence.from_votes(
+                *votes, meta.header.time, who.voting_power, vals.total_voting_power())
+
+        def digest() -> bytes:
+            h = hashlib.sha256()
+            for k, v in db.iterate():
+                h.update(len(k).to_bytes(4, "big") + k + len(v).to_bytes(8, "big") + v)
+            return h.digest()
+
+        def rejected(what: str, block, want_cls, want_msg: str) -> dict:
+            """``apply_block`` of a bad copy raises ``want_cls``; the state
+            and both stores as they were."""
+            before = (digest(), sstore.load().to_json(), bstore.height())
+            sigcache.get_cache().clear()
+            l0, s0 = cv.launches, vstats.snapshot()["submitted"]["evidence_light"]
+            t0 = time.perf_counter()
+            try:
+                ex.apply_block(state, BlockID(), block)
+            except want_cls as e:
+                got = str(e)
+            else:
+                raise SmokeError(f"blockexec: {what} was applied")
+            ms = (time.perf_counter() - t0) * 1e3
+            check(want_msg in got, f"blockexec: {what}: {want_cls.__name__}({got})")
+            after = (digest(), sstore.load().to_json(), bstore.height())
+            check(after == before, f"blockexec: {what} changed the state or a store")
+            out = {"error": f"{want_cls.__name__}({got})", "ms": round(ms, 3),
+                   "ed25519_launches": cv.launches - l0,
+                   "evidence_submitted": vstats.snapshot()["submitted"]["evidence_light"] - s0}
+            print(f"blockexec: rejected {what}: {out}; state, block store and "
+                  f"state store unchanged (digest of every key and value)")
+            return out
+
+        # -- the chain --------------------------------------------------------
+        for obj, name, label in (
+                (ex, "validate_block", "validate_block"),
+                (validation, "verify_commit", "verify_commit"),
+                (ValidatorSet, "hash", "set_hashes"),
+                (Data, "hash", "data_hash"),
+                (Commit, "hash", "commit_hash"),
+                (execution, "results_hash", "results_hash"),
+                (evpool, "check_evidence", "evidence_check"),
+                (app, "finalize_block", "finalize_block"),
+                (ex, "_update_state", "update_state"),
+                (ex, "_commit", "app_commit"),
+                (evpool, "update", "evidence_update"),
+                (sstore, "save_finalize_block_response", "state_store_writes"),
+                (sstore, "save", "state_store_writes"),
+                (ex, "_fire_events", "events")):
+            timer.wrap(obj, name, label)
+        kept_ed, kept_tree = {}, {}
+        real_ed, real_tree = cv.verify_core_cuda, csh.tree_words
+
+        def keep_ed(**t):
+            kept_ed.setdefault(t["s_ok"].shape[0], {k: v.clone() for k, v in t.items()})
+            return real_ed(**t)
+
+        def keep_tree(data, offs):
+            n_leaves = offs.shape[0] - 1
+            per = data.shape[0] // max(n_leaves, 1)
+            # one part set is enough: the plain version scans each 64 KiB
+            # leaf's 1,025 blocks one after another
+            kind = "part set" if per > BLOCKEXEC_PART // 2 else "hash"
+            if kind == "hash" or not any(k[0] == kind for k in kept_tree):
+                kept_tree.setdefault((kind, n_leaves, per), (data.clone(), offs.clone()))
+            return real_tree(data, offs)
+
+        cv.verify_core_cuda, csh.tree_words = keep_ed, keep_tree
+        undo_keep.append(lambda: setattr(cv, "verify_core_cuda", real_ed))
+        undo_keep.append(lambda: setattr(csh, "tree_words", real_tree))
+        ds.reset()
+        cv.reset_launches()
+        csh.reset_launches()
+        ev_submitted0 = vstats.snapshot()["submitted"]["evidence_light"]
+        last_commit = Commit(0, 0, BlockID(), [])
+        rows, block_ids, blocks, rejections = [], {}, {}, {}
+        path_ed, path_tree = 0, 0
+        for h in range(1, heights + 1):
+            txs = txs_at(h)
+            if h == BLOCKEXEC_VAL_TX_AT:
+                txs[-1] = (b"val:" + base64.b64encode(changed.bytes()) + b"!%d"
+                           % BLOCKEXEC_CHANGED_POWER)
+            evidence = []
+            if h == BLOCKEXEC_EVIDENCE_AT:
+                evidence = [duplicate_vote(BLOCKEXEC_EVIDENCE_HEIGHT)]
+            proposer = state.validators.get_proposer().address
+            block = execution.make_block(h, txs, last_commit, state, proposer,
+                                         Timestamp(BLOCKEXEC_T0 + 6 * h, 0))
+            if evidence:
+                block.evidence = evidence
+                block.header.evidence_hash = evidence_list_hash(evidence)
+            timer.window()
+            l0 = csh.launches
+            t0 = time.perf_counter()
+            parts = block.make_part_set(BLOCKEXEC_PART)
+            part_ms = (time.perf_counter() - t0) * 1e3
+            check(csh.launches - l0 == 1, f"blockexec: height {h}: the part set "
+                  f"of {parts.header.total} parts took {csh.launches - l0} tree "
+                  f"launches, want 1")
+            check(parts.byte_size < params.block.max_bytes,
+                  f"blockexec: block {h} is {parts.byte_size} bytes, over MaxBytes")
+            bid = BlockID(block.hash(), parts.header)
+            commit = sign_commit(h, bid, state.validators)
+            if h == BLOCKEXEC_EVIDENCE_AT:
+                bad = codec.decode_block(codec.encode_block(block))
+                vb = bad.evidence[0].vote_b
+                vb.signature = vb.signature[:5] + bytes([vb.signature[5] ^ 1]) + vb.signature[6:]
+                bad.header.evidence_hash = evidence_list_hash(bad.evidence)
+                rejections["evidence"] = rejected(
+                    f"a copy of block {h} whose evidence has vote B tampered", bad,
+                    execution.InvalidBlockError, "invalid signature on vote B")
+            if h == heights:
+                bad = codec.decode_block(codec.encode_block(block))
+                cs = bad.last_commit.signatures[BLOCKEXEC_BAD_SIG]
+                cs.signature = bytes([cs.signature[0] ^ 1]) + cs.signature[1:]
+                bad.header.last_commit_hash = b""
+                bad.fill_header_hashes()
+                rejections["last_commit"] = rejected(
+                    f"a copy of block {h} whose LastCommit has a bad signature at "
+                    f"index {BLOCKEXEC_BAD_SIG}", bad, validation.InvalidSignatureError,
+                    f"index {BLOCKEXEC_BAD_SIG}")
+            path_ed += cv.launches
+            path_tree += csh.launches
+            cv.reset_launches()
+            csh.reset_launches()
+            sigcache.get_cache().clear()  # a joiner never saw the votes
+            t0 = time.perf_counter()
+            bstore.save_block(block, parts, commit)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            timer.window()
+            t0 = time.perf_counter()
+            state = ex.apply_block(state, bid, block)
+            apply_ms = (time.perf_counter() - t0) * 1e3
+            split = timer.window()
+            torch.cuda.synchronize()
+            want_ed = (0 if h == 1 else 1) + (1 if evidence else 0)
+            check(cv.launches == want_ed, f"blockexec: height {h}: {cv.launches} "
+                  f"Ed25519 launches, want {want_ed} (one per cold LastCommit, one "
+                  f"for the evidence's flush)")
+            row = {"height": h, "txs": len(block.data.txs), "bytes": parts.byte_size,
+                   "parts": parts.header.total, "apply_ms": round(apply_ms, 3),
+                   "part_set_ms": round(part_ms, 3), "save_block_ms": round(save_ms, 3),
+                   "ed25519_launches": cv.launches, "tree_launches": csh.launches,
+                   "split": split}
+            rows.append(row)
+            print(f"blockexec: height {h}: {json.dumps(row)} {tag}")
+            path_ed += cv.launches
+            path_tree += csh.launches
+            cv.reset_launches()
+            csh.reset_launches()
+            block_ids[h], blocks[h] = bid, block
+            last_commit = commit
+        timer.restore()
+        for undo in undo_keep:
+            undo()
+
+        # -- what the phase asserts ---------------------------------------
+        got_events = []
+        while (msg := sub.next(timeout=0)) is not None:
+            got_events.append(msg.data.block.header.height)
+        check(got_events == list(range(1, heights + 1)),
+              f"blockexec: NewBlock events for heights {got_events}")
+        ev_submitted = vstats.snapshot()["submitted"]["evidence_light"] - ev_submitted0
+        check(ev_submitted == 4, f"blockexec: {ev_submitted} evidence signatures "
+              f"through the scheduler at PRIO_EVIDENCE, want 2 + 2")
+        ed_tiers, tree_tiers = ds.tier_counts(), ds.tier_counts(st.MERKLE)
+        for what, counts in (("Ed25519 batches", ed_tiers), ("tree passes", tree_tiers)):
+            check(counts["cuda"][0] > 0 and all(
+                v == (0, 0) for t, v in counts.items() if t != "cuda"),
+                f"blockexec: {what} served below the cuda tier: {counts}")
+        check(ed_tiers["cuda"][0] == path_ed and tree_tiers["cuda"][0] == path_tree,
+              f"blockexec: launches {path_ed} / {path_tree} != cuda batches "
+              f"{ed_tiers['cuda']} / tree passes {tree_tiers['cuda']}")
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
+        check(not leaked, f"blockexec: imported {leaked}")
+        final = state
+        applied = [r["apply_ms"] for r in rows]
+        print(f"blockexec: {heights} blocks of {BLOCKEXEC_TXS} txs of "
+              f"{BLOCKEXEC_TX_BYTES} bytes applied and persisted; block "
+              f"{BLOCKEXEC_VAL_TX_AT} raised validator {BLOCKEXEC_CHANGED}'s power "
+              f"to {BLOCKEXEC_CHANGED_POWER} (the set changed at height "
+              f"{BLOCKEXEC_VAL_TX_AT + 2}), block {BLOCKEXEC_EVIDENCE_AT} carried a "
+              f"duplicate vote of height {BLOCKEXEC_EVIDENCE_HEIGHT}; "
+              f"{len(got_events)} NewBlock events; evidence checked in scheduler "
+              f"flushes at PRIO_EVIDENCE ({ev_submitted} signatures); Ed25519 "
+              f"batches by tier {ed_tiers}, tree passes by tier {tree_tiers} "
+              f"(each part set one launch); launches on the path "
+              f"Ed25519 {path_ed}, tree {path_tree}; jax not imported")
+        print(f"blockexec: apply_block wall per height {applied} ms, median of "
+              f"heights 2-{heights} {statistics.median(applied[1:])} ms {tag}")
+        print(f"blockexec: signing (data set-up, not the path): "
+              f"{ {h: round(s, 2) for h, s in sign_s.items()} } s per commit of "
+              f"{n - 1} signatures on {workers} processes")
+
+        # -- the kernels against their plain versions, on the path's inputs
+        from cometbft_tpu_torch.ops import verify as ov
+
+        worst_ed = worst_tree = 0
+        for lanes, t in sorted(kept_ed.items()):
+            kern, plain = cv.verify_core_cuda(**t), ov.verify_core(**t)
+            worst_ed = max(worst_ed, int((kern.int() - plain.int()).abs().max()))
+            check(torch.equal(kern, plain), f"blockexec: Ed25519 kernel != plain at {lanes} lanes")
+        plain_tree_s, part_kernel_ms = time.perf_counter(), None
+        for (kind, leaves, per), (data, offs) in sorted(kept_tree.items()):
+            kern, plain = csh.tree_words(data, offs), st.tree_words_plain(data, offs)
+            worst_tree = max(worst_tree, int((kern.long() - plain.long()).abs().max()))
+            check(torch.equal(kern, plain), f"blockexec: tree kernel != plain at "
+                  f"{leaves} leaves of ~{per} bytes ({kind})")
+            if kind == "part set":
+                part_kernel_ms = cuda_ms(torch, lambda: csh.tree_words(data, offs),
+                                         runs=5, warmup=1, queued=True)
+        plain_tree_s = time.perf_counter() - plain_tree_s
+        check(part_kernel_ms is not None, "blockexec: no part set reached the tree kernel")
+        print(f"blockexec: on the path's own inputs, the Ed25519 kernel == its plain "
+              f"version bit for bit at {sorted(kept_ed)} lanes (max_abs_err "
+              f"{worst_ed}) and the tree kernel at (kind, leaves, bytes a leaf) "
+              f"{sorted(kept_tree)} (max_abs_err {worst_tree}; the plain trees "
+              f"took {plain_tree_s:.1f} s); the part set's tree pass "
+              f"{part_kernel_ms} ms on the card (CUDA events, queued) {tag}")
+
+        # -- the stores reopened ------------------------------------------
+        db.close()
+        t0 = time.perf_counter()
+        db = SqliteKV(path, surface="state")
+        bstore, sstore = BlockStore(db), StateStore(db)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loaded = sstore.load()
+        load_state_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        vals4 = sstore.load_validators(BLOCKEXEC_VAL_TX_AT + 2)
+        load_vals_ms = (time.perf_counter() - t0) * 1e3
+        check(loaded.to_json() == final.to_json() and loaded.app_hash == app.app_hash
+              and loaded.validators.hash() == final.validators.hash()
+              and loaded.last_block_id == block_ids[heights],
+              "blockexec: the reopened state store != the final state")
+        powers = collections.Counter(v.voting_power for v in vals4.validators)
+        _, v4 = vals4.get_by_address(changed.address())
+        check(v4.voting_power == BLOCKEXEC_CHANGED_POWER and powers[1] == n - 1,
+              f"blockexec: load_validators({BLOCKEXEC_VAL_TX_AT + 2}) powers {powers}")
+        load_block_ms = []
+        for h in range(1, heights + 1):
+            t0 = time.perf_counter()
+            b = bstore.load_block(h)
+            load_block_ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+            check(b.hash() == block_ids[h].hash, f"blockexec: reopened block {h} hashes "
+                  f"differently")
+        check(bstore.height() == heights and bstore.base() == 1, "blockexec: store range")
+        db.close()
+        print(f"blockexec: reopened the SQLite store ({open_ms:.3f} ms): "
+              f"StateStore.load() {load_state_ms:.3f} ms == the final state (app "
+              f"hash, validators hash, last block id); load_validators("
+              f"{BLOCKEXEC_VAL_TX_AT + 2}) {load_vals_ms:.3f} ms with validator "
+              f"{BLOCKEXEC_CHANGED} at power {BLOCKEXEC_CHANGED_POWER}; "
+              f"BlockStore.load_block per height {load_block_ms} ms, each hashing "
+              f"to its block id {tag}")
+    finally:
+        timer.restore()
+        for undo in undo_keep:
+            undo()
+        verifysched.reset_scheduler()
+        pool_ex.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"ed25519": path_ed, "tree": path_tree}
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -3930,6 +4436,14 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     # -- 16. warmboot: the build cache, the warm pass, msm -------------------
     warmboot_phase(torch, dev, ds, vals, commit, block_id, n, sms,
                    max_clock_mhz, tag)
+
+    # -- 17. blockexec: a node's apply path over on-disk stores --------------
+    t_phase = time.perf_counter()
+    be = blockexec_phase(torch, dev, cbatch, cv, ds, sigcache, tag)
+    print(f"blockexec: the phase took {time.perf_counter() - t_phase:.1f} s; the "
+          f"kernels' launches on its path: Ed25519 {be['ed25519']}, tree {be['tree']} "
+          f"(the kernels line below keeps the earlier paths' counts: Ed25519 "
+          f"{launches}, tree {light_entry['launches']})")
 
     print("host: " + json.dumps({
         "name": native.NAME,

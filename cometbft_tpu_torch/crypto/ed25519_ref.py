@@ -237,22 +237,30 @@ def generate_seed() -> bytes:
     return os.urandom(32)
 
 
-@_lru_cache(maxsize=64)
-def _expanded_with_pub(seed: bytes) -> Tuple[int, bytes, bytes]:
-    """(a, prefix, compressed pub) for a seed — one comb-mul, cached so a
-    validator signing thousands of votes derives its pubkey once."""
+def expand(seed: bytes) -> Tuple[int, bytes, bytes]:
+    """(a, prefix, compressed pub) of a seed: the signing key in the form
+    ``sign_expanded`` takes, one comb-mul."""
     a, prefix = _expand_seed(seed)
     return a, prefix, pt_compress(pt_mul_base(a))
 
 
-def sign(seed: bytes, msg: bytes) -> bytes:
-    """RFC 8032 Ed25519 signing."""
-    a, prefix, pub = _expanded_with_pub(seed)
+# cached so a validator signing thousands of votes derives its pubkey once
+_expanded_with_pub = _lru_cache(maxsize=64)(expand)
+
+
+def sign_expanded(expanded: Tuple[int, bytes, bytes], msg: bytes) -> bytes:
+    """RFC 8032 Ed25519 signing with a key from ``expand``."""
+    a, prefix, pub = expanded
     r = sc_reduce(hashlib.sha512(prefix + msg).digest())
     R = pt_compress(pt_mul_base(r))
     k = sc_reduce(hashlib.sha512(R + pub + msg).digest())
     s = (r + k * a) % L
     return R + s.to_bytes(32, "little")
+
+
+def sign(seed: bytes, msg: bytes) -> bytes:
+    """RFC 8032 Ed25519 signing."""
+    return sign_expanded(_expanded_with_pub(seed), msg)
 
 
 # Comb tables per compressed public key, built on SECOND sight: a comb

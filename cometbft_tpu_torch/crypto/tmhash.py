@@ -2,7 +2,12 @@
 
 import hashlib
 
+SIZE = 32
 TRUNCATED_SIZE = 20
+
+
+def sum256(data: bytes) -> bytes:
+    return hashlib.sha256(data).digest()
 
 
 def sum_truncated(data: bytes) -> bytes:

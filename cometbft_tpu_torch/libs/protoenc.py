@@ -1,11 +1,11 @@
 """Minimal protobuf (proto3) wire-format encoders, and the decoder of
 field lists.
 
-The encoders the canonical vote sign bytes need (reference:
-types/canonical.go:57 — votes are signed over a deterministic protobuf
-encoding, so byte-stable encoding is consensus-critical), and
-``fields_dict``, which the SecretConnection handshake reads its peer's
-AuthSig with.
+The encoders the canonical sign bytes and ``types/codec`` need
+(reference: types/canonical.go:57 — votes are signed over a deterministic
+protobuf encoding, so byte-stable encoding is consensus-critical), and the
+decoders: ``iter_fields`` for the codec and the stores, ``fields_dict``,
+which the SecretConnection handshake reads its peer's AuthSig with.
 
 proto3 semantics: scalar fields equal to their zero value are omitted.
 """
@@ -63,9 +63,10 @@ def t_string(field: int, value: str) -> bytes:
     return t_bytes(field, value.encode())
 
 
-def t_message(field: int, encoded: bytes) -> bytes:
-    """Embedded message; omitted when empty."""
-    if not encoded:
+def t_message(field: int, encoded: bytes, *, always: bool = False) -> bytes:
+    """Embedded message; omitted when empty unless ``always`` (present-but-
+    empty submessages are meaningful in canonical encodings)."""
+    if not encoded and not always:
         return b""
     return tag(field, BYTES) + uvarint(len(encoded)) + encoded
 
@@ -125,3 +126,12 @@ def fields_dict(data: bytes) -> dict[int, list]:
     for field, _, value in iter_fields(data):
         out.setdefault(field, []).append(value)
     return out
+
+
+def to_int64(v: int) -> int:
+    """Interpret a varint as a signed int64 (two's complement)."""
+    return v - (1 << 64) if v >= (1 << 63) else v
+
+
+def sfixed64_to_int(v: int) -> int:
+    return v - (1 << 64) if v >= (1 << 63) else v

@@ -19,7 +19,10 @@ give byte for byte what ``merkle.proofs_from_byte_slices`` gives.
 shifts for ``uint32``).  CPU tensors take it.
 
 Routing, as in the JAX package: a set beyond the bucket rules
-(``_bucket_shape``) goes to the host oracle and is counted as oversize;
+(``_bucket_shape``) goes to the host oracle and is counted as oversize.
+On the card a leaf may be twice as long (``_CARD_MAX_BLOCKS``): the
+kernel pads nothing, so a 64 KiB part-set chunk, one SHA-256 block over
+the JAX ladder's bound once prefixed and padded, is hashed there too;
 with no device named and the trust gate closed
 (``verifysched.backend_trusted``, which reads
 ``COMETBFT_TPU_CRYPTO_BACKEND`` first) a tree is hashed on the host.  The
@@ -60,7 +63,9 @@ MERKLE_OVERSIZE = "merkle_oversize"
 # longest leaf; a set beyond them is hashed on the host
 _MIN_LANES = 8
 _MAX_LANES_DEFAULT = 16384
-_MAX_BLOCKS = 1024  # 64 KiB leaves (part-set chunks)
+_MAX_BLOCKS = 1024  # leaves of up to 65,526 bytes
+# on the card: a full 64 KiB part is 1,025 blocks once prefixed and padded
+_CARD_MAX_BLOCKS = 2048
 _MAX_BATCH_BYTES = 1 << 25  # lanes * blocks * 64
 
 _H0 = (
@@ -116,17 +121,18 @@ def _pow2_at_least(n: int, floor: int) -> int:
     return b
 
 
-def _bucket_shape(items) -> "tuple[int, int] | None":
+def _bucket_shape(items, max_blocks: int = _MAX_BLOCKS) -> "tuple[int, int] | None":
     """(lanes, blocks) of the JAX package's padding bucket for a leaf set,
-    or None when the set exceeds its ladder (too many leaves, a leaf too
-    long, or too many bytes in all): such a set is hashed on the host.
-    The kernel pads nothing; the rules only route."""
+    or None when the set exceeds its ladder (too many leaves, a leaf of
+    more than ``max_blocks`` blocks, or too many bytes in all): such a set
+    is hashed on the host.  The kernel pads nothing; the rules only
+    route."""
     n = len(items)
     if n > _MAX_LANES_DEFAULT:
         return None
     lanes = _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES)
     need = max((len(it) + 10 + 63) // 64 for it in items)
-    if need > _MAX_BLOCKS:
+    if need > max_blocks:
         return None
     blocks = _pow2_at_least(need, 1)
     if lanes * blocks * 64 > _MAX_BATCH_BYTES:
@@ -356,7 +362,8 @@ def _route(items, device, run, validate, host):
     """The routing of ``tree_root`` and ``tree_levels``: ``run`` is the
     device pass, ``validate`` its result check, ``host`` the host oracle.
     With no device named and the gate closed, or a set beyond the bucket
-    ladder, the host answers; otherwise one supervised pass under the
+    ladder (on the card, with leaves of up to ``_CARD_MAX_BLOCKS``), the
+    host answers; otherwise one supervised pass under the
     ``merkle_device`` breaker, which on a card answers or raises
     ``BackendError``."""
     from cometbft_tpu_torch.ops import dispatch_stats, supervisor
@@ -364,7 +371,8 @@ def _route(items, device, run, validate, host):
     n = len(items)
     if device is None and not device_active():
         return _on_host(n, host)
-    if _bucket_shape(items) is None:
+    on_card = supervisor._on_card(device)
+    if _bucket_shape(items, _CARD_MAX_BLOCKS if on_card else _MAX_BLOCKS) is None:
         dispatch_stats.record_tier("host", n, MERKLE_OVERSIZE)
         pstats.record_oversize()
         return _on_host(n, host)
@@ -372,8 +380,7 @@ def _route(items, device, run, validate, host):
     if out is None:  # the CPU only: the host answers below the plain version
         pstats.record_device_fallback()
         return _on_host(n, host)
-    dispatch_stats.record_tier("cuda" if supervisor._on_card(device) else "torch",
-                               n, MERKLE)
+    dispatch_stats.record_tier("cuda" if on_card else "torch", n, MERKLE)
     pstats.record_tree(n, _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES),
                        device=True)
     return out

@@ -1,16 +1,20 @@
-"""Header and Commit (reference: types/block.go).
+"""Block, Header, Data and Commit (reference: types/block.go).
 
 ``Header.hash()`` is the Merkle root over the proto-encoded header fields
 (reference: types/block.go Header.Hash).  A Commit carries one CommitSig
 per validator in validator-set order, and ``vote_sign_bytes``
 reconstructs the exact canonical vote each validator signed (reference:
-types/block.go:901).  Both hashes go through the port's hashing plane
-(``proofserve/plane``), as in the JAX package.
+types/block.go:901).  Every hash (header, commit, data, evidence list,
+and the part set a block is cut into) goes through the port's hashing
+plane (``proofserve/plane``), as in the JAX package: a tree of 32 or more
+leaves is one pass of the card's tree kernel once the plane's gate is
+open.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Optional
 
 import numpy as np
 
@@ -26,6 +30,7 @@ from cometbft_tpu_torch.types.basic import (
     Timestamp,
 )
 from cometbft_tpu_torch.types.canonical import canonical_vote_sign_bytes
+from cometbft_tpu_torch.types.part_set import PartSet
 from cometbft_tpu_torch.types.vote import CommitSig
 
 
@@ -89,6 +94,35 @@ class Header:
         if self.proposer_address and len(self.proposer_address) != 20:
             return "invalid proposer address"
         return None
+
+
+@dataclass
+class Data:
+    txs: list[bytes] = field(default_factory=list)
+
+    def hash(self) -> bytes:
+        return plane.tree_hash(list(self.txs))
+
+
+@dataclass
+class ExtendedCommit:
+    """A commit whose signatures carry the precommits' vote extensions
+    (reference: types/block.go ExtendedCommit).  Persisted by the block
+    store when extensions are enabled so a restarting proposer can still
+    hand the app its ExtendedCommitInfo."""
+
+    height: int
+    round_: int
+    block_id: "BlockID"
+    extended_signatures: list
+
+    def to_commit(self) -> "Commit":
+        return Commit(
+            height=self.height,
+            round_=self.round_,
+            block_id=self.block_id,
+            signatures=[s.to_commit_sig() for s in self.extended_signatures],
+        )
 
 
 @dataclass
@@ -191,4 +225,94 @@ class Commit:
                     return "invalid validator address"
                 if not cs.signature or len(cs.signature) > 96:
                     return "invalid signature size"
+        return None
+
+
+def empty_commit() -> Commit:
+    return Commit(height=0, round_=0, block_id=BlockID(), signatures=[])
+
+
+def commit_sigs(commit) -> list:
+    """Signature list of a plain or extended commit (``is None`` test, not
+    truthiness: a decoded-empty extended signature list must not fall
+    through to a ``signatures`` attribute ExtendedCommit lacks)."""
+    ext = getattr(commit, "extended_signatures", None)
+    return commit.signatures if ext is None else ext
+
+
+def commit_vote(commit, idx: int):
+    """Reconstruct validator idx's precommit from a stored commit
+    (reference: types/block.go Commit.GetByIndex).  Works for plain and
+    extended commits — extended signatures restore the vote extension,
+    without which peers at extension-enabled heights reject the vote.
+    Returns None for an absent signature."""
+    from cometbft_tpu_torch.types.vote import Vote
+
+    cs = commit_sigs(commit)[idx]
+    if cs.absent():
+        return None
+    return Vote(
+        type_=PRECOMMIT_TYPE,
+        height=commit.height,
+        round_=commit.round_,
+        block_id=cs.block_id(commit.block_id),
+        timestamp=cs.timestamp,
+        validator_address=cs.validator_address,
+        validator_index=idx,
+        signature=cs.signature,
+        extension=getattr(cs, "extension", b""),
+        extension_signature=getattr(cs, "extension_signature", b""),
+    )
+
+
+@dataclass
+class Block:
+    header: Header
+    data: Data
+    last_commit: Commit
+    evidence: list = field(default_factory=list)
+
+    def fill_header_hashes(self) -> None:
+        if not self.header.last_commit_hash:
+            self.header.last_commit_hash = self.last_commit.hash()
+        if not self.header.data_hash:
+            self.header.data_hash = self.data.hash()
+        if not self.header.evidence_hash:
+            self.header.evidence_hash = plane.tree_hash(
+                [ev.hash() for ev in self.evidence]
+            )
+
+    def hash(self) -> bytes:
+        self.fill_header_hashes()
+        return self.header.hash()
+
+    def encode(self) -> bytes:
+        """Deterministic serialization for parts/storage."""
+        from cometbft_tpu_torch.types import codec
+
+        return codec.encode_block(self)
+
+    def make_part_set(self, part_size: int = 65536) -> PartSet:
+        return PartSet.from_data(self.encode(), part_size)
+
+    def block_id(self, part_set: Optional[PartSet] = None) -> BlockID:
+        ps = part_set or self.make_part_set()
+        return BlockID(hash=self.hash(), part_set_header=ps.header)
+
+    def validate_basic(self) -> str | None:
+        err = self.header.validate_basic()
+        if err:
+            return err
+        err = self.last_commit.validate_basic()
+        if err:
+            return err
+        self.fill_header_hashes()
+        if self.header.last_commit_hash != self.last_commit.hash():
+            return "last commit hash mismatch"
+        if self.header.data_hash != self.data.hash():
+            return "data hash mismatch"
+        if self.header.evidence_hash != plane.tree_hash(
+            [ev.hash() for ev in self.evidence]
+        ):
+            return "evidence hash mismatch"
         return None

@@ -274,6 +274,20 @@ def finish_commit_light(prepared: PreparedCommit, bits) -> None:
     )
 
 
+def require_device(device=None):
+    """The device rule of the entry points that verify commits on a
+    caller's behalf (``state/execution.BlockExecutor``,
+    ``evidence/pool.EvidencePool``), checked when they are built: ``None``
+    means the card, unless ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` asks for
+    the CPU; a CUDA request with no card raises here rather than at the
+    first commit.  Returns ``device``."""
+    if device is not None or cbatch.env_backend() != "cpu":
+        from cometbft_tpu_torch.ops.verify import resolve_device
+
+        resolve_device(device)
+    return device
+
+
 def verify_commit(
     chain_id: str,
     vals: ValidatorSet,

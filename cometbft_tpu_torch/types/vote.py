@@ -1,18 +1,24 @@
-"""Vote and CommitSig (reference: types/vote.go, types/block.go)."""
+"""Vote, CommitSig, ExtendedCommitSig and Proposal (reference:
+types/vote.go, types/block.go, types/proposal.go)."""
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 from cometbft_tpu_torch.types.basic import (
     BLOCK_ID_FLAG_ABSENT,
     BLOCK_ID_FLAG_COMMIT,
+    BLOCK_ID_FLAG_NIL,
     PRECOMMIT_TYPE,
     PREVOTE_TYPE,
     BlockID,
     Timestamp,
 )
-from cometbft_tpu_torch.types.canonical import canonical_vote_sign_bytes
+from cometbft_tpu_torch.types.canonical import (
+    canonical_proposal_sign_bytes,
+    canonical_vote_extension_sign_bytes,
+    canonical_vote_sign_bytes,
+)
 
 
 @dataclass
@@ -39,6 +45,11 @@ class Vote:
             self.round_,
             None if self.block_id.is_zero() else self.block_id,
             self.timestamp,
+        )
+
+    def extension_sign_bytes(self, chain_id: str) -> bytes:
+        return canonical_vote_extension_sign_bytes(
+            chain_id, self.height, self.round_, self.extension
         )
 
     def validate_basic(self) -> str | None:
@@ -82,6 +93,9 @@ class Vote:
             priority=verifysched.PRIO_CONSENSUS,
         )
 
+    def copy(self) -> "Vote":
+        return replace(self)
+
 
 @dataclass
 class CommitSig:
@@ -97,3 +111,88 @@ class CommitSig:
 
     def for_block(self) -> bool:
         return self.block_id_flag == BLOCK_ID_FLAG_COMMIT
+
+    def block_id(self, commit_block_id: BlockID) -> BlockID:
+        if self.block_id_flag == BLOCK_ID_FLAG_COMMIT:
+            return commit_block_id
+        return BlockID()
+
+    @staticmethod
+    def absent_sig() -> "CommitSig":
+        return CommitSig(BLOCK_ID_FLAG_ABSENT)
+
+    @staticmethod
+    def from_vote(vote: Vote) -> "CommitSig":
+        flag = BLOCK_ID_FLAG_NIL if vote.is_nil() else BLOCK_ID_FLAG_COMMIT
+        return CommitSig(
+            block_id_flag=flag,
+            validator_address=vote.validator_address,
+            timestamp=vote.timestamp,
+            signature=vote.signature,
+        )
+
+
+@dataclass
+class ExtendedCommitSig(CommitSig):
+    """CommitSig + the precommit's vote extension (reference:
+    types/block.go ExtendedCommitSig)."""
+
+    extension: bytes = b""
+    extension_signature: bytes = b""
+
+    @staticmethod
+    def absent_ext_sig() -> "ExtendedCommitSig":
+        return ExtendedCommitSig(BLOCK_ID_FLAG_ABSENT)
+
+    @staticmethod
+    def from_extended_vote(vote: Vote) -> "ExtendedCommitSig":
+        flag = BLOCK_ID_FLAG_NIL if vote.is_nil() else BLOCK_ID_FLAG_COMMIT
+        return ExtendedCommitSig(
+            block_id_flag=flag,
+            validator_address=vote.validator_address,
+            timestamp=vote.timestamp,
+            signature=vote.signature,
+            extension=vote.extension,
+            extension_signature=vote.extension_signature,
+        )
+
+    def to_commit_sig(self) -> CommitSig:
+        return CommitSig(
+            block_id_flag=self.block_id_flag,
+            validator_address=self.validator_address,
+            timestamp=self.timestamp,
+            signature=self.signature,
+        )
+
+
+@dataclass
+class Proposal:
+    height: int
+    round_: int
+    pol_round: int  # -1 when no proof-of-lock
+    block_id: BlockID
+    timestamp: Timestamp
+    signature: bytes = b""
+
+    def sign_bytes(self, chain_id: str) -> bytes:
+        return canonical_proposal_sign_bytes(
+            chain_id,
+            self.height,
+            self.round_,
+            self.pol_round,
+            None if self.block_id.is_zero() else self.block_id,
+            self.timestamp,
+        )
+
+    def validate_basic(self) -> str | None:
+        if self.height < 0:
+            return "negative height"
+        if self.round_ < 0:
+            return "negative round"
+        if self.pol_round < -1 or self.pol_round >= self.round_:
+            return "invalid pol_round"
+        if not self.block_id.is_complete():
+            return "proposal block id must be complete"
+        if not self.signature:
+            return "missing signature"
+        return None

@@ -12,7 +12,11 @@ ladder), and a validator-set hash at the tree
 plane's width (on the host and on the plain tree version), and a
 ``SecretConnection`` round trip on the plain versions of the transport
 kernels (the handshake's ladders through the pool, frames through the
-plane), and checks that neither name reached ``sys.modules``.
+plane), and a node's apply path (``tests/torch_chain``: genesis, the
+KVStore app through ``LocalClient``, two blocks cut into part sets, saved
+in the block store and applied by ``BlockExecutor`` over ``MemKV``, the
+LastCommit through the plain version), and checks that neither name
+reached ``sys.modules``.
 """
 
 import ast
@@ -99,6 +103,33 @@ def test_port_files_exist():
         "cometbft_tpu_torch/p2p/transportplane.py",
         "cometbft_tpu_torch/p2p/handshake_pool.py",
         "cometbft_tpu_torch/p2p/secret_connection.py",
+        "cometbft_tpu_torch/version.py",
+        "cometbft_tpu_torch/utils/fail.py",
+        "cometbft_tpu_torch/libs/log.py",
+        "cometbft_tpu_torch/libs/sync.py",
+        "cometbft_tpu_torch/abci/types.py",
+        "cometbft_tpu_torch/abci/application.py",
+        "cometbft_tpu_torch/abci/kvstore.py",
+        "cometbft_tpu_torch/abci/client.py",
+        "cometbft_tpu_torch/types/params.py",
+        "cometbft_tpu_torch/types/genesis.py",
+        "cometbft_tpu_torch/types/block.py",
+        "cometbft_tpu_torch/types/part_set.py",
+        "cometbft_tpu_torch/types/evidence.py",
+        "cometbft_tpu_torch/types/codec.py",
+        "cometbft_tpu_torch/types/events.py",
+        "cometbft_tpu_torch/libs/pubsub.py",
+        "cometbft_tpu_torch/libs/storage_stats.py",
+        "cometbft_tpu_torch/libs/diskguard.py",
+        "cometbft_tpu_torch/store/kv.py",
+        "cometbft_tpu_torch/store/block_store.py",
+        "cometbft_tpu_torch/state/state.py",
+        "cometbft_tpu_torch/state/store.py",
+        "cometbft_tpu_torch/state/execution.py",
+        "cometbft_tpu_torch/evidence/stats.py",
+        "cometbft_tpu_torch/evidence/verify.py",
+        "cometbft_tpu_torch/evidence/pool.py",
+        "cometbft_tpu_torch/mempool/clist_mempool.py",
     ):
         assert need in names
     assert {p.name for p in NATIVE_FILES} >= {
@@ -230,6 +261,17 @@ assert dispatch_stats.tier_counts("x25519")["torch"][1] == 4
 assert dispatch_stats.tier_counts("aead")["torch"][1] >= 16
 from cometbft_tpu_torch.p2p import handshake_pool
 handshake_pool.reset_pool()
+# a node's apply path: two heights over MemKV, the LastCommit of height 2
+# through the plain version on the CPU
+sys.path.insert(0, "tests")
+import torch_chain
+cpu = {"device": "cpu"}
+chain, rec = torch_chain.drive("cometbft_tpu_torch", heights=2, evidence_at=0,
+                               executor_kw=cpu, pool_kw=cpu)
+assert chain.block_store.height() == 2 and chain.state.last_block_height == 2
+assert chain.state_store.load().to_json() == chain.state.to_json() == rec[-1][0]
+assert chain.block_store.load_block(2).hash() == chain.state.last_block_id.hash
+assert dispatch_stats.tier_counts()["torch"] == (2, 5)  # the votes', the commit's
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)
