@@ -276,6 +276,38 @@ served by the torch or host tier, or one that raised, fails the run.
               SQLite files reopened: the state, ``load_validators`` and every
               block equal to what was applied; each block's apply wall and
               its parts, the part-set build, the loads' times.
+ 18. consensus — the consensus core, a path of its own.  Part A: four
+              validators (CometBFT's ``make localnet-start``), each built by
+              ``sim/node.build_node`` on the card (the batch backend resolved
+              before it returns, so the verify scheduler takes the first
+              vote) with an on-disk root (``pv_key.json``, ``pv_state.json``,
+              ``cs.wal``), threaded, at ``ConsensusConfig()`` and
+              ``MempoolConfig()`` defaults, wired by a loopback relay
+              (``broadcast_hook`` -> ``add_peer_message``, with the sim's
+              catchup scan); before each height every mempool is offered
+              the same 5,000 KVStore txs of 256 bytes (a full mempool, seed
+              CONSENSUS_SEED); every proposal and vote signature through
+              ``verifysched.verify_cached`` -> the Ed25519 kernel, the data
+              and results hashes through the tree kernel.  After five
+              heights node 3 is stopped, the signature cache cleared, and it
+              is rebuilt from its MemKV and root (the Handshaker replays the
+              app, the WAL's catchup replay its height) and catches up; all
+              four commit two more heights and it signs both.  Asserted: one
+              block hash and one app hash per height everywhere, its state
+              equal to its stores, its ``pv_state.json`` never stepping back,
+              no evidence, the scheduler active before the first start, its
+              consensus-class submissions at least the distinct proposals and
+              votes, no shed fallback, every Ed25519 batch and tree pass on
+              ``cuda`` and none raised, both kernels equal to their plain
+              versions on the path's own inputs.  Printed: each height's
+              wall, rounds, txs, launches and lanes per launch; each node's
+              apply split (medians over heights); vote-verify latency; the
+              restart's replay; the card's busy share (derived).  Part B:
+              ``tests/torch_sim.py``'s seeded virtual-time network (four
+              validators, 64 txs a height, five heights) on the card and,
+              in a fresh process with ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``
+              (``--sim-child``), on the CPU: equal block hashes, app hashes,
+              ``#ENDHEIGHT`` sets and event traces.
 
 The script sets ``COMETBFT_TPU_WARMBOOT=0`` for its own process: a
 background warm pass would add self-check launches to the phases'
@@ -444,6 +476,20 @@ BLOCKEXEC_EQUIVOCATOR = 11  # the equivocating validator (set order, that height
 BLOCKEXEC_ABSENT = 123  # the absent signer of every commit (set order)
 BLOCKEXEC_BAD_SIG = 5_000  # the tampered LastCommit signature of the bad block
 BLOCKEXEC_SIGNERS = min(8, os.cpu_count() or 1)  # signing processes (set-up only)
+CONSENSUS_CHAIN = "consensus-chain"
+CONSENSUS_SEED = SEED + 17  # the txs offered before each height
+CONSENSUS_NODES = 4  # CometBFT's make localnet-start: node0-node3
+CONSENSUS_TXS = 5_000  # MempoolConfig().size: a full mempool before each height
+CONSENSUS_TX_BYTES = 256
+CONSENSUS_HEIGHTS = 5  # committed by all four before the restart
+CONSENSUS_RESTARTED = 3  # the validator stopped and rebuilt from its stores
+CONSENSUS_AFTER = 2  # heights all four commit after the restarted one caught up
+CONSENSUS_TIMEOUT_S = 240.0  # each wait of the threaded run
+CONSENSUS_CATCHUP_S = 0.5  # the relay's catchup scan (the sim's CATCHUP_INTERVAL)
+SIM_SEED = 42  # part B: the seeded virtual-time network of tests/torch_sim.py
+SIM_HEIGHTS = 5
+SIM_TXS = 64
+SIM_CHILD_TIMEOUT_S = 300
 
 
 class SmokeError(AssertionError):
@@ -4137,6 +4183,589 @@ def blockexec_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
     return {"ed25519": path_ed, "tree": path_tree}
 
 
+def load_torch_sim():
+    """``tests/torch_sim.py``, the seeded virtual-time network's drive loop
+    that the CPU differential tests use, loaded by path: the one test helper
+    this script runs, so that the card's run and the tests cannot drift
+    apart."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_sim.py")
+    spec = importlib.util.spec_from_file_location("torch_sim", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def sim_run(device) -> dict:
+    """Part B of phase 18: four validators on the seeded virtual-time
+    network (``threaded=False``), SIM_TXS txs a height, to SIM_HEIGHTS;
+    what must agree between the card and the CPU."""
+    from cometbft_tpu_torch.ops import dispatch_stats as ds
+    from cometbft_tpu_torch.ops import sha256_tree as st
+
+    ts = load_torch_sim()
+    with tempfile.TemporaryDirectory(prefix="sim-") as d:
+        c = ts.run_script(ts.PORT, d, "clean", seed=SIM_SEED, heights=SIM_HEIGHTS,
+                          txs_per_height=SIM_TXS, device=device)
+        try:
+            out = {"chain": c.chain(SIM_HEIGHTS), "heights": c.heights(),
+                   "events": c.events_fired, "violations": len(c.checker.violations),
+                   "commits_verified": c.checker.commits_verified,
+                   "trace_lines": len(c.trace),
+                   "trace_sha256": hashlib.sha256("\n".join(c.trace).encode()).hexdigest(),
+                   "ed25519": ds.tier_counts(), "merkle": ds.tier_counts(st.MERKLE)}
+        finally:
+            c.stop()
+    return json.loads(json.dumps(out))
+
+
+def sim_child(path: str) -> int:
+    """Part B's CPU side, in a fresh process with
+    ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` (the verify scheduler's gate is
+    process-wide: once the card's self-check has passed, an in-process run
+    on ``device="cpu"`` would still send its votes to the card)."""
+    check(os.environ.get("COMETBFT_TPU_CRYPTO_BACKEND") == "cpu",
+          "sim child: COMETBFT_TPU_CRYPTO_BACKEND is not cpu")
+    with open(path, "w") as f:
+        json.dump(sim_run("cpu"), f)
+    return 0
+
+
+class NodeTimer:
+    """Wall ms of named calls of one validator, summed per (height, label):
+    ``wrap`` replaces ``obj.name`` (an instance's attribute) with a timing
+    wrapper keyed by the node's consensus height at the call."""
+
+    def __init__(self):
+        self.ms = collections.defaultdict(float)
+
+    def wrap(self, cs, obj, name: str, label: str) -> None:
+        real = getattr(obj, name)
+        ms = self.ms
+
+        def timed(*a, **kw):
+            h = cs.rs.height
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                ms[(h, label)] += (time.perf_counter() - t0) * 1e3
+
+        setattr(obj, name, timed)
+
+    def medians(self, heights) -> dict:
+        labels = sorted({k for _, k in self.ms})
+        return {k: round(statistics.median(self.ms.get((h, k), 0.0) for h in heights), 3)
+                for k in labels}
+
+
+class ErrorLog:
+    """The logger of a phase-18 validator: keeps its errors (a consensus
+    failure logs one and carries on), drops the rest."""
+
+    def __init__(self, index: int, into: list):
+        self.index, self.into = index, into
+
+    def error(self, msg: str, **kv) -> None:
+        self.into.append((self.index, msg, kv.get("err", "")))
+
+    def debug(self, msg: str, **kv) -> None:
+        pass
+
+    info = warn = debug
+
+
+def consensus_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
+    """Phase 18: the consensus core.  Part A: four threaded validators at
+    CometBFT's default settings, each built by ``sim/node.build_node`` on
+    the card with an on-disk root, wired by a loopback relay, full mempools
+    before each height; one is stopped after CONSENSUS_HEIGHTS, rebuilt
+    from its stores (its WAL replayed, the Handshaker replaying the app)
+    and signs again.  Part B: the seeded virtual-time network of
+    ``tests/torch_sim.py`` on the card and on the CPU, byte for byte.
+    Returns {"ed25519": launches, "tree": launches} of both parts."""
+    import pathlib
+    import threading
+
+    import numpy as np
+
+    from cometbft_tpu_torch import verifysched
+    from cometbft_tpu_torch.config.config import ConsensusConfig, MempoolConfig
+    from cometbft_tpu_torch.consensus.messages import (
+        BlockPartMessage, ProposalMessage, VoteMessage)
+    from cometbft_tpu_torch.consensus.types import STEP_COMMIT, STEP_PREVOTE
+    from cometbft_tpu_torch.mempool.clist_mempool import MempoolError
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.sim.node import build_node, make_genesis
+    from cometbft_tpu_torch.state.state import state_from_genesis
+    from cometbft_tpu_torch.types.basic import BLOCK_ID_FLAG_COMMIT
+    from cometbft_tpu_torch.types.block import commit_vote
+    from cometbft_tpu_torch.types.vote import Vote
+    from cometbft_tpu_torch.verifysched import stats as vstats
+
+    t_phase = time.perf_counter()
+    n_nodes, who = CONSENSUS_NODES, CONSENSUS_RESTARTED
+    cfg, mcfg = ConsensusConfig(), MempoolConfig()
+    privs, gdoc = make_genesis(n_nodes, CONSENSUS_CHAIN)
+    params = state_from_genesis(gdoc).consensus_params
+    root = pathlib.Path(tempfile.mkdtemp(prefix="consensus-"))
+    nodes: list = [None] * n_nodes
+    timers = [NodeTimer() for _ in range(n_nodes)]
+    errors: list = []  # (node, message, error) logged by the validators
+    hook_errors: list = []  # what the phase's own hooks raised
+    seen: set = set()  # distinct proposal and vote signatures on the wire
+    catchups = collections.Counter()
+    txs_cache, txs_lock, fed = {}, threading.Lock(), {}
+    feed_ms = collections.defaultdict(list)
+    admitted = collections.defaultdict(list)
+    vote_lat: list = []
+    kept_ed, kept_tree = {}, {}
+    real_ed, real_tree, real_verify = cv.verify_core_cuda, csh.tree_words, Vote.verify
+    stop_relay = threading.Event()
+    relay = None
+
+    def txs_at(h: int) -> list:
+        with txs_lock:
+            if h not in txs_cache:
+                rng = np.random.default_rng([CONSENSUS_SEED, h])
+                hexed = rng.bytes(CONSENSUS_TXS * CONSENSUS_TX_BYTES // 2).hex().encode()
+                out = []
+                for i in range(CONSENSUS_TXS):
+                    head = b"c%d-%04d=" % (h, i)
+                    o = i * CONSENSUS_TX_BYTES
+                    out.append(head + hexed[o : o + CONSENSUS_TX_BYTES - len(head)])
+                txs_cache[h] = out
+            return txs_cache[h]
+
+    def feed(node, h: int) -> None:
+        """Offer ``node``'s mempool height ``h``'s txs (the relay stands in
+        for the mempool reactor)."""
+        if fed.get(node.index, 0) >= h:
+            return
+        fed[node.index] = h
+        t0 = time.perf_counter()
+        ok = 0
+        for tx in txs_at(h):
+            try:
+                node.mempool.check_tx(tx)
+                ok += 1
+            except MempoolError:
+                pass
+        feed_ms[node.index].append(round((time.perf_counter() - t0) * 1e3, 3))
+        admitted[node.index].append(ok)
+
+    def wire(node) -> None:
+        """The loopback relay (tests/net_harness.py's LoopbackNet): every
+        message a validator makes goes to the other live validators'
+        queues; after each height its mempool is offered the next
+        height's txs; its apply path is timed call by call."""
+        i = node.index
+
+        def broadcast(msg):
+            if isinstance(msg, ProposalMessage):
+                seen.add(msg.proposal.signature)
+            elif isinstance(msg, VoteMessage):
+                seen.add(msg.vote.signature)
+            for peer in list(nodes):
+                if peer is not None and peer.index != i:
+                    peer.cs.add_peer_message(msg, peer_id=f"node{i}")
+
+        real_update = node.cs.update_to_state
+
+        def update_to_state(state):
+            real_update(state)
+            try:
+                feed(node, state.last_block_height + 1)
+            except BaseException as e:  # noqa: BLE001 — the main loop raises it
+                hook_errors.append((i, repr(e)))
+                raise
+
+        node.cs.broadcast_hook = broadcast
+        node.cs.update_to_state = update_to_state
+        node.cs.logger = ErrorLog(i, errors)
+        tm, ex = timers[i], node.cs.block_exec
+        for obj, name, label in (
+                (ex, "apply_verified_block", "apply_verified_block"),
+                (ex, "validate_block", "validate_block"),
+                (node.app, "finalize_block", "finalize_block"),
+                (ex, "_update_state", "update_state"),
+                (ex, "_commit", "app_commit"),
+                (node.evidence_pool, "update", "evidence_update"),
+                (node.state_store, "save_finalize_block_response", "state_store_writes"),
+                (node.state_store, "save", "state_store_writes"),
+                (ex, "_fire_events", "events"),
+                (node.block_store, "save_block", "save_block")):
+            tm.wrap(node.cs, obj, name, label)
+
+    def catchup_loop() -> None:
+        """The reactor's gossipDataForCatchup, as the sim's catchup tick: a
+        validator still working on a height another has stored gets that
+        height's seen-commit votes and block parts, once it has been
+        behind at two scans in a row (a validator a few ms behind its
+        peers' commit gets nothing)."""
+        behind: dict = {}
+        while not stop_relay.wait(CONSENSUS_CATCHUP_S):
+            live = [n for n in nodes if n is not None]
+            for node in live:
+                want = node.cs.rs.height
+                helper = next((p for p in live if p.index != node.index
+                               and p.block_store.height() >= want), None)
+                was, behind[node.index] = behind.get(node.index), (
+                    want if helper is not None else None)
+                if helper is None or was != want:
+                    continue
+                commit = helper.block_store.load_seen_commit(want)
+                meta = helper.block_store.load_block_meta(want)
+                if commit is None or meta is None:
+                    continue
+                catchups[node.index] += 1
+                peer = f"node{helper.index}"
+                for idx in range(len(commit.signatures)):
+                    vote = commit_vote(commit, idx)
+                    if vote is not None:
+                        node.cs.add_peer_message(VoteMessage(vote), peer_id=peer)
+                for pi in range(meta.block_id.part_set_header.total):
+                    part = helper.block_store.load_block_part(want, pi)
+                    if part is not None:
+                        node.cs.add_peer_message(
+                            BlockPartMessage(height=want, round_=commit.round_, part=part),
+                            peer_id=peer)
+
+    def keep_ed(**t):
+        kept_ed.setdefault(int(t["s_ok"].shape[0]), {k: v.clone() for k, v in t.items()})
+        return real_ed(**t)
+
+    def keep_tree(data, offs):
+        kept_tree.setdefault(int(offs.shape[0]) - 1, (data.clone(), offs.clone()))
+        return real_tree(data, offs)
+
+    def timed_verify(self, chain_id, pub_key):
+        t0 = time.perf_counter()
+        try:
+            return real_verify(self, chain_id, pub_key)
+        finally:
+            vote_lat.append(time.perf_counter() - t0)
+
+    def live() -> list:
+        return [n for n in nodes if n is not None]
+
+    def heights() -> list:
+        return [-1 if n is None else n.block_store.height() for n in nodes]
+
+    rows, marks = [], {}
+
+    def mark() -> None:
+        """A row per height once every live validator has stored it: the
+        wall and the launches since the previous one."""
+        low = min(n.block_store.height() for n in live())
+        while marks["h"] < low:
+            h = marks["h"] = marks["h"] + 1
+            now, cuda = time.perf_counter(), ds.tier_counts()["cuda"]
+            meta = live()[0].block_store.load_block_meta(h)
+            commit = live()[0].block_store.load_seen_commit(h)
+            batches, lanes = cuda[0] - marks["cuda"][0], cuda[1] - marks["cuda"][1]
+            rows.append({
+                "height": h, "wall_ms": round((now - marks["t"]) * 1e3, 3),
+                "rounds": commit.round_ + 1, "txs": meta.num_txs,
+                "parts": meta.block_id.part_set_header.total,
+                "ed25519_launches": cv.launches - marks["ed"],
+                "lanes_per_launch": round(lanes / batches, 3) if batches else None,
+                "tree_launches": csh.launches - marks["tree"]})
+            print(f"consensus: height {json.dumps(rows[-1])} {tag}")
+            marks.update(t=now, cuda=cuda, ed=cv.launches, tree=csh.launches)
+
+    def run_until(done, what: str) -> None:
+        deadline = time.perf_counter() + CONSENSUS_TIMEOUT_S
+        while not done():
+            check(not hook_errors, f"consensus: a feed raised: {hook_errors}")
+            check(time.perf_counter() < deadline, f"consensus: {what} not reached in "
+                  f"{CONSENSUS_TIMEOUT_S} s: heights {heights()}, consensus heights "
+                  f"{[n.cs.rs.height for n in live()]}, errors {errors[:5]}")
+            mark()
+            time.sleep(0.01)
+        mark()
+
+    try:
+        # -- part A: four threaded validators on the card -------------------
+        t0 = time.perf_counter()
+        for i in range(n_nodes):
+            nodes[i] = build_node(i, privs[i], gdoc, root, config=cfg, threaded=True,
+                                  mempool_config=mcfg)
+        build_s = time.perf_counter() - t0
+        active = verifysched.scheduler_active()
+        check(active, "consensus: the verify scheduler is not active after build_node "
+              "(its gate would send the first votes to verify_now on the host)")
+        for node in nodes:
+            wire(node)
+            feed(node, 1)
+        print(f"consensus: {n_nodes} validators (make_genesis, chain "
+              f"{CONSENSUS_CHAIN!r}) built by sim/node.build_node on the card in "
+              f"{build_s:.2f} s, each with an on-disk root (pv_key.json, "
+              f"pv_state.json, cs.wal) and a MemKV; ConsensusConfig() (propose "
+              f"{cfg.timeout_propose_ms} ms +{cfg.timeout_propose_delta_ms}, vote "
+              f"{cfg.timeout_vote_ms} +{cfg.timeout_vote_delta_ms}, commit "
+              f"{cfg.timeout_commit_ms}), MempoolConfig() (size {mcfg.size}, recheck "
+              f"{mcfg.recheck}), block max_bytes {params.block.max_bytes}; the "
+              f"scheduler active before the first start: {active}; each mempool "
+              f"offered {CONSENSUS_TXS} txs of {CONSENSUS_TX_BYTES} bytes before "
+              f"each height (seed {CONSENSUS_SEED})")
+        cv.verify_core_cuda, csh.tree_words, Vote.verify = keep_ed, keep_tree, timed_verify
+        ds.reset()
+        vstats.reset()
+        cv.reset_launches()
+        csh.reset_launches()
+        marks.update(h=0, t=time.perf_counter(), cuda=(0, 0), ed=0, tree=0)
+        t_run = time.perf_counter()
+        for node in nodes:
+            node.cs.start()
+        relay = threading.Thread(target=catchup_loop, name="relay-catchup", daemon=True)
+        relay.start()
+        run_until(lambda: min(heights()) >= CONSENSUS_HEIGHTS,
+                  f"height {CONSENSUS_HEIGHTS} on every validator")
+        first_wall = time.perf_counter() - t_run
+
+        # -- stop one validator, rebuild it from its stores -----------------
+        victim = nodes[who]
+        home = root / f"node{who}"
+        # mid-height, between its proposal and its commit: the WAL then holds
+        # the proposal, parts and votes its replay verifies again.  Each
+        # message takes far less than stop()'s 5 s join, so the receive
+        # thread has left before stop() closes the WAL
+        run_until(lambda: victim.cs.rs.height > CONSENSUS_HEIGHTS
+                  and STEP_PREVOTE <= victim.cs.rs.step < STEP_COMMIT,
+                  f"node{who} between a proposal and a commit")
+        nodes[who] = None
+        stopped_at = victim.block_store.height()
+        victim.cs.stop()
+        victim.app_conns.stop()
+        check(victim.cs._thread is None or not victim.cs._thread.is_alive(),
+              f"consensus: node{who}'s receive thread outlived stop()")
+        pv_before = json.loads((home / "pv_state.json").read_text())
+        sigcache.reset_cache()  # its replay verifies on the card again
+        l0 = cv.launches
+        t0 = time.perf_counter()
+        node = build_node(who, privs[who], gdoc, root, config=cfg,
+                          db=victim.block_store._db, threaded=True, mempool_config=mcfg)
+        handshake_s = time.perf_counter() - t0
+        records = len(node.cs.wal.replay_after_height(node.cs.state.last_block_height))
+        replayed_blocks = node.block_store.height()
+        fed.pop(who, None)
+        wire(node)
+        feed(node, node.cs.rs.height)
+        t1 = time.perf_counter()
+        node.cs.start()  # the WAL's catchup replay runs here
+        wal_s = time.perf_counter() - t1
+        replay_launches = cv.launches - l0
+        nodes[who] = node
+        print(f"consensus: node{who} stopped in height {stopped_at + 1} (pv_state "
+              f"{pv_before['height']}/{pv_before['round']}/{pv_before['step']}); "
+              f"signature cache cleared; rebuilt from its MemKV and root: "
+              f"build_node (the Handshaker: InitChain and {replayed_blocks} blocks "
+              f"replayed into a fresh app) {handshake_s * 1e3:.3f} ms, the WAL's "
+              f"catchup replay of {records} records {wal_s * 1e3:.3f} ms, "
+              f"{replay_launches} Ed25519 launches during the replay {tag}")
+        run_until(lambda: node.cs.rs.height >= max(n.cs.rs.height for n in live()),
+                  f"node{who} caught up")
+        # the next height to start: node3 takes part in it from its proposal
+        h0 = max(n.cs.rs.height for n in live()) + 1
+        # one height more: block h + 1's LastCommit is the record of who
+        # signed h (a precommit that lands after a node's +2/3 is not in
+        # that node's seen commit, but the next proposer collects it)
+        run_until(lambda: min(heights()) >= h0 + CONSENSUS_AFTER,
+                  f"height {h0 + CONSENSUS_AFTER} on every validator")
+        wall = time.perf_counter() - t_run
+        stop_relay.set()
+        relay.join(10)
+        for n in live():
+            n.cs.stop()
+            n.app_conns.stop()
+        ed_launches, tree_launches = cv.launches, csh.launches
+        cv.verify_core_cuda, csh.tree_words, Vote.verify = real_ed, real_tree, real_verify
+        snap = vstats.snapshot()
+        top = min(heights())
+
+        # -- what part A asserts --------------------------------------------
+        for h in range(1, top + 1):
+            ids = {n.block_store.load_block_meta(h).block_id.hash for n in nodes}
+            apps = {(n.block_store.load_block_meta(h + 1).header.app_hash
+                     if n.block_store.height() > h else n.state_store.load().app_hash)
+                    for n in nodes}
+            check(len(ids) == 1 and len(apps) == 1, f"consensus: height {h}: "
+                  f"{len(ids)} block hashes, {len(apps)} app hashes across the nodes")
+        st_json = node.state_store.load().to_json()
+        last = node.block_store.load_block_meta(node.block_store.height())
+        check(st_json == node.cs.state.to_json()
+              and node.cs.state.last_block_height == node.block_store.height()
+              and node.cs.state.last_block_id == last.block_id
+              and node.cs.state.app_hash == node.app.app_hash,
+              f"consensus: node{who}'s state != its stores")
+        pv_after = json.loads((home / "pv_state.json").read_text())
+        hrs = lambda d: (int(d["height"]), int(d["round"]), int(d["step"]))
+        check(hrs(pv_after) >= hrs(pv_before), f"consensus: node{who}'s pv_state stepped "
+              f"back: {hrs(pv_before)} -> {hrs(pv_after)}")
+        addr = privs[who].pub_key().address()
+        signed = {}
+
+        def has(c) -> bool:
+            return any(cs.validator_address == addr
+                       and cs.block_id_flag == BLOCK_ID_FLAG_COMMIT for cs in c.signatures)
+
+        for h in range(h0, h0 + CONSENSUS_AFTER):
+            commits = [n.block_store.load_seen_commit(h) for n in nodes]
+            in_last = has(nodes[0].block_store.load_block(h + 1).last_commit)
+            signed[h] = {"last_commit": in_last, "seen_commits": sum(map(has, commits))}
+            check(in_last or signed[h]["seen_commits"],
+                  f"consensus: node{who} signed no commit of height "
+                  f"{h}: pv_state {hrs(pv_after)}, its errors "
+                  f"{[e for e in errors if e[0] == who][:5]}, flags "
+                  f"{[[cs.block_id_flag for cs in c.signatures] for c in commits]}")
+        evidence = [ev for n in nodes for h in range(1, top + 1)
+                    for ev in n.block_store.load_block(h).evidence]
+        pending = [len(n.evidence_pool.pending_evidence(1 << 30)[0]) for n in nodes]
+        check(not evidence and not any(pending), f"consensus: evidence {evidence} "
+              f"pending {pending}: a duplicate vote")
+        submitted = snap["submitted"]["consensus"]
+        check(submitted >= len(seen), f"consensus: {submitted} consensus-class "
+              f"submissions < {len(seen)} distinct proposals and votes")
+        check(snap["shed_fallback_total"] == 0, f"consensus: shed fallbacks {snap['shed_fallback']}")
+        ed_tiers, tree_tiers = ds.tier_counts(), ds.tier_counts(st.MERKLE)
+        oversize = ds.tier_counts(st.MERKLE_OVERSIZE)
+        check(ed_tiers["cuda"][0] > 0 and ed_tiers["torch"] == (0, 0)
+              and ed_tiers["host"] == (0, 0),
+              f"consensus: Ed25519 batches below the cuda tier: {ed_tiers}")
+        check(ed_tiers["cuda"][0] == ed_launches, f"consensus: {ed_launches} Ed25519 "
+              f"launches != {ed_tiers['cuda'][0]} batches served (a batch raised)")
+        check(tree_tiers["cuda"][0] == tree_launches > 0 and tree_tiers["torch"] == (0, 0)
+              and tree_tiers["host"] == oversize["host"],
+              f"consensus: tree passes {tree_tiers} (oversize {oversize}), launches "
+              f"{tree_launches}")
+        raised = [e for e in errors if "BackendError" in e[2] or "PoisonedInput" in e[2]]
+        check(not raised, f"consensus: a verify raised: {raised[:3]}")
+        leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
+        check(not leaked, f"consensus: imported {leaked}")
+        lat = np.array(vote_lat) * 1e3
+        hist = snap["latency_hist"]["consensus"]
+        print(f"consensus: heights 1-{top} committed by all {n_nodes} validators in "
+              f"{wall:.2f} s ({CONSENSUS_HEIGHTS} in {first_wall:.2f} s before the "
+              f"restart); one block hash and one app hash per height on every node; "
+              f"node{who} resumed: state == its stores, pv_state {hrs(pv_before)} -> "
+              f"{hrs(pv_after)}, signed heights {h0}-{h0 + CONSENSUS_AFTER - 1} (in "
+              f"block h + 1's LastCommit, in how many seen commits): {signed}, no "
+              f"evidence; catchup sends per node "
+              f"{dict(catchups)}; {len(seen)} distinct proposals and votes, "
+              f"{submitted} consensus-class submissions ({snap['submit_hits']['consensus']}"
+              f" hits at submit, {snap['dedup_hits']} deduplicated in flushes), shed "
+              f"fallbacks {snap['shed_fallback_total']}; Ed25519 batches by tier "
+              f"{ed_tiers} = {ed_launches} launches; tree passes by tier {tree_tiers}, "
+              f"{tree_launches} launches, merkle_oversize {oversize['host']}; "
+              f"consensus failures logged {len(errors)} "
+              f"{collections.Counter(e[2].split('(')[0] for e in errors)} (first "
+              f"{errors[:3]}); jax not imported {tag}")
+        wait, devh = (snap[k]["consensus"] for k in ("queue_wait_hist", "device_hist"))
+        print(f"consensus: vote-verify latency (Vote.verify wall, {len(lat)} calls) "
+              f"p50 {float(np.percentile(lat, 50))} ms, p99 "
+              f"{float(np.percentile(lat, 99))} ms; verifysched/stats consensus class "
+              f"(bucket bounds) submit to verdict p50 <= {hist['p50'] * 1e3} ms, p99 <= "
+              f"{hist['p99'] * 1e3} ms, mean "
+              f"{snap['latency_seconds']['consensus'] / max(1, snap['verdicts']['consensus']) * 1e3} ms "
+              f"over {snap['verdicts']['consensus']} verdicts; of it the queue wait p50 <= "
+              f"{wait['p50'] * 1e3}, p99 <= {wait['p99'] * 1e3} ms and dispatch to fetch "
+              f"p50 <= {devh['p50'] * 1e3}, p99 <= {devh['p99'] * 1e3} ms {tag}")
+        mid = [r["height"] for r in rows if 2 <= r["height"] <= top]
+        for i in range(n_nodes):
+            print(f"consensus: node{i} apply split, median of heights {mid[0]}-"
+                  f"{mid[-1]} (ms; validate_block twice a height: the proposal and "
+                  f"the commit): {json.dumps(timers[i].medians(mid))}; mempool feed "
+                  f"ms {feed_ms[i]}, admitted {admitted[i]} {tag}")
+
+        # -- the kernels against their plain versions, on the path's inputs
+        worst_ed = worst_tree = 0
+        for lanes, t in sorted(kept_ed.items()):
+            kern, plain = cv.verify_core_cuda(**t), ov.verify_core(**t)
+            worst_ed = max(worst_ed, int((kern.int() - plain.int()).abs().max()))
+            check(torch.equal(kern, plain), f"consensus: Ed25519 kernel != plain at {lanes} lanes")
+        for leaves, (data, offs) in sorted(kept_tree.items()):
+            kern, plain = csh.tree_words(data, offs), st.tree_words_plain(data, offs)
+            worst_tree = max(worst_tree, int((kern.long() - plain.long()).abs().max()))
+            check(torch.equal(kern, plain), f"consensus: tree kernel != plain at {leaves} leaves")
+        check(kept_ed and kept_tree, "consensus: no input reached a kernel")
+        mean_lanes = ed_tiers["cuda"][1] / ed_tiers["cuda"][0]
+        ed_lanes = min(kept_ed, key=lambda k: abs(k - mean_lanes))
+        ed_ms = cuda_ms(torch, lambda: cv.verify_core_cuda(**kept_ed[ed_lanes]), 10, 2,
+                        queued=True)
+        tree_leaves = max(kept_tree)
+        tree_ms = cuda_ms(torch, lambda: csh.tree_words(*kept_tree[tree_leaves]), 10, 2,
+                          queued=True)
+        busy = (ed_launches * ed_ms + tree_launches * tree_ms) / (wall * 1e3)
+        print(f"consensus: on the path's own inputs, the Ed25519 kernel == its plain "
+              f"version bit for bit at {sorted(kept_ed)} lanes (max_abs_err {worst_ed}) "
+              f"and the tree kernel at {sorted(kept_tree)} leaves (max_abs_err "
+              f"{worst_tree}); device time alone {ed_ms} ms at {ed_lanes} lanes and "
+              f"{tree_ms} ms at {tree_leaves} leaves (CUDA events, queued): the card "
+              f"busy ~{busy:.4%} of the run's {wall:.2f} s (derived: launches x those "
+              f"times) {tag}")
+
+        # -- part B: the seeded virtual-time network, card against CPU ------
+        cv.reset_launches()
+        csh.reset_launches()
+        ds.reset()
+        t0 = time.perf_counter()
+        card = sim_run(None)
+        card_s = time.perf_counter() - t0
+        sim_ed, sim_tree = cv.launches, csh.launches
+        with tempfile.TemporaryDirectory(prefix="sim-child-") as d:
+            out = os.path.join(d, "cpu.json")
+            env = dict(os.environ, COMETBFT_TPU_CRYPTO_BACKEND="cpu")
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                   "--sim-child", out], env=env, capture_output=True,
+                                  text=True, timeout=SIM_CHILD_TIMEOUT_S)
+            cpu_s = time.perf_counter() - t0
+            check(proc.returncode == 0, f"consensus: the CPU child failed: "
+                  f"{proc.stderr[-2000:]}")
+            with open(out) as f:
+                cpu = json.load(f)
+        check(card["ed25519"]["cuda"][0] == sim_ed > 0
+              and card["ed25519"]["torch"] == [0, 0] and card["ed25519"]["host"] == [0, 0],
+              f"consensus: part B's Ed25519 on the card {card['ed25519']}, {sim_ed} launches")
+        check(cpu["ed25519"]["cuda"] == [0, 0] and cpu["merkle"]["cuda"] == [0, 0],
+              f"consensus: the CPU child reached the cuda tier: {cpu['ed25519']} "
+              f"{cpu['merkle']}")
+        for side in (card, cpu):
+            check(min(side["heights"]) >= SIM_HEIGHTS and side["violations"] == 0,
+                  f"consensus: part B heights {side['heights']}, violations "
+                  f"{side['violations']}")
+        check(card["chain"] == cpu["chain"], "consensus: part B's block or app hashes "
+              "differ between the card and the CPU")
+        check(card["trace_sha256"] == cpu["trace_sha256"],
+              "consensus: part B's event traces differ between the card and the CPU")
+        print(f"consensus: part B, tests/torch_sim.py's seeded network ({CONSENSUS_NODES} "
+              f"validators, threaded=False, VirtualClock, SimNetwork seed {SIM_SEED}, "
+              f"{SIM_TXS} txs a height, {SIM_HEIGHTS} heights): on the card "
+              f"{card_s:.2f} s (Ed25519 {card['ed25519']}, {sim_ed} launches; tree "
+              f"{card['merkle']}, {sim_tree} launches), on the CPU in a fresh process "
+              f"(COMETBFT_TPU_CRYPTO_BACKEND=cpu) {cpu_s:.2f} s (Ed25519 "
+              f"{cpu['ed25519']}, tree {cpu['merkle']}); equal block and app hashes at "
+              f"every height on every node, equal #ENDHEIGHT sets, equal event traces "
+              f"({card['trace_lines']} lines, sha256 {card['trace_sha256'][:16]}), "
+              f"{card['commits_verified']} commits verified by the invariant checker, "
+              f"no violation {tag}")
+        print(f"consensus: the phase took {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        cv.verify_core_cuda, csh.tree_words, Vote.verify = real_ed, real_tree, real_verify
+        stop_relay.set()
+        for n in live():
+            n.cs.stop()
+            n.app_conns.stop()
+        verifysched.reset_scheduler()
+        shutil.rmtree(root, ignore_errors=True)
+    return {"ed25519": ed_launches + sim_ed, "tree": tree_launches + sim_tree}
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -4445,6 +5074,15 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"(the kernels line below keeps the earlier paths' counts: Ed25519 "
           f"{launches}, tree {light_entry['launches']})")
 
+    # -- 18. consensus: four validators, a restart, the seeded network -------
+    cs_launches = consensus_phase(torch, dev, cbatch, cv, ds, sigcache, tag)
+    print(f"consensus: the kernels' launches on its path: Ed25519 "
+          f"{cs_launches['ed25519']}, tree {cs_launches['tree']}; the kernels line "
+          f"adds them to the earlier paths' counts (Ed25519 {launches}, tree "
+          f"{light_entry['launches']})")
+    launches += cs_launches["ed25519"]
+    light_entry["launches"] += cs_launches["tree"]
+
     print("host: " + json.dumps({
         "name": native.NAME,
         "source": native.SOURCE,
@@ -4479,4 +5117,6 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--warm-child"]:
         sys.exit(warm_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--sim-child"]:
+        sys.exit(sim_child(sys.argv[2]))
     sys.exit(main())

@@ -60,6 +60,10 @@ class Ed25519PrivKey:
     type_ = ED25519_KEY_TYPE
 
     @staticmethod
+    def generate() -> "Ed25519PrivKey":
+        return Ed25519PrivKey(ed25519_ref.generate_seed())
+
+    @staticmethod
     def from_seed(seed: bytes) -> "Ed25519PrivKey":
         return Ed25519PrivKey(seed)
 

@@ -7,7 +7,10 @@
 //    when s >= L);
 //  * commit_sign_bytes: the protoio length-delimited CanonicalVote of every
 //    signature of one commit (reference: types/canonical.go:57,
-//    types/vote.go:151).
+//    types/vote.go:151);
+//  * the consensus WAL's writer (wal_open, wal_append, wal_sync, wal_size,
+//    wal_close): CRC32 + length framed appends with the fsync discipline of
+//    internal/consensus/wal.go, whose frames consensus/wal.py reads back.
 //
 // The port's own copy of those parts of cometbft_tpu/native/csrc/
 // cometbft_native.cpp (the port builds nothing of the JAX package); one
@@ -18,7 +21,11 @@
 // Build: g++ -O3 -shared -fPIC -std=c++17 (cometbft_tpu_torch/ops/_build.py).
 
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
+#include <mutex>
+#include <fcntl.h>
+#include <unistd.h>
 
 // ---------------------------------------------------------------------------
 // SHA-512 (FIPS 180-4)
@@ -392,6 +399,108 @@ int64_t commit_sign_bytes(
     }
     out_off[n] = o.len;
     return o.len;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// CRC32 (zlib polynomial, matches Python's zlib.crc32)
+// ---------------------------------------------------------------------------
+
+static uint32_t crc_table[256];
+
+static int crc_init() {
+    for (uint32_t i = 0; i < 256; i++) {
+        uint32_t c = i;
+        for (int k = 0; k < 8; k++)
+            c = (c & 1) ? 0xEDB88320u ^ (c >> 1) : c >> 1;
+        crc_table[i] = c;
+    }
+    return 0;
+}
+
+static uint32_t crc32_of(const uint8_t* buf, size_t len) {
+    // magic static: guaranteed one-time, thread-safe initialization
+    static const int crc_ready = crc_init();
+    (void)crc_ready;
+    uint32_t c = 0xFFFFFFFFu;
+    for (size_t i = 0; i < len; i++)
+        c = crc_table[(c ^ buf[i]) & 0xFF] ^ (c >> 8);
+    return c ^ 0xFFFFFFFFu;
+}
+
+// ---------------------------------------------------------------------------
+// WAL engine (reference: internal/consensus/wal.go WALEncoder + autofile)
+// ---------------------------------------------------------------------------
+
+struct Wal {
+    int fd;
+    int64_t size;
+    std::mutex mtx;  // appends must be whole-frame atomic across threads
+};
+
+extern "C" {
+
+void* wal_open(const char* path) {
+    int fd = ::open(path, O_WRONLY | O_CREAT | O_APPEND, 0644);
+    if (fd < 0) return nullptr;
+    Wal* w = new Wal();
+    w->fd = fd;
+    w->size = ::lseek(fd, 0, SEEK_END);
+    return w;
+}
+
+// frame: u32be crc | u32be len | kind byte | payload
+int wal_append(void* h, int kind, const uint8_t* data, int64_t len, int sync) {
+    Wal* w = static_cast<Wal*>(h);
+    if (!w || len < 0) return -1;
+    size_t body_len = static_cast<size_t>(len) + 1;
+    uint8_t* frame = static_cast<uint8_t*>(malloc(8 + body_len));
+    if (!frame) return -1;
+    frame[8] = static_cast<uint8_t>(kind);
+    memcpy(frame + 9, data, len);
+    uint32_t crc = crc32_of(frame + 8, body_len);
+    uint32_t blen = static_cast<uint32_t>(body_len);
+    for (int i = 0; i < 4; i++) {
+        frame[i] = (crc >> (24 - 8 * i)) & 0xFF;
+        frame[4 + i] = (blen >> (24 - 8 * i)) & 0xFF;
+    }
+    size_t total = 8 + body_len;
+    {
+        // hold the lock across the partial-write loop: a frame must hit
+        // the file contiguously even if write() returns short
+        std::lock_guard<std::mutex> g(w->mtx);
+        size_t off = 0;
+        while (off < total) {
+            ssize_t nw = ::write(w->fd, frame + off, total - off);
+            if (nw < 0) { free(frame); return -1; }
+            off += static_cast<size_t>(nw);
+        }
+        w->size += static_cast<int64_t>(total);
+    }
+    free(frame);
+    if (sync && ::fsync(w->fd) != 0) return -1;
+    return 0;
+}
+
+int wal_sync(void* h) {
+    Wal* w = static_cast<Wal*>(h);
+    return w ? ::fsync(w->fd) : -1;
+}
+
+int64_t wal_size(void* h) {
+    Wal* w = static_cast<Wal*>(h);
+    if (!w) return -1;
+    std::lock_guard<std::mutex> g(w->mtx);
+    return w->size;
+}
+
+void wal_close(void* h) {
+    Wal* w = static_cast<Wal*>(h);
+    if (!w) return;
+    ::fsync(w->fd);
+    ::close(w->fd);
+    delete w;
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ Counterpart of ``cometbft_tpu/native/__init__.py``, for the commit path
 only: ``lib()`` is ``csrc/host_prep.cpp`` (``ed25519_pack``:
 SHA-512(R||A||m) mod L and the s < L check, for ``ops.verify._pack``;
 ``sha512``; ``commit_sign_bytes``, for
-``types.block.Commit.all_vote_sign_bytes``), and ``bls()`` is
+``types.block.Commit.all_vote_sign_bytes``; ``wal_open``/``wal_append``/
+``wal_sync``/``wal_size``/``wal_close``, the writer of
+``consensus.wal.WAL``), and ``bls()`` is
 ``csrc/bls12381.cpp`` (the BLS12-381 structural checks, hash to G2, the G2
 and G1 scalar multiplications, the aggregate and the pairing product, for
 ``crypto.bls12381`` and ``crypto.batch.BlsBatchVerifier``).  Each library
@@ -53,6 +55,20 @@ def lib() -> ctypes.CDLL:
         ptr, i64,  # out, capacity
         ptr,  # out offsets (n+1 int64)
     ]
+    cdll.wal_open.restype = ctypes.c_void_p
+    cdll.wal_open.argtypes = [ctypes.c_char_p]
+    cdll.wal_append.restype = ctypes.c_int
+    cdll.wal_append.argtypes = [
+        ptr, ctypes.c_int,  # handle, record kind
+        ctypes.c_char_p, i64,  # payload, length
+        ctypes.c_int,  # fsync after the write
+    ]
+    cdll.wal_sync.restype = ctypes.c_int
+    cdll.wal_sync.argtypes = [ptr]
+    cdll.wal_size.restype = i64
+    cdll.wal_size.argtypes = [ptr]
+    cdll.wal_close.restype = None
+    cdll.wal_close.argtypes = [ptr]
     return cdll
 
 

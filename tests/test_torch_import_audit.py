@@ -15,8 +15,10 @@ kernels (the handshake's ladders through the pool, frames through the
 plane), and a node's apply path (``tests/torch_chain``: genesis, the
 KVStore app through ``LocalClient``, two blocks cut into part sets, saved
 in the block store and applied by ``BlockExecutor`` over ``MemKV``, the
-LastCommit through the plain version), and checks that neither name
-reached ``sys.modules``.
+LastCommit through the plain version), and the consensus core
+(``tests/torch_sim``: four validators on the seeded virtual-time network,
+three heights, one of them crashed and rebuilt from its stores, its WAL
+replayed), and checks that neither name reached ``sys.modules``.
 """
 
 import ast
@@ -130,6 +132,23 @@ def test_port_files_exist():
         "cometbft_tpu_torch/evidence/verify.py",
         "cometbft_tpu_torch/evidence/pool.py",
         "cometbft_tpu_torch/mempool/clist_mempool.py",
+        "cometbft_tpu_torch/libs/service.py",
+        "cometbft_tpu_torch/libs/clist.py",
+        "cometbft_tpu_torch/txingest/stats.py",
+        "cometbft_tpu_torch/config/config.py",
+        "cometbft_tpu_torch/consensus/ticker.py",
+        "cometbft_tpu_torch/types/vote_set.py",
+        "cometbft_tpu_torch/consensus/types.py",
+        "cometbft_tpu_torch/consensus/messages.py",
+        "cometbft_tpu_torch/consensus/wal.py",
+        "cometbft_tpu_torch/consensus/state.py",
+        "cometbft_tpu_torch/consensus/replay.py",
+        "cometbft_tpu_torch/privval/file_pv.py",
+        "cometbft_tpu_torch/proxy/multi_app_conn.py",
+        "cometbft_tpu_torch/sim/clock.py",
+        "cometbft_tpu_torch/sim/network.py",
+        "cometbft_tpu_torch/sim/node.py",
+        "cometbft_tpu_torch/sim/invariants.py",
     ):
         assert need in names
     assert {p.name for p in NATIVE_FILES} >= {
@@ -272,6 +291,20 @@ assert chain.block_store.height() == 2 and chain.state.last_block_height == 2
 assert chain.state_store.load().to_json() == chain.state.to_json() == rec[-1][0]
 assert chain.block_store.load_block(2).hash() == chain.state.last_block_id.hash
 assert dispatch_stats.tier_counts()["torch"] == (2, 5)  # the votes', the commit's
+# the consensus core: four validators on the seeded virtual-time network,
+# three heights, node 1 crashed at height 2 and rebuilt from its stores
+# (the Handshaker and its WAL's replay)
+import tempfile
+import torch_sim
+with tempfile.TemporaryDirectory() as d:
+    c = torch_sim.Cluster("cometbft_tpu_torch", d, txs_per_height=8, device="cpu")
+    assert c.run(2), c.heights()
+    c.crash(1)
+    c.restart(1)
+    assert c.run(3), c.heights()
+    assert not c.checker.violations and c.checker.commits_verified >= 12
+    assert len({tuple(n["blocks"]) for n in c.chain(3).values()}) == 1
+    c.stop()
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)

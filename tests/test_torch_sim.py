@@ -1,0 +1,117 @@
+"""Whole-network differentials: four validators of each package on one
+seeded virtual-time network (``tests/torch_sim.py``), with the invariant
+checker raising on any violation.
+
+For the clean, crash-restart and lossy-link scripts both packages commit
+the same chain: equal block hashes, app hashes and WAL ``#ENDHEIGHT`` sets
+at every height on every node, and the same event trace line for line
+(each delivered vote and proposal with its signature's prefix).  The port
+runs on ``device="cpu"``; both packages' gates stay closed
+(``COMETBFT_TPU_CRYPTO_BACKEND=cpu``), so votes are checked on the host and
+no JAX program is compiled.  The node's device rule (``build_node``
+resolves the batch backend on the card before it returns) is checked on a
+stand-in card.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+import torch_sim
+
+J, P = "cometbft_tpu", torch_sim.PORT
+
+
+@pytest.fixture(autouse=True)
+def _host_only(monkeypatch):
+    monkeypatch.setenv("COMETBFT_TPU_CRYPTO_BACKEND", "cpu")
+    monkeypatch.setenv("COMETBFT_TPU_PROOFSERVE", "0")
+
+
+def _run(pkg, root, script, seed=42, heights=5):
+    dev = {"device": "cpu"} if pkg == P else {}
+    return torch_sim.run_script(pkg, root / pkg, script, seed=seed, heights=heights, **dev)
+
+
+@pytest.mark.parametrize("script,heights", [("clean", 5), ("crash", 6), ("lossy", 5)])
+def test_both_packages_commit_the_same_chain(tmp_path, script, heights):
+    jax_c, port_c = (_run(pkg, tmp_path, script, heights=heights) for pkg in (J, P))
+    try:
+        for c in (jax_c, port_c):
+            assert min(c.heights()) >= heights
+            assert not c.checker.violations
+            assert c.checker.commits_verified >= 4 * heights
+        chain = port_c.chain(heights)
+        assert chain == jax_c.chain(heights)
+        for node in chain.values():
+            assert len(set(node["blocks"])) == heights
+            assert node["ends"] == list(range(1, heights + 1))
+        assert len({tuple(n["blocks"]) for n in chain.values()}) == 1
+        assert len({tuple(n["apps"]) for n in chain.values()}) == 1
+        assert port_c.trace == jax_c.trace
+        if script == "crash":
+            assert any("restart node1" in line for line in port_c.trace)
+            # the restarted node replayed its WAL and signed after it
+            node = port_c.nodes[1]
+            addr = port_c.privs[1].pub_key().address()
+            last = node.block_store.load_seen_commit(heights)
+            assert any(cs.validator_address == addr for cs in last.signatures)
+        if script == "lossy":
+            assert port_c.net.stats.dropped_rate > 0
+            assert port_c.net.stats.dropped_rate == jax_c.net.stats.dropped_rate
+    finally:
+        jax_c.stop()
+        port_c.stop()
+
+
+def test_same_seed_same_trace_in_the_port(tmp_path):
+    runs = [_run(P, tmp_path / sub, "lossy", seed=7) for sub in ("a", "b")]
+    assert runs[0].trace == runs[1].trace
+    assert runs[0].chain(5) == runs[1].chain(5)
+    other = _run(P, tmp_path / "c", "lossy", seed=8)
+    assert other.trace != runs[0].trace
+    for c in (*runs, other):
+        c.stop()
+
+
+def test_build_node_without_a_card_raises(tmp_path, monkeypatch):
+    monkeypatch.delenv("COMETBFT_TPU_CRYPTO_BACKEND")
+    m = torch_sim.modules(P)
+    privs, gdoc = m.node.make_genesis(1, "device-rule")
+    with pytest.raises(Exception, match="(?i)cuda|card|device"):
+        m.node.build_node(0, privs[0], gdoc, tmp_path / "a")
+    node = m.node.build_node(0, privs[0], gdoc, tmp_path / "b", device="cpu")
+    assert node.cs.block_exec.device == "cpu"
+    monkeypatch.setenv("COMETBFT_TPU_CRYPTO_BACKEND", "cpu")
+    m.node.build_node(0, privs[0], gdoc, tmp_path / "c")
+
+
+@pytest.mark.parametrize("device,resolves", [(None, True), ("cuda", True),
+                                             ("cuda:0", True), ("cpu", False)])
+def test_build_node_opens_the_scheduler_gate_on_the_card(tmp_path, monkeypatch,
+                                                         device, resolves):
+    """On a stand-in card (``resolve_device`` answers a CUDA device, the
+    kernel's self-check is recorded), ``build_node`` has run the batch
+    seam's self-check before it returns, so the scheduler takes the
+    node's first vote."""
+    from cometbft_tpu_torch import verifysched
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.ops import verify as ov
+
+    monkeypatch.delenv("COMETBFT_TPU_CRYPTO_BACKEND")
+
+    def stand_in(d=None):
+        dev = torch.device("cuda" if d is None else d)
+        return torch.device("cuda", 0) if dev.type == "cuda" else dev
+
+    monkeypatch.setattr(ov, "resolve_device", stand_in)
+    monkeypatch.setattr(cbatch, "_SELF_CHECKED", set())
+    checks = []
+    monkeypatch.setattr(cbatch, "gpu_self_check", lambda dev: checks.append(str(dev)))
+    m = torch_sim.modules(P)
+    privs, gdoc = m.node.make_genesis(1, "device-rule")
+    assert not verifysched.scheduler_active()
+    m.node.build_node(0, privs[0], gdoc, tmp_path, device=device)
+    assert checks == (["cuda:0"] if resolves else [])
+    assert verifysched.scheduler_active() == resolves

@@ -139,6 +139,7 @@ def test_verify_matches_jax(gossip, monkeypatch, request, scheduled):
     monkeypatch.setenv("COMETBFT_TPU_CRYPTO_BACKEND", "cpu")  # JAX: host path
     log = request.getfixturevalue("port_scheduler") if scheduled else None
     tsc.reset_cache()
+    tvs.stats.reset()  # an earlier file in this process may have left verdicts
     want = [v.verify(CHAIN, gossip.vals.validators[v.validator_index].pub_key)
             for v in gossip.votes]
     got = [v.verify(CHAIN, gossip.tvals.validators[v.validator_index].pub_key)

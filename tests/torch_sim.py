@@ -1,0 +1,319 @@
+"""A seeded four-validator network on virtual time, driven through either
+package's consensus core by name.
+
+``Cluster("cometbft_tpu", ...)`` and ``Cluster("cometbft_tpu_torch", ...)``
+run the same script: four validators built by the package's
+``sim/node.build_node`` (``threaded=False``, each on a ``SimTicker`` of
+one ``VirtualClock``), wired by its ``sim/network.SimNetwork`` (one
+``random.Random(seed)`` for the links' delays and faults), with its
+``sim/invariants.InvariantChecker`` run after every event.  The drive loop
+mirrors the JAX package's ``sim/cluster.SimCluster`` (``_build``,
+``_broadcast``, ``crash``/``restart``, ``_on_deliver``, ``_drain_all``,
+``step``, ``run`` and the catchup tick), without its black boxes,
+statesync, blocksync and churn.  Each time the network's top height
+grows, every live node's mempool is offered the next height's
+``txs_per_height`` KVStore txs (from a numpy seed), standing in for the
+mempool reactor.
+
+The module imports neither package at the top: ``chip_smoke.py`` loads it
+to run the same drive loop on the card, and the jax-free subprocess of
+``tests/test_torch_import_audit.py`` drives the port with it.
+"""
+
+from __future__ import annotations
+
+import importlib
+import random
+from pathlib import Path
+from types import SimpleNamespace
+from typing import Optional
+
+import numpy as np
+
+CHAIN_ID = "sim-chain"
+N_VALS = 4
+TX_SEED = 7
+CATCHUP_INTERVAL = 0.5  # virtual seconds between catchup scans
+PORT = "cometbft_tpu_torch"
+
+_MODULES = {
+    "messages": "consensus.messages",
+    "block": "types.block",
+    "clock": "sim.clock",
+    "invariants": "sim.invariants",
+    "network": "sim.network",
+    "node": "sim.node",
+    "state": "state.state",
+}
+
+
+def modules(pkg: str) -> SimpleNamespace:
+    return SimpleNamespace(**{k: importlib.import_module(f"{pkg}.{v}")
+                              for k, v in _MODULES.items()})
+
+
+def txs_at(height: int, n: int) -> list:
+    """``n`` KVStore txs (``key=value``) offered before ``height``."""
+    rng = np.random.default_rng(TX_SEED * 1000 + height)
+    return [b"k%d-%d=%s" % (height, i, rng.bytes(12).hex().encode())
+            for i in range(n)]
+
+
+def describe_msg(m, msg) -> str:
+    """The JAX ``sim/cluster.describe_msg``: one deterministic line per
+    message, with a signature prefix so byte-level divergence shows."""
+    if isinstance(msg, m.messages.ProposalMessage):
+        p = msg.proposal
+        return "Proposal h=%d r=%d blk=%s sig=%s" % (
+            p.height, p.round_, p.block_id.hash.hex()[:12], p.signature.hex()[:12])
+    if isinstance(msg, m.messages.BlockPartMessage):
+        return "BlockPart h=%d r=%d i=%d" % (msg.height, msg.round_, msg.part.index)
+    if isinstance(msg, m.messages.VoteMessage):
+        v = msg.vote
+        return "Vote t=%d h=%d r=%d v%d blk=%s sig=%s" % (
+            v.type_, v.height, v.round_, v.validator_index,
+            v.block_id.hash.hex()[:12], v.signature.hex()[:12])
+    return type(msg).__name__
+
+
+class Cluster:
+    """N_VALS validators of ``pkg`` on one virtual clock, the invariant
+    checker raising on a violation.  ``device`` goes to the port's
+    ``build_node`` and ``InvariantChecker`` (the JAX package has no such
+    parameter); ``links`` updates every link's ``LinkConfig`` (drop,
+    reorder, ... faults)."""
+
+    raise_on_violation = True  # read by the InvariantChecker
+
+    def __init__(self, pkg: str, root, seed: int = 0, txs_per_height: int = 0,
+                 device=None, links: Optional[dict] = None):
+        m = self.m = modules(pkg)
+        self.root = Path(root)
+        self.config = m.node.sim_consensus_config()
+        self.txs_per_height = txs_per_height
+        self._dev = {"device": device} if pkg == PORT else {}
+        self.clock = m.clock.VirtualClock()
+        self.rng = random.Random(seed)
+        self.privs, self.gdoc = m.node.make_genesis(N_VALS, CHAIN_ID)
+        self.net = m.network.SimNetwork(self.clock, self.rng, N_VALS)
+        for cfg in self.net.links.values():
+            cfg.update(**(links or {}))
+        self.net.deliver_fn = self._on_deliver
+        self.net.alive_fn = lambda i: self.nodes[i] is not None
+        self.checker = m.invariants.InvariantChecker(
+            CHAIN_ID, m.state.state_from_genesis(self.gdoc), **self._dev)
+        self.trace: list[str] = []
+        self.events_fired = 0
+        self._dbs: list = [None] * N_VALS  # MemKV survives crash-restart
+        self.nodes: list = [self._build(i) for i in range(N_VALS)]
+        self.members = set(range(N_VALS))
+        self._started = False
+        self._fed = 0  # heights whose txs were offered
+
+    # -- assembly ----------------------------------------------------------
+
+    def _build(self, i: int):
+        node = self.m.node.build_node(
+            i, self.privs[i], self.gdoc, self.root, config=self.config,
+            db=self._dbs[i], clock=self.clock,
+            ticker_factory=lambda tock, i=i: self.m.clock.SimTicker(
+                self.clock, tock, name=f"node{i}"),
+            threaded=False, **self._dev)
+        self._dbs[i] = node.block_store._db
+        node.cs.trace_origin = i
+        node.cs.broadcast_hook = lambda msg, i=i: self._broadcast(i, msg)
+        repair = node.cs.wal.last_repair if node.cs.wal is not None else None
+        if repair is not None:
+            self._log("node%d wal_repair: truncated %d torn byte(s) to %d"
+                      % (i, repair["dropped_bytes"], repair["good_bytes"]))
+        return node
+
+    def _broadcast(self, i: int, msg) -> None:
+        self.net.send(i, msg)
+
+    def live_nodes(self) -> list:
+        return [n for n in self.nodes if n is not None]
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> None:
+        if self._started:
+            return
+        self._started = True
+        self._feed()
+        for node in self.live_nodes():
+            self._log("start node%d" % node.index)
+            node.cs.start()
+        self.clock.call_later(CATCHUP_INTERVAL, self._catchup_tick, label="catchup")
+        self._drain_all()
+
+    def stop(self) -> None:
+        for node in self.live_nodes():
+            node.cs.stop()
+            node.app_conns.stop()
+
+    def crash(self, i: int) -> None:
+        """Kill node i; its stores, WAL and privval files survive."""
+        node = self.nodes[i]
+        if node is None:
+            return
+        self._log("crash node%d" % i)
+        self.nodes[i] = None
+        if node.cs.wal is not None:
+            node.cs.wal.kill()
+        node.cs.stop()
+        node.app_conns.stop()
+
+    def restart(self, i: int) -> None:
+        """Rebuild node i from its stores: the Handshaker replays the app,
+        the WAL catchup replays the unfinished height."""
+        if self.nodes[i] is not None:
+            return
+        self._log("restart node%d" % i)
+        node = self._build(i)
+        self.nodes[i] = node
+        node.cs.start()
+        self._drain_all()
+        self.checker.on_restart(self, i)
+
+    # -- traffic -----------------------------------------------------------
+
+    def _feed(self) -> None:
+        """Offer every live mempool the txs of each height up to one past
+        the network's top height."""
+        if not self.txs_per_height:
+            return
+        top = max(n.block_store.height() for n in self.live_nodes())
+        while self._fed <= top:
+            h = self._fed + 1
+            txs = txs_at(h, self.txs_per_height)
+            for node in self.live_nodes():
+                for tx in txs:
+                    try:
+                        node.mempool.check_tx(tx)
+                    except Exception:  # noqa: BLE001 — in cache, full
+                        pass
+            self._log("feed h=%d txs=%d" % (h, len(txs)))
+            self._fed = h
+
+    # -- event loop --------------------------------------------------------
+
+    def _on_deliver(self, dst: int, src: int, msg, ctx=None) -> None:
+        node = self.nodes[dst]
+        if node is None or not node.cs.is_running:
+            return
+        self._log("deliver %d->%d %s" % (src, dst, describe_msg(self.m, msg)))
+        node.cs.add_peer_message(msg, peer_id=f"node{src}", trace_ctx=ctx)
+
+    def _drain_all(self) -> None:
+        progress = True
+        while progress:
+            progress = False
+            for node in self.nodes:
+                if node is not None and node.cs.is_running:
+                    if node.cs.process_pending():
+                        progress = True
+
+    def step(self) -> bool:
+        """Fire one scheduled event, drain, check the invariants."""
+        timer = self.clock.tick()
+        if timer is None:
+            return False
+        self.events_fired += 1
+        if timer.label and not timer.label.startswith("net ") and timer.label != "catchup":
+            self._log("fire %s" % timer.label)
+        self._drain_all()
+        self.trace.extend(self.checker.on_event(self))
+        self._feed()
+        return True
+
+    def run(self, until_height: int, max_time: float = 600.0,
+            max_events: int = 500_000) -> bool:
+        """Drive until every member has committed ``until_height``."""
+        self.start()
+        while True:
+            if self.reached(until_height):
+                return True
+            if self.clock.now() >= max_time or self.events_fired >= max_events:
+                return self.reached(until_height)
+            if not self.step():
+                return self.reached(until_height)
+
+    def reached(self, height: int) -> bool:
+        return all(self.nodes[i] is not None
+                   and self.nodes[i].block_store.height() >= height
+                   for i in self.members)
+
+    def heights(self) -> list:
+        return [-1 if n is None else n.block_store.height() for n in self.nodes]
+
+    # -- catchup -----------------------------------------------------------
+
+    def _catchup_tick(self) -> None:
+        for node in self.live_nodes():
+            want = node.cs.rs.height
+            helper = next((peer for peer in self.live_nodes()
+                           if peer.index != node.index
+                           and peer.block_store.height() >= want
+                           and self.net.connected(peer.index, node.index)), None)
+            if helper is None:
+                continue
+            commit = helper.block_store.load_seen_commit(want)
+            meta = helper.block_store.load_block_meta(want)
+            if commit is None or meta is None:
+                continue
+            for idx in range(len(commit.signatures)):
+                vote = self.m.block.commit_vote(commit, idx)
+                if vote is not None:
+                    self.net.unicast(helper.index, node.index,
+                                     self.m.messages.VoteMessage(vote))
+            for pi in range(meta.block_id.part_set_header.total):
+                part = helper.block_store.load_block_part(want, pi)
+                if part is not None:
+                    self.net.unicast(helper.index, node.index,
+                                     self.m.messages.BlockPartMessage(
+                                         height=want, round_=commit.round_, part=part))
+        self.clock.call_later(CATCHUP_INTERVAL, self._catchup_tick, label="catchup")
+
+    # -- results -----------------------------------------------------------
+
+    def _log(self, line: str) -> None:
+        self.trace.append("%.6f %s" % (self.clock.now(), line))
+
+    def chain(self, upto: int) -> dict:
+        """What must agree across packages, per live node: each height's
+        block hash and the app hash after it, and the WAL's #ENDHEIGHT
+        set."""
+        out = {}
+        for node in self.live_nodes():
+            blocks, apps = [], []
+            for h in range(1, upto + 1):
+                meta = node.block_store.load_block_meta(h)
+                blocks.append(meta.block_id.hash.hex())
+                nxt = node.block_store.load_block_meta(h + 1)
+                apps.append(nxt.header.app_hash.hex() if nxt is not None
+                            else node.state_store.load().app_hash.hex())
+            ends, _ = node.cs.wal.scan_end_heights(0)
+            out[node.index] = {"blocks": blocks, "apps": apps,
+                               "ends": sorted(e for e in ends if e <= upto)}
+        return out
+
+
+def run_script(pkg: str, root, script: str = "clean", seed: int = 42,
+               heights: int = 5, txs_per_height: int = 16, device=None) -> Cluster:
+    """One of the differential scripts, run to ``heights`` on every node:
+    ``clean``; ``crash`` (node 1 crashes once the network has height 3,
+    the others run two heights on, then it restarts from its stores);
+    ``lossy`` (every link drops 5% and reorders 20% of messages)."""
+    links = {"drop_rate": 0.05, "reorder_rate": 0.2} if script == "lossy" else None
+    c = Cluster(pkg, root, seed=seed, txs_per_height=txs_per_height,
+                device=device, links=links)
+    if script == "crash":
+        assert c.run(3), c.heights()
+        c.crash(1)
+        c.members.discard(1)
+        assert c.run(5), c.heights()
+        c.members.add(1)
+        c.restart(1)
+    assert c.run(heights), c.heights()
+    return c
