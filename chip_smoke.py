@@ -308,6 +308,42 @@ served by the torch or host tier, or one that raised, fails the run.
               in a fresh process with ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``
               (``--sim-child``), on the CPU: equal block hashes, app hashes,
               ``#ENDHEIGHT`` sets and event traces.
+ 19. network — the peer-to-peer network and its reactors, a path of its
+              own, each node wired by ``tests/torch_net.py`` as the JAX
+              node's ``_setup_p2p`` wires one: a ``NodeKey``, a
+              ``Transport`` and a ``Switch`` on 127.0.0.1:0, the consensus,
+              blocksync, mempool, evidence and PEX reactors.  Part A:
+              four validators (``sim/node.build_node`` on the card,
+              ``ConsensusConfig()``, ``MempoolConfig()`` and ``P2PConfig()``
+              defaults, on-disk roots) joined over SecretConnection links
+              as persistent peers (every dial's ladders through the
+              handshake pool and the X25519 kernel, every flush of four
+              frames or more through the AEAD kernel); 5,000 txs of 256
+              bytes offered to node 0's mempool alone before each height
+              (the mempool reactor carries them); a duplicate vote put in
+              node 1's evidence pool at height 2 (the evidence reactor
+              carries it into a block); after height 4 a fifth,
+              non-validator node whose only peer is node 0 blocksyncs to
+              the frontier, switches to consensus, follows two more
+              heights and learns peers by PEX; each node is a process of
+              its own (``--net-node``).  Asserted: one block hash
+              and app hash per height on all five, the evidence committed
+              in every pool, the joiner's blocksync counters, every
+              Ed25519 batch, tree pass, AEAD pass and ladder flush on
+              ``cuda``, no shed fallback, no blocksync error logged.  Part
+              B, in the script's own process after part A and every
+              earlier phase: phase 17's SQLite chain (10,240 validators, five blocks of
+              ~3.7 MiB) served by a ``BlocksyncReactor`` behind a switch; a
+              fresh non-validator joiner (its own stores and app after
+              ``InitChain``, the signature cache cleared) dials it at the
+              default 5,120,000 B/s and blocksyncs to height 4 through the
+              fused Ed25519 window: its blocks byte for byte the server's,
+              its app hash block 5's, its height-5 set the height-2 power
+              change, the height-4 evidence checked on the card.  The four
+              kernels against their plain versions on the phase's own
+              inputs; per height apply and verify ms, launches, lanes, and
+              whether the prefetch fused the window or went to
+              ``verify_batches_overlapped``.
 
 The script sets ``COMETBFT_TPU_WARMBOOT=0`` for its own process: a
 background warm pass would add self-check launches to the phases'
@@ -333,6 +369,7 @@ from __future__ import annotations
 import cProfile
 import collections
 import contextlib
+import gc
 import hashlib
 import json
 import os
@@ -490,6 +527,18 @@ SIM_SEED = 42  # part B: the seeded virtual-time network of tests/torch_sim.py
 SIM_HEIGHTS = 5
 SIM_TXS = 64
 SIM_CHILD_TIMEOUT_S = 300
+NETWORK_CHAIN = "network-chain"
+NETWORK_SEED = 20261035  # the txs offered to node 0 before each height
+NETWORK_NODES = 4  # CometBFT's make localnet-start: node0-node3
+NETWORK_TXS = 5_000  # MempoolConfig().size
+NETWORK_TX_BYTES = 256
+NETWORK_EVIDENCE_AT = 2  # the height node 1's pool takes the duplicate vote at
+NETWORK_EQUIVOCATOR = 3  # its validator (set order at height 1)
+NETWORK_JOIN_AFTER = 4  # the fifth node starts once every validator has stored it
+NETWORK_FOLLOW = 2  # heights the joiner commits after it switched to consensus
+NETWORK_PEX = 2  # peers the joiner must learn by PEX, beyond node 0
+NETWORK_TIMEOUT_S = 240.0  # each wait of part A
+NETWORK_SYNC_TIMEOUT_S = 300.0  # part B's blocksync
 
 
 class SmokeError(AssertionError):
@@ -3784,7 +3833,10 @@ class PartTimer:
 
 def blockexec_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
     """Phase 17: a blocksync joiner's apply path at BASELINE config 2's
-    width.  Returns {"ed25519": launches, "tree": launches} of the path."""
+    width.  Returns {"ed25519": launches, "tree": launches} of the path,
+    and the chain for phase 19: "dir" (the temporary directory, which the
+    caller removes), "db" (the closed SQLite store's path) and "genesis"
+    (the ``GenesisDoc``).  On a failure the directory is removed here."""
     import base64
     import concurrent.futures
     import dataclasses
@@ -3828,6 +3880,7 @@ def blockexec_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
     pool_ex = concurrent.futures.ProcessPoolExecutor(workers, mp_context=ctx)
     timer = PartTimer()
     undo_keep = []
+    handed = False
     try:
         # -- genesis: keys, the document, the state, InitChain -------------
         t0 = time.perf_counter()
@@ -4173,14 +4226,17 @@ def blockexec_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
               f"{BLOCKEXEC_CHANGED} at power {BLOCKEXEC_CHANGED_POWER}; "
               f"BlockStore.load_block per height {load_block_ms} ms, each hashing "
               f"to its block id {tag}")
+        handed = True
     finally:
         timer.restore()
         for undo in undo_keep:
             undo()
         verifysched.reset_scheduler()
         pool_ex.shutdown(wait=True, cancel_futures=True)
-        shutil.rmtree(tmp, ignore_errors=True)
-    return {"ed25519": path_ed, "tree": path_tree}
+        if not handed:
+            shutil.rmtree(tmp, ignore_errors=True)
+    return {"ed25519": path_ed, "tree": path_tree, "dir": tmp, "db": path,
+            "genesis": gdoc}
 
 
 def load_torch_sim():
@@ -4766,6 +4822,977 @@ def consensus_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
     return {"ed25519": ed_launches + sim_ed, "tree": tree_launches + sim_tree}
 
 
+def load_torch_net():
+    """``tests/torch_net.py``, the node wiring that the CPU tests use,
+    loaded by path as ``load_torch_sim`` loads the drive loop."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_net.py")
+    spec = importlib.util.spec_from_file_location("torch_net", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class NetLog:
+    """The logger of a phase-19 node: keeps its errors as (node, module,
+    message, error), drops the rest; ``with_`` names the module."""
+
+    def __init__(self, node: str, into: list, module: str = "", trace=None):
+        self.node, self.into, self.module, self.trace = node, into, module, trace
+
+    def with_(self, module: str = "", **kv) -> "NetLog":
+        return NetLog(self.node, self.into, module, self.trace)
+
+    def error(self, msg: str, **kv) -> None:
+        self.into.append((self.node, self.module, msg, str(kv.get("err", ""))))
+        self.debug(msg, **kv)
+
+    def debug(self, msg: str, **kv) -> None:
+        """With ``trace`` (a deque), every line is kept for a failure's
+        message."""
+        if self.trace is not None:
+            self.trace.append((round(time.perf_counter(), 3), self.node, self.module, msg,
+                               {k: str(v)[:80] for k, v in kv.items()}))
+
+    info = warn = debug
+
+
+BLOCKSYNC_ERRORS = ("blocksync pool error", "fused verify prefetch failed",
+                    "blocksync prefetch error")
+
+
+def net_counts(cv, csh, cuda_aead, cuda_x25519) -> dict:
+    return {"ed25519": cv.launches, "tree": csh.launches, "aead": cuda_aead.launches,
+            "ladder": cuda_x25519.launches}
+
+
+def net_settled(cv, csh, cuda_aead, cuda_x25519, ds, timeout_s: float = 10.0) -> dict:
+    """The launch counts once the stopped nodes' last passes have landed:
+    the connections' threads are not joined, so read until two reads
+    0.2 s apart agree, launches and tier counts alike."""
+    def read():
+        return net_counts(cv, csh, cuda_aead, cuda_x25519), json.dumps(ds.snapshot(),
+                                                                      sort_keys=True)
+
+    deadline = time.perf_counter() + timeout_s
+    last = read()
+    while True:
+        torch_sync = sys.modules.get("torch")
+        if torch_sync is not None:
+            torch_sync.cuda.synchronize()
+        time.sleep(0.2)
+        now = read()
+        if now == last:
+            return now[0]
+        check(time.perf_counter() < deadline, "network: the counts did not settle "
+              f"{timeout_s} s after the nodes stopped")
+        last = now
+
+
+def net_probe(torch, where: str) -> None:
+    """This process's costs that a transfer's passes pay: one supervised
+    AEAD pass of 10 frames on the card, a thread's start and join, and a
+    0.05 s sleep (median ms of 20)."""
+    import threading
+
+    from cometbft_tpu_torch.ops import chacha_aead as ca
+
+    frames = [(bytes(32), (7).to_bytes(12, "little"), bytes(1024)) for _ in range(10)]
+    pass_ms = median_ms(lambda: ca.seal_frames(frames), 20)
+    thread_ms = median_ms(lambda: (lambda t: (t.start(), t.join()))(
+        threading.Thread(target=lambda: None)), 20)
+    sleep_ms = median_ms(lambda: time.sleep(0.05), 5)
+    print(f"network: {where}: this process's AEAD pass of 10 frames {pass_ms:.3f} ms, a "
+          f"thread's start and join {thread_ms:.3f} ms, a 0.05 s sleep {sleep_ms:.3f} ms, "
+          f"{threading.active_count()} threads", flush=True)
+
+
+def net_tiers(ds, where: str) -> dict:
+    """Every Ed25519 batch, tree pass, AEAD pass and ladder flush since the
+    last reset on the cuda tier (tree passes on the host only for trees
+    over the card's leaf size, as in phase 18)."""
+    from cometbft_tpu_torch.ops import chacha_aead as ca
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.ops import x25519_ladder as xl
+
+    tiers = {"ed25519": ds.tier_counts(), "tree": ds.tier_counts(st.MERKLE),
+             "aead": ds.tier_counts(ca.AEAD), "ladder": ds.tier_counts(xl.X25519)}
+    oversize = ds.tier_counts(st.MERKLE_OVERSIZE)
+    for what, counts in tiers.items():
+        host_ok = oversize["host"] if what == "tree" else (0, 0)
+        check(counts["torch"] == (0, 0) and counts["host"] == host_ok,
+              f"network: {where}: {what} served below the cuda tier: {counts} "
+              f"(tree oversize {oversize})")
+    return tiers
+
+
+def network_phase(torch, dev, cbatch, cv, ds, sigcache, chain, tag) -> dict:
+    """Phase 19: the peer-to-peer network and its reactors.  Part A: a
+    four-validator localnet over SecretConnection switches and a fifth node
+    that blocksyncs, switches to consensus and learns peers by PEX, each
+    node a process of its own.  Part B, in this process after part A and
+    every earlier phase: a joiner blocksyncs phase 17's 10,240-validator
+    chain (``chain``, blockexec_phase's hand-over, removed here) from a
+    serving node, then the four kernels are held to their plain versions
+    on part B's inputs.  Returns the launches of both parts per kernel."""
+    import pathlib
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="network-"))
+    procs: list = []  # part A's processes, stopped in the finally
+    out = {}
+    try:
+        out["A"] = network_localnet(tag, root, procs)
+        out["B"] = network_part_b(torch, cbatch, cv, ds, sigcache, chain, tag)
+        print(f"network: the phase took {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        for _, p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(chain["dir"], ignore_errors=True)
+    return {k: out["A"]["launches"][k] + out["B"]["launches"][k]
+            for k in ("ed25519", "tree", "aead", "ladder")}
+
+
+def network_part_b(torch, cbatch, cv, ds, sigcache, chain, tag) -> dict:
+    """Part B of phase 19 in this process: the serving node and the joiner
+    over one link, then the four kernels against their plain versions on
+    the inputs part B gave them; prints its lines and returns its
+    launches, wall and validators."""
+    from cometbft_tpu_torch.ops import chacha_aead as ca
+    from cometbft_tpu_torch.ops import cuda_aead, cuda_x25519
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.ops import x25519_ladder as xl
+    from cometbft_tpu_torch.p2p.secret_connection import SecretConnection
+
+    tn = load_torch_net()
+    net_probe(torch, "this process, before part B")
+    gc_pauses = []  # (generation, seconds) of each collection in part B
+    gc_t0 = [0.0]
+
+    def gc_watch(phase, info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            gc_pauses.append((info["generation"], time.perf_counter() - gc_t0[0]))
+
+    cpu0, load0 = os.times(), os.getloadavg()
+    errors: list = []
+    nets: list = []
+    kept_ed = {}
+    moved = [0]  # bytes part B's SecretConnections wrote to sockets
+    real_ed, real_send_raw = cv.verify_core_cuda, SecretConnection._send_raw
+
+    def keep_ed(**t):
+        kept_ed.setdefault(int(t["s_ok"].shape[0]), {k: v.clone() for k, v in t.items()})
+        return real_ed(**t)
+
+    def send_raw(self, data):
+        moved[0] += len(data)
+        return real_send_raw(self, data)
+
+    try:
+        with keeping_inputs(cuda_aead, "aead", lambda a, kw: (
+                "seal" if kw["seal"] else "open", a[2].shape[1], a[2].shape[0])) as kept_aead, \
+                keeping_inputs(cuda_x25519, "ladder", lambda a, kw: a[0].shape[0]) as kept_ladder, \
+                keeping_inputs(csh, "tree_words", lambda a, kw: (
+                    int(a[1].shape[0]) - 1,
+                    int(a[0].numel()) * a[0].element_size()
+                    // max(int(a[1].shape[0]) - 1, 1))) as kept_tree:
+            cv.verify_core_cuda, SecretConnection._send_raw = keep_ed, send_raw
+            gc.callbacks.append(gc_watch)
+            out = network_blocksync(torch, cbatch, cv, ds, sigcache, tag, tn, tn.PORT, chain,
+                                    errors, nets, moved)
+    finally:
+        if gc_watch in gc.callbacks:
+            gc.callbacks.remove(gc_watch)
+        cv.verify_core_cuda, SecretConnection._send_raw = real_ed, real_send_raw
+        for n in nets:
+            n.stop()
+    cpu1, load1 = os.times(), os.getloadavg()
+    full = [t for g, t in gc_pauses if g == 2]
+    print(f"network: part B in this process: {len(gc_pauses)} collections "
+          f"({sum(t for _, t in gc_pauses):.3f} s in all; {len(full)} full, "
+          f"{sum(full):.3f} s, the longest {max(full, default=0.0):.3f} s; "
+          f"{len(gc.get_objects())} objects tracked after), this process's CPU "
+          f"{cpu1.user + cpu1.system - cpu0.user - cpu0.system:.2f} s over "
+          f"{out['wall_s']:.2f} s, load average {load0[0]:.2f} -> {load1[0]:.2f} "
+          f"on {os.cpu_count()} CPUs", flush=True)
+    net_probe(torch, "this process, after part B")
+
+    # -- the kernels against their plain versions, on part B's inputs
+    worst = collections.Counter()
+    ed_b = max(kept_ed, default=None)
+    check(ed_b is not None, "network: no part B launch reached the Ed25519 kernel")
+    t = kept_ed[ed_b]
+    kern, plain = cv.verify_core_cuda(**t), ov.verify_core(**t)
+    worst["ed25519"] = int((kern.int() - plain.int()).abs().max())
+    check(torch.equal(kern, plain), f"network: Ed25519 kernel != plain on part B's "
+          f"launch of {ed_b} lanes")
+    ed_ms = cuda_ms(torch, lambda: cv.verify_core_cuda(**t), 10, 2, queued=True)
+    # (leaves, bytes a leaf): a validator's leaf is ~40 bytes, a tx's 256
+    valset = [k for k in kept_tree if k[0] == out["validators"] and k[1] < 128]
+    check(valset, f"network: no validator-set hash of {out['validators']} leaves "
+          f"reached the tree kernel: {sorted(kept_tree)}")
+    (data, offs), _ = kept_tree[valset[0]]
+    kern, plain = csh.tree_words(data, offs), st.tree_words_plain(data, offs)
+    worst["tree"] = int((kern.long() - plain.long()).abs().max())
+    check(torch.equal(kern, plain), "network: tree kernel != plain on a synced "
+          "block's validator-set hash")
+    tree_ms = cuda_ms(torch, lambda: csh.tree_words(data, offs), 10, 2, queued=True)
+    check(any(k[0] == "seal" for k in kept_aead) and any(k[0] == "open" for k in kept_aead),
+          f"network: the AEAD kernel's shapes {sorted(kept_aead)}")
+    aead_ms = {}
+    for key, (args, kw) in sorted(kept_aead.items()):
+        got, want = cuda_aead.aead(*args, **kw), ca.aead_core(*args, **kw)
+        torch.cuda.synchronize()
+        worst["aead"] = max(worst["aead"], *(int((g.long() - w.long()).abs().max())
+                                             for g, w in zip(got, want)))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"network: AEAD kernel != plain on an MConnection flush {key}")
+        aead_ms[key] = cuda_ms(torch, lambda: cuda_aead.aead(*args, **kw), 10, 2, queued=True)
+    check(kept_ladder, "network: no dial reached the ladder kernel")
+    ladder_ms = {}
+    for lanes, (args, _) in sorted(kept_ladder.items()):
+        got, want = cuda_x25519.ladder(*args), xl.ladder_plain(*args)
+        torch.cuda.synchronize()
+        worst["ladder"] = max(worst["ladder"], int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want), f"network: ladder kernel != plain on a dial "
+              f"flush of {lanes} lanes")
+        ladder_ms[lanes] = cuda_ms(torch, lambda: cuda_x25519.ladder(*args), 10, 2,
+                                   queued=True)
+    print(f"network: on part B's own inputs, bit for bit: the Ed25519 kernel == "
+          f"its plain version on its launch of {ed_b} lanes (all of them; "
+          f"{ed_ms} ms on the card), the tree kernel on a synced block's "
+          f"validator-set hash (leaves, bytes a leaf) {valset[0]} ({tree_ms} ms), the AEAD "
+          f"kernel on the first MConnection flush of each (op, lanes, blocks) "
+          f"{sorted(kept_aead)} ({ {f'{k[0]} {k[1]}x{k[2]}': v for k, v in aead_ms.items()} } ms), the "
+          f"ladder kernel on the first dial flush of each lane bucket "
+          f"{sorted(kept_ladder)} ({ladder_ms} ms); max_abs_err {dict(worst)}; "
+          f"device times by CUDA events, queued {tag}")
+    per_aead = statistics.median(aead_ms.values())
+    per_ladder = statistics.median(ladder_ms.values())
+    c, wall = out["launches"], out["wall_s"]
+    busy = (c["ed25519"] * ed_ms + c["tree"] * tree_ms + c["aead"] * per_aead
+            + c["ladder"] * per_ladder) / (wall * 1e3)
+    print(f"network: part B: the card busy ~{busy:.4%} of its {wall:.2f} s (idle "
+          f"~{1 - busy:.4%}; derived: launches {c} x device times Ed25519 {ed_ms:.4f}, "
+          f"tree {tree_ms:.4f}, AEAD {per_aead:.4f}, ladder {per_ladder:.4f} ms) {tag}")
+    return {**out, "busy": busy, "max_abs_err": dict(worst)}
+
+
+def net_write(path, doc) -> None:
+    """Write ``doc`` as JSON to ``path`` whole (a rename), for another
+    process to poll."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, path)
+
+
+def net_read(path):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def net_node_child(cfg_path: str) -> int:
+    """One node of phase 19's part A in a process of its own (a localnet
+    node is a process): ``sim/node.build_node`` on the card, wired by
+    ``tests/torch_net.py``.  It polls the run directory for its peers and
+    for the stop, writes its status as it goes, and at the stop a report:
+    its chain, its counts and tiers, its transport counters, its vote
+    latencies, its errors, and its kernels held to their plain versions
+    on the inputs its path gave them."""
+    import collections as co
+    import pathlib
+
+    import numpy as np
+    import torch
+
+    from cometbft_tpu_torch import verifysched
+    from cometbft_tpu_torch.blocksync import stats as bstats
+    from cometbft_tpu_torch.config.config import ConsensusConfig, MempoolConfig, P2PConfig
+    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    from cometbft_tpu_torch.mempool.clist_mempool import MempoolError
+    from cometbft_tpu_torch.ops import chacha_aead as ca
+    from cometbft_tpu_torch.ops import cuda_aead, cuda_x25519
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import dispatch_stats as ds
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.ops import x25519_ladder as xl
+    from cometbft_tpu_torch.p2p import handshake_pool
+    from cometbft_tpu_torch.p2p import transport_stats as tstats
+    from cometbft_tpu_torch.p2p.secret_connection import SecretConnection
+    from cometbft_tpu_torch.sim.node import build_node, make_genesis
+    from cometbft_tpu_torch.types.basic import PRECOMMIT_TYPE, BlockID, PartSetHeader
+    from cometbft_tpu_torch.types.evidence import DuplicateVoteEvidence, evidence_list_hash
+    from cometbft_tpu_torch.types.vote import Vote
+    from cometbft_tpu_torch.verifysched import stats as vstats
+
+    cfg = net_read(cfg_path)
+    run = pathlib.Path(cfg["run"])
+    i, name, joiner = cfg["index"], cfg["name"], cfg["role"] == "joiner"
+    status_path, report_path = run / f"status-{name}.json", run / f"report-{name}.json"
+    tn = load_torch_net()
+    privs, gdoc = make_genesis(NETWORK_NODES, NETWORK_CHAIN)
+    priv = (Ed25519PrivKey.from_seed(hashlib.sha256(b"netval%d" % i).digest())
+            if joiner else privs[i])
+    mcfg = MempoolConfig()
+    t_boot = time.perf_counter()
+    h = build_node(i, priv, gdoc, run, config=ConsensusConfig(), threaded=True,
+                   mempool_config=mcfg)
+    errors: list = []
+    h.cs.logger = NetLog(name, errors).with_(module="consensus")
+    net = tn.from_handle(tn.PORT, h, tn.node_key(tn.PORT, b"network-" + name.encode()),
+                         NETWORK_CHAIN, p2p_config=P2PConfig(), mempool_config=mcfg,
+                         home=str(run / f"node{i}"), moniker=name,
+                         logger=NetLog(name, errors))
+    check(net.transport.device is None and verifysched.scheduler_active(),
+          f"network: {name} is not on the card")
+    boot_s = time.perf_counter() - t_boot
+
+    fed, feed_ms = {"h": 0}, []
+
+    def feed(height: int) -> None:
+        """Node 0's mempool offered height ``height``'s txs; the mempool
+        reactor carries them to the others."""
+        if fed["h"] >= height:
+            return
+        fed["h"] = height
+        rng = np.random.default_rng([NETWORK_SEED, height])
+        hexed = rng.bytes(NETWORK_TXS * NETWORK_TX_BYTES // 2).hex().encode()
+        t0 = time.perf_counter()
+        ok = 0
+        for k in range(NETWORK_TXS):
+            head = b"n%d-%04d=" % (height, k)
+            o = k * NETWORK_TX_BYTES
+            try:
+                h.mempool.check_tx(head + hexed[o : o + NETWORK_TX_BYTES - len(head)])
+                ok += 1
+            except MempoolError:
+                pass
+        feed_ms.append((height, round((time.perf_counter() - t0) * 1e3, 3), ok))
+
+    if cfg["feed"]:
+        real_update = h.cs.update_to_state
+
+        def update_to_state(state):
+            real_update(state)
+            feed(state.last_block_height + 1)
+
+        h.cs.update_to_state = update_to_state
+        feed(1)
+
+    kept_ed, vote_lat, moved = {}, [], [0]
+    real_ed, real_verify, real_send = cv.verify_core_cuda, Vote.verify, SecretConnection._send_raw
+
+    def keep_ed(**t):
+        kept_ed.setdefault(int(t["s_ok"].shape[0]), {k: v.clone() for k, v in t.items()})
+        return real_ed(**t)
+
+    def timed_verify(self, chain_id, pub_key):
+        t0 = time.perf_counter()
+        try:
+            return real_verify(self, chain_id, pub_key)
+        finally:
+            vote_lat.append((time.perf_counter() - t0) * 1e3)
+
+    def send_raw(self, data):
+        moved[0] += len(data)
+        return real_send(self, data)
+
+    with keeping_inputs(cuda_aead, "aead", lambda a, kw: (
+            "seal" if kw["seal"] else "open", a[2].shape[1], a[2].shape[0])) as kept_aead, \
+            keeping_inputs(cuda_x25519, "ladder", lambda a, kw: a[0].shape[0]) as kept_ladder, \
+            keeping_inputs(csh, "tree_words", lambda a, kw: int(a[1].shape[0]) - 1) as kept_tree:
+        cv.verify_core_cuda, Vote.verify, SecretConnection._send_raw = keep_ed, timed_verify, send_raw
+        ds.reset()
+        vstats.reset()
+        tstats.reset()
+        bstats.reset()
+        handshake_pool.reset_pool()
+        for w in (cv, csh, cuda_aead, cuda_x25519):
+            w.reset_launches()
+        commits, ev = {}, {}  # height -> (unix time, counts when stored)
+        seen_ev, want, no_evidence = {}, None, evidence_list_hash([])
+        bs, cr = net.reactors["BLOCKSYNC"], net.reactors["CONSENSUS"]
+        started = sync_s = switched_at = None
+        t0 = time.perf_counter()
+        status = {}
+        while True:
+            if started is None:
+                peers = net_read(run / f"peers-{name}.json")
+                if peers is not None:
+                    net.start(peers)
+                    started = time.perf_counter()
+            height = h.block_store.height()
+            for hh in range(len(commits) + 1, height + 1):
+                commits[hh] = (time.time(), net_counts(cv, csh, cuda_aead, cuda_x25519))
+                if h.block_store.load_block_meta(hh).header.evidence_hash != no_evidence:
+                    for x in h.block_store.load_block(hh).evidence:
+                        seen_ev[x.hash().hex()] = x
+            if joiner and sync_s is None and started is not None and not cr.wait_sync \
+                    and h.cs._started:
+                sync_s, switched_at = time.perf_counter() - started, height
+                synced = dict(bstats.snapshot())
+                sync_counts = net_counts(cv, csh, cuda_aead, cuda_x25519)
+            if cfg["evidence_at"] and not ev and h.cs.rs.height >= cfg["evidence_at"] \
+                    and height >= cfg["evidence_at"] - 1:
+                ev_h = cfg["evidence_at"] - 1
+                vals = h.state_store.load_validators(ev_h)
+                meta = h.block_store.load_block_meta(ev_h)
+                who = vals.validators[NETWORK_EQUIVOCATOR]
+                key = next(p for p in privs if p.pub_key().address() == who.address)
+                votes = []
+                for c in (0xA0, 0xB0):
+                    bid = BlockID(bytes([c]) * 32, PartSetHeader(1, bytes([c + 1]) * 32))
+                    v = Vote(PRECOMMIT_TYPE, ev_h, 0, bid, meta.header.time, who.address,
+                             NETWORK_EQUIVOCATOR)
+                    v.signature = key.sign(v.sign_bytes(NETWORK_CHAIN))
+                    votes.append(v)
+                e = DuplicateVoteEvidence.from_votes(*votes, meta.header.time,
+                                                     who.voting_power, vals.total_voting_power())
+                s0 = vstats.snapshot()["submitted"]["evidence_light"]
+                h.evidence_pool.add_evidence(e)
+                ev = {"hash": e.hash().hex(), "height": ev_h, "at": h.cs.rs.height,
+                      "submitted": vstats.snapshot()["submitted"]["evidence_light"] - s0,
+                      "pending": len(h.evidence_pool.all_pending())}
+            if want is None:
+                want = (net_read(run / "evidence.json") or {}).get("hash")
+            committed = want in seen_ev and h.evidence_pool._is_committed(seen_ev[want])
+            new = {"address": net.address, "node_id": net.node_id, "height": height,
+                   "cs_height": h.cs.rs.height, "peers": len(net.switch.peers_list()),
+                   "started": started is not None, "syncing": bs.syncing,
+                   "wait_sync": cr.wait_sync, "switched_at": switched_at,
+                   "evidence": ev, "evidence_committed": committed,
+                   "book": sorted([nid, ka.src] for nid, ka in net.addr_book._addrs.items())
+                   if net.addr_book is not None else [],
+                   "errors": len(errors), "boot_s": boot_s}
+            if new != status:
+                status = new
+                net_write(status_path, status)
+            if (run / "stop").exists() or time.perf_counter() - t0 > cfg["deadline_s"]:
+                break
+            time.sleep(0.05)
+        wall = time.perf_counter() - (started or t0)
+        net.stop()
+        h.cs.stop()
+        h.app_conns.stop()
+        launches = net_settled(cv, csh, cuda_aead, cuda_x25519, ds)
+        cv.verify_core_cuda, Vote.verify, SecretConnection._send_raw = real_ed, real_verify, real_send
+        snap, ts = vstats.snapshot(), tstats.snapshot()
+        from cometbft_tpu_torch.ops import chacha_aead as ca_
+        tiers = {"ed25519": ds.tier_counts(), "tree": ds.tier_counts(st.MERKLE),
+                 "aead": ds.tier_counts(ca_.AEAD), "ladder": ds.tier_counts(xl.X25519),
+                 "tree_oversize": ds.tier_counts(st.MERKLE_OVERSIZE)}
+        top = h.block_store.height()
+        chain = {}
+        for hh in range(1, top + 1):
+            meta = h.block_store.load_block_meta(hh)
+            app = (h.block_store.load_block_meta(hh + 1).header.app_hash if hh < top
+                   else h.state_store.load().app_hash)
+            seen = h.block_store.load_seen_commit(hh)
+            chain[hh] = {"block": meta.block_id.hash.hex(), "app": app.hex(),
+                         "txs": meta.num_txs, "round": seen.round_ if seen else None,
+                         "evidence": [x.hash().hex() for x in h.block_store.load_block(hh).evidence]}
+        # the kernels against their plain versions on this node's inputs,
+        # and their device times for the busy share (not counted launches)
+        worst, dev_ms = co.Counter(), {}
+        for lanes, t in sorted(kept_ed.items())[:3]:
+            kern, plain = cv.verify_core_cuda(**t), ov.verify_core(**t)
+            worst["ed25519"] = max(worst["ed25519"], int((kern.int() - plain.int()).abs().max()))
+            check(torch.equal(kern, plain), f"network: {name}: Ed25519 kernel != plain at {lanes}")
+        if kept_ed:
+            k = min(kept_ed)
+            dev_ms["ed25519"] = cuda_ms(torch, lambda: cv.verify_core_cuda(**kept_ed[k]), 5, 1,
+                                        queued=True)
+        for leaves, (args, _) in sorted(kept_tree.items())[-2:]:
+            kern, plain = csh.tree_words(*args), st.tree_words_plain(*args)
+            worst["tree"] = max(worst["tree"], int((kern.long() - plain.long()).abs().max()))
+            check(torch.equal(kern, plain), f"network: {name}: tree kernel != plain at {leaves}")
+            dev_ms["tree"] = cuda_ms(torch, lambda: csh.tree_words(*args), 5, 1, queued=True)
+        aead_ms = []
+        for key, (args, kw) in sorted(kept_aead.items()):
+            got, want_ = cuda_aead.aead(*args, **kw), ca.aead_core(*args, **kw)
+            torch.cuda.synchronize()
+            worst["aead"] = max(worst["aead"], *(int((g.long() - w.long()).abs().max())
+                                                 for g, w in zip(got, want_)))
+            check(all(torch.equal(g, w) for g, w in zip(got, want_)),
+                  f"network: {name}: AEAD kernel != plain on a flush {key}")
+            aead_ms.append(cuda_ms(torch, lambda: cuda_aead.aead(*args, **kw), 5, 1, queued=True))
+        dev_ms["aead"] = statistics.median(aead_ms) if aead_ms else 0.0
+        for lanes, (args, _) in sorted(kept_ladder.items()):
+            got, want_ = cuda_x25519.ladder(*args), xl.ladder_plain(*args)
+            torch.cuda.synchronize()
+            worst["ladder"] = max(worst["ladder"], int((got.long() - want_.long()).abs().max()))
+            check(torch.equal(got, want_), f"network: {name}: ladder kernel != plain at {lanes}")
+            dev_ms["ladder"] = cuda_ms(torch, lambda: cuda_x25519.ladder(*args), 5, 1,
+                                       queued=True)
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
+    report = {
+        "name": name, "launches": launches, "tiers": tiers, "wall_s": wall,
+        "shed_fallback_total": snap["shed_fallback_total"],
+        "transport": {"frames": ts["frames"], "batches": ts["batches"],
+                      "dispatches": ts["dispatches"], "hs_flushes": ts["hs_flushes"],
+                      "hs_shed": ts["hs_shed"], "handshakes": ts["handshakes"]},
+        "moved": moved[0], "vote_ms": vote_lat, "chain": chain,
+        "commits": {hh: [t, c] for hh, (t, c) in commits.items()},
+        "evidence": ev, "feed_ms": feed_ms,
+        "evidence_committed": want in seen_ev and h.evidence_pool._is_committed(seen_ev[want]),
+        "errors": [list(e) for e in errors], "kept": {
+            "ed25519": sorted(kept_ed), "tree": sorted(kept_tree),
+            "aead": sorted(list(k) for k in kept_aead), "ladder": sorted(kept_ladder)},
+        "max_abs_err": dict(worst), "device_ms": dev_ms, "leaked": leaked,
+        "sync": ({"sync_s": sync_s, "switched_at": switched_at, "counters": synced,
+                  "launches": sync_counts} if joiner and sync_s is not None else None),
+    }
+    net_write(report_path, report)
+    return 0
+
+
+def network_localnet(tag, root, procs) -> dict:
+    """Part A of phase 19: four validators and a joiner, each node a
+    process of its own (``net_node_child``; a localnet node is a process,
+    and five nodes under one GIL starve consensus), joined over
+    SecretConnection links on 127.0.0.1.  This process starts them, hands
+    out the peers, waits on their status files and reads their reports.
+    Returns {"launches": {...}, "wall_s": s, "busy": share}."""
+    import numpy as np
+
+    script = os.path.abspath(__file__)
+    env = dict(os.environ, COMETBFT_TPU_WARMBOOT="0")
+    names = [f"node{i}" for i in range(NETWORK_NODES)]
+    everyone = names + ["joiner"]
+
+    def spawn(i: int, name: str, role: str) -> None:
+        path = root / f"cfg-{name}.json"
+        net_write(path, {"run": str(root), "index": i, "name": name, "role": role,
+                         "feed": i == 0,
+                         "evidence_at": NETWORK_EVIDENCE_AT if i == 1 else 0,
+                         "deadline_s": 4 * NETWORK_TIMEOUT_S})
+        log = open(root / f"{name}.log", "w")
+        procs.append((name, subprocess.Popen(
+            [sys.executable, script, "--net-node", str(path)], cwd=os.path.dirname(script),
+            env=env, stdout=log, stderr=subprocess.STDOUT), log))
+
+    def status(name: str) -> dict:
+        return net_read(root / f"status-{name}.json") or {}
+
+    def tail(name: str) -> str:
+        try:
+            return (root / f"{name}.log").read_text()[-3000:]
+        except OSError:
+            return ""
+
+    def wait(cond, what: str, timeout_s: float = NETWORK_TIMEOUT_S) -> None:
+        deadline = time.perf_counter() + timeout_s
+        while not cond():
+            for name, p, _ in procs:
+                check(name not in everyone or p.poll() is None, f"network: {name} exited "
+                      f"(rc {p.returncode}) before {what}: {tail(name)}")
+            check(time.perf_counter() < deadline, f"network: {what} not reached in "
+                  f"{timeout_s} s: " + json.dumps({n: {k: status(n).get(k) for k in (
+                      "height", "cs_height", "peers", "syncing", "errors")} for n in everyone}))
+            time.sleep(0.05)
+
+    marks = {}
+
+    def mark(what: str) -> None:
+        marks[what] = round(time.perf_counter() - t_run, 3)
+        print(f"network: part A: {what} at {marks[what]} s, heights "
+              f"{[status(n).get('height') for n in everyone]}", flush=True)
+
+    t_run = None
+    t0 = time.perf_counter()
+    for i, name in enumerate(names):
+        spawn(i, name, "validator")
+    wait(lambda: all(status(n).get("address") for n in names), "the four validators built")
+    boot_s = time.perf_counter() - t0
+    addrs = {n: status(n)["address"] for n in names}
+    ids = {n: status(n)["node_id"] for n in names}
+    t_run = time.perf_counter()
+    for i, name in enumerate(names):
+        # every pair joined once: node i dials the nodes before it, each a
+        # persistent peer (a reconnect redials it)
+        net_write(root / f"peers-{name}.json", [addrs[m] for m in names[:i]])
+    wait(lambda: all(status(n).get("peers", 0) >= NETWORK_NODES - 1 for n in names),
+         "every validator connected to the three others")
+    connect_s = time.perf_counter() - t_run
+    mark("connected")
+    wait(lambda: status("node1").get("evidence"), "the duplicate vote in node1's pool")
+    mark("evidence in node1's pool")
+    ev = status("node1")["evidence"]
+    net_write(root / "evidence.json", ev)
+    check(ev["submitted"] == 2 and ev["pending"] == 1, f"network: node1's evidence {ev}")
+    wait(lambda: min(status(n).get("height", 0) for n in names) >= NETWORK_JOIN_AFTER,
+         f"height {NETWORK_JOIN_AFTER} on every validator")
+    mark(f"height {NETWORK_JOIN_AFTER} everywhere")
+    spawn(NETWORK_NODES, "joiner", "joiner")
+    wait(lambda: status("joiner").get("address"), "the joiner built")
+    mark("joiner built")
+    net_write(root / "peers-joiner.json", [addrs["node0"]])
+    wait(lambda: status("joiner").get("switched_at") is not None,
+         "the joiner's blocksync and its switch to consensus")
+    mark("joiner switched")
+    switched = status("joiner")["switched_at"]
+    wait(lambda: status("joiner").get("height", 0) >= switched + NETWORK_FOLLOW,
+         f"the joiner at height {switched + NETWORK_FOLLOW} by consensus")
+    mark(f"joiner followed {NETWORK_FOLLOW}")
+    learned = lambda: sorted(nid for nid, src in status("joiner").get("book", [])
+                             if nid in (ids["node1"], ids["node2"], ids["node3"]))
+    wait(lambda: len(learned()) >= NETWORK_PEX, f"{NETWORK_PEX} peers learned by PEX")
+    mark("PEX")
+    wait(lambda: all(status(n).get("evidence_committed") for n in everyone),
+         "the evidence committed in every pool")
+    mark("evidence committed everywhere")
+    wall = time.perf_counter() - t_run
+    print(f"network: part A: milestones (s from the dials) {marks} {tag}")
+    (root / "stop").touch()
+    for name, p, log in [x for x in procs if x[0] in everyone]:
+        try:
+            p.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        log.close()
+        check(p.returncode == 0, f"network: {name} failed (rc {p.returncode}): {tail(name)}")
+    reps = {n: net_read(root / f"report-{n}.json") for n in everyone}
+    check(all(reps.values()), f"network: reports missing: {[n for n in reps if not reps[n]]}")
+
+    # -- what part A asserts ----------------------------------------------
+    top = min(max(map(int, r["chain"]), default=0) for r in reps.values())
+    for hh in map(str, range(1, top + 1)):
+        blocks = {r["chain"][hh]["block"] for r in reps.values()}
+        apps = {r["chain"][hh]["app"] for r in reps.values()}
+        check(len(blocks) == 1 and len(apps) == 1, f"network: height {hh}: {len(blocks)} block "
+              f"hashes, {len(apps)} app hashes across the five nodes")
+    c0 = reps["node0"]["chain"]
+    ev_at = [int(hh) for hh, c in c0.items() if ev["hash"] in c["evidence"]]
+    check(ev_at and all(r["evidence_committed"] for r in reps.values()),
+          f"network: the evidence in blocks {ev_at}, committed in "
+          f"{[n for n, r in reps.items() if r['evidence_committed']]}")
+    sync = reps["joiner"]["sync"]
+    check(sync and sync["counters"]["heights_synced"] >= 3, f"network: the joiner's sync {sync}")
+    launches = collections.Counter()
+    for n, r in reps.items():
+        t = r["tiers"]
+        for what in ("ed25519", "tree", "aead", "ladder"):
+            host_ok = t["tree_oversize"]["host"] if what == "tree" else [0, 0]
+            check(t[what]["torch"] == [0, 0] and t[what]["host"] == host_ok,
+                  f"network: {n}: {what} served below the cuda tier: {t[what]}")
+            check(t[what]["cuda"][0] == r["launches"][what],
+                  f"network: {n}: {r['launches'][what]} {what} launches != cuda passes "
+                  f"{t[what]['cuda']}")
+            launches[what] += r["launches"][what]
+        check(r["shed_fallback_total"] == 0, f"network: {n}: shed fallbacks")
+        check(r["transport"]["dispatches"]["host"] == 0, f"network: {n}: host AEAD passes")
+        check(not r["leaked"], f"network: {n} imported {r['leaked']}")
+        bad = [e for e in r["errors"] if any(b in e[2] for b in BLOCKSYNC_ERRORS)
+               or "BackendError" in e[3] or "PoisonedInput" in e[3]]
+        check(not bad, f"network: {n} logged {bad[:3]}")
+    check(all(launches[k] > 0 for k in ("ed25519", "tree", "aead", "ladder")),
+          f"network: part A's launches {dict(launches)}")
+
+    # -- what part A prints -----------------------------------------------
+    rows = []
+    # node 0 stamps a height when its status loop sees it stored; the
+    # last height or two may have landed after its last look
+    for hh in range(1, min(top, max(map(int, reps["node0"]["commits"]))) + 1):
+        k = str(hh)
+        row = {"height": hh, "block_ms": (round((reps["node0"]["commits"][k][0]
+                                                 - reps["node0"]["commits"][str(hh - 1)][0])
+                                                * 1e3, 3) if hh > 1 else None),
+               "rounds": c0[k]["round"] + 1, "txs": c0[k]["txs"],
+               "evidence": len(c0[k]["evidence"])}
+        for what in ("ed25519", "tree", "aead", "ladder"):
+            row[f"{what}_launches"] = sum(
+                r["commits"][k][1][what] - (r["commits"][str(hh - 1)][1][what] if hh > 1 else 0)
+                for r in reps.values() if k in r["commits"] and (hh == 1 or str(hh - 1) in r["commits"]))
+        rows.append(row)
+        print(f"network: part A height {json.dumps(row)} (launches: every node's between "
+              f"its stores of h - 1 and h) {tag}")
+    lat = np.array([x for r in reps.values() for x in r["vote_ms"]])
+    frames = collections.Counter()
+    passes = collections.Counter()
+    hs = collections.Counter()
+    for r in reps.values():
+        frames.update(r["transport"]["frames"])
+        passes.update(r["transport"]["batches"])
+        hs.update(r["transport"]["hs_flushes"])
+    moved = sum(r["moved"] for r in reps.values()) / 1e6
+    busy = sum(r["launches"][k] * r["device_ms"].get(k, 0.0) for r in reps.values()
+               for k in ("ed25519", "tree", "aead", "ladder")) / (wall * 1e3)
+    errs = collections.Counter(e[2] for r in reps.values() for e in r["errors"])
+    print(f"network: part A: {NETWORK_NODES} validators (make_genesis, chain "
+          f"{NETWORK_CHAIN!r}), each a process of its own built by sim/node.build_node on the "
+          f"card and wired by tests/torch_net.py ({boot_s:.2f} s to boot all four): NodeKey, "
+          f"Transport (device None) and Switch on 127.0.0.1:0, the consensus, blocksync, "
+          f"mempool, evidence and PEX reactors; ConsensusConfig(), MempoolConfig() and "
+          f"P2PConfig() defaults; {NETWORK_NODES * (NETWORK_NODES - 1) // 2} links up in "
+          f"{connect_s * 1e3:.1f} ms; node 0's mempool offered {NETWORK_TXS} txs of "
+          f"{NETWORK_TX_BYTES} bytes before each height (seed {NETWORK_SEED}; feeds "
+          f"{reps['node0']['feed_ms']} as (height, ms, admitted)) {tag}")
+    print(f"network: part A: heights 1-{top} on all five nodes in {wall:.2f} s, one block "
+          f"hash and one app hash per height; txs a block {[c0[str(x)]['txs'] for x in range(1, top + 1)]}; "
+          f"the duplicate vote of validator {NETWORK_EQUIVOCATOR} at height {ev['height']} put "
+          f"in node1's pool at height {ev['at']} ({ev['submitted']} evidence-class signatures "
+          f"on the card), gossiped, committed in block {ev_at}, marked committed in all five "
+          f"pools; served by tier: every Ed25519 batch, tree pass, AEAD pass and ladder flush "
+          f"on cuda in all five processes, 0 shed fallbacks; errors logged {dict(errs)} {tag}")
+    print(f"network: part A: the joiner (a non-validator, its only peer node0, PEX on) "
+          f"blocksynced to height {sync['switched_at']} in {sync['sync_s'] * 1e3:.1f} ms "
+          f"(counters {sync['counters']}), its own launches in that time {sync['launches']}; "
+          f"switched to consensus, followed to height "
+          f"{max(map(int, reps['joiner']['chain']))}; learned by PEX {len(learned())} "
+          f"validators' addresses {[x[:8] for x in learned()]} {tag}")
+    print(f"network: part A: vote-verify latency (Vote.verify wall, {len(lat)} calls over the "
+          f"five processes) p50 {float(np.percentile(lat, 50))} ms, p99 "
+          f"{float(np.percentile(lat, 99))} ms {tag}")
+    print(f"network: part A: transport: {frames['batched']} frames in "
+          f"{sum(passes.values())} AEAD passes {dict(passes)} "
+          f"({frames['batched'] / max(1, sum(passes.values())):.2f} frames a pass, "
+          f"{launches['aead']} launches), {frames['serial']} frames serial (flushes under "
+          f"the plane's minimum of 4); {moved:.3f} MB written to sockets "
+          f"({moved / wall:.3f} MB/s over the run); ladder flushes {sum(hs.values())} "
+          f"{dict(hs)} ({launches['ladder']} launches) {tag}")
+    blocks_ms = [r["block_ms"] for r in rows[1:]]
+    print(f"network: part A: block time per height (ms) {[r['block_ms'] for r in rows]}, "
+          f"median of heights 2-{rows[-1]['height']} "
+          f"{statistics.median(blocks_ms) if blocks_ms else None} ms; "
+          f"rounds {[r['rounds'] for r in rows]}; launches {dict(launches)}; the card busy "
+          f"~{busy:.4%} of the run (idle ~{1 - busy:.4%}; derived: each process's launches x "
+          f"the device times of its own kept inputs, CUDA events, queued) {tag}")
+    return {"launches": dict(launches), "wall_s": wall, "busy": busy}
+
+
+def network_blocksync(torch, cbatch, cv, ds, sigcache, tag, tn, PORT, chain, errors,
+                      nets, moved) -> dict:
+    """Part B of phase 19.  Returns {"launches": {...}, "wall_s": s,
+    "validators": n}."""
+    from cometbft_tpu_torch.abci import types as at
+    from cometbft_tpu_torch.abci.client import LocalClient
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.blocksync import stats as bstats
+    from cometbft_tpu_torch.config.config import P2PConfig
+    from cometbft_tpu_torch.evidence.pool import EvidencePool
+    from cometbft_tpu_torch.mempool.clist_mempool import NopMempool
+    from cometbft_tpu_torch.ops import cuda_aead, cuda_x25519
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.p2p import handshake_pool
+    from cometbft_tpu_torch.p2p import transport_stats as tstats
+    from cometbft_tpu_torch.state import execution
+    from cometbft_tpu_torch.state.state import _params_to_json, state_from_genesis
+    from cometbft_tpu_torch.state.store import StateStore
+    from cometbft_tpu_torch.store.block_store import BlockStore
+    from cometbft_tpu_torch.store.kv import SqliteKV
+    from cometbft_tpu_torch.types import codec, validation
+    from cometbft_tpu_torch.verifysched import stats as vstats
+
+    gdoc = chain["genesis"]
+    sdb = SqliteKV(chain["db"], surface="state")
+    jdb = None
+    try:
+        sbstore, ssstore = BlockStore(sdb), StateStore(sdb)
+        sstate = ssstore.load()
+        top = sbstore.height()
+        n = len(sstate.validators.validators)
+        trace = collections.deque(maxlen=80)  # the nodes' last log lines
+        server = tn.build(PORT, tn.node_key(PORT, b"network-server"), gdoc.chain_id,
+                          p2p_config=P2PConfig(pex=False), state=sstate, block_store=sbstore,
+                          block_sync=False, moniker="server",
+                          logger=NetLog("server", errors, trace=trace))
+        nets.append(server)
+        # the joiner: genesis, a fresh app after InitChain, its own stores
+        state = state_from_genesis(gdoc)
+        app = KVStoreApplication()
+        client = LocalClient(app)
+        res = client.init_chain(at.InitChainRequest(
+            time_unix_ns=gdoc.genesis_time.to_ns(), chain_id=gdoc.chain_id,
+            consensus_params=_params_to_json(gdoc.consensus_params),
+            validators=[at.ValidatorUpdate("ed25519", v.pub_key.bytes(), v.power)
+                        for v in gdoc.validators],
+            app_state_bytes=gdoc.app_state, initial_height=gdoc.initial_height))
+        state.app_hash = res.app_hash
+        jdb = SqliteKV(os.path.join(chain["dir"], "joiner.db"), surface="state")
+        jbstore, jsstore = BlockStore(jdb), StateStore(jdb)
+        jsstore.bootstrap(state)
+        evpool = EvidencePool(jdb, jsstore, jbstore)
+        ex = execution.BlockExecutor(jsstore, jbstore, client, NopMempool(),
+                                     evidence_pool=evpool)
+        joiner = tn.build(PORT, tn.node_key(PORT, b"network-bsync-joiner"), gdoc.chain_id,
+                          p2p_config=P2PConfig(pex=False), state=state, block_store=jbstore,
+                          block_exec=ex, block_sync=True, moniker="joiner",
+                          logger=NetLog("bsync-joiner", errors, trace=trace))
+        nets.append(joiner)
+        bs = joiner.reactors["BLOCKSYNC"]
+        check(bs.device is None and joiner.transport.device is None,
+              "network: part B's joiner is not on the card")
+
+        # per height: apply and verify walls, launches and lanes; each
+        # prefetch call's path
+        per = collections.defaultdict(dict)
+        calls = []
+        prepared = []
+        real = {"apply": ex.apply_verified_block, "light": validation.verify_commit_light,
+                "prepare": validation.prepare_commit_light, "segments": ov.verify_segments,
+                "validate": ex.validate_block}
+        mark = {"cuda": (0, 0), "ed": 0}
+
+        def apply_verified_block(st_, bid, block):
+            t0 = time.perf_counter()
+            try:
+                return real["apply"](st_, bid, block)
+            finally:
+                h = block.header.height
+                cuda = ds.tier_counts()["cuda"]
+                b, l = cuda[0] - mark["cuda"][0], cuda[1] - mark["cuda"][1]
+                per[h].update(apply_ms=round((time.perf_counter() - t0) * 1e3, 3),
+                              ed25519_launches=cv.launches - mark["ed"],
+                              lanes_per_launch=round(l / b, 1) if b else None)
+                mark.update(cuda=cuda, ed=cv.launches)
+
+        def verify_commit_light(chain_id, vals, block_id, height, commit, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real["light"](chain_id, vals, block_id, height, commit, *a, **kw)
+            finally:
+                per[height]["verify_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+
+        def validate_block(st_, block):
+            t0 = time.perf_counter()
+            try:
+                return real["validate"](st_, block)
+            finally:
+                per[block.header.height]["validate_ms"] = round(
+                    (time.perf_counter() - t0) * 1e3, 3)
+
+        def prepare_commit_light(chain_id, vals, block_id, height, commit, **kw):
+            prepared.append(height)
+            return real["prepare"](chain_id, vals, block_id, height, commit, **kw)
+
+        def verify_segments(work, device=None):
+            lanes = sum(len(p) for p, _, _ in work)
+            path = "fused" if lanes <= ov._BUCKETS[-1] else "verify_batches_overlapped"
+            t0 = time.perf_counter()
+            try:
+                return real["segments"](work, device)
+            finally:
+                calls.append({"heights": list(prepared), "segments": len(work),
+                              "lanes": lanes, "path": path,
+                              "ms": round((time.perf_counter() - t0) * 1e3, 3)})
+                prepared.clear()
+
+        ex.apply_verified_block, ex.validate_block = apply_verified_block, validate_block
+        validation.verify_commit_light = verify_commit_light
+        validation.prepare_commit_light = prepare_commit_light
+        ov.verify_segments = verify_segments
+        try:
+            sigcache.get_cache().clear()  # a joiner never saw the votes
+            ds.reset()
+            vstats.reset()
+            tstats.reset()
+            bstats.reset()
+            handshake_pool.reset_pool()
+            cv.reset_launches()
+            csh.reset_launches()
+            cuda_aead.reset_launches()
+            cuda_x25519.reset_launches()
+            moved[0] = 0
+            t0 = time.perf_counter()
+            server.start()
+            joiner.start([server.address])
+            deadline = time.perf_counter() + NETWORK_SYNC_TIMEOUT_S
+            while bs.syncing:
+                check(time.perf_counter() < deadline, f"network: part B's joiner at height "
+                      f"{jbstore.height()} after {NETWORK_SYNC_TIMEOUT_S} s: peers "
+                      f"{len(joiner.switch.peers_list())}, counters {bstats.snapshot()}, "
+                      f"requests {sorted(bs.pool.requests)}, transport "
+                      f"{ {k: v for k, v in tstats.snapshot().items() if k in ('frames', 'batches', 'dispatches', 'handshakes', 'bad_tags')} }, "
+                      f"errors {errors[-5:]}, the nodes' last lines {list(trace)[-40:]}")
+                time.sleep(0.01)
+            wall = time.perf_counter() - t0
+            joiner.stop()
+            server.stop()
+            launches = net_settled(cv, csh, cuda_aead, cuda_x25519, ds)
+            snap, ts, synced = vstats.snapshot(), tstats.snapshot(), bstats.snapshot()
+            dsnap = ds.snapshot()
+            tiers = net_tiers(ds, "part B")
+        finally:
+            validation.verify_commit_light = real["light"]
+            validation.prepare_commit_light = real["prepare"]
+            ov.verify_segments = real["segments"]
+
+        # -- what part B asserts ------------------------------------------
+        check(jbstore.height() == top - 1, f"network: part B's joiner at height "
+              f"{jbstore.height()}, want {top - 1} (block {top}'s LastCommit proves "
+              f"{top - 1})")
+        for h in range(1, top):
+            check(codec.encode_block(jbstore.load_block(h)) == codec.encode_block(
+                sbstore.load_block(h)), f"network: part B's block {h} differs from the server's")
+        final = bs.state
+        check(final.app_hash == sbstore.load_block(top).header.app_hash
+              and jsstore.load().app_hash == final.app_hash,
+              "network: part B's app hash != block 5's header app_hash")
+        _, changed = final.validators.get_by_address(
+            gdoc.validators[BLOCKEXEC_CHANGED].pub_key.address())
+        check(final.last_block_height == top - 1
+              and changed.voting_power == BLOCKEXEC_CHANGED_POWER,
+              f"network: part B's validator set at height {top} does not carry the "
+              f"height-{BLOCKEXEC_VAL_TX_AT} power change")
+        ev_sub = snap["submitted"]["evidence_light"]
+        check(ev_sub == 2, f"network: part B's evidence took {ev_sub} evidence-class "
+              f"signatures on the card, want 2 (one flush at PRIO_EVIDENCE)")
+        check(tiers["ed25519"]["cuda"][0] == launches["ed25519"] > 0
+              and tiers["tree"]["cuda"][0] == launches["tree"] > 0,
+              f"network: part B's launches {launches} != cuda batches {tiers}")
+        check(tiers["aead"]["cuda"][0] == launches["aead"] > 0
+              and ts["dispatches"]["host"] == 0 and tiers["ladder"]["cuda"][0]
+              == launches["ladder"] > 0, f"network: part B's transport {tiers} {ts['dispatches']}")
+        check(synced["heights_synced"] == top - 1, f"network: part B's counters {synced}")
+        bad = [e for e in errors if any(b in e[2] for b in BLOCKSYNC_ERRORS)]
+        check(not bad, f"network: blocksync logged {bad[:3]}")
+        for h in range(1, top):
+            row = {"height": h, **per[h]}
+            call = next((c for c in calls if h in c["heights"]), None)
+            row["prefetch"] = call["path"] if call else "none (the two-block pipeline)"
+            print(f"network: part B height {json.dumps(row)} {tag}")
+        mb = moved[0] / 1e6
+        print(f"network: part B: phase 17's chain ({n} validators, {top} blocks) served by "
+              f"a BlocksyncReactor behind a Switch; a fresh non-validator joiner "
+              f"(InitChain on a new KVStore app, its own SQLite stores, BlockExecutor "
+              f"and EvidencePool on the card, signature cache cleared) dialed it at "
+              f"{P2PConfig().recv_rate} B/s and blocksynced heights 1-{top - 1} in "
+              f"{wall:.2f} s: blocks byte for byte the server's, app hash == block "
+              f"{top}'s header app_hash, validator {BLOCKEXEC_CHANGED} at power "
+              f"{BLOCKEXEC_CHANGED_POWER} at height {top}, the height-"
+              f"{BLOCKEXEC_EVIDENCE_AT} evidence checked on the card ({ev_sub} "
+              f"evidence-class signatures); counters {synced}; prefetch calls {calls}; "
+              f"fused_batches {dsnap['fused_batches']} (segments "
+              f"{dsnap['fused_segments']}); launches {launches}; served by tier "
+              f"{tiers}; no blocksync error logged {tag}")
+        print(f"network: part B: transfer {mb:.3f} MB written to sockets through "
+              f"{launches['aead']} AEAD launches ({ts['frames_per_batch']:.2f} frames a "
+              f"pass, {ts['frames']['serial']} frames serial) = {mb / wall:.3f} MB/s over "
+              f"the sync's wall of {wall:.2f} s {tag}")
+        return {"launches": launches, "wall_s": wall, "validators": n}
+    finally:
+        sdb.close()
+        if jdb is not None:
+            jdb.close()
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -5074,14 +6101,29 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"(the kernels line below keeps the earlier paths' counts: Ed25519 "
           f"{launches}, tree {light_entry['launches']})")
 
-    # -- 18. consensus: four validators, a restart, the seeded network -------
-    cs_launches = consensus_phase(torch, dev, cbatch, cv, ds, sigcache, tag)
-    print(f"consensus: the kernels' launches on its path: Ed25519 "
-          f"{cs_launches['ed25519']}, tree {cs_launches['tree']}; the kernels line "
+    try:
+        # -- 18. consensus: four validators, a restart, the seeded network ---
+        cs_launches = consensus_phase(torch, dev, cbatch, cv, ds, sigcache, tag)
+        print(f"consensus: the kernels' launches on its path: Ed25519 "
+              f"{cs_launches['ed25519']}, tree {cs_launches['tree']}; the kernels line "
+              f"adds them to the earlier paths' counts (Ed25519 {launches}, tree "
+              f"{light_entry['launches']})")
+        launches += cs_launches["ed25519"]
+        light_entry["launches"] += cs_launches["tree"]
+
+        # -- 19. network: switches, reactors, PEX and blocksync ---------------
+        net = network_phase(torch, dev, cbatch, cv, ds, sigcache, be, tag)
+    finally:
+        shutil.rmtree(be["dir"], ignore_errors=True)  # phase 17's chain
+    print(f"network: the kernels' launches on its path: Ed25519 {net['ed25519']}, tree "
+          f"{net['tree']}, AEAD {net['aead']}, ladder {net['ladder']}; the kernels line "
           f"adds them to the earlier paths' counts (Ed25519 {launches}, tree "
-          f"{light_entry['launches']})")
-    launches += cs_launches["ed25519"]
-    light_entry["launches"] += cs_launches["tree"]
+          f"{light_entry['launches']}, AEAD {aead_entry['launches']}, ladder "
+          f"{ladder_entry['launches']})")
+    launches += net["ed25519"]
+    light_entry["launches"] += net["tree"]
+    aead_entry["launches"] += net["aead"]
+    ladder_entry["launches"] += net["ladder"]
 
     print("host: " + json.dumps({
         "name": native.NAME,
@@ -5119,4 +6161,6 @@ if __name__ == "__main__":
         sys.exit(warm_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--sim-child"]:
         sys.exit(sim_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--net-node"]:
+        sys.exit(net_node_child(sys.argv[2]))
     sys.exit(main())

@@ -79,6 +79,18 @@ from cometbft_tpu_torch.types.vote_set import ConflictingVoteError, VoteError, V
 from cometbft_tpu_torch.utils.fail import fail_point
 
 
+class _MsgQueue(queue.Queue):
+    """The consensus input queue: bounded for peer messages, with one way
+    past the bound for the consumer thread's own messages."""
+
+    def put_unbounded(self, item) -> None:
+        """Put ``item`` last without waiting for room."""
+        with self.not_empty:
+            self._put(item)
+            self.unfinished_tasks += 1
+            self.not_empty.notify()
+
+
 class ConsensusState(BaseService):
     """Reference: internal/consensus/state.go State."""
 
@@ -117,7 +129,7 @@ class ConsensusState(BaseService):
         self.state: Optional[State] = None
 
         self._mtx = libsync.rlock("consensus.state")
-        self._queue: "queue.Queue[tuple[str, object]]" = queue.Queue(maxsize=1000)
+        self._queue: "_MsgQueue[tuple[str, object]]" = _MsgQueue(maxsize=1000)
         self._clock: Callable[[], float] = clock or _time.time
         self._threaded = threaded
         self.ticker = (ticker_factory or TimeoutTicker)(self._tock)
@@ -196,7 +208,13 @@ class ConsensusState(BaseService):
         self._queue.put(("peer", MsgInfo(msg, peer_id, trace_ctx)))
 
     def _add_internal_message(self, msg: object) -> None:
-        self._queue.put(("internal", MsgInfo(msg, "")))
+        # The consumer thread itself makes our proposals and votes: a
+        # blocking put on a queue that peers filled would wait on the only
+        # thread that drains it.  Internal messages take their place in
+        # the one FIFO past its bound, as the reference never blocks here
+        # (state.go sendInternalMessage: "the channel is full, try again
+        # in a goroutine"); the JAX package blocks (ROADMAP §3).
+        self._queue.put_unbounded(("internal", MsgInfo(msg, "")))
         if self.broadcast_hook is not None:
             self.broadcast_hook(msg)
 

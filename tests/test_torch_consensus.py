@@ -536,15 +536,23 @@ def test_wal_torn_tail_repair(tmp_path, tail):
 
 
 def test_wal_mid_stream_corruption_refused(tmp_path):
-    for pkg in PKGS:
-        walm = mod(pkg, "consensus.wal")
-        d = tmp_path / pkg
-        _wal_write(pkg, d / "cs.wal").close()
-        raw = bytearray((d / "cs.wal").read_bytes())
-        raw[20] ^= 0xFF  # inside the first frame; valid frames follow
-        (d / "cs.wal").write_bytes(bytes(raw))
-        with pytest.raises(walm.WALCorruptionError):
-            walm.WAL(str(d / "cs.wal"))
+    try:
+        for pkg in PKGS:
+            walm = mod(pkg, "consensus.wal")
+            d = tmp_path / pkg
+            _wal_write(pkg, d / "cs.wal").close()
+            raw = bytearray((d / "cs.wal").read_bytes())
+            raw[20] ^= 0xFF  # inside the first frame; valid frames follow
+            (d / "cs.wal").write_bytes(bytes(raw))
+            with pytest.raises(walm.WALCorruptionError):
+                walm.WAL(str(d / "cs.wal"))
+            assert mod(pkg, "libs.storage_stats").snapshot()["totals"]["fatal"]
+    finally:
+        # the refusal records a fail-stop fatal in each package's
+        # process-wide storage stats: a later test in this process (a
+        # node's health route) must not see it
+        for pkg in PKGS:
+            mod(pkg, "libs.storage_stats").reset()
 
 
 def test_wal_writes_through_the_cpp_library(tmp_path, monkeypatch):

@@ -18,7 +18,11 @@ in the block store and applied by ``BlockExecutor`` over ``MemKV``, the
 LastCommit through the plain version), and the consensus core
 (``tests/torch_sim``: four validators on the seeded virtual-time network,
 three heights, one of them crashed and rebuilt from its stores, its WAL
-replayed), and checks that neither name reached ``sys.modules``.
+replayed), and the network (``tests/torch_net``: two switches on
+``device="cpu"`` over loopback, their dial through the handshake pool and
+the AEAD plane, a message each way on an echo channel, and a joiner's
+blocksync of three heights from a serving node, its commits through the
+plain version), and checks that neither name reached ``sys.modules``.
 """
 
 import ast
@@ -31,7 +35,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "cometbft_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_net.py"
 ]
 CSRC = ROOT / "cometbft_tpu_torch" / "csrc"
 NATIVE_FILES = sorted(p for p in CSRC.iterdir() if p.suffix in (".cpp", ".cu", ".cuh", ".h"))
@@ -149,6 +153,22 @@ def test_port_files_exist():
         "cometbft_tpu_torch/sim/network.py",
         "cometbft_tpu_torch/sim/node.py",
         "cometbft_tpu_torch/sim/invariants.py",
+        "cometbft_tpu_torch/libs/flowrate.py",
+        "cometbft_tpu_torch/p2p/node_info.py",
+        "cometbft_tpu_torch/p2p/conn.py",
+        "cometbft_tpu_torch/p2p/peer.py",
+        "cometbft_tpu_torch/p2p/reactor.py",
+        "cometbft_tpu_torch/p2p/transport.py",
+        "cometbft_tpu_torch/p2p/switch.py",
+        "cometbft_tpu_torch/p2p/pex.py",
+        "cometbft_tpu_torch/node/nodekey.py",
+        "cometbft_tpu_torch/consensus/reactor.py",
+        "cometbft_tpu_torch/mempool/reactor.py",
+        "cometbft_tpu_torch/evidence/reactor.py",
+        "cometbft_tpu_torch/blocksync/stats.py",
+        "cometbft_tpu_torch/blocksync/pool.py",
+        "cometbft_tpu_torch/blocksync/reactor.py",
+        "tests/torch_net.py",
     ):
         assert need in names
     assert {p.name for p in NATIVE_FILES} >= {
@@ -305,6 +325,62 @@ with tempfile.TemporaryDirectory() as d:
     assert not c.checker.violations and c.checker.commits_verified >= 12
     assert len({tuple(n["blocks"]) for n in c.chain(3).values()}) == 1
     c.stop()
+# the network: two switches on the CPU over loopback, each with an echo
+# reactor; the joiner dials the server (ladders through the pool, frames
+# through the plane), a message goes each way, and the joiner blocksyncs
+# three heights of the server's chain, its commits through the plain
+# version (one fused prefetch of the window, then the cache)
+import torch_net
+from cometbft_tpu_torch.config.config import P2PConfig
+from cometbft_tpu_torch.p2p.conn import ChannelDescriptor
+from cometbft_tpu_torch.p2p.reactor import Reactor
+dispatch_stats.reset()
+echoed = []
+
+class Echo(Reactor):
+    def __init__(self):
+        super().__init__("Echo")
+    def get_channels(self):
+        return [ChannelDescriptor(0x77, priority=1, send_queue_capacity=10)]
+    def receive(self, chan_id, peer, msg):
+        echoed.append(msg)
+        if msg == b"ping":
+            peer.try_send(0x77, b"pong")
+
+server, _ = torch_chain.drive("cometbft_tpu_torch", heights=4, evidence_at=0,
+                              executor_kw=cpu, pool_kw=cpu)
+import cometbft_tpu_torch.crypto.sigcache as sc
+sc.reset_cache()
+joiner = torch_chain.Chain("cometbft_tpu_torch", executor_kw=cpu, pool_kw=cpu)
+nodes = []
+try:
+    for name, chain, sync in ((b"srv", server, False), (b"joiner", joiner, True)):
+        nodes.append(torch_net.build(
+            "cometbft_tpu_torch", torch_net.node_key("cometbft_tpu_torch", name),
+            torch_chain.CHAIN_ID, p2p_config=P2PConfig(pex=False), state=chain.state,
+            block_exec=chain.executor, block_store=chain.block_store, block_sync=sync,
+            device="cpu", extra_reactors=[("ECHO", Echo())]))
+    srv, jn = nodes
+    srv.start()
+    jn.start([srv.address])
+    assert jn.wait_peers(1, 120) and srv.wait_peers(1, 120)
+    assert jn.switch.peers_list()[0].try_send(0x77, b"ping")
+    bs = jn.reactors["BLOCKSYNC"]
+    deadline = time.time() + 180
+    while (bs.syncing or len(echoed) < 2) and time.time() < deadline:
+        time.sleep(0.02)
+    assert sorted(echoed) == [b"ping", b"pong"], echoed
+    assert not bs.syncing and joiner.block_store.height() == 3, joiner.block_store.height()
+    assert [joiner.block_store.load_block(h).hash() for h in (1, 2, 3)] == [
+        server.block_store.load_block(h).hash() for h in (1, 2, 3)]
+    assert bs.state.app_hash == server.block_store.load_block(4).header.app_hash
+    assert dispatch_stats.tier_counts("x25519")["torch"][1] == 4
+    assert dispatch_stats.tier_counts("aead")["torch"][0] >= 1
+    assert dispatch_stats.snapshot()["fused_batches"] >= 1
+finally:
+    for n in nodes:
+        n.stop()
+    handshake_pool.reset_pool()
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)
