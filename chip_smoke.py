@@ -344,6 +344,44 @@ served by the torch or host tier, or one that raised, fails the run.
               inputs; per height apply and verify ms, launches, lanes, and
               whether the prefetch fused the window or went to
               ``verify_batches_overlapped``.
+ 20. ingest_statesync — transaction ingestion and state sync, after
+              phase 19 in the script's own process.  Part A, CometBFT's
+              sentry deployment: a single validator V behind a full node
+              S over one SecretConnection link, each a
+              ``SigVerifyingApp(KVStoreApplication())`` through
+              ``LocalClient``, an envelope-aware ``CListMempool`` at the
+              ``MempoolConfig`` defaults and an ``IngestCoalescer`` at its
+              defaults on its mempool reactor.  Three rounds: 8 client
+              threads call S's ``check_tx`` (as ``broadcast_tx_sync``)
+              with 4,905 Ed25519 envelopes (1,024 senders, rising nonces),
+              25 secp256k1, 50 forged (102), 10 malformed (101); S's
+              gossip to V is held until S has admitted them and the
+              signature cache is cleared (V is another machine; S's later
+              checks of those envelopes are answered from S's own
+              verdicts, as a sentry's own cache would), then V admits
+              them through the coalescer into ``check_tx_batch``; then 10
+              re-signed at a used nonce (0 at S, 103 at V).  V commits
+              every valid tx and no replay; its
+              ``process_proposal``/``finalize_block`` re-checks find every
+              signature in the cache; every recheck of more than one tx is
+              one ``check_txs``; S's rechecks launch nothing; no "batched
+              admission failed" line.  Each Ed25519 launch is attributed
+              to the paths whose checks its flush carried (V's admission,
+              S's clients, rechecks, applies).
+              Part B: phase 17's chain extended by blocks 6 and 7 serves a
+              ``StatesyncReactor`` and a ``BlocksyncReactor`` behind a
+              switch; a fresh joiner whose app is a ``KVStoreApplication``
+              behind ``abci/server.ABCIServer`` in a child process
+              (``--abci-app``), reached through ``remote_client_creator``,
+              discovers the snapshot at 5, verifies it through a
+              ``LightClientStateProvider`` on the card (block 1 trusted by
+              hash), fetches ~200 chunks of 64 KiB, applies them over the
+              socket, bootstraps its stores and blocksyncs block 6: app
+              hashes those of headers 6 and 7, its state H's at 5.  Every
+              Ed25519 batch, tree pass, AEAD pass and ladder flush on
+              ``cuda``; the four kernels against their plain versions on
+              the phase's inputs; admission rates, flush ms, light hops,
+              socket ms, the restore's MB/s and the busy share.
 
 The script sets ``COMETBFT_TPU_WARMBOOT=0`` for its own process: a
 background warm pass would add self-check launches to the phases'
@@ -354,12 +392,13 @@ Usage, from the repository root, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 Set-up signs 10,240 votes with the pure-Python oracle (~1.6 ms each on one
-host core, ~17 s in all), 10,240 secp256k1 votes (~5 s), the light
-chain's 17,000 votes (~30 s) and 256 BLS12-381 votes in the host library
+host core) and the light chain's 17,000 votes on up to 8 processes, 10,240
+secp256k1 votes (~5 s) and 256 BLS12-381 votes in the host library
 (~1 s), and 100 node keys for the transport phase, and for the blockexec
 phase 10,240 keys and five commits of 10,239 votes on up to 8 processes
-(the pure-Python oracle): the cost of making the data, not of verifying
-it.
+(the pure-Python oracle), and for phase 20 two more commits of 10,239 votes
+and 3 x 4,965 envelope signatures on the same processes: the cost of
+making the data, not of verifying it.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -372,6 +411,7 @@ import contextlib
 import gc
 import hashlib
 import json
+import logging
 import os
 import pstats
 import re
@@ -380,6 +420,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 N_VALIDATORS = 10_240
@@ -465,7 +506,7 @@ TRANSPORT_PEERS = 50
 TRANSPORT_FRAME = 1024
 TRANSPORT_BLOCK = 4 << 20
 TRANSPORT_PART = 64 << 10
-TRANSPORT_BYTES = TRANSPORT_BLOCK  # per connection; the one size the phase may cut
+TRANSPORT_BYTES = TRANSPORT_BLOCK // 4  # per connection; cut for phase 20's time
 TRANSPORT_FLUSH = TRANSPORT_PART // TRANSPORT_FRAME  # frames per write_frames
 TRANSPORT_TAMPER_AT = 37  # the tampered frame of the tampered flush
 AEAD_LANES = 1024  # the JAX package's lane ceiling (COMETBFT_TPU_AEAD_MAX_LANES)
@@ -518,7 +559,7 @@ CONSENSUS_SEED = SEED + 17  # the txs offered before each height
 CONSENSUS_NODES = 4  # CometBFT's make localnet-start: node0-node3
 CONSENSUS_TXS = 5_000  # MempoolConfig().size: a full mempool before each height
 CONSENSUS_TX_BYTES = 256
-CONSENSUS_HEIGHTS = 5  # committed by all four before the restart
+CONSENSUS_HEIGHTS = 3  # committed by all four before the restart (cut from 5 for phase 20)
 CONSENSUS_RESTARTED = 3  # the validator stopped and rebuilt from its stores
 CONSENSUS_AFTER = 2  # heights all four commit after the restarted one caught up
 CONSENSUS_TIMEOUT_S = 240.0  # each wait of the threaded run
@@ -534,11 +575,27 @@ NETWORK_TXS = 5_000  # MempoolConfig().size
 NETWORK_TX_BYTES = 256
 NETWORK_EVIDENCE_AT = 2  # the height node 1's pool takes the duplicate vote at
 NETWORK_EQUIVOCATOR = 3  # its validator (set order at height 1)
-NETWORK_JOIN_AFTER = 4  # the fifth node starts once every validator has stored it
+NETWORK_JOIN_AFTER = 3  # the fifth node starts once every validator has stored it (cut from 4)
 NETWORK_FOLLOW = 2  # heights the joiner commits after it switched to consensus
 NETWORK_PEX = 2  # peers the joiner must learn by PEX, beyond node 0
 NETWORK_TIMEOUT_S = 240.0  # each wait of part A
 NETWORK_SYNC_TIMEOUT_S = 300.0  # part B's blocksync
+INGEST_CHAIN = "ingest-chain"
+INGEST_SEED = 20261037  # the senders' keys and the client txs
+INGEST_ROUNDS = 3  # rounds of client traffic, nonces rising across them
+INGEST_CLIENTS = 8  # client threads calling the sentry's check_tx
+INGEST_SENDERS = 1_024  # Ed25519 senders, nonces rising
+INGEST_SECP_SENDERS = 8
+INGEST_ED = 4_905  # valid Ed25519 envelopes a round
+INGEST_SECP = 25  # valid secp256k1 envelopes a round
+INGEST_FORGED = 50
+INGEST_MALFORMED = 10
+INGEST_REPLAYS = 10  # re-signed at a nonce the round used, after V admitted it
+INGEST_TX_BYTES = 256  # the key=value payload of an envelope
+INGEST_TIMEOUT_S = 240.0  # each wait of part A
+STATESYNC_SEED = 20261039  # blocks 6 and 7 of phase 17's chain
+STATESYNC_TOP = 7  # the helper's height: light blocks 5-7 behind the snapshot at 5
+STATESYNC_DISCOVERY_S = 2.0  # the joiner's discovery window (StateSyncConfig: 15 s)
 
 
 class SmokeError(AssertionError):
@@ -705,6 +762,26 @@ def profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag) -> dict:
     }
 
 
+class signing_pool:
+    """A pool of BLOCKEXEC_SIGNERS spawned processes for set-up signing
+    (the pure-Python oracle is ~1.6 ms a signature on one core): calling
+    it maps a chunk worker over items in order; ``close`` stops it."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+
+        self.workers = BLOCKEXEC_SIGNERS
+        self.ex = concurrent.futures.ProcessPoolExecutor(
+            self.workers, mp_context=multiprocessing.get_context("spawn"))
+
+    def __call__(self, fn, items: list) -> list:
+        return in_chunks(self.ex, fn, items, self.workers)
+
+    def close(self) -> None:
+        self.ex.shutdown(wait=True, cancel_futures=True)
+
+
 def make_commit(n: int, key_from_seed=None, seed: int = SEED):
     """Seeded validator set of ``n`` equal-power keys (Ed25519 unless
     ``key_from_seed`` makes another private key from 32 seeded bytes) and a
@@ -712,7 +789,19 @@ def make_commit(n: int, key_from_seed=None, seed: int = SEED):
     sign_bytes)."""
     import numpy as np
 
-    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    rng = np.random.default_rng(seed)
+    seeds = [rng.bytes(32) for _ in range(n)]
+    # Ed25519: keys and signatures on processes; other keys sign here
+    pool = signing_pool() if key_from_seed is None else None
+    try:
+        return _signed_commit(seeds, key_from_seed, pool, rng)
+    finally:
+        if pool is not None:
+            pool.close()
+
+
+def _signed_commit(seeds, key_from_seed, pool, rng):
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
     from cometbft_tpu_torch.types.basic import (
         BLOCK_ID_FLAG_COMMIT,
         BlockID,
@@ -723,16 +812,14 @@ def make_commit(n: int, key_from_seed=None, seed: int = SEED):
     from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
     from cometbft_tpu_torch.types.vote import CommitSig
 
-    rng = np.random.default_rng(seed)
-    key_from_seed = key_from_seed or Ed25519PrivKey.from_seed
-    privs = [key_from_seed(rng.bytes(32)) for _ in range(n)]
-    by_addr = {}
-    vals = []
-    for p in privs:
-        pub = p.pub_key()
-        by_addr[pub.address()] = p
-        vals.append(Validator(pub, 1))
-    vals = ValidatorSet(vals)
+    if pool is not None:
+        keys = pool(_expand_chunk, seeds)
+        pubs = [Ed25519PubKey(k[2]) for k in keys]
+    else:
+        keys = [key_from_seed(sd) for sd in seeds]
+        pubs = [k.pub_key() for k in keys]
+    by_addr = {pub.address(): k for pub, k in zip(pubs, keys)}
+    vals = ValidatorSet([Validator(pub, 1) for pub in pubs])
     block_id = BlockID(
         hashlib.sha256(rng.bytes(32)).digest(),
         PartSetHeader(4, hashlib.sha256(rng.bytes(32)).digest()),
@@ -745,8 +832,11 @@ def make_commit(n: int, key_from_seed=None, seed: int = SEED):
         sigs.append(CommitSig(BLOCK_ID_FLAG_COMMIT, v.address, ts, b""))
     commit = Commit(HEIGHT, 0, block_id, sigs)
     sign_bytes = commit.all_vote_sign_bytes(CHAIN_ID)
-    for v, cs, sb in zip(vals.validators, commit.signatures, sign_bytes):
-        cs.signature = by_addr[v.address].sign(sb)
+    jobs = [(by_addr[v.address], sb) for v, sb in zip(vals.validators, sign_bytes)]
+    signed = (pool(_sign_chunk, jobs) if pool is not None
+              else [k.sign(sb) for k, sb in jobs])
+    for cs, sig in zip(commit.signatures, signed):
+        cs.signature = sig
     return vals, commit, block_id, sign_bytes
 
 
@@ -1535,7 +1625,16 @@ def make_light_chain(n: int, headers: int):
     the set after)."""
     import numpy as np
 
-    from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
+    rng = np.random.default_rng(LIGHT_SEED)
+    pool = signing_pool()
+    try:
+        return _light_chain(n, headers, rng, pool)
+    finally:
+        pool.close()
+
+
+def _light_chain(n: int, headers: int, rng, pool):
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
     from cometbft_tpu_torch.types.basic import (
         BLOCK_ID_FLAG_COMMIT,
         BlockID,
@@ -1547,15 +1646,15 @@ def make_light_chain(n: int, headers: int):
     from cometbft_tpu_torch.types.validator import Validator, ValidatorSet
     from cometbft_tpu_torch.types.vote import CommitSig
 
-    rng = np.random.default_rng(LIGHT_SEED)
-    privs = [Ed25519PrivKey.from_seed(rng.bytes(32)) for _ in range(n + LIGHT_CHANGED)]
-    by_addr = {p.pub_key().address(): p for p in privs}
-    before = ValidatorSet([Validator(p.pub_key(), 10) for p in privs[:n]])
+    keys = pool(_expand_chunk, [rng.bytes(32) for _ in range(n + LIGHT_CHANGED)])
+    pubs = [Ed25519PubKey(k[2]) for k in keys]
+    by_addr = {p.address(): k for p, k in zip(pubs, keys)}
+    before = ValidatorSet([Validator(p, 10) for p in pubs[:n]])
     after = before.copy()
     after.update_with_change_set(
-        [Validator(p.pub_key(), 0) for p in privs[:LIGHT_CHANGED]]
-        + [Validator(p.pub_key(), 10) for p in privs[n:]]
-        + [Validator(privs[LIGHT_CHANGED].pub_key(), 30)])
+        [Validator(p, 0) for p in pubs[:LIGHT_CHANGED]]
+        + [Validator(p, 10) for p in pubs[n:]]
+        + [Validator(pubs[LIGHT_CHANGED], 30)])
     hashes = {id(before): before.hash(), id(after): after.hash()}
     lbs, bid = [], BlockID()
     for h in range(1, headers + 2):
@@ -1578,10 +1677,16 @@ def make_light_chain(n: int, headers: int):
             CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
                       Timestamp(t.seconds + 1, 1_000_003 * i), b"")
             for i, v in enumerate(vals.validators)])
-        for v, cs, m in zip(vals.validators, commit.signatures,
-                            commit.all_vote_sign_bytes(CHAIN_ID)):
-            cs.signature = by_addr[v.address].sign(m)
         lbs.append(LightBlock(SignedHeader(header, commit), vals))
+    # every commit's signatures in one pass over the processes (no header
+    # hash depends on a signature)
+    jobs = [(by_addr[v.address], m) for lb in lbs
+            for v, m in zip(lb.validator_set.validators,
+                            lb.signed_header.commit.all_vote_sign_bytes(CHAIN_ID))]
+    signed = iter(pool(_sign_chunk, jobs))
+    for lb in lbs:
+        for cs in lb.signed_header.commit.signatures:
+            cs.signature = next(signed)
     return lbs, before, after
 
 
@@ -3834,9 +3939,11 @@ class PartTimer:
 def blockexec_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
     """Phase 17: a blocksync joiner's apply path at BASELINE config 2's
     width.  Returns {"ed25519": launches, "tree": launches} of the path,
-    and the chain for phase 19: "dir" (the temporary directory, which the
-    caller removes), "db" (the closed SQLite store's path) and "genesis"
-    (the ``GenesisDoc``).  On a failure the directory is removed here."""
+    and the chain for phases 19 and 20: "dir" (the temporary directory,
+    which the caller removes), "db" (the closed SQLite store's path),
+    "genesis" (the ``GenesisDoc``), "keys" (the validators' expanded
+    signing keys, in genesis order) and "app" (the KVStore app at height 5,
+    its snapshot taken).  On a failure the directory is removed here."""
     import base64
     import concurrent.futures
     import dataclasses
@@ -4236,7 +4343,7 @@ def blockexec_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
         if not handed:
             shutil.rmtree(tmp, ignore_errors=True)
     return {"ed25519": path_ed, "tree": path_tree, "dir": tmp, "db": path,
-            "genesis": gdoc}
+            "genesis": gdoc, "keys": keys, "app": app}
 
 
 def load_torch_sim():
@@ -4928,6 +5035,60 @@ def net_tiers(ds, where: str) -> dict:
     return tiers
 
 
+def kept_against_plain(torch, where: str, kept_ed: dict, ed_lanes, kept_tree: dict,
+                       tree_keys, kept_aead: dict, kept_ladder: dict) -> tuple:
+    """The four kernels held to their plain versions, bit for bit, on
+    inputs a path gave them (``keeping_inputs``): the Ed25519 launches of
+    ``ed_lanes`` lanes, the trees of ``tree_keys``, every AEAD and ladder
+    shape kept; each timed on the card (CUDA events, queued).  Returns
+    (max_abs_err by kernel, {kernel: {shape: ms}})."""
+    from cometbft_tpu_torch.ops import chacha_aead as ca
+    from cometbft_tpu_torch.ops import cuda_aead, cuda_x25519
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.ops import x25519_ladder as xl
+
+    worst, ms = collections.Counter(), collections.defaultdict(dict)
+    for lanes in ed_lanes:
+        t = kept_ed[lanes]
+        kern, plain = cv.verify_core_cuda(**t), ov.verify_core(**t)
+        worst["ed25519"] = max(worst["ed25519"], int((kern.int() - plain.int()).abs().max()))
+        check(torch.equal(kern, plain), f"{where}: Ed25519 kernel != plain at {lanes} lanes")
+        ms["ed25519"][lanes] = cuda_ms(torch, lambda: cv.verify_core_cuda(**t), 10, 2,
+                                       queued=True)
+    for key in tree_keys:
+        (data, offs), _ = kept_tree[key]
+        kern, plain = csh.tree_words(data, offs), st.tree_words_plain(data, offs)
+        worst["tree"] = max(worst["tree"], int((kern.long() - plain.long()).abs().max()))
+        check(torch.equal(kern, plain), f"{where}: tree kernel != plain at (leaves, bytes "
+              f"a leaf) {key}")
+        ms["tree"][key] = cuda_ms(torch, lambda: csh.tree_words(data, offs), 10, 2,
+                                  queued=True)
+    check(any(k[0] == "seal" for k in kept_aead) and any(k[0] == "open" for k in kept_aead),
+          f"{where}: the AEAD kernel's shapes {sorted(kept_aead)}")
+    for key, (args, kw) in sorted(kept_aead.items()):
+        got, want = cuda_aead.aead(*args, **kw), ca.aead_core(*args, **kw)
+        torch.cuda.synchronize()
+        worst["aead"] = max(worst["aead"], *(int((g.long() - w.long()).abs().max())
+                                             for g, w in zip(got, want)))
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{where}: AEAD kernel != plain on an MConnection flush {key}")
+        ms["aead"][key] = cuda_ms(torch, lambda: cuda_aead.aead(*args, **kw), 10, 2,
+                                  queued=True)
+    check(kept_ladder, f"{where}: no dial reached the ladder kernel")
+    for lanes, (args, _) in sorted(kept_ladder.items()):
+        got, want = cuda_x25519.ladder(*args), xl.ladder_plain(*args)
+        torch.cuda.synchronize()
+        worst["ladder"] = max(worst["ladder"], int((got.long() - want.long()).abs().max()))
+        check(torch.equal(got, want), f"{where}: ladder kernel != plain on a dial flush of "
+              f"{lanes} lanes")
+        ms["ladder"][lanes] = cuda_ms(torch, lambda: cuda_x25519.ladder(*args), 10, 2,
+                                      queued=True)
+    return worst, ms
+
+
 def network_phase(torch, dev, cbatch, cv, ds, sigcache, chain, tag) -> dict:
     """Phase 19: the peer-to-peer network and its reactors.  Part A: a
     four-validator localnet over SecretConnection switches and a fifth node
@@ -4936,7 +5097,8 @@ def network_phase(torch, dev, cbatch, cv, ds, sigcache, chain, tag) -> dict:
     every earlier phase: a joiner blocksyncs phase 17's 10,240-validator
     chain (``chain``, blockexec_phase's hand-over, removed here) from a
     serving node, then the four kernels are held to their plain versions
-    on part B's inputs.  Returns the launches of both parts per kernel."""
+    on part B's inputs (phase 20 extends the chain; the caller removes
+    it).  Returns the launches of both parts per kernel."""
     import pathlib
 
     t_phase = time.perf_counter()
@@ -4954,7 +5116,6 @@ def network_phase(torch, dev, cbatch, cv, ds, sigcache, chain, tag) -> dict:
                 p.wait()
             log.close()
         shutil.rmtree(root, ignore_errors=True)
-        shutil.rmtree(chain["dir"], ignore_errors=True)
     return {k: out["A"]["launches"][k] + out["B"]["launches"][k]
             for k in ("ed25519", "tree", "aead", "ladder")}
 
@@ -4964,12 +5125,8 @@ def network_part_b(torch, cbatch, cv, ds, sigcache, chain, tag) -> dict:
     over one link, then the four kernels against their plain versions on
     the inputs part B gave them; prints its lines and returns its
     launches, wall and validators."""
-    from cometbft_tpu_torch.ops import chacha_aead as ca
     from cometbft_tpu_torch.ops import cuda_aead, cuda_x25519
     from cometbft_tpu_torch.ops import cuda_sha256 as csh
-    from cometbft_tpu_torch.ops import sha256_tree as st
-    from cometbft_tpu_torch.ops import verify as ov
-    from cometbft_tpu_torch.ops import x25519_ladder as xl
     from cometbft_tpu_torch.p2p.secret_connection import SecretConnection
 
     tn = load_torch_net()
@@ -5028,46 +5185,16 @@ def network_part_b(torch, cbatch, cv, ds, sigcache, chain, tag) -> dict:
     net_probe(torch, "this process, after part B")
 
     # -- the kernels against their plain versions, on part B's inputs
-    worst = collections.Counter()
     ed_b = max(kept_ed, default=None)
     check(ed_b is not None, "network: no part B launch reached the Ed25519 kernel")
-    t = kept_ed[ed_b]
-    kern, plain = cv.verify_core_cuda(**t), ov.verify_core(**t)
-    worst["ed25519"] = int((kern.int() - plain.int()).abs().max())
-    check(torch.equal(kern, plain), f"network: Ed25519 kernel != plain on part B's "
-          f"launch of {ed_b} lanes")
-    ed_ms = cuda_ms(torch, lambda: cv.verify_core_cuda(**t), 10, 2, queued=True)
     # (leaves, bytes a leaf): a validator's leaf is ~40 bytes, a tx's 256
     valset = [k for k in kept_tree if k[0] == out["validators"] and k[1] < 128]
     check(valset, f"network: no validator-set hash of {out['validators']} leaves "
           f"reached the tree kernel: {sorted(kept_tree)}")
-    (data, offs), _ = kept_tree[valset[0]]
-    kern, plain = csh.tree_words(data, offs), st.tree_words_plain(data, offs)
-    worst["tree"] = int((kern.long() - plain.long()).abs().max())
-    check(torch.equal(kern, plain), "network: tree kernel != plain on a synced "
-          "block's validator-set hash")
-    tree_ms = cuda_ms(torch, lambda: csh.tree_words(data, offs), 10, 2, queued=True)
-    check(any(k[0] == "seal" for k in kept_aead) and any(k[0] == "open" for k in kept_aead),
-          f"network: the AEAD kernel's shapes {sorted(kept_aead)}")
-    aead_ms = {}
-    for key, (args, kw) in sorted(kept_aead.items()):
-        got, want = cuda_aead.aead(*args, **kw), ca.aead_core(*args, **kw)
-        torch.cuda.synchronize()
-        worst["aead"] = max(worst["aead"], *(int((g.long() - w.long()).abs().max())
-                                             for g, w in zip(got, want)))
-        check(all(torch.equal(g, w) for g, w in zip(got, want)),
-              f"network: AEAD kernel != plain on an MConnection flush {key}")
-        aead_ms[key] = cuda_ms(torch, lambda: cuda_aead.aead(*args, **kw), 10, 2, queued=True)
-    check(kept_ladder, "network: no dial reached the ladder kernel")
-    ladder_ms = {}
-    for lanes, (args, _) in sorted(kept_ladder.items()):
-        got, want = cuda_x25519.ladder(*args), xl.ladder_plain(*args)
-        torch.cuda.synchronize()
-        worst["ladder"] = max(worst["ladder"], int((got.long() - want.long()).abs().max()))
-        check(torch.equal(got, want), f"network: ladder kernel != plain on a dial "
-              f"flush of {lanes} lanes")
-        ladder_ms[lanes] = cuda_ms(torch, lambda: cuda_x25519.ladder(*args), 10, 2,
-                                   queued=True)
+    worst, ms = kept_against_plain(torch, "network", kept_ed, [ed_b], kept_tree, valset[:1],
+                                   kept_aead, kept_ladder)
+    ed_ms, tree_ms = ms["ed25519"][ed_b], ms["tree"][valset[0]]
+    aead_ms, ladder_ms = ms["aead"], ms["ladder"]
     print(f"network: on part B's own inputs, bit for bit: the Ed25519 kernel == "
           f"its plain version on its launch of {ed_b} lanes (all of them; "
           f"{ed_ms} ms on the card), the tree kernel on a synced block's "
@@ -5793,6 +5920,983 @@ def network_blocksync(torch, cbatch, cv, ds, sigcache, tag, tn, PORT, chain, err
         if jdb is not None:
             jdb.close()
 
+def _sign_secp_chunk(jobs):
+    """Worker of phase 20: (secp256k1 secret, message) pairs -> signatures
+    (RFC 6979, the port's pure-Python signer)."""
+    from cometbft_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey
+
+    return [Secp256k1PrivKey.from_secret(sk).sign(msg) for sk, msg in jobs]
+
+
+def abci_app_child(run_dir: str) -> int:
+    """Phase 20's out-of-process app: a port ``KVStoreApplication`` behind
+    ``abci/server.ABCIServer`` on 127.0.0.1 (a free port, written to
+    ``abci-port.json`` in ``run_dir``), until ``stop`` appears there or
+    the parent is gone."""
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch.abci.server import ABCIServer
+
+    parent = os.getppid()
+    srv = ABCIServer(KVStoreApplication(), "tcp://127.0.0.1:0")
+    srv.start()
+    net_write(os.path.join(run_dir, "abci-port.json"), {"port": srv.bound_port,
+                                                        "pid": os.getpid()})
+    try:
+        while not os.path.exists(os.path.join(run_dir, "stop")) and os.getppid() == parent:
+            time.sleep(0.1)
+    finally:
+        srv.stop()
+    return 0
+
+
+class LogLines(logging.Handler):
+    """Keeps the records of a logger whose message holds one of ``marks``."""
+
+    def __init__(self, marks):
+        super().__init__(logging.DEBUG)
+        self.marks, self.lines = marks, []
+
+    def emit(self, record) -> None:
+        msg = record.getMessage()
+        if any(m in msg for m in self.marks):
+            self.lines.append(msg)
+
+
+class EnvCounter:
+    """Counts envelopes through ``txingest.envelope.verify_envelopes`` made
+    inside a marked call (a thread flag): entries, and those whose verdict
+    the signature cache did not hold when the call began."""
+
+    def __init__(self, ev, sigcache):
+        self.ev, self.sigcache = ev, sigcache
+        self.real = ev.verify_envelopes
+        self.flag = threading.local()
+        self.calls = self.entries = self.misses = 0
+
+    def mark(self, fn):
+        def marked(*a, **kw):
+            self.flag.on = True
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.flag.on = False
+        return marked
+
+    def __call__(self, envs):
+        if getattr(self.flag, "on", False):
+            cache = self.sigcache.get_cache()
+            live = [e for e in envs if e is not None]
+            self.calls += 1
+            self.entries += len(live)
+            self.misses += sum(cache.get(e.pubkey, e.sign_bytes(), e.signature) is None
+                               for e in live if e.key_type == self.ev.KEY_ED25519)
+        return self.real(envs)
+
+
+class RecheckCounter:
+    """Per mempool: each post-commit recheck's size and the app calls made
+    inside it (``check_txs`` batches, ``check_tx`` singles)."""
+
+    def __init__(self, mempool, mark=lambda fn: fn):
+        self.rows = []
+        self.flag = threading.local()
+        real_recheck, conn = mark(mempool._recheck_txs), mempool.proxy_app
+        real_batch, real_single = conn.check_txs, conn.check_tx
+
+        def recheck():
+            self.flag.row = [len(mempool._tx_map), 0, 0]
+            try:
+                return real_recheck()
+            finally:
+                self.rows.append(tuple(self.flag.row))
+                self.flag.row = None
+
+        def batch(reqs):
+            if getattr(self.flag, "row", None) is not None:
+                self.flag.row[1] += 1
+            return real_batch(reqs)
+
+        def single(req):
+            if getattr(self.flag, "row", None) is not None:
+                self.flag.row[2] += 1
+            return real_single(req)
+
+        mempool._recheck_txs, conn.check_txs, conn.check_tx = recheck, batch, single
+
+    def batched(self) -> bool:
+        return all(b == 1 and s == 0 for n, b, s in self.rows if n > 1)
+
+
+class LaunchOrigins:
+    """Attributes part A's Ed25519 launches to the paths that asked for
+    them.  ``mark(tag, fn)`` names the path of a call in progress in a
+    thread flag ("V admission", "S recheck", ...; the outermost mark wins);
+    the scheduler's ``submit`` notes the tag of each check it queues, and
+    each flush (``_execute``, where the dispatcher launches) adds its
+    launches to every tag its checks carry.  ``envelopes`` answers the
+    envelopes of a call marked "S ..." that S verified before from S's own
+    verdicts: V and S share this process's signature cache, which part A
+    clears so that V verifies afresh, while a sentry on its own machine
+    keeps its own cache."""
+
+    def __init__(self, cv):
+        self.cv = cv
+        self.flag = threading.local()
+        self.queued = {}  # (pub, msg, sig) -> tag, until its flush
+        self.launches = collections.Counter()  # tag -> launches of the flushes carrying it
+        self.lanes = collections.Counter()  # tag -> its own checks in those flushes
+        self.flush_lanes = collections.Counter()  # tag -> every check of those flushes
+        self.current = None  # the tags of the flush being launched (dispatcher thread)
+        self.sentry = {}  # S's verdicts: (key type, pubkey, sign bytes, signature) -> bool
+        self.sentry_answered = 0
+
+    def tag(self):
+        return getattr(self.flag, "tag", None)
+
+    def mark(self, tag: str, fn):
+        def marked(*a, **kw):
+            outer = self.tag()
+            if outer is None:
+                self.flag.tag = tag
+            try:
+                return fn(*a, **kw)
+            finally:
+                if outer is None:
+                    self.flag.tag = None
+        return marked
+
+    def install(self, sched):
+        """Wraps ``sched``'s ``submit`` and ``_execute``; returns the undo."""
+        real_submit, real_execute = sched.submit, sched._execute
+
+        def submit(pub, msg, sig, *a, **kw):
+            t = self.tag()
+            if t is not None:
+                self.queued[(bytes(pub), bytes(msg), bytes(sig))] = t
+            return real_submit(pub, msg, sig, *a, **kw)
+
+        def execute(items, reason):
+            tags = collections.Counter(
+                self.queued.pop((bytes(it.pub), bytes(it.msg), bytes(it.sig)), "untagged")
+                for it in items)
+            n0 = self.cv.launches
+            self.current = tags
+            try:
+                return real_execute(items, reason)
+            finally:
+                self.current = None
+                d = self.cv.launches - n0
+                for t, n in tags.items():
+                    self.launches[t] += d
+                    self.lanes[t] += n
+                    self.flush_lanes[t] += len(items)
+
+        sched.submit, sched._execute = submit, execute
+
+        def undo():
+            del sched.submit, sched._execute
+        return undo
+
+    def envelopes(self, inner):
+        """``txingest.envelope.verify_envelopes`` with S's own cache in
+        front of ``inner`` for the calls marked "S ..."."""
+        def verify(envs):
+            t = self.tag()
+            if t is None or not t.startswith("S "):
+                return inner(envs)
+            key = lambda e: (e.key_type, e.pubkey, e.sign_bytes(), e.signature)
+            out, todo = [False] * len(envs), []
+            for i, e in enumerate(envs):
+                if e is not None:
+                    v = self.sentry.get(key(e))
+                    if v is None:
+                        todo.append(i)
+                    else:
+                        out[i] = v
+                        self.sentry_answered += 1
+            if todo:
+                ask = set(todo)
+                got = inner([e if i in ask else None for i, e in enumerate(envs)])
+                for i in todo:
+                    out[i] = self.sentry[key(envs[i])] = bool(got[i])
+            return out
+        return verify
+
+
+def ingest_traffic(rng, pool_ex, workers, senders, secp_secrets, r: int, nonces) -> dict:
+    """Round ``r``'s 5,000 client txs of phase 20 by kind, and its replays.
+    Each Ed25519 sender's nonces rise across rounds (``nonces``)."""
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.txingest import envelope as ev
+
+    def payload(tag: bytes, k: int) -> bytes:
+        head = b"%s%d-%05d=" % (tag, r, k)
+        return head + rng.bytes(INGEST_TX_BYTES).hex().encode()[: INGEST_TX_BYTES - len(head)]
+
+    def take(key, who) -> int:
+        nonces[key] = nonces.get(key, -1) + 1
+        return nonces[key]
+
+    ed_jobs, ed_meta = [], []  # (expanded key, sign bytes); (kind, sender, nonce, payload)
+    for k in range(INGEST_ED):
+        s = k % len(senders)
+        n, p = take(("ed", s), s), payload(b"e", k)
+        ed_jobs.append((senders[s], ev.sign_bytes(ev.KEY_ED25519, senders[s][2], n, p)))
+        ed_meta.append(("ed25519", s, n, p))
+    first = {}
+    for kind, s, n, _ in ed_meta:
+        first.setdefault(s, n)
+    for k in range(INGEST_FORGED):
+        s = k % len(senders)
+        n, p = (1 << 40) + r * INGEST_FORGED + k, payload(b"f", k)
+        ed_jobs.append((senders[s], ev.sign_bytes(ev.KEY_ED25519, senders[s][2], n, p)))
+        ed_meta.append(("forged", s, n, p))
+    for k in range(INGEST_REPLAYS):
+        s = (k * 97) % len(senders)
+        n, p = first[s], payload(b"r", k)  # a nonce this round already used
+        ed_jobs.append((senders[s], ev.sign_bytes(ev.KEY_ED25519, senders[s][2], n, p)))
+        ed_meta.append(("replay", s, n, p))
+    secp_jobs, secp_meta = [], []
+    for k in range(INGEST_SECP):
+        j = k % len(secp_secrets)
+        sk, pub = secp_secrets[j]
+        n, p = take(("secp", j), j), payload(b"s", k)
+        secp_jobs.append((sk, ev.sign_bytes(ev.KEY_SECP256K1, pub, n, p)))
+        secp_meta.append(("secp256k1", j, n, p))
+    t0 = time.perf_counter()
+    sigs = in_chunks(pool_ex, _sign_chunk, ed_jobs, workers)
+    ssigs = in_chunks(pool_ex, _sign_secp_chunk, secp_jobs, workers)
+    sign_s = time.perf_counter() - t0
+    out = collections.defaultdict(list)  # kind -> [(thread, tx)]
+    for (kind, s, n, p), sig in zip(ed_meta, sigs):
+        if kind == "forged":
+            sig = sig[:40] + bytes([sig[40] ^ 0x10]) + sig[41:]
+        tx = ev.encode(ev.Envelope(ev.KEY_ED25519, senders[s][2], n, p, sig))
+        out[kind].append((s % INGEST_CLIENTS, tx))
+    for (kind, j, n, p), sig in zip(secp_meta, ssigs):
+        tx = ev.encode(ev.Envelope(ev.KEY_SECP256K1, secp_secrets[j][1], n, p, sig))
+        out[kind].append((j % INGEST_CLIENTS, tx))
+    for k in range(INGEST_MALFORMED):
+        tx = ev.MAGIC + bytes([ev.KEY_ED25519]) + (r * 100 + k).to_bytes(8, "big") + b"short%d" % k
+        out["malformed"].append((k % INGEST_CLIENTS, tx))
+    out["sign_s"] = sign_s
+    return out
+
+
+def submit_clients(check_tx, items, errors_cls) -> tuple:
+    """``items`` ((thread, tx) pairs) through ``check_tx`` (a mempool's)
+    from INGEST_CLIENTS threads, each its own share in order, as
+    ``broadcast_tx_sync`` calls arrive.  Returns ({tx: code or error
+    name}, wall s)."""
+    shares = collections.defaultdict(list)
+    for t, tx in items:
+        shares[t].append(tx)
+    got, lock = {}, threading.Lock()
+
+    def client(txs):
+        for tx in txs:
+            try:
+                code = check_tx(tx).code
+            except errors_cls as e:
+                code = type(e).__name__
+            with lock:
+                got[tx] = code
+
+    threads = [threading.Thread(target=client, args=(txs,), name=f"client-{t}")
+               for t, txs in sorted(shares.items())]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(INGEST_TIMEOUT_S)
+    check(not any(th.is_alive() for th in threads), "ingest: a client thread hung")
+    return got, time.perf_counter() - t0
+
+
+def wait_until(cond, timeout_s: float, what) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < timeout_s, f"timed out waiting for {what() if callable(what) else what}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def ingest_part_a(torch, cbatch, cv, ds, sigcache, tag, tn, origins) -> dict:
+    """Phase 20, part A: a validator V behind a sentry S in this process
+    over one link; three rounds of 5,000 client txs at S.  ``origins``
+    (LaunchOrigins) attributes the Ed25519 launches to V's and S's paths
+    and keeps S's own verdicts."""
+    import concurrent.futures
+    import multiprocessing
+    import pathlib
+
+    import numpy as np
+
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+    from cometbft_tpu_torch import verifysched
+    from cometbft_tpu_torch.config.config import ConsensusConfig, MempoolConfig, P2PConfig
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+    from cometbft_tpu_torch.crypto.secp256k1 import Secp256k1PrivKey
+    from cometbft_tpu_torch.mempool.clist_mempool import MempoolError
+    from cometbft_tpu_torch.mempool.reactor import MEMPOOL_CHANNEL
+    from cometbft_tpu_torch.ops import cuda_aead, cuda_x25519
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.p2p import handshake_pool
+    from cometbft_tpu_torch.p2p import transport_stats as tstats
+    from cometbft_tpu_torch.sim.node import build_node, make_genesis
+    from cometbft_tpu_torch import txingest
+    from cometbft_tpu_torch.txingest import envelope as ev
+    from cometbft_tpu_torch.txingest import stats as istats
+    from cometbft_tpu_torch.verifysched import service
+    from cometbft_tpu_torch.verifysched import stats as vstats
+
+    rng = np.random.default_rng(INGEST_SEED)
+    root = pathlib.Path(tempfile.mkdtemp(prefix="ingest-"))
+    workers = BLOCKEXEC_SIGNERS
+    pool_ex = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    errors, nets, handles, sched = [], [], [], None
+    admission = LogLines(("batched admission failed",))
+    ilog = logging.getLogger("cometbft_tpu_torch.txingest")
+    ilog.addHandler(admission)
+    counter = EnvCounter(ev, sigcache)
+    real_now = service.verify_now
+    secp_host = collections.Counter()
+
+    def verify_now(pub_key, msg, sig):
+        secp_host[getattr(pub_key, "type_", "?")] += 1
+        return real_now(pub_key, msg, sig)
+
+    try:
+        t0 = time.perf_counter()
+        seeds = [rng.bytes(32) for _ in range(INGEST_SENDERS)]
+        senders = in_chunks(pool_ex, _expand_chunk, seeds, workers)
+        secp_secrets = []
+        for j in range(INGEST_SECP_SENDERS):
+            sk = rng.bytes(32)
+            secp_secrets.append((sk, Secp256k1PrivKey.from_secret(sk).pub_key().bytes()))
+        keys_s = time.perf_counter() - t0
+        privs, gdoc = make_genesis(1, INGEST_CHAIN, seed_tag=b"ingest-20261037-%d", n_nodes=2)
+        mcfg = MempoolConfig()
+        cfg = ConsensusConfig()
+        for i, name in enumerate(("V", "S")):
+            h = build_node(i, privs[i], gdoc, root, config=cfg, threaded=True,
+                           app_factory=lambda: txingest.SigVerifyingApp(KVStoreApplication()),
+                           mempool_config=mcfg)
+            check(h.mempool.envelope_aware, f"ingest: {name}'s mempool is not envelope-aware")
+            h.cs.logger = NetLog(name, errors).with_(module="consensus")
+            handles.append(h)
+        hv, hs = handles
+        ings = [txingest.IngestCoalescer(h.mempool) for h in handles]
+        check(all(i.active() and i.device is None for i in ings) and
+              verifysched.scheduler_active(), "ingest: the coalescers are not on the card")
+        for i, (h, name) in enumerate(zip(handles, ("V", "S"))):
+            nets.append(tn.from_handle(tn.PORT, h, tn.node_key(tn.PORT, b"ingest-" + name.encode()),
+                                       INGEST_CHAIN, block_sync=False, p2p_config=P2PConfig(),
+                                       mempool_config=mcfg, home=str(root / f"node{i}"),
+                                       moniker=name, logger=NetLog(name, errors),
+                                       ingest=ings[i]))
+        nv, ns = nets
+        rechecks = [RecheckCounter(h.mempool, lambda fn, n=name: origins.mark(f"{n} recheck", fn))
+                    for h, name in zip(handles, ("V", "S"))]
+        pv, ps = nv.reactors["MEMPOOL"], ns.reactors["MEMPOOL"]
+        for name in ("process_proposal", "finalize_block"):
+            setattr(hv.app, name, origins.mark("V apply", counter.mark(getattr(hv.app, name))))
+            setattr(hs.app, name, origins.mark("S apply", getattr(hs.app, name)))
+        for name in ("check_tx", "check_txs"):
+            setattr(hs.app, name, origins.mark("S app", getattr(hs.app, name)))
+        ev.verify_envelopes = origins.envelopes(counter)
+        service.verify_now = verify_now
+        flush_ms = []
+        real_batch = origins.mark("V admission", hv.mempool.check_tx_batch)
+
+        def timed_batch(*a, **kw):
+            t1 = time.perf_counter()
+            try:
+                return real_batch(*a, **kw)
+            finally:
+                flush_ms.append((time.perf_counter() - t1) * 1e3)
+
+        hv.mempool.check_tx_batch = timed_batch
+        hs.mempool.check_tx_batch = origins.mark("S gossip", hs.mempool.check_tx_batch)
+        s_check_tx = origins.mark("S client", hs.mempool.check_tx)
+        sched = verifysched.get_scheduler()
+        unwrap = origins.install(sched)
+        ds.reset()
+        vstats.reset()
+        istats.reset()
+        tstats.reset()
+        handshake_pool.reset_pool()
+        for w in (cv, csh, cuda_aead, cuda_x25519):
+            w.reset_launches()
+        t_run = time.perf_counter()
+        nv.start()
+        ns.start([nv.address])
+        wait_until(lambda: len(ns.switch.peers_list()) == 1 and len(nv.switch.peers_list()) == 1,
+                   INGEST_TIMEOUT_S, "ingest: the sentry's link")
+        gate = threading.Event()
+        peer = ns.switch.peers_list()[0]
+        real_send = peer.try_send
+
+        def gated(ch, msg):
+            if ch == MEMPOOL_CHANNEL and not gate.is_set():
+                return False
+            return real_send(ch, msg)
+
+        peer.try_send = gated
+        v_id = nv.node_id
+        s_on_v = lambda: pv.peer_ingest_stats().get(ns.node_id, {})
+        rounds, nonces, committed, heights = [], {}, {}, {}
+        held = set()  # replays S holds
+        tagged = lambda: {k: collections.Counter(getattr(origins, k))
+                          for k in ("launches", "lanes", "flush_lanes")}
+        for r in range(INGEST_ROUNDS):
+            traffic = ingest_traffic(rng, pool_ex, workers, senders, secp_secrets, r, nonces)
+            main = [x for k in ("ed25519", "secp256k1", "forged", "malformed")
+                    for x in traffic[k]]
+            gate.clear()
+            o0 = tagged()
+            codes, s_wall = submit_clients(s_check_tx, main, MempoolError)
+            want = {"ed25519": 0, "secp256k1": 0, "forged": ev.CODE_BAD_SIGNATURE,
+                    "malformed": ev.CODE_BAD_ENVELOPE}
+            for kind, code in want.items():
+                bad = [codes[tx] for _, tx in traffic[kind] if codes[tx] != code]
+                check(not bad, f"ingest: round {r}: {len(bad)} {kind} txs at S got {bad[:3]}, "
+                      f"want {code}")
+            valid = {tx for k in ("ed25519", "secp256k1") for _, tx in traffic[k]}
+            # V is another machine: it has verified none of these signatures
+            # (in this process the signature cache would hand it S's verdicts)
+            sigcache.get_cache().clear()
+            a0 = s_on_v().get("accepted", 0)
+            rej0 = istats.snapshot()["rejected"].get(str(ev.CODE_STALE_NONCE), 0)
+            t1 = time.perf_counter()
+            gate.set()
+            v_wall = wait_until(lambda: s_on_v().get("accepted", 0) - a0 >= len(valid),
+                                INGEST_TIMEOUT_S, lambda: f"ingest: round {r}: V admitted "
+                                f"{s_on_v().get('accepted', 0) - a0} of {len(valid)}; S's "
+                                f"stats on V {s_on_v()}, errors {errors[-3:]}")
+            rcodes, _ = submit_clients(s_check_tx, traffic["replay"], MempoolError)
+            check(all(c == 0 for c in rcodes.values()), f"ingest: round {r}: S refused a "
+                  f"replay: {sorted(set(rcodes.values()))} (S keeps no nonces)")
+            held |= set(rcodes)
+            wait_until(lambda: istats.snapshot()["rejected"].get(str(ev.CODE_STALE_NONCE), 0)
+                       - rej0 >= INGEST_REPLAYS, INGEST_TIMEOUT_S,
+                       lambda: f"ingest: round {r}: V's 103s {istats.snapshot()['rejected']}")
+
+            def settled():
+                top = hv.block_store.height()
+                for hh in range(len(heights) + 1, top + 1):
+                    meta = hv.block_store.load_block_meta(hh)
+                    heights[hh] = (meta.header.time.to_ns() / 1e9, meta.num_txs)
+                    for tx in hv.block_store.load_block(hh).data.txs:
+                        committed[tx] = hh
+                return (valid <= committed.keys() and hv.mempool.size() == 0
+                        and hs.block_store.height() >= top
+                        and set(hs.mempool.reap_max_txs(-1)) == held)
+
+            commit_wall = wait_until(settled, INGEST_TIMEOUT_S, lambda: (
+                f"ingest: round {r}: committed {len(valid & committed.keys())} of "
+                f"{len(valid)}, V's mempool {hv.mempool.size()}, S's {hs.mempool.size()} "
+                f"(held {len(held)}), heights V {hv.block_store.height()} S "
+                f"{hs.block_store.height()}, errors {errors[-3:]}"))
+            check(not any(tx in committed for tx in held), "ingest: V committed a replay")
+            o1 = tagged()
+            d = {k: o1[k] - o0[k] for k in o1}
+            per = lambda t: round(d["flush_lanes"][t] / max(d["launches"][t], 1), 2)
+            rounds.append({
+                "round": r, "sign_s": round(traffic["sign_s"], 2),
+                "s_admit_s": round(s_wall, 3), "s_txs_per_s": round(len(main) / s_wall, 1),
+                "s_launches": d["launches"]["S client"], "s_lanes": d["lanes"]["S client"],
+                "s_lanes_per_launch": per("S client"),
+                "v_admit_s": round(v_wall, 3), "v_txs_per_s": round(len(valid) / v_wall, 1),
+                "v_launches": d["launches"]["V admission"], "v_lanes": d["lanes"]["V admission"],
+                "v_lanes_per_launch": per("V admission"),
+                "launches_by_path": dict(d["launches"]), "lanes_by_path": dict(d["lanes"]),
+                "commit_wait_s": round(commit_wall, 3), "to_height": hv.block_store.height()})
+            print(f"ingest: part A round {json.dumps(rounds[-1])} {tag}", flush=True)
+        wall = time.perf_counter() - t_run
+        for n in nets:
+            n.stop()
+        for h in handles:
+            h.cs.stop()
+        for i in ings:
+            i.close()
+        launches = net_settled(cv, csh, cuda_aead, cuda_x25519, ds)
+        check(verifysched.get_scheduler() is sched, "ingest: the verify scheduler was replaced "
+              "during part A: its launches were not all attributed")
+        unwrap()
+        for h in handles:
+            h.app_conns.stop()
+        tiers = net_tiers(ds, "ingest part A")
+        snap, isnap, ts = vstats.snapshot(), istats.snapshot(), tstats.snapshot()
+    finally:
+        ilog.removeHandler(admission)
+        ev.verify_envelopes = counter.real
+        service.verify_now = real_now
+        if sched is not None and "submit" in vars(sched):
+            unwrap()
+        for n in nets:
+            n.stop()
+        pool_ex.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+    # -- what part A asserts -------------------------------------------------
+    check(tiers["ed25519"]["cuda"][0] == launches["ed25519"] > 0,
+          f"ingest: Ed25519 launches {launches} != cuda batches {tiers['ed25519']}")
+    check(all(x["s_launches"] > 0 and x["v_launches"] > 0 for x in rounds),
+          f"ingest: a node made no mempool-class launch in a round: {rounds}")
+    check(origins.launches["S recheck"] == 0 and origins.launches["S apply"] == 0,
+          f"ingest: S verified again what it had verified (launches by path "
+          f"{dict(origins.launches)})")
+    check(counter.calls > 0 and counter.entries > 0 and counter.misses == 0,
+          f"ingest: V's process_proposal/finalize_block re-checks: {counter.calls} calls, "
+          f"{counter.entries} envelopes, {counter.misses} not in the signature cache")
+    for name, rc in zip(("V", "S"), rechecks):
+        check(rc.batched(), f"ingest: {name}'s rechecks {rc.rows} (size, check_txs, "
+              f"check_tx): each of more than one tx must be one check_txs")
+    check(any(n > 1 for n, _, _ in rechecks[1].rows),
+          f"ingest: S never rechecked more than one tx: {rechecks[1].rows}")
+    check(not admission.lines, f"ingest: logged {admission.lines[:3]}")
+    check(isnap["rejected"].get(str(ev.CODE_STALE_NONCE), 0) == INGEST_ROUNDS * INGEST_REPLAYS,
+          f"ingest: 103s {isnap['rejected']}")
+    bad = [e for e in errors if "failure" in e[2] or "error" in e[2].lower()]
+    txs = [heights[hh][1] for hh in sorted(heights)]
+    times = [heights[hh][0] for hh in sorted(heights)]
+    gaps = [round((b - a) * 1e3, 1) for a, b in zip(times, times[1:])]
+    full = [g for g, n in zip(gaps, txs[1:]) if n]
+    ms = sorted(flush_ms)
+    p = lambda q: round(ms[min(len(ms) - 1, int(q * len(ms)))], 3) if ms else None
+    print(f"ingest: part A: a validator V (SigVerifyingApp(KVStoreApplication()), "
+          f"CListMempool(envelope_aware=True), MempoolConfig() {mcfg.size} txs, cache "
+          f"{mcfg.cache_size}) behind a sentry S over one SecretConnection link at the "
+          f"P2PConfig defaults, an IngestCoalescer at its defaults on each (batch "
+          f"{ings[0].batch_max}, {ings[0].flush_s * 1e6:.0f} us, queue {ings[0].queue_cap}); "
+          f"{INGEST_ROUNDS} rounds of {INGEST_CLIENTS} client threads calling S's "
+          f"check_tx with {INGEST_ED} Ed25519 envelopes ({INGEST_SENDERS} senders, rising "
+          f"nonces), {INGEST_SECP} secp256k1 ({INGEST_SECP_SENDERS} senders), "
+          f"{INGEST_FORGED} forged (102 at S), {INGEST_MALFORMED} malformed (101 at S), "
+          f"then {INGEST_REPLAYS} re-signed at a used nonce (0 at S, 103 at V); V committed "
+          f"every valid tx S admitted and none of the {len(held)} replays S holds; "
+          f"{counter.calls} re-checks in V's process_proposal/finalize_block over "
+          f"{counter.entries} envelopes, all in the signature cache (0 launches); rechecks "
+          f"(size, check_txs, check_tx) V {rechecks[0].rows[:6]}..., S "
+          f"{rechecks[1].rows[:6]}...; no 'batched admission failed' line; S's rechecks and "
+          f"applies answered from S's own verdicts ({origins.sentry_answered} envelopes: "
+          f"the harness clears the shared signature cache for V, a sentry keeps its own); "
+          f"Ed25519 launches by path {dict(origins.launches)}, their own checks "
+          f"{dict(origins.lanes)}, all checks of those flushes {dict(origins.flush_lanes)}; "
+          f"keys {keys_s:.2f} s (set-up) {tag}", flush=True)
+    print(f"ingest: part A: heights 1-{len(heights)} in {wall:.2f} s, txs a block {txs}, "
+          f"block interval ms (header times) median {statistics.median(gaps) if gaps else None}"
+          f", before a block with txs {full}; V's coalescer flushes {len(ms)}, "
+          f"check_tx_batch ms p50 {p(0.5)} "
+          f"p99 {p(0.99)}; txingest/stats {json.dumps({k: isnap[k] for k in ('flushes', 'flush_txs', 'shed_to_sync', 'sig_prechecked', 'rejected', 'errors', 'app_batches', 'recheck_batches', 'recheck_txs', 'cache_hits')})}; "
+          f"verifysched shed fallbacks by class {snap['shed_fallback']}, shed "
+          f"{snap['shed']}; host verify_now calls by key type {dict(secp_host)} (a "
+          f"secp256k1 envelope is one host verify, as in the JAX package); launches "
+          f"{launches}, served by tier {tiers}; transport AEAD passes {ts['batches']}; "
+          f"node errors {bad[:3]} {tag}", flush=True)
+    return {"launches": launches, "wall_s": wall, "rounds": rounds}
+
+
+def statesync_part_b(torch, cbatch, cv, ds, sigcache, chain, tag, tn) -> dict:
+    """Phase 20, part B: a helper H serves phase 17's chain, extended to
+    height 7, and a fresh joiner J with its app in a child process
+    statesyncs its snapshot at 5, then blocksyncs block 6."""
+    import base64
+    import concurrent.futures
+    import multiprocessing
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from cometbft_tpu_torch.abci import types as at
+    from cometbft_tpu_torch.abci.client import LocalClient, SocketClient
+    from cometbft_tpu_torch.abci.kvstore import SNAPSHOT_CHUNK_SIZE, SNAPSHOT_INTERVAL
+    from cometbft_tpu_torch.blocksync import stats as bstats
+    from cometbft_tpu_torch.config.config import P2PConfig, StateSyncConfig
+    from cometbft_tpu_torch.evidence.pool import EvidencePool
+    from cometbft_tpu_torch.light.provider import NodeProvider
+    from cometbft_tpu_torch.light.verifier import TrustOptions
+    from cometbft_tpu_torch.mempool.clist_mempool import NopMempool
+    from cometbft_tpu_torch.ops import cuda_aead, cuda_x25519
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.p2p import handshake_pool
+    from cometbft_tpu_torch.p2p import transport_stats as tstats
+    from cometbft_tpu_torch.proxy.multi_app_conn import (
+        AppConns, local_client_creator, remote_client_creator)
+    from cometbft_tpu_torch.state import execution
+    from cometbft_tpu_torch.state.state import _params_to_json, state_from_genesis
+    from cometbft_tpu_torch.state.store import StateStore
+    from cometbft_tpu_torch.statesync import syncer as ssyncer
+    from cometbft_tpu_torch.store.block_store import BlockStore
+    from cometbft_tpu_torch.store.kv import SqliteKV
+    from cometbft_tpu_torch.types.basic import BLOCK_ID_FLAG_COMMIT, BlockID, Timestamp
+    from cometbft_tpu_torch.types.block import Commit
+    from cometbft_tpu_torch.types.vote import CommitSig
+    from cometbft_tpu_torch.verifysched import stats as vstats
+
+    gdoc, keys, app = chain["genesis"], chain["keys"], chain["app"]
+    check(app.height == SNAPSHOT_INTERVAL and SNAPSHOT_INTERVAL in app._snapshots,
+          f"statesync: phase 17's app is at height {app.height}, snapshots "
+          f"{sorted(app._snapshots)}")
+    from cometbft_tpu_torch.crypto.keys import Ed25519PubKey
+
+    key_by_addr = {Ed25519PubKey(k[2]).address(): k for k in keys}
+    rng = np.random.default_rng(STATESYNC_SEED)
+    workers = BLOCKEXEC_SIGNERS
+    pool_ex = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    run_dir = tempfile.mkdtemp(prefix="statesync-")
+    errors, nets, child, jconns, hconns = [], [], None, None, None
+    hdb = jdb = None
+    real_fetch = ssyncer.Syncer._fetch_chunks
+    try:
+        # -- H: phase 17's chain extended by blocks 6 and 7 -----------------
+        hdb = SqliteKV(chain["db"], surface="state")
+        hbs, hss = BlockStore(hdb), StateStore(hdb)
+        state = hss.load()
+        at5 = state
+        check(state.last_block_height == SNAPSHOT_INTERVAL, "statesync: the chain is not at 5")
+        hclient = LocalClient(app)
+        hpool = EvidencePool(hdb, hss, hbs)
+        hex_ = execution.BlockExecutor(hss, hbs, hclient, NopMempool(), evidence_pool=hpool)
+        last_commit = hbs.load_seen_commit(state.last_block_height)
+        t0 = time.perf_counter()
+        for h in range(SNAPSHOT_INTERVAL + 1, STATESYNC_TOP + 1):
+            hexed = rng.bytes(BLOCKEXEC_TXS * BLOCKEXEC_TX_BYTES // 2).hex().encode()
+            txs = []
+            for i in range(BLOCKEXEC_TXS):
+                head = b"h%d-%05d=" % (h, i)
+                o = i * BLOCKEXEC_TX_BYTES
+                txs.append(head + hexed[o : o + BLOCKEXEC_TX_BYTES - len(head)])
+            block = execution.make_block(h, txs, last_commit, state,
+                                         state.validators.get_proposer().address,
+                                         Timestamp(BLOCKEXEC_T0 + 6 * h, 0))
+            parts = block.make_part_set(BLOCKEXEC_PART)
+            bid = BlockID(block.hash(), parts.header)
+            base_ns = (BLOCKEXEC_T0 + 6 * h + 1) * 10**9
+            sigs = []
+            for i, v in enumerate(state.validators.validators):
+                if i == BLOCKEXEC_ABSENT:
+                    sigs.append(CommitSig.absent_sig())
+                    continue
+                ns_ = base_ns + 1_000_003 * i
+                sigs.append(CommitSig(BLOCK_ID_FLAG_COMMIT, v.address,
+                                      Timestamp(ns_ // 10**9, ns_ % 10**9), b""))
+            commit = Commit(h, 0, bid, sigs)
+            idx = [i for i, cs in enumerate(sigs) if not cs.absent()]
+            msgs = commit.all_vote_sign_bytes(gdoc.chain_id, idx)
+            jobs = [(key_by_addr[sigs[i].validator_address], m) for i, m in zip(idx, msgs)]
+            for i, s in zip(idx, in_chunks(pool_ex, _sign_chunk, jobs, workers)):
+                sigs[i].signature = s
+            hbs.save_block(block, parts, commit)
+            state = hex_.apply_block(state, bid, block)
+            last_commit = commit
+        extend_s = time.perf_counter() - t0
+        check(hbs.height() == STATESYNC_TOP and app.height == STATESYNC_TOP
+              and sorted(app._snapshots) == [SNAPSHOT_INTERVAL],
+              f"statesync: H at {hbs.height()}, app {app.height}, snapshots "
+              f"{sorted(app._snapshots)}")
+        h6, h7 = (hbs.load_block_meta(h).header for h in (SNAPSHOT_INTERVAL + 1, STATESYNC_TOP))
+        snap_bytes = len(app._snapshots[SNAPSHOT_INTERVAL])
+        n_chunks = -(-snap_bytes // SNAPSHOT_CHUNK_SIZE)
+        hconns = AppConns(local_client_creator(app))
+        hconns.start()
+        print(f"statesync: H: phase 17's SQLite chain extended by blocks "
+              f"{SNAPSHOT_INTERVAL + 1}-{STATESYNC_TOP} ({BLOCKEXEC_TXS} txs of "
+              f"{BLOCKEXEC_TX_BYTES} bytes, commits of {len(keys) - 1} votes, seed "
+              f"{STATESYNC_SEED}) in {extend_s:.2f} s (set-up: signing and applying); the "
+              f"KVStore snapshot at height {SNAPSHOT_INTERVAL}: {snap_bytes} bytes in "
+              f"{n_chunks} chunks of {SNAPSHOT_CHUNK_SIZE} {tag}", flush=True)
+
+        # -- J: the app in a child process, behind the ABCI socket ----------
+        script = os.path.abspath(__file__)
+        log = open(os.path.join(run_dir, "app.log"), "w")
+        child = (subprocess.Popen([sys.executable, script, "--abci-app", run_dir],
+                                  cwd=os.path.dirname(script), stdout=log,
+                                  stderr=subprocess.STDOUT), log)
+        t0 = time.perf_counter()
+        wait_until(lambda: net_read(os.path.join(run_dir, "abci-port.json")) is not None,
+                   60.0, "statesync: the app child's port")
+        port = net_read(os.path.join(run_dir, "abci-port.json"))["port"]
+        addr = f"tcp://127.0.0.1:{port}"
+        jconns = AppConns(remote_client_creator(addr))
+        jconns.start()
+        check(all(isinstance(c, SocketClient) for c in (
+            jconns.consensus, jconns.mempool, jconns.query, jconns.snapshot)),
+            "statesync: J's connections are not sockets")
+        app_up_s = time.perf_counter() - t0
+        socket_ms = collections.defaultdict(list)
+        for c in (jconns.consensus, jconns.snapshot, jconns.query):
+            real = c.call
+
+            def timed(method, req, _real=real):
+                t1 = time.perf_counter()
+                try:
+                    return _real(method, req)
+                finally:
+                    socket_ms[method].append((time.perf_counter() - t1) * 1e3)
+
+            c.call = timed
+        jstate = state_from_genesis(gdoc)
+        res = jconns.consensus.init_chain(at.InitChainRequest(
+            time_unix_ns=gdoc.genesis_time.to_ns(), chain_id=gdoc.chain_id,
+            consensus_params=_params_to_json(gdoc.consensus_params),
+            validators=[at.ValidatorUpdate("ed25519", v.pub_key.bytes(), v.power)
+                        for v in gdoc.validators],
+            app_state_bytes=gdoc.app_state, initial_height=gdoc.initial_height))
+        jstate.app_hash = res.app_hash
+        jdb = SqliteKV(os.path.join(run_dir, "joiner.db"), surface="state")
+        jbs, jss = BlockStore(jdb), StateStore(jdb)
+        jpool = EvidencePool(jdb, jss, jbs)
+        jex = execution.BlockExecutor(jss, jbs, jconns.consensus, NopMempool(),
+                                      evidence_pool=jpool)
+        hnet = tn.build(tn.PORT, tn.node_key(tn.PORT, b"statesync-helper"), gdoc.chain_id,
+                        p2p_config=P2PConfig(pex=False), state=state, block_store=hbs,
+                        block_sync=False, statesync_app=hconns, moniker="helper",
+                        logger=NetLog("helper", errors))
+        nets.append(hnet)
+        jnet = tn.build(tn.PORT, tn.node_key(tn.PORT, b"statesync-joiner"), gdoc.chain_id,
+                        p2p_config=P2PConfig(pex=False), state=jstate, block_exec=jex,
+                        block_store=jbs, block_sync=False, statesync_app=jconns,
+                        moniker="joiner", logger=NetLog("joiner", errors))
+        nets.append(jnet)
+        check(jnet.reactors["BLOCKSYNC"].device is None and jnet.transport.device is None,
+              "statesync: J is not on the card")
+        hnode = SimpleNamespace(genesis_doc=gdoc, block_store=hbs, state_store=hss,
+                                evidence_pool=hpool, consensus=SimpleNamespace(state=state),
+                                node_key=SimpleNamespace(node_id=hnet.node_id))
+        trust = TrustOptions(StateSyncConfig().trust_period_s, 1,
+                             hbs.load_block_meta(1).block_id.hash)
+
+        # -- the sync --------------------------------------------------------
+        requests = collections.Counter()
+        hops = []
+        real_req = jnet.reactors["STATESYNC"].request_chunk
+
+        def request_chunk(peer_id, height, fmt, index):
+            requests[index] += 1
+            return real_req(peer_id, height, fmt, index)
+
+        jnet.reactors["STATESYNC"].request_chunk = request_chunk
+        fetch_s = []
+
+        def fetch(self, snapshot):
+            t1 = time.perf_counter()
+            try:
+                return real_fetch(self, snapshot)
+            finally:
+                fetch_s.append(time.perf_counter() - t1)
+
+        ssyncer.Syncer._fetch_chunks = fetch
+        sigcache.get_cache().clear()  # J never saw these votes
+        ds.reset()
+        vstats.reset()
+        tstats.reset()
+        bstats.reset()
+        handshake_pool.reset_pool()
+        for w in (cv, csh, cuda_aead, cuda_x25519):
+            w.reset_launches()
+        from cometbft_tpu_torch.statesync.stateprovider import LightClientStateProvider
+
+        t_run = time.perf_counter()
+        provider = LightClientStateProvider(
+            gdoc.chain_id, [NodeProvider(hnode)], trust, genesis_doc=gdoc,
+            logger=NetLog("joiner", errors).with_(module="statesync-provider"),
+            now_fn=lambda: BLOCKEXEC_T0 + 6 * STATESYNC_TOP + 600)
+        check(provider.client.device is None, "statesync: the light client is not on the card")
+        real_hop = provider.client.verify_light_block_at_height
+
+        def hop(height, now=None):
+            mark = (cv.launches, csh.launches, ds.tier_counts()["cuda"])
+            t1 = time.perf_counter()
+            known = provider.client.store.light_block(height) is not None
+            out = real_hop(height, now)
+            cuda = ds.tier_counts()["cuda"]
+            if not known:
+                b, ln = cuda[0] - mark[2][0], cuda[1] - mark[2][1]
+                hops.append({"height": height, "ms": round((time.perf_counter() - t1) * 1e3, 3),
+                             "ed25519_launches": cv.launches - mark[0],
+                             "lanes_per_launch": round(ln / b, 1) if b else None,
+                             "tree_launches": csh.launches - mark[1]})
+            return out
+
+        provider.client.verify_light_block_at_height = hop
+        hnet.start()
+        jnet.start([hnet.address])
+        wait_until(lambda: len(jnet.switch.peers_list()) == 1, INGEST_TIMEOUT_S,
+                   "statesync: J's link to H")
+        t_sync = time.perf_counter()
+        got = tn.run_statesync(jnet, provider, jconns, jss, jbs, evidence_pool=jpool,
+                               discovery_s=STATESYNC_DISCOVERY_S,
+                               chunk_timeout_s=StateSyncConfig().chunk_request_timeout_s,
+                               logger=NetLog("joiner", errors))
+        restore_s = time.perf_counter() - t_sync
+        check(got is not None, f"statesync: the restore failed: {errors[-3:]}")
+        synced, _ = got
+        restored = jconns.query.info().last_block_app_hash
+        bs = jnet.reactors["BLOCKSYNC"]
+        t1 = time.perf_counter()
+        wait_until(lambda: jbs.height() >= SNAPSHOT_INTERVAL + 1 and not bs.syncing,
+                   NETWORK_SYNC_TIMEOUT_S, lambda: f"statesync: J's blocksync at "
+                   f"{jbs.height()}, counters {bstats.snapshot()}, errors {errors[-3:]}")
+        bsync_s = time.perf_counter() - t1
+        wall = time.perf_counter() - t_run
+        after = jconns.query.info().last_block_app_hash
+        j_height = jbs.height()
+        jnet.stop()
+        hnet.stop()
+        launches = net_settled(cv, csh, cuda_aead, cuda_x25519, ds)
+        tiers = net_tiers(ds, "statesync part B")
+        ts, synced_c = tstats.snapshot(), bstats.snapshot()
+    finally:
+        ssyncer.Syncer._fetch_chunks = real_fetch
+        for n in nets:
+            n.stop()
+        for c in (jconns, hconns):
+            if c is not None:
+                c.stop()
+        if child is not None:
+            open(os.path.join(run_dir, "stop"), "w").close()
+            try:
+                child[0].wait(10)
+            except subprocess.TimeoutExpired:
+                child[0].kill()
+                child[0].wait()
+            child[1].close()
+        for db in (hdb, jdb):
+            if db is not None:
+                db.close()
+        pool_ex.shutdown(wait=True, cancel_futures=True)
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    # -- what part B asserts -------------------------------------------------
+    check(restored == h6.app_hash, "statesync: J's app hash after the restore != header 6's")
+    check(after == h7.app_hash and j_height == SNAPSHOT_INTERVAL + 1,
+          f"statesync: J at {j_height}, app hash after block 6 != header 7's")
+    for what, a, b in (("validators", synced.validators.hash(), at5.validators.hash()),
+                       ("next validators", synced.next_validators.hash(),
+                        at5.next_validators.hash()),
+                       ("params", _params_to_json(synced.consensus_params),
+                        _params_to_json(at5.consensus_params)),
+                       ("results hash", synced.last_results_hash, at5.last_results_hash),
+                       ("app hash", synced.app_hash, at5.app_hash),
+                       ("last block id", synced.last_block_id, at5.last_block_id)):
+        check(a == b, f"statesync: J's bootstrapped state differs from H's at height 5 in its {what}")
+    check(tiers["ed25519"]["cuda"][0] == launches["ed25519"] > 0
+          and tiers["tree"]["cuda"][0] == launches["tree"] > 0
+          and tiers["aead"]["cuda"][0] == launches["aead"] > 0
+          and tiers["ladder"]["cuda"][0] == launches["ladder"] > 0
+          and ts["dispatches"]["host"] == 0,
+          f"statesync: launches {launches} against tiers {tiers}, transport {ts['dispatches']}")
+    check(all(x["ed25519_launches"] > 0 and x["tree_launches"] > 0 for x in hops) and hops,
+          f"statesync: light hops {hops}")
+    bad = [e for e in errors if any(b in e[2] for b in
+                                    ("statesync failed", "load chunk failed") + BLOCKSYNC_ERRORS)]
+    check(not bad, f"statesync: logged {bad[:3]}")
+    mb = snap_bytes / 1e6
+    sm = {k: (round(statistics.median(v), 3), len(v), round(sum(v), 1))
+          for k, v in socket_ms.items()}
+    re_req = sum(requests.values()) - len(requests)
+    print(f"statesync: part B: a fresh joiner J (its app a port KVStoreApplication behind "
+          f"abci/server.ABCIServer in a child process at {addr}, up in {app_up_s:.2f} s, "
+          f"reached through remote_client_creator: four SocketClients) discovered H's "
+          f"snapshot at {SNAPSHOT_INTERVAL} over p2p ({STATESYNC_DISCOVERY_S} s window), "
+          f"verified it through a LightClientStateProvider on the card (NodeProvider on H's "
+          f"stores, block 1 trusted by hash; light hops {sum(x['ms'] for x in hops):.1f} ms), "
+          f"fetched {len(requests)} chunks with {sum(requests.values())} requests "
+          f"({re_req} re-requests) in {sum(fetch_s):.2f} s = {mb / sum(fetch_s):.3f} MB/s "
+          f"and applied them over the socket; the restore's wall {restore_s:.2f} s (the "
+          f"discovery window, the light hops, the fetch, the applies); app hash "
+          f"== header {SNAPSHOT_INTERVAL + 1}'s; bootstrapped state == H's at "
+          f"{SNAPSHOT_INTERVAL} (validators, next validators, params, results hash); then "
+          f"blocksynced block {SNAPSHOT_INTERVAL + 1} in {bsync_s:.2f} s (app hash == header "
+          f"{STATESYNC_TOP}'s; counters {synced_c}); wall {wall:.2f} s {tag}", flush=True)
+    print(f"statesync: part B: light hops {json.dumps(hops)}; socket ms (median, calls, "
+          f"sum) {sm}; launches {launches}, served by tier {tiers}; transport AEAD passes "
+          f"{ts['batches']}; no statesync, chunk or blocksync error logged {tag}", flush=True)
+    return {"launches": launches, "wall_s": wall, "validators": len(keys), "hops": hops}
+
+
+def ingest_statesync_phase(torch, dev, cbatch, cv, ds, sigcache, chain, tag) -> dict:
+    """Phase 20: transaction ingestion behind a sentry (part A) and a
+    fresh node's state sync of phase 17's chain (part B), then the four
+    kernels held to their plain versions on the inputs the phase gave
+    them.  Returns the launches of both parts per kernel."""
+    from cometbft_tpu_torch.ops import cuda_aead, cuda_x25519
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+
+    tn = load_torch_net()
+    t_phase = time.perf_counter()
+    kept_ed, kept_v = {}, {}  # lanes -> inputs: any path's first; V's first flush
+    real_ed = cv.verify_core_cuda
+    origins = LaunchOrigins(cv)
+
+    def keep_ed(**t):
+        lanes = int(t["s_ok"].shape[0])
+        kept_ed.setdefault(lanes, {k: v.clone() for k, v in t.items()})
+        if not kept_v and origins.current and "V admission" in origins.current:
+            kept_v[lanes] = {k: v.clone() for k, v in t.items()}
+        return real_ed(**t)
+
+    out = {}
+    try:
+        with keeping_inputs(cuda_aead, "aead", lambda a, kw: (
+                "seal" if kw["seal"] else "open", a[2].shape[1], a[2].shape[0])) as kept_aead, \
+                keeping_inputs(cuda_x25519, "ladder", lambda a, kw: a[0].shape[0]) as kept_ladder, \
+                keeping_inputs(csh, "tree_words", lambda a, kw: (
+                    int(a[1].shape[0]) - 1,
+                    int(a[0].numel()) * a[0].element_size()
+                    // max(int(a[1].shape[0]) - 1, 1))) as kept_tree:
+            cv.verify_core_cuda = keep_ed
+            out["A"] = ingest_part_a(torch, cbatch, cv, ds, sigcache, tag, tn, origins)
+            out["B"] = statesync_part_b(torch, cbatch, cv, ds, sigcache, chain, tag, tn)
+    finally:
+        cv.verify_core_cuda = real_ed
+
+    # -- the kernels against their plain versions, on the phase's inputs ----
+    n = out["B"]["validators"]
+    valset = [k for k in kept_tree if k[0] == n and k[1] < 128]
+    check(valset, f"ingest_statesync: no {n}-leaf set hash reached the tree kernel: "
+          f"{sorted(kept_tree)}")
+    others = [k for k in sorted(kept_tree) if k[0] != n and k[1] < 1024][-1:]
+    # the two smallest and the largest launches, V's first coalescer flush
+    # and a light hop's one-launch batch (a 2/3 or 1/3 commit check)
+    check(kept_v, "ingest_statesync: no launch of V's admission was kept")
+    hop = sorted({int(x["lanes_per_launch"]) for x in out["B"]["hops"]
+                  if x["ed25519_launches"] == 1} & set(kept_ed))
+    check(hop, f"ingest_statesync: no light hop's batch was kept: {out['B']['hops']}")
+    ed_in = {f"{k}": kept_ed[k] for k in sorted(kept_ed)[:2] + sorted(kept_ed)[-1:] + hop[:1]}
+    ed_in.update({f"{k} (V's flush)": t for k, t in kept_v.items()})
+    worst, ms = kept_against_plain(
+        torch, "ingest_statesync", ed_in, sorted(ed_in), kept_tree,
+        valset[:1] + others, kept_aead, kept_ladder)
+    ed_ms, tree_ms, aead_ms, ladder_ms = ms["ed25519"], ms["tree"], ms["aead"], ms["ladder"]
+    print(f"ingest_statesync: on the phase's own inputs, bit for bit: the Ed25519 kernel "
+          f"== its plain version at {sorted(ed_ms)} lanes ({ed_ms} ms; every launch's "
+          f"lanes {sorted(kept_ed)}), the tree kernel at (leaves, bytes a leaf) "
+          f"{sorted(tree_ms)} ({tree_ms} ms), the AEAD kernel on the first flush of each "
+          f"(op, lanes, blocks) {sorted(aead_ms)} "
+          f"({ {f'{k[0]} {k[1]}x{k[2]}': v for k, v in aead_ms.items()} } ms), the ladder "
+          f"kernel at {sorted(ladder_ms)} lanes ({ladder_ms} ms); max_abs_err "
+          f"{dict(worst)}; device times by CUDA events, queued {tag}", flush=True)
+    per = {"ed25519": statistics.median(ed_ms.values()),
+           "tree": statistics.median(tree_ms.values()),
+           "aead": statistics.median(aead_ms.values()),
+           "ladder": statistics.median(ladder_ms.values())}
+    for part in ("A", "B"):
+        c, wall = out[part]["launches"], out[part]["wall_s"]
+        busy = sum(c[k] * per[k] for k in per) / (wall * 1e3)
+        print(f"ingest_statesync: part {part}: the card busy ~{busy:.4%} of its {wall:.2f} s "
+              f"(idle ~{1 - busy:.4%}; derived: launches {c} x median device times "
+              f"{ {k: round(v, 4) for k, v in per.items()} } ms) {tag}", flush=True)
+    print(f"ingest_statesync: the phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {k: out["A"]["launches"][k] + out["B"]["launches"][k]
+            for k in ("ed25519", "tree", "aead", "ladder")}
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -6113,6 +7217,9 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
 
         # -- 19. network: switches, reactors, PEX and blocksync ---------------
         net = network_phase(torch, dev, cbatch, cv, ds, sigcache, be, tag)
+
+        # -- 20. ingest_statesync: a sentry's admission, a fresh node's sync -
+        iss = ingest_statesync_phase(torch, dev, cbatch, cv, ds, sigcache, be, tag)
     finally:
         shutil.rmtree(be["dir"], ignore_errors=True)  # phase 17's chain
     print(f"network: the kernels' launches on its path: Ed25519 {net['ed25519']}, tree "
@@ -6124,6 +7231,15 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     light_entry["launches"] += net["tree"]
     aead_entry["launches"] += net["aead"]
     ladder_entry["launches"] += net["ladder"]
+    print(f"ingest_statesync: the kernels' launches on its path: Ed25519 {iss['ed25519']}, "
+          f"tree {iss['tree']}, AEAD {iss['aead']}, ladder {iss['ladder']}; the kernels line "
+          f"adds them to the earlier paths' counts (Ed25519 {launches}, tree "
+          f"{light_entry['launches']}, AEAD {aead_entry['launches']}, ladder "
+          f"{ladder_entry['launches']})")
+    launches += iss["ed25519"]
+    light_entry["launches"] += iss["tree"]
+    aead_entry["launches"] += iss["aead"]
+    ladder_entry["launches"] += iss["ladder"]
 
     print("host: " + json.dumps({
         "name": native.NAME,
@@ -6163,4 +7279,6 @@ if __name__ == "__main__":
         sys.exit(sim_child(sys.argv[2]))
     if sys.argv[1:2] == ["--net-node"]:
         sys.exit(net_node_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--abci-app"]:
+        sys.exit(abci_app_child(sys.argv[2]))
     sys.exit(main())

@@ -1,17 +1,22 @@
-"""The ABCI client surface and the in-process client.
+"""ABCI clients: in-process (local) and socket.
 
-Reference: abci/client/local_client.go.  The local client serializes calls
-through one lock, matching the reference's semantics that an ABCI app sees
-at most one concurrent request per connection.  The JAX package's
-``SocketClient`` (the framed codec of ``abci/codec.py``) and ``grpc_abci``
-wait for ROADMAP "Node assembly" stage (b).
+Reference: abci/client/{local_client.go,socket_client.go}.  The local client
+serializes calls through one lock, matching the reference's semantics that an
+ABCI app sees at most one concurrent request per connection.  The socket
+client speaks the framed codec in abci/codec.py against a SocketServer
+(possibly in another process), with async CheckTx pipelining for the mempool
+path (reference: socket_client.go request queue + response routing).  The
+JAX package's gRPC client (``abci/grpc_abci.py``) is not ported yet.
 """
 
 from __future__ import annotations
 
+import queue
+import socket
 import threading
 from typing import Callable, Optional
 
+from cometbft_tpu_torch.abci import codec
 from cometbft_tpu_torch.abci import types as at
 from cometbft_tpu_torch.abci.application import Application
 
@@ -177,3 +182,110 @@ class LocalClient(Client):
 
     def check_tx_async(self, req, cb):
         cb(self.call("check_tx", req))
+
+
+class SocketClient(Client):
+    """Framed-socket client with a dedicated send thread and response router
+    (reference: abci/client/socket_client.go)."""
+
+    def __init__(self, address: str, timeout: float = 10.0):
+        self.address = address
+        self.timeout = timeout
+        self._sock = _dial(address, timeout)
+        self._wlock = threading.Lock()
+        self._pending: "queue.Queue[tuple[str, Optional[Callable], Optional[queue.Queue]]]" = queue.Queue()
+        self._closed = False
+        self._err: Optional[Exception] = None
+        self._recv_thread = threading.Thread(target=self._recv_loop, daemon=True)
+        self._recv_thread.start()
+
+    def _enqueue_and_send(
+        self,
+        method: str,
+        req,
+        cb: Optional[Callable],
+        q: Optional[queue.Queue],
+    ) -> None:
+        # Enqueue + send must be atomic: responses come back in wire order and
+        # are matched to pending entries in queue order, so the two orders
+        # must agree.
+        data = codec.encode_request(method, req)
+        with self._wlock:
+            self._pending.put((method, cb, q))
+            self._sock.sendall(data)
+
+    def _recv_loop(self) -> None:
+        try:
+            rfile = self._sock.makefile("rb")
+            while not self._closed:
+                method, resp = codec.read_response(rfile)
+                try:
+                    _, cb, q = self._pending.get_nowait()
+                except queue.Empty:
+                    raise ABCIClientError("unsolicited ABCI response")
+                if cb is not None:
+                    cb(resp)
+                if q is not None:
+                    q.put(resp)
+        except Exception as e:  # socket closed or protocol error
+            self._err = e
+            self._closed = True
+            # Fail all waiters — sync callers get the exception, async
+            # callbacks are invoked with it so no check_tx result is lost.
+            while True:
+                try:
+                    _, cb, q = self._pending.get_nowait()
+                except queue.Empty:
+                    break
+                if q is not None:
+                    q.put(e)
+                if cb is not None:
+                    try:
+                        cb(e)
+                    except Exception:
+                        pass
+
+    def call(self, method: str, req):
+        if self._closed:
+            raise ABCIClientError(f"client closed: {self._err}")
+        q: queue.Queue = queue.Queue()
+        self._enqueue_and_send(method, req, None, q)
+        try:
+            resp = q.get(timeout=self.timeout)
+        except queue.Empty:
+            raise ABCIClientError(
+                f"ABCI {method} timed out after {self.timeout}s"
+            ) from None
+        if isinstance(resp, Exception):
+            raise ABCIClientError(str(resp)) from resp
+        return resp
+
+    def check_tx_async(self, req, cb):
+        if self._closed:
+            raise ABCIClientError(f"client closed: {self._err}")
+        self._enqueue_and_send("check_tx", req, cb, None)
+
+    def echo(self, message: str) -> at.EchoResponse:
+        return self.call("echo", at.EchoRequest(message=message))
+
+    def close(self) -> None:
+        self._closed = True
+        try:
+            self._sock.close()
+        except OSError:
+            pass
+
+
+def _dial(address: str, timeout: float) -> socket.socket:
+    """address: 'tcp://host:port' or 'unix:///path'."""
+    if address.startswith("unix://"):
+        s = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        s.settimeout(timeout)
+        s.connect(address[len("unix://"):])
+    else:
+        hostport = address[len("tcp://"):] if address.startswith("tcp://") else address
+        host, port = hostport.rsplit(":", 1)
+        s = socket.create_connection((host, int(port)), timeout=timeout)
+        s.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    s.settimeout(None)
+    return s

@@ -5,8 +5,8 @@ plain dataclasses: 12 application methods across 4 logical connections
 (consensus / mempool / query / snapshot).  They keep the message *shape*
 of the reference (abci/types/application.go:11-41) without pulling in its
 generated code.  The port's copy of the JAX package's ``abci/types.py``;
-its socket transport (``abci/codec.py``) waits for ROADMAP "Node
-assembly" stage (b).
+the socket transport serializes these as length-prefixed JSON with base64
+bytes (see abci/codec.py).
 """
 
 from __future__ import annotations

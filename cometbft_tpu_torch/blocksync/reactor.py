@@ -102,11 +102,7 @@ class BlocksyncReactor(Reactor):
         device=None,
     ):
         super().__init__("BlocksyncReactor")
-        self.device = validation.require_device(device)
-        if str(device or "cuda").startswith("cuda") and cbatch.env_backend() != "cpu":
-            # open the gate now (the card's self-check), so that the first
-            # commit's batch rides the kernel
-            cbatch.default_backend()
+        self.device = validation.entry_device(device)  # the gate open for the first commit
         self.state = state
         self.block_exec = block_exec
         self.block_store = block_store

@@ -6,11 +6,6 @@ lanes are priority classes the app declares in its ``Info`` response
 (reference: mempool/lanes.go, ``lane_priorities``/``default_lane``).  Reaping
 visits lanes in priority order round-robin (high first); after a block commits,
 ``update`` removes committed txs and rechecks the remainder.
-
-The JAX package's batched admission (``check_tx_batch``, which imports
-``txingest/envelope``) and its batched recheck (``txingest/coalescer``)
-wait for ROADMAP "Node assembly" stage (c); admission here is ``check_tx``
-and the recheck is the serial loop.
 """
 
 from __future__ import annotations
@@ -142,11 +137,17 @@ class CListMempool:
         lane_priorities: Optional[dict[str, int]] = None,
         default_lane: str = "",
         pre_check: Optional[Callable[[bytes], Optional[str]]] = None,
+        envelope_aware: bool = False,
     ):
         self.config = config
         self.proxy_app = proxy_app
         self.height = height
         self.pre_check = pre_check
+        # True when the app advertises InfoResponse.envelope_sig_verified:
+        # batched admission may then pre-verify signed-tx envelopes on the
+        # crypto seam and reject forgeries with the app's own canonical
+        # codes before any app round trip (docs/tx-ingest.md)
+        self.envelope_aware = envelope_aware
         self.cache = (
             LRUTxCache(config.cache_size) if config.cache_size > 0 else NopTxCache()
         )
@@ -258,6 +259,135 @@ class CListMempool:
         res = self.proxy_app.check_tx(at.CheckTxRequest(tx=tx))
         self._handle_check_tx_response(tx, key, sender, res)
         return res
+
+    def check_tx_batch(
+        self,
+        txs: Sequence[bytes],
+        senders: Optional[Sequence[str]] = None,
+        keys: Optional[Sequence[bytes]] = None,
+    ) -> list:
+        """Batched admission (docs/tx-ingest.md): run the per-tx gauntlet
+        (size, pre-check, cache dedup) in request order, pre-verify
+        signed-tx envelopes on the crypto seam when the app is
+        envelope-aware (forgeries rejected with the app's canonical codes,
+        no app round trip), then admit every survivor through ONE batched
+        ``check_txs`` call.  Returns one entry per tx: the
+        ``CheckTxResponse``, or the ``MempoolError`` instance the per-tx
+        path would have raised.  Final mempool contents, tx order, codes
+        and cache state are identical to sequential ``check_tx`` calls —
+        tests/test_txingest.py pins this differentially.
+
+        ``keys`` optionally carries precomputed ``tx_key`` hashes (the
+        coalescer already hashed every tx for its pre-queue dedup probe)
+        so the hot gossip path hashes each tx once, not twice."""
+        from cometbft_tpu_torch.txingest import envelope as ev
+
+        n = len(txs)
+        senders = list(senders) if senders is not None else [""] * n
+        if len(senders) != n:
+            raise ValueError(
+                f"check_tx_batch: {len(senders)} senders for {n} txs"
+            )
+        if keys is not None and len(keys) != n:
+            raise ValueError(
+                f"check_tx_batch: {len(keys)} keys for {n} txs"
+            )
+        pre_keys = keys
+        results: list = [None] * n
+        keys: "list[Optional[bytes]]" = [None] * n
+        live: "list[int]" = []
+        for i, (tx, sender) in enumerate(zip(txs, senders)):
+            if len(tx) > self.config.max_tx_bytes:
+                ingest_stats.record_error("too_large")
+                results[i] = TxTooLargeError(
+                    f"tx {len(tx)}B > max {self.config.max_tx_bytes}B"
+                )
+                continue
+            if self.pre_check is not None:
+                err = self.pre_check(tx)
+                if err:
+                    ingest_stats.record_error("pre_check")
+                    results[i] = PreCheckError(err)
+                    continue
+            key = pre_keys[i] if pre_keys is not None else tmhash.sum256(tx)
+            if not self.cache.push(key):
+                # also dedups duplicates WITHIN the batch: the first
+                # occurrence owns the cache slot, later ones land here
+                # (the apply loop re-probes — see below — in case the
+                # first occurrence is rejected and releases the slot)
+                self.note_duplicate(key, sender)
+                ingest_stats.record_cache(True)
+                ingest_stats.record_error("duplicate")
+                keys[i] = key
+                results[i] = TxInCacheError()
+                continue
+            ingest_stats.record_cache(False)
+            keys[i] = key
+            live.append(i)
+
+        if self.envelope_aware and live:
+            # one bulk-class pass through the verify seam for the whole
+            # burst; a shed inside verify_envelopes degrades to per-item
+            # sync host verify — never a dropped tx verdict
+            envs: "list" = [None] * n
+            for i in live:
+                if ev.is_envelope(txs[i]):
+                    try:
+                        envs[i] = ev.decode(txs[i])
+                    except ev.EnvelopeError as e:
+                        results[i] = ev.reject_bad_envelope(str(e))
+            verdicts = ev.verify_envelopes(envs)
+            n_sigs = sum(1 for e in envs if e is not None)
+            ingest_stats.record_sig_precheck(n_sigs)
+            for i in live:
+                if envs[i] is not None and not verdicts[i]:
+                    results[i] = ev.reject_bad_signature()
+            live = [i for i in live if results[i] is None]
+
+        if live:
+            reqs = [at.CheckTxRequest(tx=txs[i]) for i in live]
+            resps = self._app_check_txs(reqs)
+            ingest_stats.record_app_batch(len(reqs))
+            for i, res in zip(live, resps):
+                results[i] = res
+
+        # apply in request order: the full check and the add/cache
+        # bookkeeping see exactly the mempool state sequential per-tx
+        # admission would have seen
+        for i in range(n):
+            res = results[i]
+            if isinstance(res, TxInCacheError):
+                # the dedup probe ran before any verdict existed; if the
+                # occurrence that owned the cache slot was since rejected
+                # (rejection releases the slot unless
+                # keep_invalid_txs_in_cache), sequential admission would
+                # have re-checked this tx — do that now, per-tx
+                if not self.cache.push(keys[i]):
+                    continue  # genuine duplicate, error stands
+                res = self.proxy_app.check_tx(at.CheckTxRequest(tx=txs[i]))
+                results[i] = res
+            if not isinstance(res, at.CheckTxResponse):
+                continue  # admission error; cache handled above
+            if (
+                self.size() + 1 > self.config.size
+                or self._total_bytes + len(txs[i]) > self.config.max_txs_bytes
+            ):
+                self.cache.remove(keys[i])
+                ingest_stats.record_error("full")
+                results[i] = MempoolFullError(self.size(), self._total_bytes)
+                continue
+            self._handle_check_tx_response(txs[i], keys[i], senders[i], res)
+        return results
+
+    def _app_check_txs(
+        self, reqs: "list[at.CheckTxRequest]"
+    ) -> "list[at.CheckTxResponse]":
+        """One batched round trip when the proxy supports it (all
+        ``abci.client.Client``s do), else the per-tx loop."""
+        ck = getattr(self.proxy_app, "check_txs", None)
+        if ck is None:
+            return [self.proxy_app.check_tx(r) for r in reqs]
+        return ck(reqs)
 
     def _handle_check_tx_response(
         self, tx: bytes, key: bytes, sender: str, res: at.CheckTxResponse
@@ -376,17 +506,25 @@ class CListMempool:
     def _recheck_txs(self) -> None:
         """Re-run CheckTx on all remaining txs (reference: :828 recheckTxs).
 
-        The serial per-tx loop only: the JAX package's batched recheck (one
-        ``check_txs`` round trip when tx ingestion is on) waits for the
-        port's ``txingest/coalescer`` (ROADMAP "Node assembly" stage (c)).
-        Its docstring calls the verdicts of the two identical, because the
+        With tx ingestion enabled the whole remaining mempool rides ONE
+        batched ``check_txs`` round trip — and, behind an envelope-aware
+        app, one fused signature pass (all cache hits in the common case)
+        — instead of the serial per-tx loop.  ``COMETBFT_TPU_TXINGEST=0``
+        restores the loop; verdicts are identical either way because the
         batch is semantically a sequence of independent checks."""
+        from cometbft_tpu_torch.txingest.coalescer import ingest_enabled
+
         items = list(self._tx_map.items())
         reqs = [
             at.CheckTxRequest(tx=el.value.tx, type_=at.CHECK_TX_TYPE_RECHECK)
             for _, el in items
         ]
-        resps = [self.proxy_app.check_tx(r) for r in reqs]
+        if ingest_enabled() and len(items) > 1:
+            resps = self._app_check_txs(reqs)
+            ingest_stats.record_app_batch(len(reqs))
+            ingest_stats.record_recheck(len(reqs))
+        else:
+            resps = [self.proxy_app.check_tx(r) for r in reqs]
         for (key, el), res in zip(items, resps):
             mtx: MempoolTx = el.value
             if not res.ok:

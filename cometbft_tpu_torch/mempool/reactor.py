@@ -31,18 +31,22 @@ _BLOCKED_SLEEP = 0.005  # a full send queue: try the same tx again after this
 class MempoolReactor(Reactor):
     """Reference: mempool/reactor.go Reactor.
 
-    Every incoming tx takes the per-tx ``check_tx`` path.  The JAX
-    package's ``ingest`` parameter (a ``txingest.IngestCoalescer`` that
-    batches admission) waits for the port's ``txingest/``.  The reactor
-    counts (and logs, at debug) tx-cache dedup hits and CheckTx rejections
-    per peer instead of silently swallowing them: ``peer_ingest_stats``
-    feeds sim assertions and the ``cometbft_mempool_*`` metrics."""
+    ``ingest`` (a ``txingest.IngestCoalescer``) routes incoming gossip
+    through batched admission when active; without it — or with
+    ``COMETBFT_TPU_TXINGEST=0`` — every tx takes the per-tx ``check_tx``
+    path exactly as before.  Either way the reactor now counts (and logs,
+    at debug) tx-cache dedup hits and CheckTx rejections per peer instead
+    of silently swallowing them: ``peer_ingest_stats`` feeds sim
+    assertions and the ``cometbft_mempool_*`` metrics."""
 
-    def __init__(self, config, mempool, logger=None):
+    def __init__(self, config, mempool, logger=None, ingest=None):
         super().__init__("MempoolReactor")
         self.config = config
         self.mempool = mempool
         self.logger = logger or liblog.nop_logger()
+        self.ingest = ingest
+        if ingest is not None and ingest.on_result is None:
+            ingest.on_result = self._note_flush_result
         self._peer_routines: dict[str, threading.Event] = {}
         self._lock = threading.Lock()
         self._peer_stats: dict[str, dict[str, int]] = {}
@@ -79,15 +83,19 @@ class MempoolReactor(Reactor):
             stop.set()
 
     def receive(self, chan_id: int, peer, msg_bytes: bytes) -> None:
-        """An incoming tx: CheckTx with the peer recorded as sender.
-        Dupes / full / failed pre-check stay non-fatal, but are counted per
-        peer."""
+        """An incoming tx: CheckTx with the peer recorded as sender —
+        batched through the ingest coalescer when active.  Dupes / full /
+        failed pre-check stay non-fatal, but are now counted per peer."""
         try:
-            res = self.mempool.check_tx(msg_bytes, sender=peer.id)
+            if self.ingest is not None:
+                res = self.ingest.submit(msg_bytes, sender=peer.id)
+            else:
+                res = self.mempool.check_tx(msg_bytes, sender=peer.id)
         except MempoolError as e:
             self._note_sync_error(peer.id, e)
             return
-        self._note_response(peer.id, res)
+        if res is not None:  # None = queued; verdict arrives at flush time
+            self._note_response(peer.id, res)
 
     # -- per-peer ingest accounting ---------------------------------------
 
@@ -127,6 +135,14 @@ class MempoolReactor(Reactor):
                 PreCheckError: "pre-check failed",
             }.get(type(err), "mempool error")
             self.logger.debug("tx not admitted", peer=peer_id, reason=kind)
+
+    def _note_flush_result(self, peer_id: str, res) -> None:
+        """Flush-time outcome from the coalescer (response or the
+        MempoolError the per-tx path would have raised)."""
+        if isinstance(res, at.CheckTxResponse):
+            self._note_response(peer_id, res)
+        elif isinstance(res, MempoolError):
+            self._note_sync_error(peer_id, res)
 
     def _broadcast_tx_routine(self, peer, stop: threading.Event) -> None:
         """Reference: reactor.go:213 broadcastTxRoutine — walk the lanes

@@ -22,13 +22,12 @@ import threading
 from dataclasses import dataclass
 from typing import Callable, Optional
 
-from cometbft_tpu_torch.crypto import batch as cbatch
 from cometbft_tpu_torch.p2p.node_info import NetAddress, NodeInfo, NodeInfoError
 from cometbft_tpu_torch.p2p.secret_connection import (
     SecretConnection,
     SecretConnectionError,
 )
-from cometbft_tpu_torch.types.validation import require_device
+from cometbft_tpu_torch.types.validation import entry_device
 
 
 class TransportError(Exception):
@@ -63,11 +62,7 @@ class Transport:
         conn_wrapper: Optional[Callable] = None,  # e.g. FuzzedConnection
         device=None,
     ):
-        self.device = require_device(device)
-        if str(device or "cuda").startswith("cuda") and cbatch.env_backend() != "cpu":
-            # open the gate now (the card's self-check), so that the first
-            # dial's ladders and frames ride the kernels, not the host
-            cbatch.default_backend()
+        self.device = entry_device(device)  # the gate open for the first dial
         self.node_key = node_key
         self.node_info_fn = node_info_fn
         self.handshake_timeout = handshake_timeout

@@ -11,10 +11,8 @@ The mempool connection additionally carries the batched-CheckTx surface
 whole gossip burst in one round trip, with a per-tx loop fallback for
 clients/apps that predate the batch method.
 
-Only the in-process creator is ported: the socket and gRPC clients
-(``abci/client.SocketClient``, ``abci/grpc_abci.GRPCClient``) wait for
-ROADMAP "Node assembly" stage (c), and ``remote_client_creator`` raises
-until then.
+The gRPC client (``abci/grpc_abci.GRPCClient``) is not ported yet:
+``remote_client_creator`` raises ``NotImplementedError`` for it.
 """
 
 from __future__ import annotations
@@ -23,7 +21,7 @@ import threading
 from typing import Callable, Optional
 
 from cometbft_tpu_torch.abci.application import Application
-from cometbft_tpu_torch.abci.client import Client, LocalClient
+from cometbft_tpu_torch.abci.client import Client, LocalClient, SocketClient
 
 ClientCreator = Callable[[], Client]
 
@@ -41,13 +39,19 @@ def local_client_creator(app: Application) -> ClientCreator:
 
 def remote_client_creator(address: str, transport: str = "socket") -> ClientCreator:
     """Socket (length-prefixed framing) or gRPC flavor, per the reference's
-    abci config key (abci/client: socketClient vs grpcClient).  Not ported
-    yet: raises ``NotImplementedError`` naming the address."""
-    flavor = "grpc" if transport == "grpc" or address.startswith("grpc://") else "socket"
-    raise NotImplementedError(
-        f"the {flavor} ABCI client for {address!r} is not ported yet "
-        '(ROADMAP "Node assembly" stage (c)); use local_client_creator'
-    )
+    abci config key (abci/client: socketClient vs grpcClient).  The gRPC
+    flavor raises ``NotImplementedError``: ``abci/grpc_abci`` is not ported
+    yet."""
+    if transport == "grpc" or address.startswith("grpc://"):
+        raise NotImplementedError(
+            f"the gRPC ABCI client for {address!r} is not ported yet "
+            "(abci/grpc_abci); use the socket transport"
+        )
+
+    def create() -> Client:
+        return SocketClient(address)
+
+    return create
 
 
 class AppConns:

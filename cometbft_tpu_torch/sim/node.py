@@ -19,9 +19,8 @@ caller names the CPU (``device="cpu"`` or
 the batch backend (``crypto/batch.default_backend``: the kernel's
 known-answer self-check, once per process) before it returns, so that the
 verify scheduler's gate is open for the node's first proposal and vote.
-The JAX package's ``HandleProvider`` (a statesync joiner's light-block
-provider) waits with ``light/provider`` for ROADMAP "Node assembly" stage
-(c).
+``HandleProvider`` is a statesync joiner's light-block provider over a
+live ``NodeHandle``.
 """
 
 from __future__ import annotations
@@ -35,7 +34,6 @@ from cometbft_tpu_torch.config.config import ConsensusConfig, MempoolConfig
 from cometbft_tpu_torch.consensus.replay import Handshaker
 from cometbft_tpu_torch.consensus.state import ConsensusState
 from cometbft_tpu_torch.consensus.wal import WAL
-from cometbft_tpu_torch.crypto import batch as cbatch
 from cometbft_tpu_torch.crypto.keys import Ed25519PrivKey
 from cometbft_tpu_torch.evidence.pool import EvidencePool
 from cometbft_tpu_torch.mempool.clist_mempool import CListMempool
@@ -49,7 +47,7 @@ from cometbft_tpu_torch.store.kv import MemKV
 from cometbft_tpu_torch.types.basic import Timestamp
 from cometbft_tpu_torch.types.events import EventBus
 from cometbft_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
-from cometbft_tpu_torch.types.validation import require_device
+from cometbft_tpu_torch.types.validation import entry_device
 
 
 @dataclass
@@ -83,19 +81,70 @@ def sim_consensus_config() -> ConsensusConfig:
 
 
 def make_genesis(
-    n_vals: int, chain_id: str
+    n_vals: int,
+    chain_id: str,
+    seed_tag: bytes = b"netval%d",
+    n_nodes: Optional[int] = None,
 ) -> tuple[list[Ed25519PrivKey], GenesisDoc]:
-    """Deterministic validator keys + a genesis doc naming all of them."""
+    """Deterministic validator keys + a genesis doc naming the first
+    ``n_vals`` of them.  ``n_nodes`` (>= n_vals) mints extra keys for
+    standby full nodes — churn/rotation scenarios later join them via
+    statesync and vote them in with ``val:`` txs."""
     privs = [
-        Ed25519PrivKey.from_seed(hashlib.sha256(b"netval%d" % i).digest())
-        for i in range(n_vals)
+        Ed25519PrivKey.from_seed(hashlib.sha256(seed_tag % i).digest())
+        for i in range(max(n_vals, n_nodes or 0))
     ]
     gdoc = GenesisDoc(
         chain_id=chain_id,
         genesis_time=Timestamp(0, 0),
-        validators=[GenesisValidator(p.pub_key(), 10) for p in privs],
+        validators=[
+            GenesisValidator(p.pub_key(), 10) for p in privs[:n_vals]
+        ],
     )
     return privs, gdoc
+
+
+class HandleProvider:
+    """Light-block provider over a live ``NodeHandle`` (the in-process
+    analog of ``light.provider.NodeProvider``): a statesync joiner's light
+    client reads headers/commits/validator sets straight from a helper
+    peer's stores, so snapshot trust verification runs the production
+    light-client path on the virtual clock."""
+
+    def __init__(self, handle: "NodeHandle", chain_id: str):
+        self.handle = handle
+        self._chain_id = chain_id
+
+    def chain_id(self) -> str:
+        return self._chain_id
+
+    def id(self) -> str:
+        return f"simnode:{self.handle.index}"
+
+    def light_block(self, height: int):
+        from cometbft_tpu_torch.light.provider import ErrLightBlockNotFound
+        from cometbft_tpu_torch.types.light import LightBlock, SignedHeader
+
+        bs = self.handle.block_store
+        h = height or bs.height()
+        meta = bs.load_block_meta(h)
+        commit = bs.load_block_commit(h) or bs.load_seen_commit(h)
+        vals = self.handle.state_store.load_validators(h)
+        if meta is None or commit is None or vals is None:
+            raise ErrLightBlockNotFound(f"height {h}")
+        return LightBlock(
+            signed_header=SignedHeader(header=meta.header, commit=commit),
+            validator_set=vals,
+        )
+
+    def report_evidence(self, ev) -> None:
+        self.handle.evidence_pool.add_evidence(ev)
+
+    def consensus_params(self, height: int):
+        params = self.handle.state_store.load_consensus_params(height)
+        if params is None:
+            params = self.handle.cs.state.consensus_params
+        return params
 
 
 def build_node(
@@ -108,19 +157,24 @@ def build_node(
     clock: Optional[Callable[[], float]] = None,
     ticker_factory: Optional[Callable] = None,
     threaded: bool = True,
+    app_factory: Optional[Callable] = None,
     mempool_config: Optional[MempoolConfig] = None,
+    app=None,
+    app_conns=None,
     device=None,
 ) -> NodeHandle:
     """Assemble one validator under ``root/node{index}``.
 
     ``db`` defaults to a fresh ``MemKV``; pass the previous instance (plus
     the same ``root``) to model a crash-restart from persisted stores.
+    ``app_factory`` overrides the default kvstore app: a node that admits
+    signed envelopes wraps it in ``txingest.SigVerifyingApp``, so that
+    envelope traffic takes the batched admission path.  ``app``/``app_conns``
+    hand in an ALREADY-RUNNING application (the statesync join path: the
+    syncer restored a snapshot into it before the node is assembled, so
+    the handshake must see that instance, not a fresh one).
     """
-    device = require_device(device)
-    if str(device or "cuda").startswith("cuda") and cbatch.env_backend() != "cpu":
-        # open the verify scheduler's gate now (the card's self-check), so
-        # height 1's proposal and votes ride the kernel, not verify_now
-        cbatch.default_backend()
+    device = entry_device(device)
     config = config or sim_consensus_config()
     home = root / f"node{index}"
     home.mkdir(parents=True, exist_ok=True)
@@ -128,9 +182,13 @@ def build_node(
     block_store = BlockStore(db)
     state_store = StateStore(db)
 
-    app = KVStoreApplication()
-    conns = AppConns(local_client_creator(app))
-    conns.start()
+    if app is None:
+        app = app_factory() if app_factory is not None else KVStoreApplication()
+    if app_conns is None:
+        conns = AppConns(local_client_creator(app))
+        conns.start()
+    else:
+        conns = app_conns
 
     state = state_store.load()
     if state is None:
@@ -156,6 +214,7 @@ def build_node(
         height=state.last_block_height,
         lane_priorities=dict(info.lane_priorities),
         default_lane=info.default_lane,
+        envelope_aware=getattr(info, "envelope_sig_verified", False),
     )
     block_exec = BlockExecutor(
         state_store,

@@ -288,6 +288,20 @@ def require_device(device=None):
     return device
 
 
+def entry_device(device=None):
+    """``require_device`` for an entry point that verifies, hashes or
+    seals on its own threads, and on the card the batch backend resolved
+    now (``crypto/batch.default_backend``: the kernel's known-answer
+    self-check, once a process).  The verify scheduler's gate, which the
+    hashing and transport planes read too, stays closed until then, and
+    the entry point's first batches would go to the host with no counter
+    showing it.  Returns ``device``."""
+    device = require_device(device)
+    if str(device or "cuda").startswith("cuda") and cbatch.env_backend() != "cpu":
+        cbatch.default_backend()
+    return device
+
+
 def verify_commit(
     chain_id: str,
     vals: ValidatorSet,

@@ -22,7 +22,13 @@ replayed), and the network (``tests/torch_net``: two switches on
 ``device="cpu"`` over loopback, their dial through the handshake pool and
 the AEAD plane, a message each way on an echo channel, and a joiner's
 blocksync of three heights from a serving node, its commits through the
-plain version), and checks that neither name reached ``sys.modules``.
+plain version), and transaction ingestion (an ``IngestCoalescer`` flush of
+signed envelopes into ``check_tx_batch`` behind a ``SigVerifyingApp``,
+through the verify scheduler opened on the CPU and the plain version),
+and state sync (a fresh joiner, its app behind the ABCI socket server,
+restores a serving node's snapshot through two switches with a
+``LightClientStateProvider`` on the CPU, then blocksyncs the next
+height), and checks that neither name reached ``sys.modules``.
 """
 
 import ast
@@ -168,6 +174,17 @@ def test_port_files_exist():
         "cometbft_tpu_torch/blocksync/stats.py",
         "cometbft_tpu_torch/blocksync/pool.py",
         "cometbft_tpu_torch/blocksync/reactor.py",
+        "cometbft_tpu_torch/txingest/envelope.py",
+        "cometbft_tpu_torch/txingest/middleware.py",
+        "cometbft_tpu_torch/txingest/coalescer.py",
+        "cometbft_tpu_torch/abci/codec.py",
+        "cometbft_tpu_torch/abci/server.py",
+        "cometbft_tpu_torch/light/store.py",
+        "cometbft_tpu_torch/light/provider.py",
+        "cometbft_tpu_torch/light/client.py",
+        "cometbft_tpu_torch/statesync/syncer.py",
+        "cometbft_tpu_torch/statesync/stateprovider.py",
+        "cometbft_tpu_torch/statesync/reactor.py",
         "tests/torch_net.py",
     ):
         assert need in names
@@ -380,6 +397,103 @@ try:
 finally:
     for n in nodes:
         n.stop()
+    handshake_pool.reset_pool()
+# transaction ingestion: a coalescer flush of four signed envelopes (one
+# forged, one malformed) into check_tx_batch behind a SigVerifyingApp; the
+# two good signatures and the forged one through the verify scheduler,
+# opened on the CPU, in one plain-version flush
+from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+from cometbft_tpu_torch.config.config import MempoolConfig
+from cometbft_tpu_torch.mempool.clist_mempool import CListMempool
+from cometbft_tpu_torch.proxy.multi_app_conn import (
+    AppConns, local_client_creator, remote_client_creator)
+from cometbft_tpu_torch import txingest
+dispatch_stats.reset()
+service.backend_trusted = verifysched.backend_trusted = lambda: True
+service._SCHED = service.VerifyScheduler(device="cpu")
+conns = AppConns(local_client_creator(txingest.SigVerifyingApp(KVStoreApplication(),
+                                                               device="cpu")))
+conns.start()
+mp = CListMempool(MempoolConfig(recheck=False), conns.mempool,
+                  envelope_aware=conns.query.info().envelope_sig_verified)
+env = txingest.envelope
+txs = [env.sign_tx(priv, b"in%d=1" % k, nonce=k) for k in range(3)]
+e = env.decode(txs[2])
+txs[2] = env.encode(env.Envelope(e.key_type, e.pubkey, 9, e.payload, e.signature))
+txs.append(env.MAGIC + b"\x99junk")
+got, flushed = [], []
+ing = txingest.IngestCoalescer(mp, start_thread=False, device="cpu",
+                               on_result=lambda s, r: got.append(r.code))
+assert ing.active() and all(ing.submit(tx) is None for tx in txs)
+service._SCHED.pause()  # the three signatures in one flush, however slow the host
+flusher = threading.Thread(target=lambda: flushed.append(ing.flush_now()))
+flusher.start()
+while service._SCHED.pending() < 3:
+    time.sleep(0.001)
+service._SCHED.resume()
+flusher.join(120)
+assert flushed == [4] and got == [0, 0, 102, 101], (flushed, got)
+assert mp.size() == 2 and dispatch_stats.tier_counts()["torch"] == (1, 3)
+conns.stop()
+verifysched.reset_scheduler()
+service.backend_trusted = verifysched.backend_trusted = real_trusted
+# state sync: the serving node of the network check (four heights; the
+# KVStore snapshot at 5 needs more) is extended to 7 heights, and a fresh
+# joiner whose app is behind the ABCI socket server restores its snapshot
+# at 5 (light blocks 5-7 verified on the CPU) and blocksyncs height 6
+from cometbft_tpu_torch.abci.server import ABCIServer
+from cometbft_tpu_torch.light.provider import NodeProvider
+from cometbft_tpu_torch.light.verifier import TrustOptions
+from cometbft_tpu_torch.statesync.stateprovider import LightClientStateProvider
+sc.reset_cache()
+for h in range(5, 8):
+    server.apply(server.make_block(h, torch_chain.txs_at(h, 8, server.seed)))
+m = torch_chain.modules("cometbft_tpu_torch")
+app_srv = ABCIServer(KVStoreApplication(), "tcp://127.0.0.1:0")
+app_srv.start()
+jconns = AppConns(remote_client_creator(f"tcp://127.0.0.1:{app_srv.bound_port}"))
+jconns.start()
+sconns = AppConns(local_client_creator(server.app))
+sconns.start()
+db = m.kv.MemKV()
+jss, jbs = m.state_store.StateStore(db), m.block_store.BlockStore(db)
+jex = m.execution.BlockExecutor(jss, jbs, jconns.consensus, m.mempool.NopMempool(), **cpu)
+nodes = []
+try:
+    for name, kw in ((b"ss-srv", dict(state=server.state, block_store=server.block_store,
+                                      statesync_app=sconns)),
+                     (b"ss-joiner", dict(state=m.state.state_from_genesis(server.genesis),
+                                         block_exec=jex, block_store=jbs,
+                                         statesync_app=jconns))):
+        nodes.append(torch_net.build(
+            "cometbft_tpu_torch", torch_net.node_key("cometbft_tpu_torch", name),
+            torch_chain.CHAIN_ID, p2p_config=P2PConfig(pex=False), device="cpu", **kw))
+    srv, jn = nodes
+    srv.start()
+    jn.start([srv.address])
+    assert jn.wait_peers(1, 120)
+    node = type("N", (), {"genesis_doc": server.genesis, "block_store": server.block_store,
+                          "state_store": server.state_store,
+                          "node_key": type("K", (), {"node_id": "s" * 40})})()
+    sp = LightClientStateProvider(
+        torch_chain.CHAIN_ID, [NodeProvider(node)],
+        TrustOptions(10_000, 1, server.block_store.load_block_meta(1).block_id.hash),
+        genesis_doc=server.genesis, now_fn=lambda: torch_chain.T0 + 500.0, device="cpu")
+    synced = torch_net.run_statesync(jn, sp, jconns, jss, jbs, discovery_s=0.5)
+    assert synced is not None and synced[0].last_block_height == 5
+    bs = jn.reactors["BLOCKSYNC"]
+    deadline = time.time() + 120
+    while (bs.syncing or jbs.height() < 6) and time.time() < deadline:
+        time.sleep(0.02)
+    assert jbs.height() == 6 and jbs.base() == 6, (jbs.base(), jbs.height())
+    assert (jconns.query.info().last_block_app_hash
+            == server.block_store.load_block_meta(7).header.app_hash)
+finally:
+    for n in nodes:
+        n.stop()
+    for c in (jconns, sconns):
+        c.stop()
+    app_srv.stop()
     handshake_pool.reset_pool()
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))

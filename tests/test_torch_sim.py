@@ -115,3 +115,64 @@ def test_build_node_opens_the_scheduler_gate_on_the_card(tmp_path, monkeypatch,
     m.node.build_node(0, privs[0], gdoc, tmp_path, device=device)
     assert checks == (["cuda:0"] if resolves else [])
     assert verifysched.scheduler_active() == resolves
+
+
+def _oracle(backend, pubs, msgs, sigs, lanes):
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import ed25519_ref as ref
+
+    out = np.zeros(lanes, dtype=bool)
+    out[: len(pubs)] = [ref.verify_zip215(*t) for t in zip(pubs, msgs, sigs)]
+    return out
+
+
+def test_statesync_join_through_handle_provider_equals_jax(tmp_path):
+    """Node 3 drops out at height 2 and comes back at height 8 as a fresh
+    machine: its light client reads the helper's stores through
+    ``HandleProvider`` and ``build_node`` takes the restored app
+    (``app``/``app_conns``).  Both packages give the same light blocks, the
+    same trace and the same chain; the joiner holds blocks from its
+    snapshot's height on.  The port's light-client batches go through the
+    supervisor's device-runner seam (the oracle)."""
+    import torch_chain
+
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.ops import supervisor
+
+    heights = 10
+    sigcache.reset_cache()
+    supervisor.set_device_runner(_oracle)
+    try:
+        jax_c, port_c = (_run(pkg, tmp_path, "join", heights=heights) for pkg in (J, P))
+    finally:
+        supervisor.clear_device_runner()
+    try:
+        for c in (jax_c, port_c):
+            assert min(c.heights()) >= heights
+            assert not c.checker.violations
+        assert port_c.trace == jax_c.trace
+        assert "join node3 statesync complete h=5" in " ".join(port_c.trace)
+        for pkg, c in ((J, jax_c), (P, port_c)):
+            helper = c.m.node.HandleProvider(c.nodes[0], torch_sim.CHAIN_ID)
+            assert helper.id() == "simnode:0" and helper.chain_id() == torch_sim.CHAIN_ID
+        codecs = [torch_chain.modules(pkg).codec for pkg in (J, P)]
+        for h in range(1, heights + 1):
+            blocks = [codec.encode_light_block(c.m.node.HandleProvider(
+                c.nodes[0], torch_sim.CHAIN_ID).light_block(h))
+                for codec, c in zip(codecs, (jax_c, port_c))]
+            assert blocks[0] == blocks[1], h
+        joiner = port_c.nodes[3]
+        assert joiner.block_store.base() == 6
+        assert joiner.app_conns.query.info().last_block_height >= heights
+        chain = port_c.chain(heights)
+        assert chain == jax_c.chain(heights)
+        assert chain[3]["blocks"] == chain[0]["blocks"][5:]
+        assert chain[3]["apps"] == chain[0]["apps"][5:]
+        from cometbft_tpu_torch.light.provider import ErrLightBlockNotFound
+
+        with pytest.raises(ErrLightBlockNotFound):
+            port_c.m.node.HandleProvider(port_c.nodes[0], torch_sim.CHAIN_ID).light_block(99)
+    finally:
+        jax_c.stop()
+        port_c.stop()

@@ -10,7 +10,12 @@ reactors the caller's parts allow, with the node info advertising the
 union of their channels.  ``from_handle`` wires a validator that
 ``sim/node.build_node`` assembled.  The port's transport and blocksync
 reactor take ``device`` (None: the card); the JAX package's take none.
-Statesync and ``txingest`` are left out.
+As the JAX node wires them (``node/node.py`` :244-262, :429-434), the
+mempool reactor takes an optional ``ingest`` (a ``txingest``
+``IngestCoalescer``) and a node may serve and take snapshots through a
+``StatesyncReactor`` (``statesync_app``: the node's ``AppConns``);
+``run_statesync`` is the node's statesync and its hand-off to blocksync
+(:637-694).
 
 The module imports neither package at the top: ``chip_smoke.py`` loads it
 to wire phase 19's nodes on the card, and the jax-free subprocess of
@@ -41,6 +46,8 @@ _MODULES = {
     "mempool_reactor": "mempool.reactor",
     "evidence_reactor": "evidence.reactor",
     "blocksync_reactor": "blocksync.reactor",
+    "statesync_reactor": "statesync.reactor",
+    "syncer": "statesync.syncer",
     "config": "config.config",
     "keys": "crypto.keys",
     "version": "version",
@@ -121,11 +128,15 @@ def build(
     logger=None,
     device=None,
     extra_reactors=(),
+    ingest=None,
+    statesync_app=None,
 ) -> NetNode:
     """The reactors are those whose parts are given: consensus with ``cs``
     and ``block_store``; blocksync with ``state``, ``block_exec`` and
     ``block_store`` (syncing when ``block_sync``, serving always); mempool
-    with ``mempool``; evidence with ``evidence_pool``; PEX when the config
+    with ``mempool`` (admitting through ``ingest`` when given); evidence
+    with ``evidence_pool``; statesync with ``statesync_app`` (serving the
+    app's snapshots; ``run_statesync`` takes one); PEX when the config
     says ``pex`` (its book under ``home``, in memory without one).
     ``extra_reactors`` are (name, reactor) pairs added last."""
     m = modules(pkg)
@@ -152,10 +163,13 @@ def build(
     if mempool is not None:
         mcfg = mempool_config if mempool_config is not None else m.config.MempoolConfig()
         reactors["MEMPOOL"] = m.mempool_reactor.MempoolReactor(
-            mcfg, mempool, logger=log("mempool-reactor"))
+            mcfg, mempool, logger=log("mempool-reactor"), ingest=ingest)
     if evidence_pool is not None:
         reactors["EVIDENCE"] = m.evidence_reactor.EvidenceReactor(
             evidence_pool, logger=log("evidence-reactor"))
+    if statesync_app is not None:
+        reactors["STATESYNC"] = m.statesync_reactor.StatesyncReactor(
+            statesync_app, logger=log("statesync"))
     book = None
     if cfg.pex:
         path = os.path.join(home, cfg.addr_book_file) if home else ""
@@ -187,3 +201,39 @@ def from_handle(pkg: str, handle, key, chain_id: str, *, block_sync: Optional[bo
     return build(pkg, key, chain_id, cs=cs, block_store=handle.block_store,
                  state=cs.state, block_exec=cs.block_exec, mempool=handle.mempool,
                  evidence_pool=handle.evidence_pool, block_sync=block_sync, **kw)
+
+
+def run_statesync(net: NetNode, state_provider, proxy_app, state_store, block_store,
+                  evidence_pool=None, discovery_s: float = 1.0,
+                  chunk_timeout_s: float = 10.0, logger=None):
+    """The JAX node's ``_run_statesync`` (``node/node.py:637-694``) on a
+    built node with a STATESYNC and a BLOCKSYNC reactor: discover
+    snapshots, restore one into the app through ``state_provider``'s
+    trusted state, bootstrap the stores and hand off to
+    ``BlocksyncReactor.start_sync``.  On a failure it logs "statesync
+    failed, falling back to blocksync" and starts blocksync from the
+    reactor's state, as the node does.  Returns ``(state, commit)``, or
+    None after a failure."""
+    m = modules(net.pkg)
+    ss, bs = net.reactors["STATESYNC"], net.reactors["BLOCKSYNC"]
+    log = logger.with_(module="statesync") if logger is not None else None
+    try:
+        syncer = m.syncer.Syncer(state_provider, proxy_app, ss.request_chunk,
+                                 chunk_timeout=chunk_timeout_s, logger=log)
+        ss.syncer = syncer
+        ss.request_snapshots()
+        state, commit = syncer.sync_any(discovery_s, lambda: net.switch.is_running,
+                                        rediscover=ss.request_snapshots)
+    except Exception as e:  # noqa: BLE001 — the node falls back to blocksync
+        if log is not None:
+            log.error("statesync failed, falling back to blocksync", err=repr(e))
+        ss.syncer = None
+        bs.start_sync(bs.state)
+        return None
+    ss.syncer = None
+    state_store.bootstrap(state)
+    block_store.save_seen_commit(state.last_block_height, commit)
+    if evidence_pool is not None:
+        evidence_pool.state = state
+    bs.start_sync(state)
+    return state, commit

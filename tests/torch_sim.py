@@ -9,8 +9,9 @@ one ``VirtualClock``), wired by its ``sim/network.SimNetwork`` (one
 ``sim/invariants.InvariantChecker`` run after every event.  The drive loop
 mirrors the JAX package's ``sim/cluster.SimCluster`` (``_build``,
 ``_broadcast``, ``crash``/``restart``, ``_on_deliver``, ``_drain_all``,
-``step``, ``run`` and the catchup tick), without its black boxes,
-statesync, blocksync and churn.  Each time the network's top height
+``step``, ``run``, the catchup tick and ``join``: a statesync of a fresh
+node on the virtual clock, through ``sim/node.HandleProvider``), without
+its black boxes, blocksync and churn.  Each time the network's top height
 grows, every live node's mempool is offered the next height's
 ``txs_per_height`` KVStore txs (from a numpy seed), standing in for the
 mempool reactor.
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import importlib
 import random
+import shutil
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Optional
@@ -48,8 +50,8 @@ _MODULES = {
 
 
 def modules(pkg: str) -> SimpleNamespace:
-    return SimpleNamespace(**{k: importlib.import_module(f"{pkg}.{v}")
-                              for k, v in _MODULES.items()})
+    return SimpleNamespace(pkg=pkg, **{k: importlib.import_module(f"{pkg}.{v}")
+                                       for k, v in _MODULES.items()})
 
 
 def txs_at(height: int, n: int) -> list:
@@ -112,13 +114,13 @@ class Cluster:
 
     # -- assembly ----------------------------------------------------------
 
-    def _build(self, i: int):
+    def _build(self, i: int, app=None, app_conns=None):
         node = self.m.node.build_node(
             i, self.privs[i], self.gdoc, self.root, config=self.config,
             db=self._dbs[i], clock=self.clock,
             ticker_factory=lambda tock, i=i: self.m.clock.SimTicker(
                 self.clock, tock, name=f"node{i}"),
-            threaded=False, **self._dev)
+            threaded=False, app=app, app_conns=app_conns, **self._dev)
         self._dbs[i] = node.block_store._db
         node.cs.trace_origin = i
         node.cs.broadcast_hook = lambda msg, i=i: self._broadcast(i, msg)
@@ -175,6 +177,91 @@ class Cluster:
         node.cs.start()
         self._drain_all()
         self.checker.on_restart(self, i)
+
+    def join(self, i: int) -> bool:
+        """Bring node i back as a fresh machine through statesync (the JAX
+        ``SimCluster.join``/``_statesync_join``): snapshots listed by every
+        live helper, the target height light-verified from a height-1 trust
+        root through ``HandleProvider`` on the first helper, chunks carried
+        by the faulty links, the stores bootstrapped, then the node
+        assembled around the restored app and started."""
+        if self.nodes[i] is not None:
+            return False
+        helpers = self.live_nodes()
+        self._log("join node%d starting statesync" % i)
+        imp = lambda name: importlib.import_module(f"{self.m.pkg}.{name}")
+        at, kvstore = imp("abci.types"), imp("abci.kvstore")
+        verifier, proxy = imp("light.verifier"), imp("proxy.multi_app_conn")
+        sp, syn = imp("statesync.stateprovider"), imp("statesync.syncer")
+        state_store, block_store, kv = imp("state.store"), imp("store.block_store"), imp("store.kv")
+
+        shutil.rmtree(self.root / f"node{i}", ignore_errors=True)
+        self._dbs[i] = None
+        app = kvstore.KVStoreApplication()
+        conns = proxy.AppConns(proxy.local_client_creator(app))
+        conns.start()
+        trust_meta = helpers[0].block_store.load_block_meta(1)
+        provider = self.m.node.HandleProvider(helpers[0], CHAIN_ID)
+        state_provider = sp.LightClientStateProvider(
+            CHAIN_ID, [provider],
+            verifier.TrustOptions(period_s=10**9, height=1, hash=trust_meta.block_id.hash),
+            genesis_doc=self.gdoc, now_fn=self.clock, **self._dev)
+        syncer_box: list = []
+
+        def request_chunk(peer_id: str, height: int, fmt: int, idx: int) -> bool:
+            src = int(peer_id[len("node"):])
+
+            def respond() -> None:
+                peer = self.nodes[src]
+                if peer is None:
+                    return
+                res = peer.app_conns.snapshot.load_snapshot_chunk(
+                    at.LoadSnapshotChunkRequest(height=height, format=fmt, chunk=idx))
+                if res.chunk and syncer_box:
+                    self.net.schedule_transfer(
+                        src, i, lambda: syncer_box[0].add_chunk(height, fmt, idx, res.chunk),
+                        label="chunk-resp")
+
+            return self.net.schedule_transfer(i, src, respond, label="chunk-req")
+
+        syncer = syn.Syncer(state_provider, conns, request_chunk, logger=None,
+                            clock=self.clock, sleeper=self._statesync_sleeper)
+        syncer_box.append(syncer)
+        for helper in helpers:
+            res = helper.app_conns.snapshot.list_snapshots(at.ListSnapshotsRequest())
+            for s in res.snapshots:
+                syncer.add_snapshot(f"node{helper.index}", syn.SnapshotKey(
+                    height=s.height, format=s.format, hash=s.hash, chunks=s.chunks,
+                    metadata=s.metadata))
+        try:
+            state, commit = syncer.sync_any(0.0, is_running=lambda: True)
+        except syn.StatesyncError as e:
+            conns.stop()
+            self._log("join node%d statesync failed: %s" % (i, e))
+            return False
+        db = kv.MemKV()
+        state_store.StateStore(db).bootstrap(state)
+        block_store.BlockStore(db).save_seen_commit(state.last_block_height, commit)
+        self._dbs[i] = db
+        node = self._build(i, app=app, app_conns=conns)
+        self.nodes[i] = node
+        self.members.add(i)
+        self.checker.on_join(self, i, state.last_block_height)
+        self._log("join node%d statesync complete h=%d" % (i, state.last_block_height))
+        node.cs.start()
+        self._drain_all()
+        return True
+
+    def _statesync_sleeper(self, timeout: float) -> None:
+        """The syncer's wait on virtual time: the rest of the network runs
+        (timeouts, deliveries, chunk responses) while the joiner waits."""
+        deadline = self.clock.now() + timeout
+        while True:
+            nxt = self.clock.next_event_time()
+            if nxt is None or nxt > deadline:
+                break
+            self.step()
+        self.clock.advance_to(deadline)
 
     # -- traffic -----------------------------------------------------------
 
@@ -282,12 +369,13 @@ class Cluster:
 
     def chain(self, upto: int) -> dict:
         """What must agree across packages, per live node: each height's
-        block hash and the app hash after it, and the WAL's #ENDHEIGHT
+        block hash and the app hash after it, from the node's base (a
+        statesync joiner holds no earlier block), and the WAL's #ENDHEIGHT
         set."""
         out = {}
         for node in self.live_nodes():
             blocks, apps = [], []
-            for h in range(1, upto + 1):
+            for h in range(max(node.block_store.base(), 1), upto + 1):
                 meta = node.block_store.load_block_meta(h)
                 blocks.append(meta.block_id.hash.hex())
                 nxt = node.block_store.load_block_meta(h + 1)
@@ -304,10 +392,19 @@ def run_script(pkg: str, root, script: str = "clean", seed: int = 42,
     """One of the differential scripts, run to ``heights`` on every node:
     ``clean``; ``crash`` (node 1 crashes once the network has height 3,
     the others run two heights on, then it restarts from its stores);
-    ``lossy`` (every link drops 5% and reorders 20% of messages)."""
+    ``lossy`` (every link drops 5% and reorders 20% of messages); ``join``
+    (node 3 crashes once the network has height 2, the others run to
+    height 8, past the KVStore snapshot at 5, then node 3 joins through
+    statesync as a fresh machine)."""
     links = {"drop_rate": 0.05, "reorder_rate": 0.2} if script == "lossy" else None
     c = Cluster(pkg, root, seed=seed, txs_per_height=txs_per_height,
                 device=device, links=links)
+    if script == "join":
+        assert c.run(2), c.heights()
+        c.crash(3)
+        c.members.discard(3)
+        assert c.run(8), c.heights()
+        assert c.join(3), c.trace[-3:]
     if script == "crash":
         assert c.run(3), c.heights()
         c.crash(1)
