@@ -351,7 +351,8 @@ served by the torch or host tier, or one that raised, fails the run.
               ``SigVerifyingApp(KVStoreApplication())`` through
               ``LocalClient``, an envelope-aware ``CListMempool`` at the
               ``MempoolConfig`` defaults and an ``IngestCoalescer`` at its
-              defaults on its mempool reactor.  Three rounds: 8 client
+              defaults on its mempool reactor.  One round (cut from three for
+              phase 21; ``INGEST_ROUNDS``): 8 client
               threads call S's ``check_tx`` (as ``broadcast_tx_sync``)
               with 4,905 Ed25519 envelopes (1,024 senders, rising nonces),
               25 secp256k1, 50 forged (102), 10 malformed (101); S's
@@ -382,6 +383,36 @@ served by the torch or host tier, or one that raised, fails the run.
               ``cuda``; the four kernels against their plain versions on
               the phase's inputs; admission rates, flush ms, light hops,
               socket ms, the restore's MB/s and the busy share.
+ 21. node — the node as users start it, after phase 20: every port
+              process is a child (``--cli-child``) that calls
+              ``cometbft_tpu_torch.cmd.main.main`` with the CLI's own
+              arguments and reports when it is stopped.  Part A, CometBFT's
+              ``make localnet-start``: ``cmd testnet --v 4``, four ``cmd
+              start`` processes at the default ``config.toml`` (the RPC, the
+              kv indexer, the proof server, the kvstore app), validator 3's
+              key behind a ``SignerServer`` child (``priv_validator_laddr``);
+              8 client threads send 5,000 txs of 256 bytes by
+              ``broadcast_tx_sync`` over the four nodes, then 20 by
+              ``broadcast_tx_commit``; a websocket on node 1 subscribes to
+              NewBlock; reads of ``status``, ``block``, ``commit``,
+              ``validators``, ``block_results``, ``tx_search`` by height on
+              every node, ``block_search``, 64 ``tx?prove=true`` (each proof
+              checked on the host against the block's data hash) and 64
+              ``abci_query``; node 2 stopped, ``cmd rollback``, restarted;
+              a fifth home from ``cmd init`` statesyncs from nodes 0 and 1
+              and follows 2 heights.  Asserted: equal block hashes, the
+              5,020 txs indexed once on every node, every proof and query,
+              every height on the websocket, the signer's last-sign state
+              never stepping back, every pass of the four kernels ``cuda``
+              in every process and each kernel equal to its plain version on
+              the process's inputs, no consensus failure but block parts of
+              another round.  Part B: ``cmd inspect`` over phase 17's chain
+              in a home written around it, a ``cmd light`` proxy in front
+              (height 1 trusted by hash), ``commit``, ``validators`` and
+              ``block`` read through the proxy at every height above 1:
+              each hop's commit through the Ed25519 kernel (3,414 and 6,827
+              lanes skipping, 6,827 adjacent), each 10,240-leaf set hash
+              through the tree kernel.
 
 The script sets ``COMETBFT_TPU_WARMBOOT=0`` for its own process: a
 background warm pass would add self-check launches to the phases'
@@ -582,7 +613,7 @@ NETWORK_TIMEOUT_S = 240.0  # each wait of part A
 NETWORK_SYNC_TIMEOUT_S = 300.0  # part B's blocksync
 INGEST_CHAIN = "ingest-chain"
 INGEST_SEED = 20261037  # the senders' keys and the client txs
-INGEST_ROUNDS = 3  # rounds of client traffic, nonces rising across them
+INGEST_ROUNDS = 1  # rounds of client traffic (cut from 3 for phase 21)
 INGEST_CLIENTS = 8  # client threads calling the sentry's check_tx
 INGEST_SENDERS = 1_024  # Ed25519 senders, nonces rising
 INGEST_SECP_SENDERS = 8
@@ -596,6 +627,19 @@ INGEST_TIMEOUT_S = 240.0  # each wait of part A
 STATESYNC_SEED = 20261039  # blocks 6 and 7 of phase 17's chain
 STATESYNC_TOP = 7  # the helper's height: light blocks 5-7 behind the snapshot at 5
 STATESYNC_DISCOVERY_S = 2.0  # the joiner's discovery window (StateSyncConfig: 15 s)
+NODE_CHAIN = "node-chain"
+NODE_SEED = 20261041  # the clients' txs
+NODE_VALIDATORS = 4  # CometBFT's make localnet-start: cmd testnet --v 4
+NODE_SIGNED = 3  # the validator whose key a remote signer serves
+NODE_TXS = 5_000  # by broadcast_tx_sync (MempoolConfig().size)
+NODE_TX_BYTES = 256
+NODE_COMMIT_TXS = 20  # then by broadcast_tx_commit
+NODE_CLIENTS = 8  # client threads
+NODE_PROVE = 64  # tx?prove=true reads, and as many abci_query reads
+NODE_FOLLOW = 2  # heights the statesync joiner follows at the frontier
+NODE_DISCOVERY_S = 2  # the joiner's statesync.discovery_time_s (default 15 s)
+NODE_TIMEOUT_S = 240.0  # each wait of the phase
+NODE_TRUST_PERIOD_S = 3650 * 86400  # part B: phase 17's chain is dated October 2025
 
 
 class SmokeError(AssertionError):
@@ -6223,7 +6267,7 @@ def wait_until(cond, timeout_s: float, what) -> float:
 
 def ingest_part_a(torch, cbatch, cv, ds, sigcache, tag, tn, origins) -> dict:
     """Phase 20, part A: a validator V behind a sentry S in this process
-    over one link; three rounds of 5,000 client txs at S.  ``origins``
+    over one link; ``INGEST_ROUNDS`` rounds of 5,000 client txs at S.  ``origins``
     (LaunchOrigins) attributes the Ed25519 launches to V's and S's paths
     and keeps S's own verdicts."""
     import concurrent.futures
@@ -6897,6 +6941,900 @@ def ingest_statesync_phase(torch, dev, cbatch, cv, ds, sigcache, chain, tag) -> 
             for k in ("ed25519", "tree", "aead", "ladder")}
 
 
+def node_rpc(port: int, method: str, params=None, timeout: float = 30.0):
+    """One JSON-RPC POST to a node on 127.0.0.1; raises ``RuntimeError``
+    with the error's message if the node answered one."""
+    import urllib.request
+
+    body = json.dumps({"jsonrpc": "2.0", "id": 1, "method": method,
+                       "params": params or {}}).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/", data=body,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        doc = json.loads(resp.read())
+    if "error" in doc:
+        raise RuntimeError(doc["error"].get("message", str(doc["error"])))
+    return doc["result"]
+
+
+def node_try(port: int, method: str, params=None):
+    """``node_rpc``, or None if the node did not answer (not up yet)."""
+    try:
+        return node_rpc(port, method, params, timeout=5.0)
+    except (OSError, RuntimeError, ValueError):
+        return None
+
+
+_PORTS_GIVEN: set = set()
+
+
+def free_ports(k: int) -> list:
+    """``k`` distinct free TCP ports on 127.0.0.1, none given before in this run.
+
+    The ports lie below the kernel's ephemeral range
+    (``/proc/sys/net/ipv4/ip_local_port_range``), so no outgoing connection
+    takes one as its local port between this call and the server's bind: a
+    phase opens thousands of client and peer connections before its last
+    server starts, and a port from the ephemeral range may be in use by then.
+    """
+    import random
+    import socket
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    low = max(low, 12000)
+    rng = random.Random(os.getpid() ^ time.monotonic_ns())
+    out: list = []
+    for port in rng.sample(range(10000, low), low - 10000):
+        if len(out) == k:
+            break
+        if port in _PORTS_GIVEN:
+            continue
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            continue
+        finally:
+            s.close()
+        _PORTS_GIVEN.add(port)
+        out.append(port)
+    if len(out) < k:
+        raise SmokeError(f"node: only {len(out)} of {k} free ports below {low}")
+    return out
+
+
+class NodeWs:
+    """A websocket client on a node's ``/websocket``: subscribes to a query
+    and keeps each event's height and arrival time."""
+
+    def __init__(self, port: int, query: str):
+        import base64 as b64
+        import socket
+
+        from cometbft_tpu_torch.rpc.server import _ws_recv, _ws_send
+
+        self._recv, self._send = _ws_recv, _ws_send
+        self.sock = socket.create_connection(("127.0.0.1", port), timeout=10)
+        key = b64.b64encode(os.urandom(16)).decode()
+        self.sock.sendall((f"GET /websocket HTTP/1.1\r\nHost: 127.0.0.1:{port}\r\n"
+                           "Upgrade: websocket\r\nConnection: Upgrade\r\n"
+                           f"Sec-WebSocket-Key: {key}\r\nSec-WebSocket-Version: 13\r\n\r\n")
+                          .encode())
+        head = b""
+        while b"\r\n\r\n" not in head:
+            chunk = self.sock.recv(1)
+            check(chunk, "node: the websocket closed during its upgrade")
+            head += chunk
+        check(head.startswith(b"HTTP/1.1 101"), f"node: websocket upgrade {head[:60]!r}")
+        self.sock.settimeout(None)
+        self.heights, self.replies, self.closed = [], [], False
+        _ws_send(self.sock, json.dumps({"jsonrpc": "2.0", "id": 7, "method": "subscribe",
+                                        "params": {"query": query}}).encode())
+        self.thread = threading.Thread(target=self._run, name="node-ws", daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        while True:
+            try:
+                got = self._recv(self.sock)
+            except OSError:
+                got = None
+            if got is None:
+                self.closed = True
+                return
+            opcode, payload = got
+            if opcode != 1:
+                continue
+            doc = json.loads(payload)
+            data = (doc.get("result") or {}).get("data")
+            if data and "block" in data.get("value", {}):
+                self.heights.append((int(data["value"]["block"]["header"]["height"]),
+                                     time.time()))
+            else:
+                self.replies.append(doc)
+
+    def close(self) -> None:
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+        self.thread.join(5)
+
+
+def node_errors(log_path) -> dict:
+    """A node child's "consensus failure" lines from its log, split into
+    block parts of another round (PERF.md §7: "bad block part", or an
+    ``IndexError`` raised in ``add_part``) and the rest."""
+    try:
+        text = open(log_path, errors="replace").read()
+    except OSError:
+        return {"wrong_round": 0, "other": []}
+    blocks = text.split("consensus failure")[1:]
+    wrong, other = 0, []
+    for b in blocks:
+        tb = b.split("\nINFO[")[0].split("\nERROR[")[0]
+        if "bad block part" in tb.split("\n", 1)[0] or "add_part" in tb:
+            wrong += 1
+        else:
+            other.append(tb[:300])
+    return {"wrong_round": wrong, "other": other}
+
+
+def cli_child(cfg_path: str) -> int:
+    """A port process of phase 21: ``cometbft_tpu_torch.cmd.main.main(argv)``
+    with the CLI's own arguments (``start``, ``inspect``, ``light``), or the
+    remote signer (``SignerServer`` over a validator's key files).  It first
+    installs the phase's launch counting and input keeping, as phase 19's
+    children do; when it is stopped (SIGTERM) it writes its report: its
+    launches and tiers, its kernels against their plain versions on the
+    inputs its path gave them, the light proxy's hops, the signer's
+    requests and its last-sign state's steps."""
+    import collections as co
+    import signal
+
+    import torch
+
+    from cometbft_tpu_torch.cmd.main import main as cli
+    from cometbft_tpu_torch.light.client import LightClient
+    from cometbft_tpu_torch.ops import chacha_aead as ca
+    from cometbft_tpu_torch.ops import cuda_aead, cuda_x25519
+    from cometbft_tpu_torch.ops import cuda_sha256 as csh
+    from cometbft_tpu_torch.ops import cuda_verify as cv
+    from cometbft_tpu_torch.ops import dispatch_stats as ds
+    from cometbft_tpu_torch.ops import sha256_tree as st
+    from cometbft_tpu_torch.ops import verify as ov
+    from cometbft_tpu_torch.ops import x25519_ladder as xl
+
+    cfg = net_read(cfg_path)
+    role, on_card = cfg["role"], torch.cuda.is_available()
+    if role != "inspect":
+        # the kernel's known-answer self-check before the counts start, as
+        # phase 19's children count after build_node: the node's own
+        # entry_device then finds this process checked (a launch outside
+        # the supervisor, which no tier counter sees)
+        from cometbft_tpu_torch.crypto import batch as cbatch
+
+        cbatch.default_backend()
+    kept_ed, hops, signed, steps = {}, [], co.Counter(), []
+    real_ed = cv.verify_core_cuda
+
+    def keep_ed(**t):
+        kept_ed.setdefault(int(t["s_ok"].shape[0]), {k: v.clone() for k, v in t.items()})
+        return real_ed(**t)
+
+    if role == "light":
+        real_hop = LightClient.verify_light_block_at_height
+
+        def hop(self, height, now=None):
+            known = self.store.light_block(height) is not None
+            mark = (cv.launches, csh.launches, ds.tier_counts()["cuda"], len(kept_ed))
+            t0 = time.perf_counter()
+            out = real_hop(self, height, now)
+            if not known:
+                cuda = ds.tier_counts()["cuda"]
+                hops.append({"height": height,
+                             "ms": round((time.perf_counter() - t0) * 1e3, 3),
+                             "ed25519_launches": cv.launches - mark[0],
+                             "lanes": cuda[1] - mark[2][1],
+                             "tree_launches": csh.launches - mark[1]})
+            return out
+
+        LightClient.verify_light_block_at_height = hop
+    with contextlib.ExitStack() as stack:
+        kept_aead = stack.enter_context(keeping_inputs(cuda_aead, "aead", lambda a, kw: (
+            "seal" if kw["seal"] else "open", a[2].shape[1], a[2].shape[0])))
+        kept_ladder = stack.enter_context(keeping_inputs(cuda_x25519, "ladder",
+                                                         lambda a, kw: a[0].shape[0]))
+        kept_tree = stack.enter_context(keeping_inputs(csh, "tree_words", lambda a, kw: (
+            int(a[1].shape[0]) - 1,
+            int(a[0].numel()) * a[0].element_size() // max(int(a[1].shape[0]) - 1, 1))))
+        cv.verify_core_cuda = keep_ed
+        ds.reset()
+        for w in (cv, csh, cuda_aead, cuda_x25519):
+            w.reset_launches()
+        t0 = time.perf_counter()
+        if role == "signer":
+            from cometbft_tpu_torch.privval.file_pv import FilePV
+            from cometbft_tpu_torch.privval.signer import SignerServer
+
+            pv = FilePV.load(cfg["key"], cfg["state"])
+            for what in ("sign_vote", "sign_proposal"):
+                real = getattr(pv, what)
+
+                def counted(*a, _real=real, _what=what, **kw):
+                    out = _real(*a, **kw)
+                    signed[_what] += 1
+                    s = pv._state
+                    steps.append((s.height, s.round_, s.step))
+                    return out
+
+                setattr(pv, what, counted)
+            stop = threading.Event()
+            signal.signal(signal.SIGTERM, lambda *_: stop.set())
+            srv = SignerServer(cfg["laddr"], pv)
+            srv.start()
+            stop.wait()
+            srv.stop()
+            rc = 0
+        else:
+            rc = cli(cfg["argv"])
+        # the node is stopped and its stores closed (a rollback may begin)
+        net_write(os.path.join(os.path.dirname(cfg["report"]), f"stopped-{cfg['name']}"),
+                  {"rc": rc})
+        wall = time.perf_counter() - t0
+        cv.verify_core_cuda = real_ed
+        if on_card:
+            launches = net_settled(cv, csh, cuda_aead, cuda_x25519, ds)
+        else:
+            launches = net_counts(cv, csh, cuda_aead, cuda_x25519)
+        tiers = {"ed25519": ds.tier_counts(), "tree": ds.tier_counts(st.MERKLE),
+                 "aead": ds.tier_counts(ca.AEAD), "ladder": ds.tier_counts(xl.X25519),
+                 "tree_oversize": ds.tier_counts(st.MERKLE_OVERSIZE)}
+        # the kernels against their plain versions on this process's inputs:
+        # the smallest and the two largest Ed25519 launches, the two largest
+        # trees, every AEAD shape, every ladder flush
+        worst, dev_ms = co.Counter(), {}
+        eds = sorted(kept_ed)
+        for lanes in sorted(set(eds[:1] + eds[-2:])):
+            t = kept_ed[lanes]
+            kern, plain = cv.verify_core_cuda(**t), ov.verify_core(**t)
+            worst["ed25519"] = max(worst["ed25519"], int((kern.int() - plain.int()).abs().max()))
+            check(torch.equal(kern, plain), f"node: {cfg['name']}: Ed25519 kernel != plain at "
+                  f"{lanes} lanes")
+            dev_ms.setdefault("ed25519", {})[lanes] = cuda_ms(
+                torch, lambda: cv.verify_core_cuda(**t), 5, 1, queued=True)
+        for key, (args, _) in sorted(kept_tree.items())[-2:]:
+            kern, plain = csh.tree_words(*args), st.tree_words_plain(*args)
+            worst["tree"] = max(worst["tree"], int((kern.long() - plain.long()).abs().max()))
+            check(torch.equal(kern, plain), f"node: {cfg['name']}: tree kernel != plain at "
+                  f"(leaves, bytes a leaf) {key}")
+            dev_ms.setdefault("tree", {})[str(key)] = cuda_ms(
+                torch, lambda: csh.tree_words(*args), 5, 1, queued=True)
+        for key, (args, kw) in sorted(kept_aead.items()):
+            got, want = cuda_aead.aead(*args, **kw), ca.aead_core(*args, **kw)
+            torch.cuda.synchronize()
+            worst["aead"] = max(worst["aead"], *(int((g.long() - w.long()).abs().max())
+                                                 for g, w in zip(got, want)))
+            check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                  f"node: {cfg['name']}: AEAD kernel != plain on a flush {key}")
+            dev_ms.setdefault("aead", {})[str(key)] = cuda_ms(
+                torch, lambda: cuda_aead.aead(*args, **kw), 5, 1, queued=True)
+        for lanes, (args, _) in sorted(kept_ladder.items()):
+            got, want = cuda_x25519.ladder(*args), xl.ladder_plain(*args)
+            torch.cuda.synchronize()
+            worst["ladder"] = max(worst["ladder"], int((got.long() - want.long()).abs().max()))
+            check(torch.equal(got, want), f"node: {cfg['name']}: ladder kernel != plain at "
+                  f"{lanes} lanes")
+            dev_ms.setdefault("ladder", {})[lanes] = cuda_ms(
+                torch, lambda: cuda_x25519.ladder(*args), 5, 1, queued=True)
+    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "cometbft_tpu")]
+    net_write(cfg["report"], {
+        "name": cfg["name"], "rc": rc, "wall_s": wall, "launches": launches, "tiers": tiers,
+        "kept": {"ed25519": eds, "tree": sorted(list(k) for k in kept_tree),
+                 "aead": sorted(list(k) for k in kept_aead), "ladder": sorted(kept_ladder)},
+        "max_abs_err": dict(worst), "device_ms": dev_ms, "hops": hops,
+        "signed": dict(signed), "steps": steps, "leaked": leaked})
+    return 0
+
+
+def node_spawn(root, procs, name: str, role: str, **cfg) -> None:
+    """Start one child of phase 21 (``--cli-child``) with its log and report
+    under ``root``."""
+    script = os.path.abspath(__file__)
+    path = root / f"cfg-{name}.json"
+    net_write(path, {"name": name, "role": role, "report": str(root / f"report-{name}.json"),
+                     **cfg})
+    log = open(root / f"{name}.log", "w")
+    procs.append((name, subprocess.Popen(
+        [sys.executable, script, "--cli-child", str(path)], cwd=os.path.dirname(script),
+        env=dict(os.environ, COMETBFT_TPU_WARMBOOT="0"), stdout=log,
+        stderr=subprocess.STDOUT), log))
+
+
+def node_stop(root, procs, names, timeout_s: float = 240.0, until: str = "report") -> dict:
+    """SIGTERM the children ``names`` and read their reports (each checks its
+    kernels against their plain versions after its stop).  With ``until``
+    "stopped", return once each has stopped its node (``stopped-<name>``)
+    and read no report: it comes with a later call."""
+    import signal
+
+    live = [(n, p) for n, p, _ in procs if n in names and p.poll() is None]
+    for _, p in live:
+        p.send_signal(signal.SIGTERM)
+    deadline = time.perf_counter() + timeout_s
+    if until == "stopped":
+        for n, p in live:
+            while not (root / f"stopped-{n}").exists():
+                check(p.poll() is None or (root / f"report-{n}.json").exists()
+                      or (root / f"stopped-{n}").exists(),
+                      f"node: {n} exited (rc {p.returncode}) without stopping its node")
+                check(time.perf_counter() < deadline, f"node: {n} did not stop")
+                time.sleep(0.05)
+        return {}
+    for n, p in live:
+        try:
+            p.wait(max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+    out = {}
+    for n in names:
+        rep = net_read(root / f"report-{n}.json")
+        check(rep is not None, f"node: {n} wrote no report: "
+              + (root / f"{n}.log").read_text()[-3000:])
+        out[n] = rep
+    return out
+
+
+def node_part_a(tag, root, procs, after_reads=None) -> dict:
+    """Part A of phase 21: CometBFT's ``make localnet-start`` through the
+    port's CLI: ``cmd testnet --v 4``, four ``cmd start`` processes with the
+    default config (validator 3's key behind a remote signer), JSON-RPC
+    traffic and reads, a rollback and a statesync joiner from ``cmd init``.
+    ``after_reads`` is called once the reads are done (phase 21 starts part
+    B's processes there, to boot while part A's rollback and joiner run).
+    Returns {"launches": {...}, "wall_s": s}."""
+    import base64 as b64
+    import concurrent.futures
+
+    import numpy as np
+
+    from cometbft_tpu_torch.cmd.main import main as cli
+    from cometbft_tpu_torch.config import config as cfgmod
+    from cometbft_tpu_torch.crypto import merkle
+    from cometbft_tpu_torch.node.nodekey import NodeKey
+
+    t_run = time.perf_counter()
+    net = root / "net"
+    check(cli(["--home", str(root / "unused"), "testnet", "--v", str(NODE_VALIDATORS),
+               "--o", str(net), "--chain-id", NODE_CHAIN]) == 0, "node: cmd testnet failed")
+    names = [f"node{i}" for i in range(NODE_VALIDATORS)]
+    homes = {n: net / n for n in names}
+    ports = free_ports(2 * NODE_VALIDATORS + 3)
+    rpc = {n: ports[2 * i] for i, n in enumerate(names)}
+    p2p = {n: ports[2 * i + 1] for i, n in enumerate(names)}
+    signer_port, rpc["joiner"], p2p["joiner"] = ports[-3:]
+    ids = {n: NodeKey.load_or_generate(str(homes[n] / "config" / "node_key.json")).node_id
+           for n in names}
+    peers = {n: f"{ids[n]}@127.0.0.1:{p2p[n]}" for n in names}
+    signer_name = names[NODE_SIGNED]
+    for n in names:
+        cfg = cfgmod.load_config(str(homes[n]))
+        cfg.base.home = str(homes[n])
+        cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc[n]}"
+        cfg.p2p.laddr = f"tcp://127.0.0.1:{p2p[n]}"
+        cfg.p2p.persistent_peers = [peers[m] for m in names if m != n]
+        if n == signer_name:
+            cfg.base.priv_validator_laddr = f"tcp://127.0.0.1:{signer_port}"
+        cfgmod.write_config(cfg)
+    defaults = cfgmod.default_config()
+
+    def start(n: str, name: str = "") -> None:
+        node_spawn(root, procs, name or n, "node", argv=["--home", str(homes[n]), "start"])
+
+    def alive(what: str) -> None:
+        for name, p, _ in procs:
+            if p.poll() is not None and not (root / f"report-{name}.json").exists():
+                raise SmokeError(f"node: {name} exited (rc {p.returncode}) before {what}: "
+                                 + (root / f"{name}.log").read_text()[-3000:])
+
+    def height(n: str) -> int:
+        st = node_try(rpc[n], "status")
+        return int(st["sync_info"]["latest_block_height"]) if st else -1
+
+    def wait(cond, what: str, timeout_s: float = NODE_TIMEOUT_S) -> float:
+        t0 = time.perf_counter()
+        while not cond():
+            alive(what)
+            check(time.perf_counter() - t0 < timeout_s, f"node: {what} not reached in "
+                  f"{timeout_s} s: heights {[height(n) for n in rpc]}")
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for n in names:
+        start(n)
+        if n == signer_name:
+            # right after its validator: the node's build waits for the
+            # signer to dial in (SignerListenerEndpoint.wait_for_connection)
+            node_spawn(root, procs, "signer", "signer",
+                       laddr=f"tcp://127.0.0.1:{signer_port}",
+                       key=str(homes[n] / defaults.base.priv_validator_key_file),
+                       state=str(homes[n] / defaults.base.priv_validator_state_file))
+    boot_s = wait(lambda: all(height(n) >= 2 for n in names), "height 2 on all four")
+    print(f"node: part A: cmd testnet --v {NODE_VALIDATORS}, four cmd start processes (node "
+          f"{NODE_SIGNED} behind a SignerServer child) at height 2 in {boot_s:.2f} s "
+          f"(imports, the kernel's self-check, the handshakes) {tag}", flush=True)
+    ws = NodeWs(rpc["node1"], "tm.event='NewBlock'")
+    ws_from = height("node1")
+
+    # -- traffic: 5,000 txs by broadcast_tx_sync, then 20 by _commit -------
+    rng = np.random.default_rng(NODE_SEED)
+    hexed = rng.bytes(NODE_TXS * NODE_TX_BYTES // 2).hex().encode()
+    txs = []
+    for k in range(NODE_TXS + NODE_COMMIT_TXS):
+        head = b"n21-%05d=" % k
+        o = (k % NODE_TXS) * NODE_TX_BYTES
+        txs.append(head + hexed[o : o + NODE_TX_BYTES - len(head)])
+    check(len(set(txs)) == len(txs) and all(len(t) == NODE_TX_BYTES for t in txs),
+          "node: the txs are not distinct 256-byte txs")
+    full = collections.Counter()
+
+    def send(k: int) -> None:
+        port = rpc[names[k % NODE_VALIDATORS]]
+        tx = b64.b64encode(txs[k]).decode()
+        for _ in range(600):
+            try:
+                res = node_rpc(port, "broadcast_tx_sync", {"tx": tx})
+            except RuntimeError as e:
+                check("full" in str(e), f"node: broadcast_tx_sync of tx {k}: {e}")
+                full[k] += 1
+                time.sleep(0.1)
+                continue
+            check(res["code"] == 0, f"node: broadcast_tx_sync of tx {k}: {res}")
+            return
+        raise SmokeError(f"node: tx {k} never admitted")
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(NODE_CLIENTS) as ex:
+        list(ex.map(send, range(NODE_TXS)))
+    admit_s = time.perf_counter() - t0
+    wait(lambda: all(int((node_try(rpc[n], "num_unconfirmed_txs") or {"n_txs": 1})["n_txs"])
+                     == 0 for n in names), "every tx committed")
+    drain_s = time.perf_counter() - t0
+    commit_ms = {}
+
+    def send_commit(k: int) -> None:
+        port = rpc[names[k % NODE_VALIDATORS]]
+        t1 = time.perf_counter()
+        res = node_rpc(port, "broadcast_tx_commit", {"tx": b64.b64encode(txs[k]).decode()},
+                       timeout=60.0)
+        commit_ms[k] = (time.perf_counter() - t1) * 1e3
+        check(res["check_tx"]["code"] == 0 and res["tx_result"]["code"] == 0,
+              f"node: broadcast_tx_commit of tx {k}: {res}")
+
+    with concurrent.futures.ThreadPoolExecutor(NODE_CLIENTS) as ex:
+        list(ex.map(send_commit, range(NODE_TXS, NODE_TXS + NODE_COMMIT_TXS)))
+    top = min(height(n) for n in names)
+
+    # -- reads -----------------------------------------------------------------
+    metas = {}
+    for lo in range(1, top + 1, 20):
+        got = node_rpc(rpc["node0"], "blockchain", {"min_height": lo,
+                                                     "max_height": min(top, lo + 19)})
+        for m in got["block_metas"]:
+            metas[int(m["header"]["height"])] = m
+    check(sorted(metas) == list(range(1, top + 1)), f"node: blockchain gave {sorted(metas)}")
+    with_txs = [h for h in range(1, top + 1) if int(metas[h]["num_txs"])]
+    check(sum(int(metas[h]["num_txs"]) for h in with_txs) == len(txs),
+          f"node: {sum(int(metas[h]['num_txs']) for h in with_txs)} txs in blocks 1-{top}, "
+          f"sent {len(txs)}")
+    sent = {hashlib.sha256(t).hexdigest().upper(): t for t in txs}
+    search_ms = []
+
+    def indexed(n: str) -> tuple:
+        """Node n's block hashes at 1..top and its tx index, height by
+        height through tx_search."""
+        hashes = {}
+        for lo in range(1, top + 1, 20):
+            got = node_rpc(rpc[n], "blockchain", {"min_height": lo,
+                                                   "max_height": min(top, lo + 19)})
+            hashes.update({int(m["header"]["height"]): m["block_id"]["hash"]
+                           for m in got["block_metas"]})
+        seen = collections.Counter()
+        for h in with_txs:
+            page = 1
+            while True:
+                t1 = time.perf_counter()
+                got = node_rpc(rpc[n], "tx_search", {"query": f"tx.height={h}",
+                                                      "page": page, "per_page": 100})
+                search_ms.append((time.perf_counter() - t1) * 1e3)
+                seen.update(x["hash"] for x in got["txs"])
+                check(all(int(x["height"]) == h for x in got["txs"]),
+                      f"node: {n}: tx_search tx.height={h} gave another height")
+                if page * 100 >= int(got["total_count"]):
+                    break
+                page += 1
+        return hashes, seen
+
+    def caught_up(n: str) -> bool:
+        """Node n's indexer service has indexed every block to ``top`` and
+        every tx of them (it indexes behind consensus, off the event bus)."""
+        got = node_try(rpc[n], "block_search", {"query": f"block.height<={top}",
+                                                 "per_page": 1})
+        if got is None or int(got["total_count"]) != top:
+            return False
+        for h in with_txs:
+            got = node_try(rpc[n], "tx_search", {"query": f"tx.height={h}", "per_page": 1})
+            if got is None or int(got["total_count"]) != int(metas[h]["num_txs"]):
+                return False
+        return True
+
+    t1 = time.perf_counter()
+    for n in names:
+        wait(lambda: caught_up(n), f"{n}'s index at height {top}")
+    index_lag_s = time.perf_counter() - t1
+    # the index walk (tx_search page by page on every node) runs on while
+    # node 2 is rolled back and the joiner syncs: node 2's after its restart
+    pool = concurrent.futures.ThreadPoolExecutor(NODE_VALIDATORS)
+    idx = {n: pool.submit(indexed, n) for n in names if n != "node2"}
+    for n in names:
+        st = node_rpc(rpc[n], "status")
+        blk = node_rpc(rpc[n], "block", {"height": top})
+        cm = node_rpc(rpc[n], "commit", {"height": top})
+        vals = node_rpc(rpc[n], "validators", {"height": top})
+        br = node_rpc(rpc[n], "block_results", {"height": with_txs[-1]})
+        check(int(st["sync_info"]["latest_block_height"]) >= top
+              and blk["block_id"]["hash"] == metas[top]["block_id"]["hash"]
+              and cm["signed_header"]["commit"]["block_id"]["hash"]
+              == metas[top]["block_id"]["hash"]
+              and vals["total"] == str(NODE_VALIDATORS)
+              and len(br["txs_results"]) == int(metas[with_txs[-1]]["num_txs"]),
+              f"node: {n}'s status, block, commit, validators or block_results at {top}")
+    pick = np.random.default_rng(NODE_SEED + 1).choice(len(txs), NODE_PROVE, replace=False)
+    headers, prove_ms = {}, []
+    for j, k in enumerate(pick.tolist()):
+        n = names[j % NODE_VALIDATORS]
+        tx_hash = hashlib.sha256(txs[k]).hexdigest().upper()
+        t1 = time.perf_counter()
+        got = node_rpc(rpc[n], "tx", {"hash": tx_hash, "prove": True})
+        prove_ms.append((time.perf_counter() - t1) * 1e3)
+        h = int(got["height"])
+        if h not in headers:
+            headers[h] = node_rpc(rpc[n], "block", {"height": h})["block"]["header"]
+        pj = got["proof"]
+        proof = merkle.Proof(total=int(pj["proof"]["total"]), index=int(pj["proof"]["index"]),
+                             leaf_hash=b64.b64decode(pj["proof"]["leaf_hash"]),
+                             aunts=[b64.b64decode(a) for a in pj["proof"]["aunts"]])
+        check(pj["root_hash"] == headers[h]["data_hash"]
+              and proof.verify(bytes.fromhex(pj["root_hash"]), txs[k])
+              and int(pj["proof"]["total"]) == int(metas[h]["num_txs"]),
+              f"node: the proof of tx {k} at height {h} did not verify")
+    for j, k in enumerate(pick.tolist()):
+        key, _, value = txs[k].partition(b"=")
+        q = node_rpc(rpc[names[j % NODE_VALIDATORS]], "abci_query",
+                     {"path": "/store", "data": key.hex()})
+        check(b64.b64decode(q["response"]["value"]) == value,
+              f"node: abci_query of tx {k}'s key")
+    print(f"node: part A: {NODE_TXS} txs of {NODE_TX_BYTES} bytes (seed {NODE_SEED}) by "
+          f"broadcast_tx_sync from {NODE_CLIENTS} client threads over the four nodes in "
+          f"{admit_s:.2f} s = {NODE_TXS / admit_s:.1f} txs/s admitted ({sum(full.values())} "
+          f"retries on a full mempool), all committed {drain_s:.2f} s after the first; "
+          f"{NODE_COMMIT_TXS} by broadcast_tx_commit: p50, p99 "
+          f"{np.percentile(list(commit_ms.values()), [50, 99]).round(3).tolist()} ms {tag}",
+          flush=True)
+    print(f"node: part A: txs in blocks {[(h, int(metas[h]['num_txs'])) for h in with_txs]}; "
+          f"every node's index (block_search, tx_search by height) caught up to {top} "
+          f"{index_lag_s:.2f} s after the reads began; status, block, commit, validators and "
+          f"block_results at {top} on each node; {NODE_PROVE} tx?prove=true verified on the "
+          f"host against the blocks' "
+          f"data hashes (p50, p99 {np.percentile(prove_ms, [50, 99]).round(3).tolist()} ms); "
+          f"{NODE_PROVE} abci_query of written keys returned their values {tag}", flush=True)
+
+    if after_reads is not None:
+        after_reads()
+
+    # -- rollback: node 2 stopped, rolled back one height, restarted ---------
+    h_stop = height("node2")
+    node_stop(root, procs, ["node2"], until="stopped")  # its report comes at the end
+    before = cfgmod.load_config(str(homes["node2"]))
+    t0 = time.perf_counter()
+    check(cli(["--home", str(homes["node2"]), "rollback"]) == 0, "node: cmd rollback failed")
+    rollback_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    start("node2", "node2-restart")
+    goal = max(height(n) for n in names if n != "node2")
+    catch_s = wait(lambda: height("node2") >= goal, f"node2 back at {goal} after its rollback")
+    check(before.base.priv_validator_laddr == "", "node: node2's config changed")
+    idx["node2"] = pool.submit(indexed, "node2")
+    print(f"node: part A: node2 stopped at {h_stop}, cmd rollback took {rollback_s:.3f} s, "
+          f"restarted (handshake replay of the rolled-back height) and reached {goal} in "
+          f"{catch_s:.2f} s {tag}", flush=True)
+
+    # -- the statesync joiner ------------------------------------------------
+    jhome = root / "joiner"
+    check(cli(["--home", str(jhome), "init", "--chain-id", NODE_CHAIN]) == 0,
+          "node: cmd init failed")
+    shutil.copy(homes["node0"] / "config" / "genesis.json", jhome / "config" / "genesis.json")
+    trust_h = max(1, height("node0") - 2 * 5 + 1)
+    trust = node_rpc(rpc["node0"], "block", {"height": trust_h})["block_id"]["hash"]
+    cfg = cfgmod.load_config(str(jhome))
+    cfg.base.home = str(jhome)
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc['joiner']}"
+    cfg.p2p.laddr = f"tcp://127.0.0.1:{p2p['joiner']}"
+    cfg.p2p.persistent_peers = [peers[n] for n in names]
+    cfg.statesync.enable = True
+    cfg.statesync.rpc_servers = [f"tcp://127.0.0.1:{rpc['node0']}",
+                                 f"tcp://127.0.0.1:{rpc['node1']}"]
+    cfg.statesync.trust_height, cfg.statesync.trust_hash = trust_h, trust
+    cfg.statesync.discovery_time_s = NODE_DISCOVERY_S
+    cfgmod.write_config(cfg)
+    t0 = time.perf_counter()
+    node_spawn(root, procs, "joiner", "node", argv=["--home", str(jhome), "start"])
+    join_s = wait(lambda: height("joiner") >= height("node0") > 0, "the joiner at the frontier")
+    synced_at = height("joiner")
+    follow_s = wait(lambda: height("joiner") >= synced_at + NODE_FOLLOW,
+                    f"the joiner following {NODE_FOLLOW} heights")
+    jst = node_rpc(rpc["joiner"], "status")["sync_info"]
+    earliest = int(jst["earliest_block_height"])
+    check(earliest > 1, f"node: the joiner holds block {earliest}: it did not statesync")
+    jh = node_rpc(rpc["joiner"], "blockchain", {"min_height": synced_at,
+                                                 "max_height": synced_at})["block_metas"][0]
+    oh = node_rpc(rpc["node0"], "blockchain", {"min_height": synced_at,
+                                                "max_height": synced_at})["block_metas"][0]
+    check(jh["block_id"]["hash"] == oh["block_id"]["hash"], "node: the joiner's block differs")
+    print(f"node: part A: a fifth home from cmd init with the localnet's genesis, statesync "
+          f"on (rpc_servers node0 and node1, trust height {trust_h} from node0, discovery "
+          f"{NODE_DISCOVERY_S} s, cut from 15), restored a snapshot (its earliest block "
+          f"{earliest}), blocksynced and reached the frontier at {synced_at} in {join_s:.2f} "
+          f"s, then followed {NODE_FOLLOW} heights in {follow_s:.2f} s {tag}", flush=True)
+
+    t_idx = time.perf_counter()
+    idx = {n: f.result() for n, f in idx.items()}
+    pool.shutdown()
+    idx_wait_s = time.perf_counter() - t_idx
+    for n in names:
+        hashes, seen = idx[n]
+        check(hashes == idx["node0"][0], f"node: {n}'s block hashes differ from node0's")
+        check(set(seen) == set(sent) and max(seen.values()) == 1,
+              f"node: {n} indexed {len(seen)} txs ({sum(seen.values())} rows), sent {len(sent)}")
+    print(f"node: part A: blocks 1-{top} equal on the four nodes; each node indexed the "
+          f"{len(sent)} txs once (tx_search by height, {len(search_ms)} pages of 100: median "
+          f"{np.percentile(search_ms, 50):.3f} ms, p99 {np.percentile(search_ms, 99):.3f} ms; "
+          f"walked during the rollback and the joiner's sync, {idx_wait_s:.2f} s waited after "
+          f"them) {tag}",
+          flush=True)
+
+    # -- stop, reports, assertions ---------------------------------------------
+    end_h = height("node1")
+    time.sleep(1.5)
+    ws.close()
+    everyone = names + ["signer", "node2-restart", "joiner"]
+    t_stop = time.perf_counter()
+    reports = node_stop(root, procs, everyone)
+    stop_s = time.perf_counter() - t_stop
+    wall = time.perf_counter() - t_run
+    ws_h = sorted({h for h, _ in ws.heights})
+    check(ws_h and ws_h[0] <= ws_from + 1 and ws_h == list(range(ws_h[0], ws_h[-1] + 1))
+          and ws_h[-1] >= end_h, f"node: the websocket saw heights {ws_h[:5]}..{ws_h[-5:]} "
+          f"(subscribed at {ws_from}, node1 at {end_h})")
+    sg = reports["signer"]
+    steps = [tuple(s) for s in sg["steps"]]
+    check(sg["signed"].get("sign_vote", 0) >= top and steps == sorted(steps),
+          f"node: the signer signed {sg['signed']}, its last-sign state "
+          f"{'steps back' if steps != sorted(steps) else 'ok'}")
+    errs = {n: node_errors(root / f"{n}.log") for n in reports}
+    check(not any(e["other"] for e in errs.values()),
+          "node: consensus failures "
+          f"{[(n, e['other'][:1]) for n, e in errs.items() if e['other']]}")
+    launches = collections.Counter()
+    for n, rep in reports.items():
+        check(rep["rc"] == 0 and not rep["leaked"], f"node: {n}: rc {rep['rc']}, leaked "
+              f"{rep['leaked']}")
+        for k in ("ed25519", "tree", "aead", "ladder"):
+            launches[k] += rep["launches"][k]
+            c = rep["tiers"][k]
+            host_ok = rep["tiers"]["tree_oversize"]["host"] if k == "tree" else [0, 0]
+            check(c["torch"] == [0, 0] and c["host"] == host_ok
+                  and c["cuda"][0] == rep["launches"][k],
+                  f"node: {n}: {k} passes {c} against {rep['launches'][k]} launches")
+    for k in ("ed25519", "tree", "aead", "ladder"):
+        check(launches[k] > 0, f"node: no {k} launch in part A")
+    worst = collections.Counter()
+    for rep in reports.values():
+        for k, v in rep["max_abs_err"].items():
+            worst[k] = max(worst[k], v)
+    print(f"node: part A: the websocket on node1 saw every height {ws_h[0]}-{ws_h[-1]}; the "
+          f"signer signed {sg['signed']} for validator {NODE_SIGNED}, its last-sign state "
+          f"never stepping back; consensus failures only of block parts of another round "
+          f"({ {n: e['wrong_round'] for n, e in errs.items()} }); launches by process "
+          f"{ {n: r['launches'] for n, r in reports.items()} }, every pass on cuda; each "
+          f"process's kernels == their plain versions on its own inputs (max_abs_err "
+          f"{dict(worst)}); wall {wall:.1f} s {tag}", flush=True)
+    def shapes(r) -> dict:
+        k = r["kept"]
+        return {"ed25519 lanes": k["ed25519"],
+                "tree leaves": sorted({t[0] for t in k["tree"]}),
+                "aead (op, lanes, blocks)": len(k["aead"]), "ladder lanes": k["ladder"]}
+
+    def med(r) -> dict:
+        return {k: round(statistics.median(v.values()), 5) for k, v in r["device_ms"].items()}
+
+    per = collections.defaultdict(list)
+    for r in reports.values():
+        for k, v in med(r).items():
+            per[k].append(v)
+    busy = sum(launches[k] * statistics.median(per[k]) for k in per) / (wall * 1e3)
+    print(f"node: part A: the card busy ~{busy:.4%} of part A's {wall:.1f} s (derived: "
+          f"launches {dict(launches)} x median device ms "
+          f"{ {k: round(statistics.median(v), 5) for k, v in per.items()} }) {tag}", flush=True)
+    print("node: part A: launch shapes by process "
+          f"{json.dumps({n: shapes(r) for n, r in reports.items()})}; "
+          f"median device ms by kernel (CUDA events, queued) "
+          f"{json.dumps({n: med(r) for n, r in reports.items()})}; the children's stop and "
+          f"kernel checks {stop_s:.1f} s {tag}", flush=True)
+    secs = sorted(t for _, t in ws.heights)
+    gaps = [b - a for a, b in zip(secs, secs[1:])]
+    print(f"node: part A: block time (the websocket's NewBlock arrivals) median "
+          f"{np.percentile(gaps, 50):.3f} s, p99 {np.percentile(gaps, 99):.3f} s over "
+          f"{len(gaps)} blocks; the "
+          f"rollback {rollback_s:.3f} s and its catch-up {catch_s:.2f} s, the joiner's sync "
+          f"{join_s:.2f} s {tag}", flush=True)
+    return {"launches": dict(launches), "wall_s": wall, "max_abs_err": dict(worst)}
+
+
+def node_part_b_start(root, procs, chain) -> dict:
+    """Part B's processes: a home written around phase 17's chain (as phase
+    20 leaves it), ``cmd inspect`` over it, then, on a thread once inspect
+    serves, the port's ``cmd light`` proxy in front of it trusting height
+    1's hash.  Returns the context ``node_part_b`` reads."""
+    from cometbft_tpu_torch.config import config as cfgmod
+    from cometbft_tpu_torch.state.store import StateStore
+    from cometbft_tpu_torch.store.block_store import BlockStore
+    from cometbft_tpu_torch.store.kv import SqliteKV
+
+    t_run = time.perf_counter()
+    db = SqliteKV(chain["db"], surface="state")
+    bs = BlockStore(db)
+    top, h1 = bs.height(), bs.load_block_meta(1).block_id.hash
+    n_vals = len(StateStore(db).load_validators(top))
+    db.close()
+    ihome, lhome = root / "inspect", root / "light"
+    iport, lport = free_ports(2)
+    cfg = cfgmod.default_config()
+    cfg.base.home = str(ihome)
+    cfg.rpc.laddr = f"tcp://127.0.0.1:{iport}"
+    cfgmod.write_config(cfg)
+    (ihome / "config" / "genesis.json").write_text(chain["genesis"].to_json())
+    (ihome / cfg.base.db_dir).mkdir(parents=True, exist_ok=True)
+    for suffix in ("", "-wal", "-shm"):
+        if os.path.exists(chain["db"] + suffix):
+            os.replace(chain["db"] + suffix, ihome / cfg.base.db_dir / f"chain.db{suffix}")
+    node_spawn(root, procs, "inspect", "inspect", argv=["--home", str(ihome), "inspect"])
+    ctx = {"t_run": t_run, "t0": time.perf_counter(), "top": top, "n_vals": n_vals,
+           "lport": lport, "error": None}
+    inspect_proc = procs[-1][1]
+
+    def bring_up() -> None:
+        try:
+            t0 = ctx["t0"]
+            while node_try(iport, "status") is None:
+                if inspect_proc.poll() is not None or time.perf_counter() - t0 > NODE_TIMEOUT_S:
+                    raise SmokeError("node: cmd inspect did not serve: "
+                                     + (root / "inspect.log").read_text()[-3000:])
+                time.sleep(0.1)
+            node_spawn(root, procs, "light", "light", argv=[
+                "--home", str(lhome), "light", chain["genesis"].chain_id, "--primary",
+                f"http://127.0.0.1:{iport}", "--laddr", f"tcp://127.0.0.1:{lport}",
+                "--trust-height", "1", "--trust-hash", h1.hex(),
+                "--trust-period", str(NODE_TRUST_PERIOD_S)])
+            light_proc = procs[-1][1]
+            while node_try(lport, "light_status") is None:
+                if light_proc.poll() is not None or time.perf_counter() - t0 > NODE_TIMEOUT_S:
+                    raise SmokeError("node: cmd light did not serve: "
+                                     + (root / "light.log").read_text()[-3000:])
+                time.sleep(0.1)
+            ctx["up_s"] = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 - raised again by node_part_b
+            ctx["error"] = e
+
+    ctx["thread"] = threading.Thread(target=bring_up, name="node-part-b-up", daemon=True)
+    ctx["thread"].start()
+    return ctx
+
+
+def node_part_b(tag, root, procs, ctx) -> dict:
+    """Part B of phase 21: a client reads ``commit``, ``validators`` and
+    ``block`` through the ``cmd light`` proxy that ``node_part_b_start``
+    started, at every height above 1 of phase 17's chain."""
+    ctx["thread"].join(NODE_TIMEOUT_S)
+    if ctx["error"] is not None:
+        raise ctx["error"]
+    check("up_s" in ctx, "node: part B's processes did not come up")
+    t_run, top, n_vals, lport, up_s = (ctx[k] for k in ("t_run", "top", "n_vals", "lport",
+                                                         "up_s"))
+    t_reads = time.perf_counter()
+    heights = list(range(2, top + 1))
+    order = heights[1::2] + heights[0::2]  # skips from below first, then adjacent hops
+    read_ms = collections.defaultdict(list)
+    for h in order:
+        for what in ("commit", "validators", "block"):
+            t1 = time.perf_counter()
+            got = node_rpc(lport, what, {"height": str(h)}, timeout=120.0)
+            read_ms[what].append(round((time.perf_counter() - t1) * 1e3, 3))
+            if what == "commit":
+                check(got["signed_header"]["header"]["height"] == str(h)
+                      and got["canonical"], f"node: the proxy's commit at {h}")
+                want = got["signed_header"]["commit"]["block_id"]["hash"]
+            elif what == "validators":
+                check(got["total"] == str(n_vals), f"node: the proxy's validators at {h}")
+            else:
+                check(got["block_id"]["hash"] == want, f"node: the proxy's block at {h}")
+    reads_s = time.perf_counter() - t_reads
+    rep = node_stop(root, procs, ["light", "inspect"])
+    lr, ir = rep["light"], rep["inspect"]
+    wall = time.perf_counter() - t_run
+    hops = lr["hops"]
+    check(sorted(x["height"] for x in hops) == heights and lr["rc"] == 0 and ir["rc"] == 0
+          and not lr["leaked"], f"node: part B: hops {hops}, rc {lr['rc']}/{ir['rc']}")
+    for x in hops:
+        skip = x["height"] - 1 not in [y["height"] for y in hops[:hops.index(x)]] + [1]
+        check(x["ed25519_launches"] == (2 if skip else 1) and x["tree_launches"] >= 1,
+              f"node: part B: the hop to {x['height']} ({'skipping' if skip else 'adjacent'}) "
+              f"made {x['ed25519_launches']} Ed25519 and {x['tree_launches']} tree launches")
+    for k in ("ed25519", "tree"):
+        c = lr["tiers"][k]
+        check(c["torch"] == [0, 0] and c["host"] == [0, 0] and c["cuda"][0]
+              == lr["launches"][k] > 0, f"node: part B: {k} passes {c} against "
+              f"{lr['launches'][k]} launches")
+    check(set(lr["max_abs_err"]) >= {"ed25519", "tree"}
+          and n_vals in [t[0] for t in lr["kept"]["tree"]],
+          f"node: part B: kernels held on {lr['kept']}")
+    print(f"node: part B: cmd inspect over phase 17's chain ({n_vals} validators, heights "
+          f"1-{top}) and cmd light in front of it (height 1 trusted by hash), both up "
+          f"{up_s:.2f} s after inspect's spawn (while part A ran on); the reads took "
+          f"{reads_s:.2f} s; through the proxy at heights {order}: commit ms "
+          f"{read_ms['commit']}, validators ms {read_ms['validators']}, block ms "
+          f"{read_ms['block']}; hops {json.dumps(hops)}; lanes kept {lr['kept']['ed25519']}; "
+          f"launches {lr['launches']}, every pass on cuda; the kernels == their plain "
+          f"versions on those batches (max_abs_err {lr['max_abs_err']}, device ms "
+          f"{lr['device_ms']}); wall {wall:.1f} s {tag}", flush=True)
+    return {"launches": lr["launches"], "wall_s": wall, "max_abs_err": lr["max_abs_err"]}
+
+
+def node_phase(chain, tag) -> dict:
+    """Phase 21: the node as users start it.  Part A, a localnet of four
+    port validators from ``cmd testnet`` and ``cmd start``, one behind a
+    remote signer; part B, phase 17's 10,240-validator chain through ``cmd
+    inspect`` and a ``cmd light`` proxy.  Every port process is a child
+    that calls the CLI's ``main``.  Returns the launches of both parts."""
+    import pathlib
+
+    t_phase = time.perf_counter()
+    root = pathlib.Path(tempfile.mkdtemp(prefix="node-"))
+    procs: list = []
+    out = {}
+    try:
+        box = {}  # part B's context, made once part A's reads are done
+        out["A"] = node_part_a(tag, root, procs, after_reads=lambda: box.setdefault(
+            "B", node_part_b_start(root, procs, chain)))
+        out["B"] = node_part_b(tag, root, procs, box["B"])
+        print(f"node: the phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    finally:
+        for _, p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return {k: out["A"]["launches"][k] + out["B"]["launches"].get(k, 0)
+            for k in ("ed25519", "tree", "aead", "ladder")}
+
+
 def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     import numpy as np
     import torch
@@ -7220,6 +8158,9 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
 
         # -- 20. ingest_statesync: a sentry's admission, a fresh node's sync -
         iss = ingest_statesync_phase(torch, dev, cbatch, cv, ds, sigcache, be, tag)
+
+        # -- 21. node: the CLI's localnet, a remote signer, a light proxy ----
+        nd = node_phase(be, tag)
     finally:
         shutil.rmtree(be["dir"], ignore_errors=True)  # phase 17's chain
     print(f"network: the kernels' launches on its path: Ed25519 {net['ed25519']}, tree "
@@ -7240,6 +8181,15 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     light_entry["launches"] += iss["tree"]
     aead_entry["launches"] += iss["aead"]
     ladder_entry["launches"] += iss["ladder"]
+    print(f"node: the kernels' launches on its path: Ed25519 {nd['ed25519']}, tree "
+          f"{nd['tree']}, AEAD {nd['aead']}, ladder {nd['ladder']}; the kernels line adds "
+          f"them to the earlier paths' counts (Ed25519 {launches}, tree "
+          f"{light_entry['launches']}, AEAD {aead_entry['launches']}, ladder "
+          f"{ladder_entry['launches']})")
+    launches += nd["ed25519"]
+    light_entry["launches"] += nd["tree"]
+    aead_entry["launches"] += nd["aead"]
+    ladder_entry["launches"] += nd["ladder"]
 
     print("host: " + json.dumps({
         "name": native.NAME,
@@ -7279,6 +8229,8 @@ if __name__ == "__main__":
         sys.exit(sim_child(sys.argv[2]))
     if sys.argv[1:2] == ["--net-node"]:
         sys.exit(net_node_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--cli-child"]:
+        sys.exit(cli_child(sys.argv[2]))
     if sys.argv[1:2] == ["--abci-app"]:
         sys.exit(abci_app_child(sys.argv[2]))
     sys.exit(main())

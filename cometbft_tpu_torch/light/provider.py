@@ -135,6 +135,7 @@ def _parse_validators(items: list[dict]) -> ValidatorSet:
     vs.validators = vals
     vs.proposer = None
     vs._total_voting_power = None
+    vs._addr_index = None
     return vs
 
 

@@ -241,24 +241,29 @@ class CListMempool:
                 raise PreCheckError(err)
 
         key = tmhash.sum256(tx)
-        if not self.cache.push(key):
-            self.note_duplicate(key, sender)
-            ingest_stats.record_cache(True)
-            ingest_stats.record_error("duplicate")
-            raise TxInCacheError()
-        ingest_stats.record_cache(False)
+        # Under the lock that ``update`` runs under (the reference's
+        # updateMtx, which CheckTx read-locks): a block committed between
+        # the cache probe and the add would otherwise leave its tx in the
+        # mempool, and a later block would carry it again.
+        with self._mtx:
+            if not self.cache.push(key):
+                self.note_duplicate(key, sender)
+                ingest_stats.record_cache(True)
+                ingest_stats.record_error("duplicate")
+                raise TxInCacheError()
+            ingest_stats.record_cache(False)
 
-        if (
-            self.size() + 1 > self.config.size
-            or self._total_bytes + len(tx) > self.config.max_txs_bytes
-        ):
-            self.cache.remove(key)
-            ingest_stats.record_error("full")
-            raise MempoolFullError(self.size(), self._total_bytes)
+            if (
+                self.size() + 1 > self.config.size
+                or self._total_bytes + len(tx) > self.config.max_txs_bytes
+            ):
+                self.cache.remove(key)
+                ingest_stats.record_error("full")
+                raise MempoolFullError(self.size(), self._total_bytes)
 
-        res = self.proxy_app.check_tx(at.CheckTxRequest(tx=tx))
-        self._handle_check_tx_response(tx, key, sender, res)
-        return res
+            res = self.proxy_app.check_tx(at.CheckTxRequest(tx=tx))
+            self._handle_check_tx_response(tx, key, sender, res)
+            return res
 
     def check_tx_batch(
         self,
@@ -280,8 +285,6 @@ class CListMempool:
         ``keys`` optionally carries precomputed ``tx_key`` hashes (the
         coalescer already hashed every tx for its pre-queue dedup probe)
         so the hot gossip path hashes each tx once, not twice."""
-        from cometbft_tpu_torch.txingest import envelope as ev
-
         n = len(txs)
         senders = list(senders) if senders is not None else [""] * n
         if len(senders) != n:
@@ -292,7 +295,13 @@ class CListMempool:
             raise ValueError(
                 f"check_tx_batch: {len(keys)} keys for {n} txs"
             )
-        pre_keys = keys
+        with self._mtx:  # against update, as in check_tx
+            return self._check_tx_batch(txs, senders, keys)
+
+    def _check_tx_batch(self, txs, senders, pre_keys) -> list:
+        from cometbft_tpu_torch.txingest import envelope as ev
+
+        n = len(txs)
         results: list = [None] * n
         keys: "list[Optional[bytes]]" = [None] * n
         live: "list[int]" = []

@@ -28,7 +28,9 @@ through the verify scheduler opened on the CPU and the plain version),
 and state sync (a fresh joiner, its app behind the ABCI socket server,
 restores a serving node's snapshot through two switches with a
 ``LightClientStateProvider`` on the CPU, then blocksyncs the next
-height), and checks that neither name reached ``sys.modules``.
+height), and the node as users start it (``cmd init``, then a
+single-validator ``Node`` on ``device="cpu"`` to height 2, a tx through
+its JSON-RPC), and checks that neither name reached ``sys.modules``.
 """
 
 import ast
@@ -185,6 +187,22 @@ def test_port_files_exist():
         "cometbft_tpu_torch/statesync/syncer.py",
         "cometbft_tpu_torch/statesync/stateprovider.py",
         "cometbft_tpu_torch/statesync/reactor.py",
+        "cometbft_tpu_torch/state/pruner.py",
+        "cometbft_tpu_torch/indexer/__init__.py",
+        "cometbft_tpu_torch/indexer/kv.py",
+        "cometbft_tpu_torch/indexer/service.py",
+        "cometbft_tpu_torch/privval/signer.py",
+        "cometbft_tpu_torch/rpc/__init__.py",
+        "cometbft_tpu_torch/rpc/core.py",
+        "cometbft_tpu_torch/rpc/server.py",
+        "cometbft_tpu_torch/node/node.py",
+        "cometbft_tpu_torch/node/rollback.py",
+        "cometbft_tpu_torch/node/inspect.py",
+        "cometbft_tpu_torch/light/proxy.py",
+        "cometbft_tpu_torch/config/confix.py",
+        "cometbft_tpu_torch/cmd/__init__.py",
+        "cometbft_tpu_torch/cmd/__main__.py",
+        "cometbft_tpu_torch/cmd/main.py",
         "tests/torch_net.py",
     ):
         assert need in names
@@ -495,6 +513,41 @@ finally:
         c.stop()
     app_srv.stop()
     handshake_pool.reset_pool()
+# the node as users start it: cmd init, then a single-validator Node on
+# the CPU to height 2, and a tx through its JSON-RPC
+import base64
+import json
+import shutil
+import tempfile
+import urllib.request
+
+from cometbft_tpu_torch.cmd.main import main as cli_main
+from cometbft_tpu_torch.config import config as cfgmod
+from cometbft_tpu_torch.node.node import Node
+
+home = tempfile.mkdtemp(prefix="audit-node-")
+assert cli_main(["--home", home, "init", "--chain-id", "audit-chain"]) == 0
+ncfg = cfgmod.load_config(home)
+ncfg.base.home = home
+ncfg.base.db_backend = "memdb"
+ncfg.rpc.laddr = ncfg.p2p.laddr = "tcp://127.0.0.1:0"
+ncfg.consensus.timeout_commit_ms = 50
+node = Node(ncfg, device="cpu")
+node.start()
+try:
+    deadline = time.time() + 120
+    while node.block_store.height() < 2 and time.time() < deadline:
+        time.sleep(0.05)
+    assert node.block_store.height() >= 2, node.block_store.height()
+    body = json.dumps({"jsonrpc": "2.0", "id": 1, "method": "broadcast_tx_commit",
+                       "params": {"tx": base64.b64encode(b"audit=ok").decode()}}).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{node.rpc_server.bound_port}/",
+                                 data=body, headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        assert json.loads(resp.read())["result"]["tx_result"]["code"] == 0
+finally:
+    node.stop()
+    shutil.rmtree(home, ignore_errors=True)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)
