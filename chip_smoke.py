@@ -490,6 +490,8 @@ FAULT_BATCHES = 3  # batches per fault mode
 HANG_DEADLINE_MS = 500
 HANG_S = 2.0
 POISON = 17  # the input of the fault batch that kills the kernel
+TRACE_COMMITS = 3  # cold verify_commit samples in each tracing turn
+TRACE_VOTES = 5_120  # gossiped votes of a tracing turn (half the gossip phase's)
 SECP_SEED = SEED + 5  # the secp256k1 validators' keys
 SECP_SMALL_N = (1, 3, 15, 16, 17, 31, 33, 255)
 SECP_EDGE_SEED = SEED + 8
@@ -606,7 +608,8 @@ NETWORK_TXS = 5_000  # MempoolConfig().size
 NETWORK_TX_BYTES = 256
 NETWORK_EVIDENCE_AT = 2  # the height node 1's pool takes the duplicate vote at
 NETWORK_EQUIVOCATOR = 3  # its validator (set order at height 1)
-NETWORK_JOIN_AFTER = 3  # the fifth node starts once every validator has stored it (cut from 4)
+NETWORK_JOIN_AFTER = 2  # the fifth node starts once every validator has stored it (cut from 4, then 3)
+NETWORK_SYNC_MIN = 3  # heights the joiner must blocksync: it dials once node0 stored one more
 NETWORK_FOLLOW = 2  # heights the joiner commits after it switched to consensus
 NETWORK_PEX = 2  # peers the joiner must learn by PEX, beyond node 0
 NETWORK_TIMEOUT_S = 240.0  # each wait of part A
@@ -617,7 +620,7 @@ INGEST_ROUNDS = 1  # rounds of client traffic (cut from 3 for phase 21)
 INGEST_CLIENTS = 8  # client threads calling the sentry's check_tx
 INGEST_SENDERS = 1_024  # Ed25519 senders, nonces rising
 INGEST_SECP_SENDERS = 8
-INGEST_ED = 4_905  # valid Ed25519 envelopes a round
+INGEST_ED = 2_450  # valid Ed25519 envelopes a round (cut from 4,905 for the script's time)
 INGEST_SECP = 25  # valid secp256k1 envelopes a round
 INGEST_FORGED = 50
 INGEST_MALFORMED = 10
@@ -631,7 +634,7 @@ NODE_CHAIN = "node-chain"
 NODE_SEED = 20261041  # the clients' txs
 NODE_VALIDATORS = 4  # CometBFT's make localnet-start: cmd testnet --v 4
 NODE_SIGNED = 3  # the validator whose key a remote signer serves
-NODE_TXS = 5_000  # by broadcast_tx_sync (MempoolConfig().size)
+NODE_TXS = 2_500  # by broadcast_tx_sync (half MempoolConfig().size: cut for the script's time)
 NODE_TX_BYTES = 256
 NODE_COMMIT_TXS = 20  # then by broadcast_tx_commit
 NODE_CLIENTS = 8  # client threads
@@ -639,6 +642,9 @@ NODE_PROVE = 64  # tx?prove=true reads, and as many abci_query reads
 NODE_FOLLOW = 2  # heights the statesync joiner follows at the frontier
 NODE_DISCOVERY_S = 2  # the joiner's statesync.discovery_time_s (default 15 s)
 NODE_TIMEOUT_S = 240.0  # each wait of the phase
+NODE_WATCHED = 1  # the validator with instrumentation.prometheus and rpc.pprof_laddr
+NODE_TRACE_RING = 65536  # its flight recorder's ring (the dials' spans stay in it)
+NODE_KILLED = "node2-restart"  # the validator process SIGKILLed at the end
 NODE_TRUST_PERIOD_S = 3650 * 86400  # part B: phase 17's chain is dated October 2025
 
 
@@ -1073,8 +1079,6 @@ def gossip_phase(cv, ds, val, vals, commit, bad_commit, block_id, sign_bytes,
     bad commit's three tampered ones arrive as gossip; PEERS threads call
     ``Vote.verify`` one vote at a time, through the verify scheduler.
     Then the commit built from them verifies with 0 launches."""
-    import threading
-
     import numpy as np
 
     from cometbft_tpu_torch.crypto import sigcache
@@ -1107,27 +1111,9 @@ def gossip_phase(cv, ds, val, vals, commit, bad_commit, block_id, sign_bytes,
     sigcache.get_cache().clear()
     sstats.reset()
     before = ds.snapshot()
-    got = [None] * len(votes)
-    lat = [0.0] * len(votes)
-    barrier = threading.Barrier(PEERS)
-
-    def peer(t: int) -> None:
-        barrier.wait()
-        for i in range(t, len(votes), PEERS):
-            t0 = time.perf_counter()
-            got[i] = votes[i].verify(CHAIN_ID, pks[i])
-            lat[i] = time.perf_counter() - t0
-
-    threads = [threading.Thread(target=peer, args=(t,)) for t in range(PEERS)]
     cv.reset_launches()
-    t0 = time.perf_counter()
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join(600)
-    wall_ms = (time.perf_counter() - t0) * 1e3
+    got, lat, wall_ms = gossip_burst(votes, pks)
     launches = cv.launches
-    check(not any(th.is_alive() for th in threads), "gossip: a peer hung")
     after = ds.snapshot()
     snap = sstats.snapshot()
     check(got == want, "gossip: verdicts != the oracle's at "
@@ -1157,6 +1143,122 @@ def gossip_phase(cv, ds, val, vals, commit, bad_commit, block_id, sign_bytes,
     print("gossip: verify_commit of the commit built from the gossiped "
           "precommits: 0 launches (every triple a cache hit through "
           "byte-identical sign bytes)")
+    return votes, pks, want
+
+
+def gossip_burst(votes, pks) -> tuple:
+    """PEERS threads call ``Vote.verify`` on ``votes``, one vote at a time
+    (thread t takes votes t, t + PEERS, ...): (verdicts, latency of each
+    in seconds, wall ms)."""
+    got = [None] * len(votes)
+    lat = [0.0] * len(votes)
+    barrier = threading.Barrier(PEERS)
+
+    def peer(t: int) -> None:
+        barrier.wait()
+        for i in range(t, len(votes), PEERS):
+            t0 = time.perf_counter()
+            got[i] = votes[i].verify(CHAIN_ID, pks[i])
+            lat[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=peer, args=(t,)) for t in range(PEERS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    check(not any(th.is_alive() for th in threads), "gossip: a peer hung")
+    return got, lat, wall_ms
+
+
+def tracing_phase(cv, ds, val, vals, block_id, commit, votes, pks, want, tag) -> None:
+    """The flight recorder's cost and record on the main path: one cold
+    commit's trace (one ``verify.commit`` over one ``verify.dispatch``,
+    ``tier="cuda"``, every lane, as the kernel's launch counter says); then
+    the cold commit's wall and a gossip burst's vote latency (the first
+    ``TRACE_VOTES`` of the gossip phase's votes, its three tampered ones
+    among them) in turns: tracing off (``COMETBFT_TPU_TRACE=0``,
+    ``COMETBFT_TPU_BLACKBOX=0``), the recorder alone
+    (``COMETBFT_TPU_BLACKBOX=0``) and the recorder with a black box, in the
+    order off, recorder, on, on, recorder, off.  Verdicts and tiers are the
+    same in every turn."""
+    import numpy as np
+
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.libs import blackbox, tracing
+
+    n = len(commit.signatures)
+    cache = sigcache.get_cache()
+    tracer = tracing.get_tracer()
+    tracer.reset()
+    cache.clear()
+    cv.reset_launches()
+    val.verify_commit(CHAIN_ID, vals, block_id, commit.height, commit)
+    spans = tracer.tail(0)
+    by_id = {sp["span"]: sp for sp in spans}
+
+    def under(sp, root) -> bool:
+        while sp is not None:
+            if sp is root:
+                return True
+            sp = by_id.get(sp.get("parent"))
+        return False
+
+    commits = [sp for sp in spans if sp["stage"] == "verify.commit"]
+    check(len(commits) == 1, f"tracing: {len(commits)} verify.commit spans")
+    dispatches = [sp for sp in spans if sp["stage"] == "verify.dispatch"]
+    check(len(dispatches) == 1 == cv.launches and under(dispatches[0], commits[0])
+          and dispatches[0]["attrs"]["tier"] == "cuda"
+          and dispatches[0]["attrs"]["lanes"] == n == dispatches[0]["attrs"]["n"],
+          f"tracing: the cold commit's dispatch spans {dispatches}, {cv.launches} launches")
+    print(f"tracing: the cold commit's trace: {json.dumps(commits[0], sort_keys=True)} over "
+          f"{json.dumps(dispatches[0], sort_keys=True)} ({len(spans)} spans: "
+          f"{sorted({sp['stage'] for sp in spans})}); cuda_verify counted {cv.launches} "
+          f"launch {tag}")
+    envs = {"off": {"COMETBFT_TPU_TRACE": "0", "COMETBFT_TPU_BLACKBOX": "0"},
+            "recorder": {"COMETBFT_TPU_BLACKBOX": "0"}, "on": {}}
+    votes, pks = list(votes[:TRACE_VOTES - 3]) + list(votes[-3:]), \
+        list(pks[:TRACE_VOTES - 3]) + list(pks[-3:])
+    want = list(want[:TRACE_VOTES - 3]) + list(want[-3:])
+    rows = {turn: [] for turn in envs}
+    for turn in ("off", "recorder", "on", "on", "recorder", "off"):
+        bb = tempfile.mkdtemp(prefix="tracing-bb-")
+        with environ(envs[turn]):
+            journal = blackbox.open_journal(bb)
+            check((journal is None) == (turn != "on"), f"tracing: black box in turn {turn}")
+            try:
+                samples = []
+                for _ in range(TRACE_COMMITS):
+                    cache.clear()
+                    t0 = time.perf_counter()
+                    val.verify_commit(CHAIN_ID, vals, block_id, commit.height, commit)
+                    samples.append((time.perf_counter() - t0) * 1e3)
+                cache.clear()
+                got, lat, wall_ms = gossip_burst(votes, pks)
+            finally:
+                blackbox.close_journal(clean=True)
+        check(got == want, f"tracing: turn {turn}: verdicts != the oracle's")
+        check_tiers(ds, f"tracing turn {turn}")
+        records = 0
+        if turn == "on":
+            records = blackbox.postmortem_report(bb)["journal"]["records"]
+            check(records > 0, "tracing: the black box recorded nothing")
+        shutil.rmtree(bb, ignore_errors=True)
+        p50, p99 = (float(np.percentile(lat, q)) * 1e3 for q in (50, 99))
+        rows[turn].append({"commit_ms": statistics.median(samples), "vote_p50_ms": p50,
+                           "vote_p99_ms": p99, "gossip_wall_ms": wall_ms,
+                           "journal_records": records})
+    med = {turn: {k: statistics.median(r[k] for r in rs) for k in rs[0]}
+           for turn, rs in rows.items()}
+    diff = {turn: {k: med[turn][k] - med["off"][k] for k in med[turn] if k != "journal_records"}
+            for turn in ("recorder", "on")}
+    print(f"time: tracing off (COMETBFT_TPU_TRACE=0, COMETBFT_TPU_BLACKBOX=0), the recorder "
+          f"alone (COMETBFT_TPU_BLACKBOX=0) and on (the recorder and a black box) in turns "
+          f"off, recorder, on, on, recorder, off: cold verify_commit of {n} (median of "
+          f"{TRACE_COMMITS} a turn) and {len(votes)} gossiped votes by {PEERS} threads; "
+          f"medians of each mode's two turns {json.dumps(med)}; less off "
+          f"{json.dumps(diff)}; every turn {json.dumps(rows)} {tag}")
 
 
 def supervisor_phase(cv, ov, ds, cbatch, val, vals, block_id, commit, pubs,
@@ -1164,11 +1266,16 @@ def supervisor_phase(cv, ov, ds, cbatch, val, vals, block_id, commit, pubs,
     """Phase 9: the supervisor on the card, under injected faults
     (``FaultyBackend`` on the cuda tier): a batch is served by the kernel
     or raises ``BackendError``, never answered below it and never cached;
-    then bisect quarantine, then a clean commit served by the kernel."""
+    then bisect quarantine, then a clean commit served by the kernel.  The
+    fault matrix runs with ``COMETBFT_TPU_TRACE_DIR`` set and a black box
+    open: the hang's ``watchdog_fire`` dump names the dispatch triple, the
+    breaker's opening is counted, and the journal holds both."""
+    import tempfile
     import threading
 
     from cometbft_tpu_torch.crypto import backend_health as bh
     from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.libs import blackbox, tracing
     from cometbft_tpu_torch.ops import supervisor as sup
 
     counts = check_tiers(ds, "main path")
@@ -1183,58 +1290,69 @@ def supervisor_phase(cv, ov, ds, cbatch, val, vals, block_id, commit, pubs,
     check(sum(want) == FAULT_LANES - len(FAULT_BAD), "fault batch oracle")
     cache = sigcache.get_cache()
     threads = threading.active_count()
-    # hang last: its abandoned workers (the injected sleep) finish in the
-    # background
-    for mode in ("raise", "wrong_shape", "flap", "hang"):
-        bh.reset()
-        before = ds.tier_counts()
-        shim = sup.FaultyBackend(mode, backends=("cuda",), hang_s=HANG_S,
-                                 fail_n=2, pass_n=1)
-        sup.set_fault_injector(shim)
-        outcomes = []
-        try:
-            deadline = ({"COMETBFT_TPU_DISPATCH_TIMEOUT_MS": str(HANG_DEADLINE_MS)}
-                        if mode == "hang" else {})
-            with environ(deadline):
-                for _ in range(FAULT_BATCHES):
-                    cache.clear()
-                    bv = cbatch.create_batch_verifier(keys[0])
-                    for t in zip(keys, m, s):
-                        bv.add(*t)
-                    t0 = time.perf_counter()
-                    try:
-                        _, bits = bv.verify()
-                    except bh.BackendError as e:
-                        ms_ = (time.perf_counter() - t0) * 1e3
-                        check(all(cache.get(*t) is None for t in zip(p, m, s)),
-                              f"supervisor {mode}: a failed batch was cached")
-                        got = f"{type(e).__name__} in {ms_:.1f} ms"
-                    else:
-                        ms_ = (time.perf_counter() - t0) * 1e3
-                        check(bits == want and sup.last_tier() == "cuda",
-                              f"supervisor {mode}: bits != oracle or served "
-                              f"by {sup.last_tier()}")
-                        got = f"served by cuda, verdicts == oracle, in {ms_:.1f} ms"
-                    outcomes.append(f"{got}, cuda breaker "
-                                    f"{bh.registry().breaker('cuda').state}")
-        finally:
-            sup.clear_fault_injector()
-        after = ds.tier_counts()
-        check(after["torch"] == before["torch"] and after["host"] == before["host"],
-              f"supervisor {mode}: a tier below the kernel served: {after}")
-        raised = sum("Error" in o for o in outcomes)
-        check(mode == "flap" or raised == FAULT_BATCHES,
-              f"supervisor {mode}: {outcomes}")
-        snap = bh.snapshot()
-        print(f"supervisor: fault {mode} on the cuda tier ({FAULT_LANES} lanes "
-              f"of the commit through the batch verifier, {len(FAULT_BAD)} bad; "
-              + (f"deadline {HANG_DEADLINE_MS} ms, hang {HANG_S} s; "
-                 if mode == "hang" else "")
-              + f"{shim.faults} of {shim.calls} dispatches faulted): "
-              f"{'; '.join(outcomes)}; demotions {snap['demotions']}, watchdog "
-              f"fires {snap['watchdog_fires']}, host signatures "
-              f"{snap['fallback_signatures']}; torch and host served nothing, "
-              f"no failed batch cached {tag}")
+    flight = tempfile.mkdtemp(prefix="flight-")
+    tracer = tracing.get_tracer()
+    anomalies0 = dict(tracer.snapshot()["anomalies"])
+    journal = blackbox.open_journal(os.path.join(flight, "blackbox"))
+    check(journal is not None, "supervisor: the black box did not open")
+    try:
+        with environ({"COMETBFT_TPU_TRACE_DIR": flight}):
+            # hang last: its abandoned workers (the injected sleep) finish in the
+            # background
+            for mode in ("raise", "wrong_shape", "flap", "hang"):
+                bh.reset()
+                before = ds.tier_counts()
+                shim = sup.FaultyBackend(mode, backends=("cuda",), hang_s=HANG_S,
+                                         fail_n=2, pass_n=1)
+                sup.set_fault_injector(shim)
+                outcomes = []
+                try:
+                    deadline = ({"COMETBFT_TPU_DISPATCH_TIMEOUT_MS": str(HANG_DEADLINE_MS)}
+                                if mode == "hang" else {})
+                    with environ(deadline):
+                        for _ in range(FAULT_BATCHES):
+                            cache.clear()
+                            bv = cbatch.create_batch_verifier(keys[0])
+                            for t in zip(keys, m, s):
+                                bv.add(*t)
+                            t0 = time.perf_counter()
+                            try:
+                                _, bits = bv.verify()
+                            except bh.BackendError as e:
+                                ms_ = (time.perf_counter() - t0) * 1e3
+                                check(all(cache.get(*t) is None for t in zip(p, m, s)),
+                                      f"supervisor {mode}: a failed batch was cached")
+                                got = f"{type(e).__name__} in {ms_:.1f} ms"
+                            else:
+                                ms_ = (time.perf_counter() - t0) * 1e3
+                                check(bits == want and sup.last_tier() == "cuda",
+                                      f"supervisor {mode}: bits != oracle or served "
+                                      f"by {sup.last_tier()}")
+                                got = f"served by cuda, verdicts == oracle, in {ms_:.1f} ms"
+                            outcomes.append(f"{got}, cuda breaker "
+                                            f"{bh.registry().breaker('cuda').state}")
+                finally:
+                    sup.clear_fault_injector()
+                after = ds.tier_counts()
+                check(after["torch"] == before["torch"] and after["host"] == before["host"],
+                      f"supervisor {mode}: a tier below the kernel served: {after}")
+                raised = sum("Error" in o for o in outcomes)
+                check(mode == "flap" or raised == FAULT_BATCHES,
+                      f"supervisor {mode}: {outcomes}")
+                snap = bh.snapshot()
+                print(f"supervisor: fault {mode} on the cuda tier ({FAULT_LANES} lanes "
+                      f"of the commit through the batch verifier, {len(FAULT_BAD)} bad; "
+                      + (f"deadline {HANG_DEADLINE_MS} ms, hang {HANG_S} s; "
+                         if mode == "hang" else "")
+                      + f"{shim.faults} of {shim.calls} dispatches faulted): "
+                      f"{'; '.join(outcomes)}; demotions {snap['demotions']}, watchdog "
+                      f"fires {snap['watchdog_fires']}, host signatures "
+                      f"{snap['fallback_signatures']}; torch and host served nothing, "
+                      f"no failed batch cached {tag}")
+    finally:
+        blackbox.close_journal(clean=True)
+    flight_record(tracer, anomalies0, flight, tag)
+    shutil.rmtree(flight, ignore_errors=True)
     # abandoned watchdog workers (hang) finish before anything is timed
     deadline = time.perf_counter() + 120
     while threading.active_count() > threads and time.perf_counter() < deadline:
@@ -1281,6 +1399,41 @@ def supervisor_phase(cv, ov, ds, cbatch, val, vals, block_id, commit, pubs,
           f"supervisor: the clean commit: {cv.launches} launches, {delta}")
     print(f"supervisor: injector cleared, registry reset: the next {n}-lane "
           f"commit served by cuda with 1 launch")
+
+
+def flight_record(tracer, anomalies0: dict, flight: str, tag) -> None:
+    """The supervisor phase's flight record: the ``hang`` fault's
+    ``watchdog_fire`` dump (the first of its kind: ``tier="cuda"``,
+    ``FAULT_LANES`` lanes, the dispatch ordinal its failed
+    ``verify.dispatch`` span carries), the breaker's ``breaker_open``
+    counted, and the black box holding both anomalies."""
+    from cometbft_tpu_torch.libs import blackbox
+
+    got = tracer.snapshot()["anomalies"]
+    delta = {k: v - anomalies0.get(k, 0) for k, v in got.items() if v != anomalies0.get(k, 0)}
+    dumps = sorted(f for f in os.listdir(flight) if f.endswith("-watchdog_fire.jsonl"))
+    check(len(dumps) == 1, f"supervisor: watchdog_fire dumps {dumps} in {flight}")
+    with open(os.path.join(flight, dumps[0])) as f:
+        lines = [json.loads(line) for line in f]
+    head = lines[0]
+    failed = [sp for sp in lines[1:] if sp["stage"] == "verify.dispatch"
+              and sp["attrs"].get("error") == "DispatchTimeoutError"]
+    check(head["anomaly"] == "watchdog_fire" and head["attrs"]["tier"] == "cuda"
+          and head["attrs"]["lanes"] == FAULT_LANES and head["attrs"]["n"] == FAULT_LANES
+          and failed and failed[-1]["attrs"]["dispatch"] == head["attrs"]["dispatch"],
+          f"supervisor: the watchdog_fire dump {head}, failed spans {failed[-1:]}")
+    check(delta.get("breaker_open", 0) >= 1 and delta.get("watchdog_fire", 0) >= 1,
+          f"supervisor: anomalies recorded {delta}")
+    report = blackbox.postmortem_report(os.path.join(flight, "blackbox"))
+    kinds = report["anomaly_counts"]
+    check(report["clean_close"] and kinds.get("watchdog_fire", 0) == delta["watchdog_fire"]
+          and kinds.get("breaker_open", 0) == delta["breaker_open"],
+          f"supervisor: the black box holds {kinds}, the recorder counted {delta}")
+    print(f"supervisor: flight recorder: the hang's watchdog_fire dump {dumps[0]} "
+          f"({head['spans']} spans) heads {json.dumps(head, sort_keys=True)}; its failed "
+          f"verify.dispatch span {json.dumps(failed[-1], sort_keys=True)}; anomalies "
+          f"recorded in the fault matrix {delta}; the black box ({report['journal']['records']} "
+          f"records, closed clean) holds {kinds} {tag}")
 
 
 def secp_mixed(s, pubs, msgs, sigs):
@@ -5613,6 +5766,13 @@ def network_localnet(tag, root, procs) -> dict:
     spawn(NETWORK_NODES, "joiner", "joiner")
     wait(lambda: status("joiner").get("address"), "the joiner built")
     mark("joiner built")
+    # blocksync stops one height short of its best peer (it needs the next
+    # block's commit), so the joiner dials node0 only once every validator
+    # stored NETWORK_SYNC_MIN + 1: it then syncs at least NETWORK_SYNC_MIN
+    # heights however slowly the chain moved while it built
+    wait(lambda: min(status(n).get("height", 0) for n in names) > NETWORK_SYNC_MIN,
+         f"height {NETWORK_SYNC_MIN + 1} on every validator")
+    mark(f"height {NETWORK_SYNC_MIN + 1} everywhere")
     net_write(root / "peers-joiner.json", [addrs["node0"]])
     wait(lambda: status("joiner").get("switched_at") is not None,
          "the joiner's blocksync and its switch to consensus")
@@ -5655,7 +5815,8 @@ def network_localnet(tag, root, procs) -> dict:
           f"network: the evidence in blocks {ev_at}, committed in "
           f"{[n for n, r in reps.items() if r['evidence_committed']]}")
     sync = reps["joiner"]["sync"]
-    check(sync and sync["counters"]["heights_synced"] >= 3, f"network: the joiner's sync {sync}")
+    check(sync and sync["counters"]["heights_synced"] >= NETWORK_SYNC_MIN,
+          f"network: the joiner's sync {sync}")
     launches = collections.Counter()
     for n, r in reps.items():
         t = r["tiers"]
@@ -7185,6 +7346,11 @@ def cli_child(cfg_path: str) -> int:
         # the node is stopped and its stores closed (a rollback may begin)
         net_write(os.path.join(os.path.dirname(cfg["report"]), f"stopped-{cfg['name']}"),
                   {"rc": rc})
+        # what /metrics says at the end: the families over this process's
+        # counters, read after its node stopped
+        from cometbft_tpu_torch.libs.metrics import NodeMetrics
+
+        metrics_text = NodeMetrics().registry.expose() if role == "node" else ""
         wall = time.perf_counter() - t0
         cv.verify_core_cuda = real_ed
         if on_card:
@@ -7237,13 +7403,14 @@ def cli_child(cfg_path: str) -> int:
         "kept": {"ed25519": eds, "tree": sorted(list(k) for k in kept_tree),
                  "aead": sorted(list(k) for k in kept_aead), "ladder": sorted(kept_ladder)},
         "max_abs_err": dict(worst), "device_ms": dev_ms, "hops": hops,
-        "signed": dict(signed), "steps": steps, "leaked": leaked})
+        "signed": dict(signed), "steps": steps, "leaked": leaked,
+        "metrics": metrics_text})
     return 0
 
 
-def node_spawn(root, procs, name: str, role: str, **cfg) -> None:
+def node_spawn(root, procs, name: str, role: str, env=None, **cfg) -> None:
     """Start one child of phase 21 (``--cli-child``) with its log and report
-    under ``root``."""
+    under ``root``; ``env`` adds to its environment."""
     script = os.path.abspath(__file__)
     path = root / f"cfg-{name}.json"
     net_write(path, {"name": name, "role": role, "report": str(root / f"report-{name}.json"),
@@ -7251,7 +7418,7 @@ def node_spawn(root, procs, name: str, role: str, **cfg) -> None:
     log = open(root / f"{name}.log", "w")
     procs.append((name, subprocess.Popen(
         [sys.executable, script, "--cli-child", str(path)], cwd=os.path.dirname(script),
-        env=dict(os.environ, COMETBFT_TPU_WARMBOOT="0"), stdout=log,
+        env=dict(os.environ, COMETBFT_TPU_WARMBOOT="0", **(env or {})), stdout=log,
         stderr=subprocess.STDOUT), log))
 
 
@@ -7290,6 +7457,183 @@ def node_stop(root, procs, names, timeout_s: float = 240.0, until: str = "report
     return out
 
 
+def prom(text: str) -> dict:
+    """Prometheus text (``libs/metrics``' exposition) as {series: value}."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            series, _, value = line.rpartition(" ")
+            out[series] = float(value)
+    return out
+
+
+def prom_tiers(values: dict) -> dict:
+    """Ed25519 dispatches by tier, from the dispatch-time histogram's
+    counts by shape (``<tier>-<lanes>``)."""
+    out = collections.Counter()
+    for series, v in values.items():
+        m = re.fullmatch(r'cometbft_crypto_dispatch_seconds_count\{shape="(\w+)-\d+"\}', series)
+        if m:
+            out[m.group(1)] += int(v)
+    return dict(out)
+
+
+class NodeWatch:
+    """Phase 21's observation of one validator through its surfaces: its
+    ``/metrics`` (``instrumentation.prometheus``) scraped at boot, during the
+    tx burst and after it, its ``debug_verify_trace``, its
+    ``/debug/pprof/goroutine`` and ``cmd trace`` of it while it runs; at the
+    end its ``/metrics`` families against its own launch counts."""
+
+    def __init__(self, name: str, rpc_port: int, metrics_port: int, pprof_port: int, tag):
+        self.name, self.rpc, self.tag = name, rpc_port, tag
+        self.metrics_url = f"http://127.0.0.1:{metrics_port}/metrics"
+        self.pprof_url = f"http://127.0.0.1:{pprof_port}/debug/pprof/goroutine"
+        self.scrapes: list = []  # (seconds since the first, ms, values)
+        self._stop = threading.Event()
+        self._thread = None
+
+    def scrape(self) -> dict:
+        import urllib.request
+
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(self.metrics_url, timeout=30) as resp:
+            text = resp.read().decode()
+        ms = (time.perf_counter() - t0) * 1e3
+        values = prom(text)
+        tiers = prom_tiers(values)
+        check(values.get("cometbft_device_up") == -1.0,
+              f"node: {self.name}: cometbft_device_up {values.get('cometbft_device_up')} "
+              "with no status file (the JAX gauge reads -1)")
+        check(set(tiers) <= {"cuda"} and values["cometbft_crypto_backend_fallback_verifies"]
+              == 0, f"node: {self.name}: Ed25519 dispatches by tier {tiers} on /metrics")
+        self.scrapes.append((time.perf_counter(), ms, values, len(text)))
+        return values
+
+    def boot(self) -> None:
+        """At height 2: /metrics, the trace document, the pprof route."""
+        import urllib.request
+
+        values = self.scrape()
+        doc = node_rpc(self.rpc, "debug_verify_trace", {"spans": NODE_TRACE_RING})
+        spans = doc["spans"]
+        stages = collections.Counter(sp["stage"] for sp in spans)
+        tiers = collections.Counter(sp["attrs"].get("tier") for sp in spans
+                                    if sp["stage"] == "verify.dispatch")
+        for stage in ("verify.dispatch", "sched.flush", "aead.flush", "x25519.ladder"):
+            check(stages[stage] > 0, f"node: {self.name}'s trace has no {stage} span: {stages}")
+        check(set(tiers) == {"cuda"}, f"node: {self.name}'s verify.dispatch tiers {tiers}")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(self.pprof_url, timeout=30) as resp:
+            dump = resp.read().decode()
+        pprof_ms = (time.perf_counter() - t0) * 1e3
+        check("MainThread" in dump, f"node: {self.name}'s goroutine dump: {dump[:200]}")
+        threads = dump.count("\n--- ")
+        print(f"node: part A: {self.name} (instrumentation.prometheus, rpc.pprof_laddr) at "
+              f"height 2: /metrics {self.scrapes[-1][3]} bytes in {self.scrapes[-1][1]:.3f} ms "
+              f"(Ed25519 dispatches by tier {prom_tiers(values)}, cometbft_device_up -1); "
+              f"debug_verify_trace: {len(spans)} spans, by stage {dict(stages)}, "
+              f"verify.dispatch tiers {dict(tiers)}; /debug/pprof/goroutine "
+              f"{threads} threads in {pprof_ms:.3f} ms {self.tag}", flush=True)
+
+    def start_scraping(self) -> None:
+        def run():
+            while not self._stop.wait(1.0):
+                self.scrape()
+
+        self._thread = threading.Thread(target=run, name="scrape", daemon=True)
+        self._thread.start()
+
+    def stop_scraping(self) -> None:
+        self._stop.set()
+        self._thread.join(60)
+        check(not self._thread.is_alive(), "node: the /metrics scraper hung")
+        self.scrape()  # after the burst
+        series = [prom_tiers(v).get("cuda", 0) for _, _, v, _ in self.scrapes]
+        check(series == sorted(series) and series[-1] > series[0],
+              f"node: {self.name}'s cuda dispatches over the scrapes {series}")
+        ms = [m for _, m, _, _ in self.scrapes]
+        print(f"node: part A: {self.name}'s /metrics scraped {len(ms)} times (every 1 s "
+              f"during the tx burst, and after it): cuda dispatches {series}; scrape ms "
+              f"median {statistics.median(ms):.3f}, max {max(ms):.3f} {self.tag}", flush=True)
+
+    def trace_cli(self) -> None:
+        """``cmd trace`` of the live node, as an operator runs it."""
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "cometbft_tpu_torch.cmd", "trace", "--rpc",
+             f"tcp://127.0.0.1:{self.rpc}"], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=120)
+        check(out.returncode == 0 and "flight recorder: on" in out.stdout,
+              f"node: cmd trace of {self.name}: rc {out.returncode} {out.stderr[-2000:]}")
+        print(f"node: part A: cmd trace --rpc of {self.name} ({time.perf_counter() - t0:.2f} "
+              f"s):", flush=True)
+        for line in out.stdout.splitlines():
+            print(f"node:   {line}", flush=True)
+
+    def check_report(self, rep: dict) -> None:
+        """/metrics at the end, against the process's own launch counts."""
+        values = prom(rep["metrics"])
+        tiers = prom_tiers(values)
+        launches = rep["launches"]["ed25519"]
+        check(tiers == {"cuda": launches} and rep["tiers"]["ed25519"]["cuda"][0] == launches
+              and values["cometbft_crypto_verify_dispatches"] == launches
+              and values["cometbft_crypto_backend_fallback_verifies"] == 0,
+              f"node: {self.name}: /metrics dispatches by tier {tiers}, verify_dispatches "
+              f"{values['cometbft_crypto_verify_dispatches']}, its launches {launches}")
+        print(f"node: part A: {self.name}'s /metrics at its stop: Ed25519 dispatches by tier "
+              f"{tiers} == its {launches} kernel launches (torch and host 0), "
+              f"cometbft_crypto_verify_dispatches {int(values['cometbft_crypto_verify_dispatches'])}, "
+              f"cometbft_device_up {values['cometbft_device_up']:.0f} {self.tag}", flush=True)
+
+
+def postmortem_of_a_killed_node(root, procs, home, rpc_port: int, tag) -> None:
+    """SIGKILL the validator process ``NODE_KILLED`` (its peers stopped, it
+    waits in a round it cannot commit) and read its home with ``cmd
+    postmortem``: an unclean shutdown, the height its store holds as the last
+    committed one, and the round anchor that was open."""
+    import signal
+
+    from cometbft_tpu_torch.store.block_store import BlockStore
+    from cometbft_tpu_torch.store.kv import SqliteKV
+
+    (p,) = [p for n, p, _ in procs if n == NODE_KILLED]
+    check(p.poll() is None, f"node: {NODE_KILLED} exited before its kill")
+    st = node_rpc(rpc_port, "status")
+    h = int(st["sync_info"]["latest_block_height"])
+    time.sleep(3.0)  # past timeout_commit: the next height's round anchor is open
+    check(int(node_rpc(rpc_port, "status")["sync_info"]["latest_block_height"]) == h,
+          f"node: {NODE_KILLED} committed alone")
+    p.send_signal(signal.SIGKILL)
+    p.wait(60)
+    db = SqliteKV(os.path.join(str(home), "data", "chain.db"), surface="state")
+    stored = BlockStore(db).height()
+    db.close()
+    t0 = time.perf_counter()
+    runs = [subprocess.run([sys.executable, "-m", "cometbft_tpu_torch.cmd", "postmortem",
+                            str(home), *extra], cwd=os.path.dirname(os.path.abspath(__file__)),
+                           capture_output=True, text=True, timeout=120)
+            for extra in (["--json"], [])]
+    pm_s = time.perf_counter() - t0
+    check(all(r.returncode == 0 for r in runs), f"node: cmd postmortem: "
+          f"{[r.stderr[-1000:] for r in runs]}")
+    report = json.loads(runs[0].stdout)
+    inf = report["in_flight"] or {}
+    check(report["unclean_shutdown"] and not report["clean_close"]
+          and report["last_committed_height"] == stored == h
+          and inf.get("h") == stored + 1,
+          f"node: the postmortem of {NODE_KILLED}: unclean {report['unclean_shutdown']}, last "
+          f"committed {report['last_committed_height']}, its store at {stored}, RPC at {h}, "
+          f"in flight {inf}")
+    print(f"node: part A: {NODE_KILLED} SIGKILLed waiting alone at height {h + 1}; cmd "
+          f"postmortem of its home ({pm_s:.2f} s for both runs): unclean shutdown, last "
+          f"committed height {report['last_committed_height']} == its store's {stored}, the "
+          f"in-flight consensus.round anchor {json.dumps(inf, sort_keys=True)}, journal "
+          f"{json.dumps(report['journal'], sort_keys=True)} {tag}", flush=True)
+    for line in runs[1].stdout.splitlines():
+        print(f"node:   {line}", flush=True)
+
+
 def node_part_a(tag, root, procs, after_reads=None) -> dict:
     """Part A of phase 21: CometBFT's ``make localnet-start`` through the
     port's CLI: ``cmd testnet --v 4``, four ``cmd start`` processes with the
@@ -7314,10 +7658,11 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
                "--o", str(net), "--chain-id", NODE_CHAIN]) == 0, "node: cmd testnet failed")
     names = [f"node{i}" for i in range(NODE_VALIDATORS)]
     homes = {n: net / n for n in names}
-    ports = free_ports(2 * NODE_VALIDATORS + 3)
+    ports = free_ports(2 * NODE_VALIDATORS + 5)
     rpc = {n: ports[2 * i] for i, n in enumerate(names)}
     p2p = {n: ports[2 * i + 1] for i, n in enumerate(names)}
-    signer_port, rpc["joiner"], p2p["joiner"] = ports[-3:]
+    signer_port, rpc["joiner"], p2p["joiner"], metrics_port, pprof_port = ports[-5:]
+    watched = names[NODE_WATCHED]
     ids = {n: NodeKey.load_or_generate(str(homes[n] / "config" / "node_key.json")).node_id
            for n in names}
     peers = {n: f"{ids[n]}@127.0.0.1:{p2p[n]}" for n in names}
@@ -7330,11 +7675,17 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
         cfg.p2p.persistent_peers = [peers[m] for m in names if m != n]
         if n == signer_name:
             cfg.base.priv_validator_laddr = f"tcp://127.0.0.1:{signer_port}"
+        if n == watched:
+            cfg.instrumentation.prometheus = True
+            cfg.instrumentation.prometheus_listen_addr = f"tcp://127.0.0.1:{metrics_port}"
+            cfg.rpc.pprof_laddr = f"tcp://127.0.0.1:{pprof_port}"
         cfgmod.write_config(cfg)
     defaults = cfgmod.default_config()
 
     def start(n: str, name: str = "") -> None:
-        node_spawn(root, procs, name or n, "node", argv=["--home", str(homes[n]), "start"])
+        env = {"COMETBFT_TPU_TRACE_RING": str(NODE_TRACE_RING)} if n == watched else None
+        node_spawn(root, procs, name or n, "node", env=env,
+                   argv=["--home", str(homes[n]), "start"])
 
     def alive(what: str) -> None:
         for name, p, _ in procs:
@@ -7371,6 +7722,8 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
           f"(imports, the kernel's self-check, the handshakes) {tag}", flush=True)
     ws = NodeWs(rpc["node1"], "tm.event='NewBlock'")
     ws_from = height("node1")
+    watch = NodeWatch(watched, rpc[watched], metrics_port, pprof_port, tag)
+    watch.boot()
 
     # -- traffic: 5,000 txs by broadcast_tx_sync, then 20 by _commit -------
     rng = np.random.default_rng(NODE_SEED)
@@ -7400,12 +7753,14 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
         raise SmokeError(f"node: tx {k} never admitted")
 
     t0 = time.perf_counter()
+    watch.start_scraping()
     with concurrent.futures.ThreadPoolExecutor(NODE_CLIENTS) as ex:
         list(ex.map(send, range(NODE_TXS)))
     admit_s = time.perf_counter() - t0
     wait(lambda: all(int((node_try(rpc[n], "num_unconfirmed_txs") or {"n_txs": 1})["n_txs"])
                      == 0 for n in names), "every tx committed")
     drain_s = time.perf_counter() - t0
+    watch.stop_scraping()
     commit_ms = {}
 
     def send_commit(k: int) -> None:
@@ -7535,6 +7890,7 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
           f"data hashes (p50, p99 {np.percentile(prove_ms, [50, 99]).round(3).tolist()} ms); "
           f"{NODE_PROVE} abci_query of written keys returned their values {tag}", flush=True)
 
+    watch.trace_cli()
     if after_reads is not None:
         after_reads()
 
@@ -7613,10 +7969,14 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
     end_h = height("node1")
     time.sleep(1.5)
     ws.close()
-    everyone = names + ["signer", "node2-restart", "joiner"]
+    everyone = names + ["signer", "joiner"]
     t_stop = time.perf_counter()
     reports = node_stop(root, procs, everyone)
     stop_s = time.perf_counter() - t_stop
+    # the last validator left (2 of 4, after its restart) cannot commit
+    # alone: its round anchors open and flush while it waits; SIGKILL it
+    postmortem_of_a_killed_node(root, procs, homes["node2"], rpc["node2"], tag)
+    watch.check_report(reports[watched])
     wall = time.perf_counter() - t_run
     ws_h = sorted({h for h, _ in ws.heights})
     check(ws_h and ws_h[0] <= ws_from + 1 and ws_h == list(range(ws_h[0], ws_h[-1] + 1))
@@ -7842,6 +8202,12 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    t_main = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        """Where the script's time goes: each phase's end on one clock."""
+        print(f"timeline: {phase} ended {time.perf_counter() - t_main:.1f} s after the start")
+
     # no background warm-boot pass in this process: its self-check launches
     # would land in the phases' launch counts (phase 16 warms in processes
     # of its own and calls the pass here by hand)
@@ -7893,6 +8259,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     for name in _build.sources():
         for line in ptxas_lines(_build.build_log(name)):
             print(f"build: {name}: {line}")
+    lap("build")
 
     # -- set-up: keys, commit, signatures ------------------------------------
     t0 = time.perf_counter()
@@ -8089,15 +8456,21 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"{-(-grid // sms) * occ['threads'] // 32} warps on one SM"
           f"{'' if grid <= resident else ' (more than one wave)'} {tag}")
 
+    lap("kernel, slice and times")
+
     # -- 7. inflight: the light-client window and the overlapped path --------
     window = [commit if i % 2 == 0 else bad_commit for i in range(WINDOW)]
     inflight_phase(torch, ov, cv, val, vals, block_id, window,
                    (pubs, sign_bytes, sigs), tag)
     check_tiers(ds, "inflight")
+    lap("inflight")
 
     # -- 8. gossip: Vote.verify from 64 peers through the scheduler ----------
-    gossip_phase(cv, ds, val, vals, commit, bad_commit, block_id, sign_bytes,
-                 bad, ref, tag)
+    votes, vote_keys, vote_want = gossip_phase(cv, ds, val, vals, commit, bad_commit,
+                                               block_id, sign_bytes, bad, ref, tag)
+    lap("gossip")
+    tracing_phase(cv, ds, val, vals, block_id, commit, votes, vote_keys, vote_want, tag)
+    lap("tracing")
     leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     check(not leaked, f"imported {leaked}")
 
@@ -8105,35 +8478,43 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
     supervisor_phase(cv, ov, ds, cbatch, val, vals, block_id, commit, pubs,
                      sign_bytes, sigs, ref, tag)
     verifysched.reset_scheduler()  # drains and joins its threads
+    lap("supervisor")
 
     # -- 10. profile: stage builds and field-op chains -----------------------
     chain_entry = profile_phase(torch, dev, t, tg, n, sms, max_clock_mhz, tag)
+    lap("profile")
 
     # -- 11. secp: a secp256k1 commit through the ECDSA kernel --------------
     secp_entry = secp_phase(torch, dev, cbatch, val, ds, sigcache, n, bad, sms,
                             max_clock_mhz, tag)
+    lap("secp")
 
     # -- 12. light: header sync (config 3) through the SHA-256 tree kernel --
     light_entry = light_phase(torch, dev, cbatch, cv, ds, sigcache, sms,
                               max_clock_mhz, tag)
+    lap("light")
 
     # -- 13. bls: BLS12-381 commits (config 5) through the G1 kernel ---------
     bls_entry = bls_phase(torch, dev, cbatch, val, ds, sigcache, sms,
                           max_clock_mhz, tag)
+    lap("bls")
 
     # -- 14. transport: SecretConnection frames and dials through the kernels
     aead_entry, ladder_entry = transport_phase(torch, dev, cbatch, ds, sms,
                                                max_clock_mhz, tag)
+    lap("transport")
 
     # -- 15. proofs: the proof server through the tree kernel's levels -------
     proof_launches = proofs_phase(torch, dev, ds, tag)
     light_entry["launches"] += proof_launches
     print(f"proofs: the tree kernel's launches on its paths: light "
           f"{light_entry['launches'] - proof_launches} + proofs {proof_launches}")
+    lap("proofs")
 
     # -- 16. warmboot: the build cache, the warm pass, msm -------------------
     warmboot_phase(torch, dev, ds, vals, commit, block_id, n, sms,
                    max_clock_mhz, tag)
+    lap("warmboot")
 
     # -- 17. blockexec: a node's apply path over on-disk stores --------------
     t_phase = time.perf_counter()
@@ -8142,6 +8523,7 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
           f"kernels' launches on its path: Ed25519 {be['ed25519']}, tree {be['tree']} "
           f"(the kernels line below keeps the earlier paths' counts: Ed25519 "
           f"{launches}, tree {light_entry['launches']})")
+    lap("blockexec")
 
     try:
         # -- 18. consensus: four validators, a restart, the seeded network ---
@@ -8152,15 +8534,19 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
               f"{light_entry['launches']})")
         launches += cs_launches["ed25519"]
         light_entry["launches"] += cs_launches["tree"]
+        lap("consensus")
 
         # -- 19. network: switches, reactors, PEX and blocksync ---------------
         net = network_phase(torch, dev, cbatch, cv, ds, sigcache, be, tag)
+        lap("network")
 
         # -- 20. ingest_statesync: a sentry's admission, a fresh node's sync -
         iss = ingest_statesync_phase(torch, dev, cbatch, cv, ds, sigcache, be, tag)
+        lap("ingest_statesync")
 
         # -- 21. node: the CLI's localnet, a remote signer, a light proxy ----
         nd = node_phase(be, tag)
+        lap("node")
     finally:
         shutil.rmtree(be["dir"], ignore_errors=True)  # phase 17's chain
     print(f"network: the kernels' launches on its path: Ed25519 {net['ed25519']}, tree "

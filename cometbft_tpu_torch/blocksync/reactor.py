@@ -18,8 +18,8 @@ checks.  Built with no card the reactor raises unless ``device="cpu"`` or
 not serve raises ``BackendError``.  A failed prefetch logs "fused verify
 prefetch failed" and the authoritative per-height verify runs, as in the
 JAX package; a failed tick logs "blocksync pool error" and the loop
-retries.  The JAX package's "blocksync.prefetch" span (``libs/tracing``)
-waits for the port's ``libs/tracing``: its site is a comment.
+retries.  A fused prefetch records a "blocksync.prefetch" span
+(``libs/tracing``), as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -402,22 +402,27 @@ class BlocksyncReactor(Reactor):
             to_fuse.append((fp, h, prepared, bits, miss))
         if not to_fuse:
             return
+        from cometbft_tpu_torch.libs import tracing
         from cometbft_tpu_torch.ops import verify as ov
 
         try:
-            # (the JAX package's "blocksync.prefetch" span, with commits,
-            # h0 and sigs, covers this call)
-            results = ov.verify_segments(
-                [
-                    (
-                        [p.pubs[j] for j in miss],
-                        [p.msgs[j] for j in miss],
-                        [p.sigs[j] for j in miss],
-                    )
-                    for _, _, p, _, miss in to_fuse
-                ],
-                self.device,
-            )
+            with tracing.span(
+                "blocksync.prefetch",
+                commits=len(to_fuse),
+                h0=to_fuse[0][1],
+                sigs=sum(len(miss) for *_, miss in to_fuse),
+            ):
+                results = ov.verify_segments(
+                    [
+                        (
+                            [p.pubs[j] for j in miss],
+                            [p.msgs[j] for j in miss],
+                            [p.sigs[j] for j in miss],
+                        )
+                        for _, _, p, _, miss in to_fuse
+                    ],
+                    self.device,
+                )
         except Exception as e:  # noqa: BLE001 — prefetch must never stall sync
             self.logger.error("fused verify prefetch failed", err=repr(e))
             return

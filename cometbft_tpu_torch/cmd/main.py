@@ -252,12 +252,10 @@ def cmd_version(args) -> int:
     return 0
 
 
-# The JAX CLI's ``sim``, ``trace`` and ``postmortem`` read modules the port
-# has not yet; each prints the module it waits for and exits non-zero.
+# The JAX CLI's ``sim`` reads modules the port has not yet; it prints the
+# modules it waits for and exits non-zero.
 _NOT_PORTED = {
     "sim": "sim/{cluster,blocksync,scenarios}",
-    "trace": "libs/tracing",
-    "postmortem": "libs/blackbox",
 }
 
 
@@ -269,6 +267,281 @@ def cmd_not_ported(args) -> int:
         file=sys.stderr,
     )
     return 2
+
+
+def cmd_trace(args) -> int:
+    """Snapshot the verify-pipeline flight recorder + pipeline health as
+    one JSON document (docs/observability.md).  ``--rpc`` queries a
+    running node's ``/debug/verify_trace`` endpoint; ``--local`` renders
+    this process's own recorder (mostly useful under test harnesses that
+    import the node in-process)."""
+    if args.local:
+        from cometbft_tpu_torch.libs import tracing
+
+        doc = tracing.trace_document(
+            max_spans=args.spans, rounds=args.rounds
+        )
+    else:
+        import urllib.request
+
+        addr = args.rpc
+        if addr.startswith("tcp://"):
+            addr = "http://" + addr[len("tcp://"):]
+        if not addr.startswith(("http://", "https://")):
+            addr = "http://" + addr
+        url = (
+            f"{addr.rstrip('/')}/debug_verify_trace"
+            f"?spans={args.spans}&rounds={args.rounds}"
+        )
+        try:
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                reply = json.loads(resp.read())
+        except (OSError, ValueError) as e:
+            # ValueError covers a non-JSON body (proxy error page,
+            # truncated response) — a diagnostic CLI must not traceback
+            print(f"cannot reach {url}: {e}", file=sys.stderr)
+            return 1
+        if "error" in reply:
+            print(f"rpc error: {reply['error']}", file=sys.stderr)
+            return 1
+        doc = reply.get("result", {})
+    if args.json:
+        print(json.dumps(doc, indent=2, sort_keys=True))
+        return 0
+    # human summary: health first, then the stage latency table
+    t = doc.get("tracing", {})
+    print(
+        "flight recorder: %s spans=%s dropped=%s anomalies=%s dumps=%s"
+        % (
+            "on" if t.get("enabled") else "OFF",
+            t.get("spans_recorded"),
+            t.get("spans_dropped"),
+            t.get("anomalies_total"),
+            t.get("dump_count"),
+        )
+    )
+    for kind, n in sorted((t.get("anomalies") or {}).items()):
+        print(f"  anomaly {kind}: {n}")
+    backend = doc.get("backend", {})
+    for name, br in sorted((backend.get("breakers") or {}).items()):
+        print(
+            "breaker %-12s %-9s opens=%s last_error=%s"
+            % (name, br.get("state"), br.get("opens"), br.get("last_error") or "-")
+        )
+    dev = doc.get("device", {})
+    if dev and dev.get("up") is not None:
+        print(
+            "device: %s platform=%s probes=%s transitions=%s source=%s"
+            % (
+                "UP" if dev.get("up") else "DOWN",
+                dev.get("platform") or "?",
+                dev.get("probes"),
+                dev.get("transitions"),
+                dev.get("source"),
+            )
+        )
+    disp = doc.get("dispatch", {})
+    if disp.get("mesh_width"):
+        print(
+            "mesh: width=%s shrinks=%s restores=%s"
+            % (
+                disp.get("mesh_width"),
+                disp.get("mesh_shrinks"),
+                disp.get("mesh_restores"),
+            )
+        )
+    bb = doc.get("blackbox", {})
+    if bb and "records" in bb:
+        print(
+            "blackbox: records=%s bytes=%s dropped=%s segments=%s"
+            % (
+                bb.get("records"),
+                bb.get("bytes"),
+                bb.get("dropped"),
+                bb.get("segments"),
+            )
+        )
+    sig = doc.get("sigcache", {})
+    if sig:
+        print(
+            "sigcache: hit_rate=%.2f size=%s/%s"
+            % (sig.get("hit_rate", 0.0), sig.get("size"), sig.get("capacity"))
+        )
+    sched = doc.get("sched", {})
+    if sched:
+        print(
+            "sched: queue_depth=%s shed=%s dedup=%s"
+            % (
+                sched.get("queue_depth"),
+                sched.get("shed_total"),
+                sched.get("dedup_hits"),
+            )
+        )
+    warm = doc.get("warmboot", {})
+    if warm:
+        print(
+            "warmboot: runs=%s shapes=%s compiles=%s exec_hits=%s"
+            % (
+                warm.get("warm_runs"),
+                warm.get("shapes_warmed"),
+                warm.get("compiles"),
+                warm.get("exec_hits"),
+            )
+        )
+    stages = doc.get("stages", {})
+    if stages:
+        print(f"{'stage':24s} {'count':>7s} {'p50ms':>9s} {'p99ms':>9s} {'maxms':>9s}")
+        for stage, row in sorted(stages.items()):
+            print(
+                "%-24s %7d %9.3f %9.3f %9.3f"
+                % (
+                    stage,
+                    row["count"],
+                    row["p50_ms"],
+                    row["p99_ms"],
+                    row["max_ms"],
+                )
+            )
+    rounds = doc.get("rounds") or {}
+    if rounds.get("rounds_seen"):
+        print(
+            "rounds: seen=%s commits linked=%s unlinked=%s standalone=%s"
+            % (
+                rounds.get("rounds_seen"),
+                rounds.get("commits_linked"),
+                rounds.get("commits_unlinked"),
+                rounds.get("commits_standalone"),
+            )
+        )
+        for step, s in sorted((rounds.get("steps") or {}).items()):
+            print(
+                "  step %-22s n=%-5d p50=%8.3fms p99=%8.3fms"
+                % (step, s.get("count", 0), s.get("p50_ms", 0.0),
+                   s.get("p99_ms", 0.0))
+            )
+        for k, q in sorted((rounds.get("quorum") or {}).items()):
+            if q.get("count"):
+                print(
+                    "  quorum %-20s n=%-5d p50=%8.3fms p99=%8.3fms"
+                    % (k, q["count"], q.get("p50_ms", 0.0),
+                       q.get("p99_ms", 0.0))
+                )
+        for g in rounds.get("rounds") or []:
+            committed = sum(
+                1 for nd in g["nodes"] if nd.get("committed")
+            )
+            print(
+                "  round h=%-5s r=%-3s origin=%-4s trace=%-6s nodes=%d "
+                "committed=%d verify_commits=%d"
+                % (
+                    g["h"], g["r"],
+                    "?" if g["origin"] is None else g["origin"],
+                    "?" if g["trace"] is None else g["trace"],
+                    len(g["nodes"]), committed, g["commits"],
+                )
+            )
+    return 0
+
+
+def cmd_postmortem(args) -> int:
+    """Reconstruct a dead node's final timeline from its black-box
+    journal (docs/observability.md "Black box"): last committed height,
+    the in-flight consensus round (step spans, quorum arrivals), open
+    spans at death, the last verify-dispatch attribution triple, recent
+    anomalies and last-known breaker states.  A torn final record is a
+    normal crash artifact; corruption is skipped and counted, never
+    raised.  ``--json`` prints the full report (sort_keys-stable, so two
+    same-seed sim crashes byte-compare)."""
+    from cometbft_tpu_torch.libs import blackbox
+
+    target = blackbox.resolve_dir(args.dir)
+    if target is None:
+        print(f"no black-box journal under {args.dir}", file=sys.stderr)
+        return 1
+    report = blackbox.postmortem_report(target, recent=args.recent)
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+        return 0
+    j = report["journal"]
+    print(
+        "journal: %d records in %d segment(s), %d bytes%s%s"
+        % (
+            j["records"],
+            j["segments"],
+            j["bytes"],
+            ", %d corrupt skipped" % j["corrupt_skipped"]
+            if j["corrupt_skipped"]
+            else "",
+            ", torn tail" if j["torn_tail"] else "",
+        )
+    )
+    print(
+        "shutdown: %s"
+        % ("CLEAN" if report["clean_close"] else "UNCLEAN (no sentinel)")
+    )
+    print("last committed height: %s" % report["last_committed_height"])
+    inf = report["in_flight"]
+    if inf:
+        print(
+            "in-flight round at death: h=%s r=%s node=%s (opened t=%s)"
+            % (inf["h"], inf["r"], inf["node"], inf["t0"])
+        )
+        for step, dur in sorted(inf["steps"].items()):
+            print("  step %-24s %s ms" % (step, dur))
+        for k, ms in sorted(inf["quorum"].items()):
+            print("  quorum %-22s %s ms" % (k, ms))
+    else:
+        print("in-flight round at death: none recorded")
+    ld = report["last_dispatch"]
+    if ld:
+        print(
+            "last dispatch: tier=%s lanes=%s n=%s ordinal=%s%s"
+            % (
+                ld["tier"],
+                ld["lanes"],
+                ld["n"],
+                ld["dispatch"],
+                " mesh=%s" % ld["mesh"] if ld.get("mesh") else "",
+            )
+        )
+    mesh = report.get("mesh") or {}
+    if mesh.get("width") is not None:
+        print("mesh width at death: %s" % mesh["width"])
+        for ev in mesh.get("events") or ():
+            a = ev.get("attrs") or {}
+            print(
+                "  mesh reconfig t=%s width=%s reason=%s%s%s"
+                % (
+                    ev.get("t"),
+                    a.get("width"),
+                    a.get("reason"),
+                    " excluded=%s" % a["excluded"] if "excluded" in a else "",
+                    " restored=%s" % a["restored"] if "restored" in a else "",
+                )
+            )
+    for sp in report["open_spans"]:
+        print(
+            "open span at death: %s (span=%s t0=%s) %s"
+            % (sp["stage"], sp["span"], sp["t0"], sp["attrs"])
+        )
+    for kind, n in sorted(report["anomaly_counts"].items()):
+        print("anomaly %s: %d" % (kind, n))
+    for backend, st in sorted(report["breakers"].items()):
+        print(
+            "breaker %-12s %-7s%s"
+            % (
+                backend,
+                st["state"],
+                " last_error=%s" % st["error"] if st.get("error") else "",
+            )
+        )
+    for ev in report["device_events"]:
+        a = ev.get("attrs") or {}
+        print(
+            "device probe t=%s up=%s platform=%s"
+            % (ev.get("t"), a.get("up"), a.get("platform"))
+        )
+    return 0
 
 
 def cmd_inspect(args) -> int:
@@ -672,7 +945,7 @@ def build_parser() -> argparse.ArgumentParser:
              "(default 8; 0 skips the section)",
     )
     sp.add_argument("--json", action="store_true", help="raw JSON document")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_trace)
 
     sp = sub.add_parser(
         "postmortem",
@@ -691,7 +964,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--json", action="store_true",
         help="full report as sort_keys-stable JSON",
     )
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_postmortem)
 
     sp = sub.add_parser("version", help="print version")
     sp.set_defaults(fn=cmd_version)

@@ -15,12 +15,13 @@ parts).  Proposal, vote and vote-extension signatures go through
 ``verifysched.verify_cached`` at the consensus priority: on a card node the
 Ed25519 kernel answers them in the scheduler's flushes.
 
-The JAX package's flight-recorder spans (``libs/tracing``: the
-``consensus.round`` anchor, ``consensus.step``, ``consensus.proposal``,
-``consensus.vote_ext``, the quorum stamps and the adopted trace context)
-are left out until the port's ``libs/tracing``; each site keeps a comment
-that names its span.  ``add_peer_message`` keeps its ``trace_ctx``
-parameter and ignores it.
+The flight recorder (``libs/tracing``) sees each round as the JAX
+package's does: a ``consensus.round`` anchor per (height, round), the
+parent of every span the round produces, with ``consensus.step`` spans
+under it, ``consensus.proposal`` and ``consensus.vote_ext`` around those
+checks, the quorum stamps, and the trace context a received message
+carries adopted into it.  Trace contexts stay in memory: no wire byte
+carries them.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from cometbft_tpu_torch.consensus.types import (
 )
 from cometbft_tpu_torch.consensus.wal import WAL
 from cometbft_tpu_torch.libs import log as liblog
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.libs.diskguard import StorageFatal
 from cometbft_tpu_torch.libs.service import BaseService
 from cometbft_tpu_torch.state.execution import BlockExecutor
@@ -162,10 +164,14 @@ class ConsensusState(BaseService):
         # header in their block id); drained once the PartSet exists
         self._orphan_parts: list = []
 
-        # flight-recorder round anchor: the JAX package keeps one
-        # unfinished ``consensus.round`` span per (height, round) here; in
-        # the port ``_round_span`` stays None until libs/tracing.
-        # ``trace_origin`` names this node (the sim sets it to the node
+        # flight-recorder round anchor: one unfinished ``consensus.round``
+        # span per (height, round), opened at round entry and recorded when
+        # the round ends.  It is the ambient parent of every span the round
+        # produces (step timings, proposal/vote checks, the commit's verify
+        # pipeline) and the thing a received proposal's trace context
+        # re-parents, so a commit's verify spans on this node link to the
+        # proposal that originated on the proposer.  ``trace_origin`` names
+        # this node in propagated contexts (the sim sets it to the node
         # index).
         self.trace_origin = None
         self._round_span = None
@@ -369,51 +375,147 @@ class ConsensusState(BaseService):
         with self._mtx:
             msg = mi.msg
             self._maybe_adopt_ctx(mi)
-            # (the JAX package parents every span the message produces
-            # under this round's "consensus.round" anchor here)
-            if isinstance(msg, ProposalMessage):
-                self._set_proposal(msg.proposal)
-            elif isinstance(msg, BlockPartMessage):
-                added = self._add_proposal_block_part(msg)
-                if added:
-                    self._on_block_part_added(msg.height)
-            elif isinstance(msg, VoteMessage):
-                self._try_add_vote(msg.vote, mi.peer_id)
+            # every span the message produces (proposal/vote signature
+            # checks, block validation, the commit's verify pipeline)
+            # parents under this round's anchor and therefore inherits
+            # the round trace — cross-node once the anchor is adopted
+            with tracing.get_tracer().under(self._round_span):
+                if isinstance(msg, ProposalMessage):
+                    self._set_proposal(msg.proposal)
+                elif isinstance(msg, BlockPartMessage):
+                    added = self._add_proposal_block_part(msg)
+                    if added:
+                        self._on_block_part_added(msg.height)
+                elif isinstance(msg, VoteMessage):
+                    self._try_add_vote(msg.vote, mi.peer_id)
 
     # ------------------------------------------------------------------
     # flight-recorder round anchors (docs/observability.md)
     # ------------------------------------------------------------------
 
     def _maybe_adopt_ctx(self, mi: MsgInfo) -> None:
-        """Link this node's round anchor into the sender's trace.  (The
-        JAX package adopts the received ``trace_ctx`` into its
-        "consensus.round" span here; it waits for libs/tracing.)"""
+        """Link this node's round anchor into the sender's trace: a
+        proposal (or a vote/part from a node that already linked) carries
+        the round trace rooted at the proposer's anchor.  First adoption
+        wins; the proposer's own anchor (the root) never adopts."""
+        if mi.trace_ctx is None:
+            return
+        sp = self._round_span
+        if sp is None or sp.parent_id is not None or sp.attrs.get("proposer"):
+            return
+        ctx = tracing.TraceContext.decode(mi.trace_ctx)
+        if ctx is None:
+            return
+        msg = mi.msg
+        if isinstance(msg, ProposalMessage):
+            h, r = msg.proposal.height, msg.proposal.round_
+        elif isinstance(msg, VoteMessage):
+            h, r = msg.vote.height, msg.vote.round_
+        elif isinstance(msg, BlockPartMessage):
+            h, r = msg.height, msg.round_
+        else:
+            return
+        if sp.attrs.get("h") == h and sp.attrs.get("r") == r:
+            tracing.get_tracer().adopt(sp, ctx)
 
     def _open_round_span(self, height: int, round_: int) -> None:
-        """(The JAX package opens the "consensus.round" span here.)"""
+        tr = tracing.get_tracer()
+        attrs = {"h": height, "r": round_}
+        if self.trace_origin is not None:
+            attrs["node"] = self.trace_origin
+        self._round_span = tr.begin("consensus.round", **attrs)
+        self._step_t0 = tr.time()
+        self._step_prev = None
 
     def _close_round_span(self, committed: bool) -> None:
-        """(The JAX package records the last "consensus.step" span and
-        finishes the "consensus.round" span here.)"""
+        sp = self._round_span
+        if sp is None:
+            return
+        self._round_span = None
+        tr = tracing.get_tracer()
+        if self._step_prev is not None:
+            self._record_step_span(sp, self._step_prev, tr.time())
+        self._step_prev = None
+        tr.finish(sp, committed=committed)
 
     def _rotate_round_span(self, height: int, round_: int) -> None:
-        """(The JAX package closes the last round's "consensus.round" span
-        and opens this round's here.)"""
+        sp = self._round_span
+        if (
+            sp is not None
+            and sp.attrs.get("h") == height
+            and sp.attrs.get("r") == round_
+        ):
+            return  # same round re-entered (wait-for-txs loop)
+        self._close_round_span(committed=False)
+        self._open_round_span(height, round_)
+
+    def _record_step_span(self, sp, step_name: str, now: float) -> None:
+        attrs = {
+            "h": sp.attrs.get("h"),
+            "r": sp.attrs.get("r"),
+            "step": step_name,
+        }
+        if self.trace_origin is not None:
+            attrs["node"] = self.trace_origin
+        tracing.get_tracer().record_span(
+            "consensus.step", self._step_t0, now, parent=sp, **attrs
+        )
+        self._step_t0 = now
 
     def _note_step_transition(self) -> None:
-        """Called on every (height, round, step) transition.  (The JAX
-        package records the previous step's "consensus.step" span here.)"""
+        """Called on every (height, round, step) transition: records the
+        PREVIOUS step's duration as a ``consensus.step`` span under the
+        round anchor — retroactive, because a step's length is only known
+        once the next one begins."""
+        sp = self._round_span
+        if sp is None:
+            return
+        name = self.rs.step_name()
+        if name == self._step_prev:
+            return
+        now = tracing.get_tracer().time()
+        if self._step_prev is not None:
+            self._record_step_span(sp, self._step_prev, now)
+        else:
+            self._step_t0 = now
+        self._step_prev = name
 
     def _note_quorum(self, key: str, round_: int) -> None:
-        """Called when 2/3 power first lands for ``round_``.  (The JAX
-        package stamps ``key`` — "q_prevote_ms" / "q_precommit_ms" — onto
-        the "consensus.round" span and journals a "quorum" event here.)"""
+        """Stamp a quorum-arrival time (ms since round entry) onto the
+        round anchor the first time 2/3 power lands for ``round_`` —
+        time-to-2/3-prevotes / time-to-2/3-precommits."""
+        sp = self._round_span
+        if sp is None or key in sp.attrs or sp.attrs.get("r") != round_:
+            return
+        t = tracing.get_tracer().time() - sp.t_start
+        ms = round(t * 1e3, 6)
+        sp.set(**{key: ms})
+        # quorum arrivals are stamped onto the UNFINISHED anchor, which a
+        # crash would lose — journal them so the black box can attach them
+        # to the in-flight round's postmortem (no-op without a journal)
+        tracing.note_event(
+            "quorum",
+            h=sp.attrs.get("h"),
+            r=sp.attrs.get("r"),
+            node=sp.attrs.get("node"),
+            key=key,
+            ms=ms,
+        )
 
     def current_trace_ctx(self):
-        """The trace context outgoing gossip should carry: None until the
-        port's libs/tracing (the JAX package returns the linked
-        "consensus.round" anchor's context)."""
-        return None
+        """The trace context outgoing gossip should carry, or None.  Only
+        a LINKED anchor propagates — the proposer's root, or an anchor
+        adopted into the proposal's trace — so every context on the wire
+        resolves to the originating proposal's trace id (a node that has
+        not seen the proposal yet gossips context-free)."""
+        sp = self._round_span
+        if sp is None or not tracing.xnode_enabled():
+            return None
+        if sp.parent_id is None and not sp.attrs.get("proposer"):
+            return None
+        return tracing.TraceContext(
+            sp.trace_id, sp.span_id, self.trace_origin
+        )
 
     def _handle_timeout(self, ti: TimeoutInfo) -> None:
         with self._mtx:
@@ -422,8 +524,8 @@ class ConsensusState(BaseService):
                 ti.round_ == rs.round_ and ti.step < rs.step
             ):
                 return  # stale
-            # (the JAX package runs this under the "consensus.round" span)
-            self._dispatch_timeout(ti)
+            with tracing.get_tracer().under(self._round_span):
+                self._dispatch_timeout(ti)
 
     def _dispatch_timeout(self, ti: TimeoutInfo) -> None:
         """Timeout-driven transitions under the round anchor, so verify
@@ -910,34 +1012,35 @@ class ConsensusState(BaseService):
         block, parts = rs.proposal_block, rs.proposal_block_parts
         block_id = BlockID(hash=block.hash(), part_set_header=parts.header)
 
-        # (the JAX package runs the commit's verify work — LastCommit
-        # re-verification inside validate/apply — under the
-        # "consensus.round" span)
-        self.block_exec.validate_block(self.state, block)
+        # the commit's verify work (LastCommit re-verification inside
+        # validate/apply) parents under the round anchor, so its spans
+        # carry the originating proposal's trace id
+        with tracing.get_tracer().under(self._round_span):
+            self.block_exec.validate_block(self.state, block)
 
-        fail_point(10)
-        # save block + seen commit (DISK)
-        if self.block_store.height() < height:
-            precommits = rs.votes.precommits(rs.commit_round)
-            seen_commit = precommits.make_commit()
-            ext_commit = (
-                precommits.make_extended_commit()
-                if self._extensions_enabled(height)
-                else None
+            fail_point(10)
+            # save block + seen commit (DISK)
+            if self.block_store.height() < height:
+                precommits = rs.votes.precommits(rs.commit_round)
+                seen_commit = precommits.make_commit()
+                ext_commit = (
+                    precommits.make_extended_commit()
+                    if self._extensions_enabled(height)
+                    else None
+                )
+                self.block_store.save_block(
+                    block, parts, seen_commit, extended_commit=ext_commit
+                )
+
+            fail_point(11)
+            # WAL end-height marker (DISK fsync) — replay boundary
+            if self.wal is not None:
+                self.wal.write_end_height(height)
+            fail_point(12)
+
+            new_state = self.block_exec.apply_verified_block(
+                self.state, block_id, block
             )
-            self.block_store.save_block(
-                block, parts, seen_commit, extended_commit=ext_commit
-            )
-
-        fail_point(11)
-        # WAL end-height marker (DISK fsync) — replay boundary
-        if self.wal is not None:
-            self.wal.write_end_height(height)
-        fail_point(12)
-
-        new_state = self.block_exec.apply_verified_block(
-            self.state, block_id, block
-        )
 
         fail_point(13)
         self.logger.info(
@@ -1025,13 +1128,15 @@ class ConsensusState(BaseService):
         # check coalesces with in-flight vote verifications
         from cometbft_tpu_torch import verifysched
 
-        # (the JAX package's "consensus.proposal" span covers this check)
-        ok = verifysched.verify_cached(
-            proposer.pub_key,
-            proposal.sign_bytes(self.state.chain_id),
-            proposal.signature,
-            priority=verifysched.PRIO_CONSENSUS,
-        )
+        with tracing.span(
+            "consensus.proposal", h=proposal.height, r=proposal.round_
+        ):
+            ok = verifysched.verify_cached(
+                proposer.pub_key,
+                proposal.sign_bytes(self.state.chain_id),
+                proposal.signature,
+                priority=verifysched.PRIO_CONSENSUS,
+            )
         if not ok:
             raise VoteError("invalid proposal signature")
         rs.proposal = proposal
@@ -1225,13 +1330,15 @@ class ConsensusState(BaseService):
         # extension signatures when serving/validating extended commits.
         # Scheduled at consensus priority: the extension check rides the
         # same fused dispatch as the vote signature it arrived with.
-        # (the JAX package's "consensus.vote_ext" span covers this check)
-        ext_ok = bool(vote.extension_signature) and verifysched.verify_cached(
-            pub,
-            vote.extension_sign_bytes(self.state.chain_id),
-            vote.extension_signature,
-            priority=verifysched.PRIO_CONSENSUS,
-        )
+        with tracing.span(
+            "consensus.vote_ext", h=vote.height, r=vote.round_
+        ):
+            ext_ok = bool(vote.extension_signature) and verifysched.verify_cached(
+                pub,
+                vote.extension_sign_bytes(self.state.chain_id),
+                vote.extension_signature,
+                priority=verifysched.PRIO_CONSENSUS,
+            )
         if not ext_ok:
             self.logger.debug(
                 "rejecting precommit: bad extension signature",

@@ -141,11 +141,13 @@ class WAL:
             if i + 8 + length > len(tail):
                 continue
             if zlib.crc32(tail[i + 8 : i + 8 + length]) & 0xFFFFFFFF == crc:
-                from cometbft_tpu_torch.libs import storage_stats
+                from cometbft_tpu_torch.libs import storage_stats, tracing
 
                 storage_stats.record_fatal("wal")
-                # (the JAX package's "disk_fatal" anomaly record goes here
-                # with libs/tracing)
+                tracing.record_anomaly(
+                    "disk_fatal", surface="wal", op="repair",
+                    errno=-1, error="WALCorruptionError",
+                )
                 raise WALCorruptionError(
                     "mid-stream WAL corruption at byte %d of %s: a valid "
                     "frame follows the damage at offset %d — refusing to "
@@ -161,11 +163,15 @@ class WAL:
             "good_bytes": good,
             "dropped_bytes": dropped,
         }
-        from cometbft_tpu_torch.libs import storage_stats
+        from cometbft_tpu_torch.libs import storage_stats, tracing
 
         storage_stats.record_repair("wal", dropped)
-        # (the JAX package's "wal_repair" journal event goes here with
-        # libs/tracing)
+        tracing.note_event(
+            "wal_repair",
+            path=self.path,
+            good_bytes=good,
+            dropped_bytes=dropped,
+        )
         return self.last_repair
 
     # -- writing ----------------------------------------------------------

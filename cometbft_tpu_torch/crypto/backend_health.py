@@ -47,6 +47,10 @@ HALF_OPEN = "half-open"
 
 _STATE_CODE = {CLOSED: 0, HALF_OPEN: 1, OPEN: 2}
 
+# the ed25519 chain's tiers (ops/supervisor.device_chain: the kernel and
+# the plain version) share the "breaker_open" anomaly kind, as the JAX
+# package's pallas/xla tiers do; any other breaker gets its own kind
+_ED25519_CHAIN_TIERS = ("cuda", "torch")
 # The breaker of the secp256k1 device path (``ops/supervisor``'s
 # ``supervised_device_call``), beside the verify chain's ``cuda``/``torch``.
 SECP_DEVICE = "secp_device"
@@ -169,9 +173,6 @@ class CircuitBreaker:
     # -- resolution --------------------------------------------------------
 
     def record_success(self) -> None:
-        # The JAX package journals a re-promotion as a "breaker_close"
-        # event here; it goes in with the port of libs/tracing (ROADMAP
-        # "Node assembly").
         with self._lock:
             repromoted = self._state != CLOSED
             self._state = CLOSED
@@ -181,12 +182,25 @@ class CircuitBreaker:
             self._successes_total += 1
             if repromoted:
                 self._repromotions += 1
+        if repromoted:
+            # the close half of the breaker's state transitions: opens are
+            # journaled through the anomaly path; re-promotions are not
+            # anomalies, so they go straight to the black box (no-op
+            # without a journal) — outside the breaker lock, like the open
+            from cometbft_tpu_torch.libs import tracing
 
-    def _open_locked(self) -> None:
+            tracing.note_event(
+                "breaker_close",
+                backend=self.name,
+                repromotions=self._repromotions,
+            )
+
+    def _open_locked(self) -> bool:
         """The OPEN transition, under the lock — shared by organic
         failures (``record_failure``) and proactive trips (``trip``) so
-        the two can never drift.  An already-open, unelapsed window only
-        has its backoff refreshed, without re-counting the open."""
+        the two can never drift.  Returns True when this call NEWLY
+        opened the breaker (an already-open, unelapsed window only has
+        its backoff refreshed, without re-counting the open)."""
         already_open = self._state == OPEN and self.clock() < self._open_until
         self._state = OPEN
         if not already_open:
@@ -194,11 +208,10 @@ class CircuitBreaker:
         self._open_until = self.clock() + self._backoff_s
         # exponential backoff for the NEXT half-open window
         self._backoff_s = min(self._backoff_s * 2, self.backoff_max_s)
+        return not already_open
 
     def record_failure(self, err: Optional[BaseException] = None) -> None:
-        # The JAX package records a "breaker_open" anomaly (a flight-recorder
-        # dump) when this call newly opens the breaker; it goes in with the
-        # port of libs/tracing (ROADMAP "Node assembly").
+        opened = False
         with self._lock:
             self._failures += 1
             self._failures_total += 1
@@ -208,8 +221,10 @@ class CircuitBreaker:
             if was_probe or (
                 self._state == CLOSED and self._failures >= self.threshold
             ):
-                self._open_locked()
+                opened = self._open_locked()
             self._probe_inflight = False
+        if opened:
+            self._emit_open_anomaly()
 
     def trip(self, reason: str = "") -> None:
         """Force the breaker OPEN immediately — proactive exclusion: an
@@ -221,8 +236,32 @@ class CircuitBreaker:
             self._failures_total += 1
             if reason:
                 self._last_error = reason[:200]
-            self._open_locked()
+            opened = self._open_locked()
             self._probe_inflight = False
+        if opened:
+            self._emit_open_anomaly()
+
+    def _emit_open_anomaly(self) -> None:
+        # flight-recorder anomaly, recorded OUTSIDE the breaker lock: the
+        # first open since reset dumps the span ring for postmortem.  The
+        # ed25519 chain's tiers share one taxonomy kind (one chain, one
+        # story); every OTHER breaker — secp_device, bls_g1, the tree and
+        # transport kernels' — gets its own ``breaker_open_<name>`` kind,
+        # so its first open still dumps after an ed25519-tier open latched
+        # the shared kind.
+        from cometbft_tpu_torch.libs import tracing
+
+        kind = (
+            "breaker_open"
+            if self.name in _ED25519_CHAIN_TIERS
+            else f"breaker_open_{self.name}"
+        )
+        tracing.record_anomaly(
+            kind,
+            backend=self.name,
+            opens=self._opens,
+            error=self._last_error,
+        )
 
     # -- introspection -----------------------------------------------------
 
@@ -324,6 +363,14 @@ class HealthRegistry:
             1 for s in out["breakers"].values() if s["state"] == HALF_OPEN
         )
         return out
+
+    def breaker_states(self) -> dict:
+        """{backend: state_code} for the labeled metrics gauge
+        (0=closed, 1=half-open, 2=open)."""
+        with self._lock:
+            breakers = dict(self._breakers)
+        return {n: _STATE_CODE[b.state] for n, b in breakers.items()}
+
 
 _REGISTRY: Optional[HealthRegistry] = None
 _REGISTRY_LOCK = threading.Lock()

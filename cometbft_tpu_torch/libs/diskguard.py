@@ -41,7 +41,7 @@ Imports no torch: the storage plane must keep its safety argument
 exactly when the accelerator stack is the thing that fell over.  The
 port's copy of the JAX package's ``libs/diskguard.py``; in the port the
 block and state stores (``store/kv.SqliteKV``, surface ``state``) are
-its callers so far.
+its callers, with the black box (surface ``blackbox``).
 """
 
 from __future__ import annotations
@@ -249,15 +249,27 @@ def clear_fault_plan() -> None:
     _PLAN[0] = None
 
 
-# -- anomaly reporting ----------------------------------------------------------
+# -- anomaly reporting (re-entrancy latched) ----------------------------------
+
+_TLS = threading.local()
 
 
 def _anomaly(kind: str, **attrs) -> None:
-    """Where the JAX package records a flight-recorder anomaly
-    (``libs/tracing.record_anomaly``, latched against re-entry from the
-    black-box journal).  The port's ``libs/tracing`` waits for ROADMAP
-    "Node assembly" stage (d); until then a fault is seen in
-    ``libs/storage_stats`` and in the exception the guard raises."""
+    """Record a flight-recorder anomaly WITHOUT recursing: the black-box
+    journal persists anomalies through this very seam, so a blackbox
+    write failure's anomaly must not re-enter the guard's anomaly path
+    when the journal write for it fails too."""
+    if getattr(_TLS, "in_anomaly", False):
+        return
+    _TLS.in_anomaly = True
+    try:
+        from cometbft_tpu_torch.libs import tracing
+
+        tracing.record_anomaly(kind, **attrs)
+    except Exception:  # noqa: BLE001 — reporting must never add a failure
+        pass
+    finally:
+        _TLS.in_anomaly = False
 
 
 def _err_attrs(err: BaseException) -> dict:

@@ -199,8 +199,7 @@ def verify_adjacent_chain(
     The sequential loop runs instead for fewer than 2 headers, for
     ``backend="cpu"``, and when ``validation.fused_verify_eligible`` is
     False (no trusted card, every device breaker open, or a validator set
-    that is not uniformly Ed25519).  (The JAX package's "light.chain" span
-    waits for libs/tracing.)"""
+    that is not uniformly Ed25519)."""
     from cometbft_tpu_torch.crypto import sigcache
     from cometbft_tpu_torch.ops import verify as ov
 
@@ -248,7 +247,15 @@ def verify_adjacent_chain(
         for p, _, miss in per_header
         if miss
     ]
-    fresh = iter(ov.verify_batches_overlapped(work, device) if work else [])
+    from cometbft_tpu_torch.libs import tracing
+
+    with tracing.span(
+        "light.chain",
+        headers=len(news),
+        h0=news[0].height,
+        sigs=sum(len(m) for _, _, m in per_header),
+    ):
+        fresh = iter(ov.verify_batches_overlapped(work, device) if work else [])
 
     # judge strictly in order
     for p, bits, miss in per_header:

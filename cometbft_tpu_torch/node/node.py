@@ -17,11 +17,13 @@ no card the build raises unless the caller names the CPU (``device="cpu"``
 or ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``).
 
 What the port has not yet raises when the node is built, naming the missing
-module (``_refuse_not_ported``): the gRPC servers, the pprof server,
-Prometheus metrics, the psql sink and the p2p latency zones.  The JAX
-node's metrics object and sampler, its black-box journal and its tracing
-boot line are comments here: they wait for ``libs/metrics``,
-``libs/blackbox`` and ``libs/tracing``.
+module (``_refuse_not_ported``): the gRPC servers, the psql sink and the p2p
+latency zones.  The node keeps ``libs/metrics.NodeMetrics`` with a 2 s
+sampler, serves ``/metrics`` behind ``instrumentation.prometheus`` and
+``/debug/pprof/`` behind ``rpc.pprof_laddr``, journals to the black box
+(``libs/blackbox``: a "boot" record, the previous run's postmortem in the
+boot log, the clean-close sentinel at stop), and names the flight
+recorder's state in its boot line, as the JAX node does.
 """
 
 from __future__ import annotations
@@ -77,10 +79,6 @@ def _refuse_not_ported(config: Config) -> None:
         missing.append(("grpc.laddr", "rpc/grpc_server"))
     if config.grpc.privileged_laddr:
         missing.append(("grpc.privileged_laddr", "rpc/grpc_server"))
-    if config.rpc.pprof_laddr:
-        missing.append(("rpc.pprof_laddr", "node/pprof"))
-    if config.instrumentation.prometheus:
-        missing.append(("instrumentation.prometheus", "libs/metrics"))
     if config.tx_index.indexer == "psql":
         missing.append(('tx_index.indexer = "psql"', "indexer/psql"))
     if config.p2p.zone:
@@ -334,14 +332,56 @@ class Node(BaseService):
             self._setup_p2p()
 
         # -- metrics (reference: node/setup.go:139 DefaultMetricsProvider) --
-        # The JAX node builds ``libs/metrics.NodeMetrics`` here and samples
-        # height, rounds, validators, block size and interval, mempool
-        # size, peers and ``ops/device_health``'s status file every 2 s
-        # (``_metrics_sampler``); both wait for the port's libs/metrics.
+        from cometbft_tpu_torch.libs.metrics import NodeMetrics
+
+        self.metrics = NodeMetrics(config.instrumentation.namespace)
+        self.metrics_server = None
 
         # -- RPC ------------------------------------------------------------
         self.rpc_server = None
         self._tx_waiter_thread: Optional[threading.Thread] = None
+
+    def _metrics_sampler(self) -> None:
+        """Periodic gauge refresh (reference wires metrics through every
+        constructor; sampling the same state keeps the surface identical
+        without threading a handle into each subsystem)."""
+        m = self.metrics
+        last_height = 0
+        last_time = None
+        while self.is_running:
+            try:
+                rs = self.consensus.rs
+                height = self.block_store.height()
+                m.height.set(height)
+                m.rounds.set(rs.round_)
+                if rs.validators is not None:
+                    m.validators.set(len(rs.validators))
+                    m.validators_power.set(rs.validators.total_voting_power())
+                if height > last_height:
+                    meta = self.block_store.load_block_meta(height)
+                    if meta is not None:
+                        m.num_txs.set(meta.num_txs)
+                        m.block_size.set(meta.block_size)
+                        t = meta.header.time.to_ns() / 1e9
+                        if last_time is not None and height == last_height + 1:
+                            m.block_interval.observe(max(t - last_time, 0.0))
+                        last_time = t
+                    last_height = height
+                if hasattr(self.mempool, "size"):
+                    m.mempool_size.set(self.mempool.size())
+                if hasattr(self.mempool, "size_bytes"):
+                    m.mempool_size_bytes.set(self.mempool.size_bytes())
+                if self.switch is not None:
+                    m.peers.set(len(self.switch.peers_list()))
+                # the card's availability: fold the out-of-process
+                # watcher's status file into the gauge + journal (no-op
+                # unless COMETBFT_TPU_CHIP_STATUS points at one)
+                from cometbft_tpu_torch.ops import device_health
+
+                device_health.poll_status_file()
+            except Exception:  # noqa: BLE001 — metrics must never kill the node
+                pass
+            time.sleep(2.0)
 
     def _setup_p2p(self) -> None:
         """Create transport, switch, and the protocol reactors
@@ -456,9 +496,51 @@ class Node(BaseService):
     # -- lifecycle ---------------------------------------------------------
 
     def on_start(self) -> None:
-        # The JAX node decodes the previous run's black-box journal here
-        # (an unclean-shutdown postmortem in the boot log) and opens a new
-        # journal with a "boot" record; both wait for libs/blackbox.
+        # black-box journal (docs/observability.md "Black box"): decode
+        # the PREVIOUS run's journal first — a missing clean-close
+        # sentinel means the process died uncleanly, and the postmortem
+        # digest belongs in the boot log (and at /debug/postmortem)
+        # before anything overwrites the evidence.  COMETBFT_TPU_BLACKBOX=0
+        # restores the RAM-only recorder bit-for-bit.
+        from cometbft_tpu_torch.libs import blackbox
+
+        self.boot_postmortem = None
+        self._blackbox = None
+        if blackbox.enabled():
+            bb_dir = os.path.join(
+                self.config.base.home, self.config.base.db_dir, "blackbox"
+            )
+            try:
+                self.boot_postmortem = blackbox.boot_report(bb_dir)
+            except Exception as e:  # noqa: BLE001 — forensics must never
+                # keep a node from booting
+                self.logger.error("black-box boot decode failed", err=repr(e))
+            if self.boot_postmortem and self.boot_postmortem.get(
+                "unclean_shutdown"
+            ):
+                bp = self.boot_postmortem
+                self.logger.warn(
+                    "unclean shutdown detected: previous run left no "
+                    "clean-close sentinel",
+                    last_committed=bp.get("last_committed_height"),
+                    in_flight=bp.get("in_flight"),
+                    last_dispatch=bp.get("last_dispatch"),
+                    open_spans=len(bp.get("open_spans") or ()),
+                    anomalies=bp.get("anomaly_counts"),
+                    torn_tail=bp.get("journal", {}).get("torn_tail"),
+                )
+            self._blackbox = blackbox.open_journal(bb_dir)
+            if self._blackbox is not None:
+                self._blackbox.on_event(
+                    "boot",
+                    {
+                        "height": self.state.last_block_height,
+                        "unclean_prev": bool(
+                            self.boot_postmortem
+                            and self.boot_postmortem.get("unclean_shutdown")
+                        ),
+                    },
+                )
         # warm-boot the verify compile matrix in the background (docs/
         # warm-boot.md): on the trusted tpu backend the node reaches full
         # verify throughput without its first commits paying a compile.
@@ -482,9 +564,27 @@ class Node(BaseService):
             logger=self.logger.with_(module="pruner"),
         )
         self.pruner.start()
-        # The JAX node starts its metrics sampler, Prometheus server and
-        # pprof server here; Prometheus and pprof raise at build
-        # (``_refuse_not_ported``), the sampler waits for libs/metrics.
+        threading.Thread(
+            target=self._metrics_sampler, name="metrics-sampler", daemon=True
+        ).start()
+        if self.config.instrumentation.prometheus:
+            from cometbft_tpu_torch.libs.metrics import MetricsServer
+
+            self.metrics_server = MetricsServer(
+                self.metrics.registry,
+                self.config.instrumentation.prometheus_listen_addr,
+            )
+            self.metrics_server.start()
+        self.pprof_server = None
+        if self.config.rpc.pprof_laddr:
+            # profiling endpoints (reference: node/node.go:592-595)
+            from cometbft_tpu_torch.node.pprof import PprofServer
+
+            self.pprof_server = PprofServer(
+                self.config.rpc.pprof_laddr,
+                logger=self.logger.with_(module="pprof"),
+            )
+            self.pprof_server.start()
         if self.config.rpc.laddr:
             from cometbft_tpu_torch.rpc.core import Environment
             from cometbft_tpu_torch.rpc.server import RPCServer
@@ -528,14 +628,21 @@ class Node(BaseService):
                 target=self._tx_waiter, daemon=True
             )
             self._tx_waiter_thread.start()
-        # The JAX node's boot line also names the flight recorder's state,
-        # its trace directory and the black-box journal; those wait for
-        # libs/tracing and libs/blackbox.
+        # flight-recorder state belongs in the boot log: when a postmortem
+        # needs a dump, the first question is whether tracing was on and
+        # where dumps land (docs/observability.md)
+        from cometbft_tpu_torch.libs import tracing
+
         self.logger.info(
             "node started",
             node_id=self.node_key.node_id,
             chain_id=self.genesis_doc.chain_id,
             height=self.state.last_block_height,
+            flight_recorder="on" if tracing.enabled() else "off",
+            trace_dir=tracing.trace_dir() or "",
+            blackbox=(
+                self._blackbox.dir if self._blackbox is not None else "off"
+            ),
         )
 
     def _run_statesync(self) -> None:
@@ -650,8 +757,21 @@ class Node(BaseService):
             self.pruner.stop()
         if self._signer_endpoint is not None:
             self._signer_endpoint.stop()
+        if self.metrics_server is not None:
+            self.metrics_server.stop()
+        if getattr(self, "pprof_server", None) is not None:
+            self.pprof_server.stop()
         self.proxy_app.stop()
-        # the JAX node writes the black box's clean-close sentinel here
+        if getattr(self, "_blackbox", None) is not None:
+            # the clean-close sentinel: the one record whose absence at
+            # the next boot means this stop never ran
+            from cometbft_tpu_torch.libs import blackbox
+
+            if blackbox.get_journal() is self._blackbox:
+                blackbox.close_journal(clean=True)
+            else:
+                self._blackbox.close(clean=True)
+            self._blackbox = None
         if self.index_db is not None:
             self.index_db.close()
         self.db.close()

@@ -43,8 +43,11 @@ Batches served per tier are in ``ops/dispatch_stats.tier_counts("aead")``
 (tests).  ``warm_kernels`` is the family's warm-boot hook
 (``ops/warmboot``): the JAX package's compiles executables, the port's
 loads the kernel's library and checks the RFC 8439 vector on the card.
-The JAX package's spans and anomaly records for ``libs/tracing`` ("Node
-assembly"): each site is a comment.
+A pass records an ``aead.dispatch`` span and a pass the device did not
+serve an ``aead_device_fault`` anomaly (``libs/tracing``), as in the JAX
+package; a device reject the reference overturns an
+``aead_verdict_mismatch``.  The JAX ``aead_numpy_fault`` has no site: the
+port's host tier is one pass, with no numpy tier above a pure one.
 """
 
 from __future__ import annotations
@@ -435,10 +438,11 @@ def aead_pass(op, frames, device=None):
         dispatch_stats.record_tier("host", n, AEAD_OVERSIZE)
         return outs, tier
     lanes = _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES)
-    # (the JAX package's "aead.dispatch" span covers the pass)
-    outs = supervisor.supervised_device_call(
-        BREAKER, lambda: device_pass(op, frames, device),
-        lambda o: _validate(o, frames), device=device)
+    outs = supervisor.traced_device_call(
+        "aead.dispatch", "aead_device_fault", BREAKER,
+        lambda: device_pass(op, frames, device),
+        lambda o: _validate(o, frames), device=device,
+        op=op, frames=n, lanes=lanes)
     if outs is None:  # the CPU only: the host tier answers below the plain version
         tstats.record_device_fallback()
         outs, tier = _host_tier(op, frames)
@@ -494,8 +498,10 @@ def open_frames(frames, device=None) -> "list":
                 err = BackendError(
                     f"the {tier} AEAD tier rejected frame {i}, which the "
                     f"reference authenticates")
+                from cometbft_tpu_torch.libs import tracing
+
                 backend_health.registry().breaker(BREAKER).record_failure(err)
-                # (the JAX package's "aead_verdict_mismatch" anomaly)
+                tracing.record_anomaly("aead_verdict_mismatch")
                 raise err
         tstats.record_bad_tag()
     return results

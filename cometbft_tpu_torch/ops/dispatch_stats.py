@@ -159,6 +159,13 @@ def record_verify_latency(seconds: float) -> None:
         _STATS["verify_hist"].observe(float(seconds))
 
 
+def dispatch_count() -> int:
+    """Device dispatches so far: the ordinal a ``verify.dispatch`` span
+    names (the triple an anomaly dump attributes a watchdog fire to)."""
+    with _LOCK:
+        return _STATS["dispatches"]
+
+
 def snapshot() -> dict:
     with _LOCK:
         out = {}

@@ -376,13 +376,15 @@ def _route(items, device, run, validate, host):
         dispatch_stats.record_tier("host", n, MERKLE_OVERSIZE)
         pstats.record_oversize()
         return _on_host(n, host)
-    out = supervisor.supervised_device_call(BREAKER, run, validate, device=device)
+    lanes = _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES)
+    out = supervisor.traced_device_call(
+        "merkle.tree", "merkle_device_fault", BREAKER, run, validate,
+        device=device, leaves=n, lanes=lanes)
     if out is None:  # the CPU only: the host answers below the plain version
         pstats.record_device_fallback()
         return _on_host(n, host)
     dispatch_stats.record_tier("cuda" if on_card else "torch", n, MERKLE)
-    pstats.record_tree(n, _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES),
-                       device=True)
+    pstats.record_tree(n, lanes, device=True)
     return out
 
 

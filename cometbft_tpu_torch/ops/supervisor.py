@@ -60,9 +60,14 @@ Single-tier device paths (secp256k1's ``Secp256k1BatchVerifier``, breaker
 
 Kill switch: ``COMETBFT_TPU_SUPERVISOR=0`` restores the raw dispatch path.
 
-The JAX package's spans and anomaly records (``libs/tracing``) are left
-out until that module is ported (ROADMAP "Node assembly"); so is its
-elastic mesh routing (``parallel/elastic``, "Multi-GPU lanes").
+Every dispatch records a ``verify.dispatch`` span (tier, lanes, n, the
+dispatch ordinal) on the calling thread, and a watchdog fire, a breaker
+opening or a quarantine an anomaly (``libs/tracing``), at the JAX
+package's sites and with its stage names; the tier names are the port's
+(``cuda``, ``torch``, ``host``).  A span records the enqueue and the
+wait as the caller sees them: it never synchronizes the card.  The JAX
+package's elastic mesh routing (``parallel/elastic``) waits for
+"Multi-GPU lanes".
 """
 
 from __future__ import annotations
@@ -82,6 +87,7 @@ from cometbft_tpu_torch.crypto.backend_health import (
     BackendOutputError,
     DispatchTimeoutError,
 )
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.ops import dispatch_stats
 
 logger = logging.getLogger("cometbft_tpu_torch.crypto")
@@ -312,10 +318,16 @@ class _Watchdog:
 _WATCHDOG = _Watchdog()
 
 
-def watchdog_call(fn: Callable, timeout_s: Optional[float] = None, backend: str = ""):
+def watchdog_call(
+    fn: Callable,
+    timeout_s: Optional[float] = None,
+    backend: str = "",
+    note_anomaly: bool = True,
+):
     """Run ``fn`` under the dispatch watchdog: any device call a consensus
-    thread must survive goes through here.  (The JAX package also records
-    a "watchdog_fire" anomaly; that waits for libs/tracing.)"""
+    thread must survive goes through here.  A fire lands in the flight
+    recorder (``note_anomaly=False`` for callers that record their own
+    with richer attribution, like ``_attempt``'s lanes/dispatch attrs)."""
     t = dispatch_timeout_s() if timeout_s is None else timeout_s
     if not t or t <= 0:
         return fn()
@@ -323,6 +335,8 @@ def watchdog_call(fn: Callable, timeout_s: Optional[float] = None, backend: str 
         return _WATCHDOG.call(fn, t)
     except DispatchTimeoutError:
         backend_health.registry().record_watchdog_fire(backend)
+        if note_anomaly:
+            tracing.record_anomaly("watchdog_fire", tier=backend)
         raise
 
 
@@ -385,6 +399,29 @@ def supervised_device_call(
     if fallback_units:
         reg.record_fallback(fallback_units)
     return None
+
+
+def traced_device_call(stage: str, fault_kind: str, backend: str, fn: Callable,
+                       validate: Optional[Callable] = None, device=None,
+                       **attrs):
+    """``supervised_device_call`` inside a ``stage`` span, as the JAX
+    package's single-tier planes record it (``merkle.tree``,
+    ``aead.dispatch``, ``x25519.ladder``): ``path`` is ``device`` when the
+    kernel or the plain version served the call, ``fallback`` when the
+    host answers below it (the CPU), ``raise`` when a card's call raised;
+    a call the device did not serve also records a ``fault_kind``
+    anomaly."""
+    with tracing.span(stage, **attrs) as sp:
+        try:
+            out = supervised_device_call(backend, fn, validate, device=device)
+        except BackendError as e:
+            sp.set(path="raise", error=type(e).__name__)
+            tracing.record_anomaly(fault_kind, error=type(e).__name__)
+            raise
+        sp.set(path="device" if out is not None else "fallback")
+    if out is None:
+        tracing.record_anomaly(fault_kind, error="unserved")
+    return out
 
 
 def _single_tier(backend: str, fn: Callable, inputs: Optional[tuple]):
@@ -466,18 +503,37 @@ def _collect(flight, transform):
 def _attempt(backend: str, pubs, msgs, sigs, dev) -> np.ndarray:
     """One supervised dispatch on one device backend.  Raises
     ``DispatchTimeoutError`` / ``BackendOutputError`` / whatever the kernel
-    raised; never returns partial results.  (The JAX package's
-    "verify.dispatch" span goes here with libs/tracing.)"""
+    raised; never returns partial results.
+
+    The dispatch SPAN is recorded on the CALLING thread around
+    ``watchdog_call`` — never by the worker — so an abandoned (wedged)
+    worker can't race a late span into a deterministic sim's flight
+    record.  It carries the (tier, lanes, dispatch-seq) triple an anomaly
+    dump attributes a watchdog fire to."""
     n = len(pubs)
+    lanes = _lanes(backend, n)
+    # the ordinal this dispatch will record (single dispatch in flight per
+    # attempt; concurrent attempts only skew the label, never the verdict)
+    seq = dispatch_stats.dispatch_count() + 1
     t0 = time.perf_counter()
     try:
-        bits = watchdog_call(
-            lambda: _collect(*_launch(backend, pubs, msgs, sigs, dev)),
-            backend=backend,
+        with tracing.span(
+            "verify.dispatch", tier=backend, lanes=lanes, n=n, dispatch=seq
+        ):
+            bits = watchdog_call(
+                lambda: _collect(*_launch(backend, pubs, msgs, sigs, dev)),
+                backend=backend, note_anomaly=False,
+            )
+    except DispatchTimeoutError:
+        # the failed span is already in the ring (the with-block closed),
+        # so the dump this triggers shows it as its most recent entry
+        tracing.record_anomaly(
+            "watchdog_fire", tier=backend, lanes=lanes, n=n, dispatch=seq
         )
+        raise
     finally:
         dispatch_stats.record_dispatch_time(
-            backend, _lanes(backend, n), time.perf_counter() - t0
+            backend, lanes, time.perf_counter() - t0
         )
     return _validate_accept(bits, n)
 
@@ -493,15 +549,15 @@ def host_verify(pubs, msgs, sigs) -> np.ndarray:
     n = len(pubs)
     if n:
         backend_health.registry().record_fallback(n)
-    # (the JAX package's "supervisor.host_fallback" span goes here)
     _TLS.tier = HOST_BACKEND
     dispatch_stats.record_tier(HOST_BACKEND, n)
     logger.warning("verify batch of %d signatures served by the host tier", n)
-    return np.fromiter(
-        (ref.verify_zip215(p, m, s) for p, m, s in zip(pubs, msgs, sigs)),
-        dtype=bool,
-        count=n,
-    )
+    with tracing.span("supervisor.host_fallback", n=n):
+        return np.fromiter(
+            (ref.verify_zip215(p, m, s) for p, m, s in zip(pubs, msgs, sigs)),
+            dtype=bool,
+            count=n,
+        )
 
 
 def _below_chain(pubs, msgs, sigs, dev, cause=None) -> np.ndarray:
@@ -569,15 +625,16 @@ def _bisect_quarantine(
             return solve(lo, mid) + solve(mid, hi)
 
     try:
-        # (the JAX package's "supervisor.bisect" span goes here)
-        bits = np.asarray(solve(0, n), dtype=bool)
+        with tracing.span("supervisor.bisect", tier=backend, n=n) as sp:
+            bits = np.asarray(solve(0, n), dtype=bool)
+            sp.set(quarantined=len(quarantined))
     except _GiveUp:
         return None
     # record only on commit: an abandoned bisect (systematic failure) must
     # not masquerade as a quarantine in the counters
     if quarantined:
         reg.record_quarantine(backend)
-        # (the JAX package's "quarantine" anomaly goes here)
+        tracing.record_anomaly("quarantine", tier=backend, n=n)
         if _on_card(dev):
             logger.warning(
                 "crypto backend %s: quarantined input %d of %d (kills the "
@@ -636,40 +693,44 @@ def verify_supervised(
     n = len(pubs)
     reg = backend_health.registry()
     err = cause
-    # (the JAX package's "verify.batch" span, naming the tier, covers this)
-    for backend in device_chain(dev):
-        if backend in skip:
-            continue
-        br = reg.breaker(backend)
-        if not br.allow():
-            continue
-        try:
-            bits = _attempt(backend, pubs, msgs, sigs, dev)
-        except Exception as e:  # noqa: BLE001 — any dispatch error demotes
-            if (
-                n >= 2
-                and not isinstance(e, DispatchTimeoutError)
-                and br.stats()["consecutive_failures"] == 0
-            ):
-                try:
-                    solved = _bisect_quarantine(backend, pubs, msgs, sigs, dev)
-                except Exception:  # noqa: BLE001 — bisect is best-effort
-                    solved = None
-                if solved is not None:
-                    bits, quarantined = solved
-                    br.record_success()
-                    if quarantined and _on_card(dev):
-                        _TLS.tier = None
-                        raise PoisonedInputError(quarantined[0], n) from e
-                    _served(backend, n - len(quarantined), dev)
-                    return bits
-            _demote(backend, e, "dispatch")
-            err = e
-            continue
-        br.record_success()
-        _served(backend, n, dev)
-        return bits
-    return _below_chain(pubs, msgs, sigs, dev, err)
+    with tracing.span("verify.batch", n=n) as vsp:
+        for backend in device_chain(dev):
+            if backend in skip:
+                continue
+            br = reg.breaker(backend)
+            if not br.allow():
+                continue
+            try:
+                bits = _attempt(backend, pubs, msgs, sigs, dev)
+            except Exception as e:  # noqa: BLE001 — any dispatch error demotes
+                if (
+                    n >= 2
+                    and not isinstance(e, DispatchTimeoutError)
+                    and br.stats()["consecutive_failures"] == 0
+                ):
+                    try:
+                        solved = _bisect_quarantine(backend, pubs, msgs, sigs, dev)
+                    except Exception:  # noqa: BLE001 — bisect is best-effort
+                        solved = None
+                    if solved is not None:
+                        bits, quarantined = solved
+                        br.record_success()
+                        vsp.set(tier=backend, bisected=True)
+                        if quarantined and _on_card(dev):
+                            _TLS.tier = None
+                            raise PoisonedInputError(quarantined[0], n) from e
+                        _served(backend, n - len(quarantined), dev)
+                        return bits
+                _demote(backend, e, "dispatch")
+                err = e
+                continue
+            br.record_success()
+            vsp.set(tier=backend)
+            _served(backend, n, dev)
+            return bits
+        if not _on_card(dev):
+            vsp.set(tier=HOST_BACKEND)
+        return _below_chain(pubs, msgs, sigs, dev, err)
 
 
 def _first_allowed(dev) -> Optional[str]:
@@ -698,7 +759,10 @@ def verify_batches_overlapped_supervised(work, device=None, inflight: int = 2) -
     if backend is None:
         # fully degraded: per-batch host verification on the CPU, no
         # device to overlap; on a card the first batch raises
-        return [_below_chain(*w, dev) for w in work]
+        with tracing.span(
+            "verify.window", batches=len(work), tier=HOST_BACKEND
+        ):
+            return [_below_chain(*w, dev) for w in work]
     br = backend_health.registry().breaker(backend)
     depth = max(int(inflight), 1)
     out: list = [None] * len(work)
@@ -718,9 +782,13 @@ def verify_batches_overlapped_supervised(work, device=None, inflight: int = 2) -
             return
         n = len(w[0])
         try:
-            # (the JAX package's "verify.fetch" span goes here)
             t0 = time.perf_counter()
-            got = watchdog_call(lambda: _collect(flight, transform), backend=backend)
+            with tracing.span(
+                "verify.fetch", tier=backend, lanes=_lanes(backend, n), n=n
+            ):
+                got = watchdog_call(
+                    lambda: _collect(flight, transform), backend=backend
+                )
             dispatch_stats.record_dispatch_time(
                 backend, _lanes(backend, n), time.perf_counter() - t0
             )
@@ -742,10 +810,14 @@ def verify_batches_overlapped_supervised(work, device=None, inflight: int = 2) -
             pending.append((i, None, None))
             continue
         try:
-            # (the JAX package's "verify.dispatch" span goes here)
-            flight, transform = watchdog_call(
-                lambda w=w: _launch(backend, *w, dev), backend=backend
-            )
+            n = len(w[0])
+            with tracing.span(
+                "verify.dispatch", tier=backend, lanes=_lanes(backend, n), n=n,
+                window=len(work),
+            ):
+                flight, transform = watchdog_call(
+                    lambda w=w: _launch(backend, *w, dev), backend=backend
+                )
         except Exception as e:  # noqa: BLE001 — dispatch failure demotes
             _demote(backend, e, "overlapped dispatch")
             dead = True
@@ -835,10 +907,14 @@ def dispatch_verify(pubs, msgs, sigs, lane=None, device=None) -> _InflightVerify
             dispatch_stats.record_lane_dispatch(backend, h.lanes, n)
             return h
         try:
-            # (the JAX package's "verify.dispatch" span goes here)
-            h.flight, h.transform = watchdog_call(
-                lambda: _launch(backend, pubs, msgs, sigs, h.dev), backend=backend
-            )
+            with tracing.span(
+                "verify.dispatch", tier=backend, lanes=h.lanes, n=n,
+                pipelined=True,
+            ):
+                h.flight, h.transform = watchdog_call(
+                    lambda: _launch(backend, pubs, msgs, sigs, h.dev),
+                    backend=backend,
+                )
         except Exception as e:  # noqa: BLE001 — dispatch failure demotes;
             # the batch re-verifies below it at fetch time (on a card: raises)
             _demote(backend, e, "pipelined dispatch")
@@ -869,11 +945,14 @@ def fetch_verify(h: _InflightVerify) -> np.ndarray:
                 h.skip, h.error = (h.backend,), e
         elif h.kind == "chip":
             try:
-                # (the JAX package's "verify.fetch" span goes here)
                 t0 = time.perf_counter()
-                got = watchdog_call(
-                    lambda: _collect(h.flight, h.transform), backend=h.backend
-                )
+                with tracing.span(
+                    "verify.fetch", tier=h.backend, lanes=h.lanes, n=h.n
+                ):
+                    got = watchdog_call(
+                        lambda: _collect(h.flight, h.transform),
+                        backend=h.backend,
+                    )
                 dispatch_stats.record_dispatch_time(
                     h.backend, h.lanes, time.perf_counter() - t0
                 )

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from cometbft_tpu_torch import native
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.ops import dispatch_stats
 from cometbft_tpu_torch.ops import ed25519_point as ep
 from cometbft_tpu_torch.ops import fe25519 as fe
@@ -340,7 +341,13 @@ def verify_batch(
     dev = resolve_device(device)
     if supervisor.enabled():
         return supervisor.verify_supervised(pubs, msgs, sigs, dev)
-    return _fetch(_dispatch(pubs, msgs, sigs, dev))
+    tier = "cuda" if dev.type == "cuda" else "torch"
+    n = len(pubs)
+    with tracing.span(
+        "verify.dispatch", tier=tier, lanes=supervisor._lanes(tier, n), n=n,
+        dispatch=dispatch_stats.dispatch_count(),
+    ):
+        return _fetch(_dispatch(pubs, msgs, sigs, dev))
 
 
 def verify_batches_overlapped(

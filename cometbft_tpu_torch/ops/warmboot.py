@@ -50,9 +50,9 @@ in the JAX package, an empty ``COMETBFT_TPU_WARMBOOT_SECP_BUCKETS``,
 family (transport: both AEAD and X25519); their values name lane buckets
 in the JAX package and mean nothing more here.  The JAX package's mesh
 shrink ladder (``COMETBFT_TPU_WARMBOOT_MESH_SHRINK``) waits for
-"Multi-GPU lanes".  Counters are in ``ops/warm_stats``; the JAX package's
-spans (``warmboot.run``, ``warmboot.shape``) wait for ``libs/tracing``
-("Node assembly").
+"Multi-GPU lanes".  Counters are in ``ops/warm_stats``; the pass is a
+``warmboot.run`` span with a ``warmboot.shape`` child a family
+(``libs/tracing``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -142,9 +142,20 @@ def run() -> dict:
     ``built``, ``error:<Type>``) and a family that failed or was skipped to
     ``error:<Type>`` or ``skipped:breaker-open``; ``family_seconds`` is each
     family's load and check.  Never raises."""
+    from cometbft_tpu_torch.libs import tracing
+
+    # the with-block makes the root span exception-safe: a raise anywhere
+    # in the walk must not leak it onto the thread-local stack (every
+    # later span on this thread would mis-parent under it)
+    with tracing.span("warmboot.run"):
+        return _run_families(time.perf_counter())
+
+
+def _run_families(t0: float) -> dict:
+    """The family walk half of ``run()``, executed inside the root span."""
+    from cometbft_tpu_torch.libs import tracing
     from cometbft_tpu_torch.ops import warm_stats
 
-    t0 = time.perf_counter()
     reg = bh.registry()
     statuses: dict = {}
     family_seconds: dict = {}
@@ -155,7 +166,12 @@ def run() -> dict:
             continue
         t = time.perf_counter()
         try:
-            libs = _warm_family(family)
+            # warm progress is span-visible: one span a family, child of
+            # the pass's root span
+            with tracing.span("warmboot.shape", family=family,
+                              tier=breaker) as shape_sp:
+                libs = _warm_family(family)
+                shape_sp.set(tags=len(libs))
         except Exception as e:  # noqa: BLE001 — a failure demotes the
             # family through its breaker; boot itself never wedges
             failures += 1

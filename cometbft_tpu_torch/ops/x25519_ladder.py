@@ -36,9 +36,9 @@ the production caller: it coalesces concurrent dials into these batches.
 ``set_ladder_runner`` replaces the device pass (tests).  ``warm_ladder``
 is the family's warm-boot hook (``ops/warmboot``): the JAX package's
 compiles an executable, the port's loads the kernel's library and checks
-the RFC 7748 vectors on the card.  The JAX package's spans and anomaly
-records for
-``libs/tracing`` ("Node assembly"): each site is a comment.
+the RFC 7748 vectors on the card.  A pass records an ``x25519.ladder``
+span and a pass the device did not serve an ``x25519_device_fault``
+anomaly (``libs/tracing``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -303,15 +303,16 @@ def exchange_batch(pairs, device=None) -> "list[bytes]":
         dispatch_stats.record_tier("host", n, X25519)
         dispatch_stats.record_tier("host", n, X25519_OVERSIZE)
         return host_exchange(pairs)
-    # (the JAX package's "x25519.ladder" span covers the pass)
-    out = supervisor.supervised_device_call(
-        BREAKER, lambda: device_exchange(pairs, device),
-        lambda o: _validate(o, n), device=device)
+    lanes = _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES)
+    out = supervisor.traced_device_call(
+        "x25519.ladder", "x25519_device_fault", BREAKER,
+        lambda: device_exchange(pairs, device),
+        lambda o: _validate(o, n), device=device, pairs=n, lanes=lanes)
     if out is None:  # the CPU only: the host answers below the plain version
         tstats.record_hs_dispatch(False, n)
         dispatch_stats.record_tier("host", n, X25519)
         return host_exchange(pairs)
-    tstats.record_hs_dispatch(True, n, _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES))
+    tstats.record_hs_dispatch(True, n, lanes)
     dispatch_stats.record_tier("cuda" if supervisor._on_card(device) else "torch",
                                n, X25519)
     return out

@@ -26,8 +26,10 @@ is bypassed and ``exchange`` is ``sync_exchange``.
 The port's rule differs from the JAX package's in one place: a flush the
 ladder did not serve (on a card ``exchange_batch`` raises
 ``BackendError``) resolves its dials' futures with that error; the JAX
-package answers them on the host ladder.  Its spans and anomaly records
-wait for ``libs/tracing``: each site is a comment.
+package answers them on the host ladder.  A flush records a
+``handshake.flush`` span, a shed dial a ``handshake_shed`` anomaly and a
+timed-out one a ``handshake_timeout`` anomaly (``libs/tracing``), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from concurrent.futures import Future
 from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Optional, Sequence
 
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.ops import x25519_ladder
 from cometbft_tpu_torch.p2p import transport_stats as tstats
 
@@ -223,13 +226,14 @@ class HandshakePool:
                 self._execute(batch, reason)
 
     def _execute(self, batch: "list[_Req]", reason: str) -> None:
-        # (the JAX package's "handshake.flush" span covers the flush)
         groups: "dict[object, list[_Req]]" = {}
         for r in batch:
             groups.setdefault(r.device, []).append(r)
         try:
-            results = {dev: x25519_ladder.exchange_batch([r.pair for r in reqs], dev)
-                       for dev, reqs in groups.items()}
+            with tracing.span("handshake.flush", reason=reason, items=len(batch)):
+                results = {dev: x25519_ladder.exchange_batch([r.pair for r in reqs],
+                                                             dev)
+                           for dev, reqs in groups.items()}
         except BaseException as e:  # noqa: BLE001 — futures must ALWAYS
             # resolve: these dials left the queue
             logger.warning("handshake flush of %d dials failed: %r; the dials "
@@ -282,10 +286,10 @@ def _timeout_s() -> float:
     return _env_float("COMETBFT_TPU_HANDSHAKE_TIMEOUT_S", DEFAULT_TIMEOUT_S)
 
 
-def _shed(scalar: bytes, peer_pub: bytes, device) -> bytes:
+def _shed(scalar: bytes, peer_pub: bytes, device, kind: str, **attrs) -> bytes:
     tstats.record_hs_shed()
     tstats.record_handshake("sync")
-    # (the JAX package's "handshake_shed"/"handshake_timeout" anomaly)
+    tracing.record_anomaly(kind, **attrs)
     return sync_exchange(scalar, peer_pub, device)
 
 
@@ -301,13 +305,15 @@ def exchange(scalar: bytes, peer_pub: bytes, device=None) -> bytes:
         fut = get_pool().submit(scalar, peer_pub, device)
     except (QueueFullError, RuntimeError):
         # at capacity, or the pool torn down under us (a reset race)
-        return _shed(scalar, peer_pub, device)
+        return _shed(scalar, peer_pub, device, "handshake_shed",
+                     queue_cap=get_pool().queue_cap)
     try:
         out = fut.result(_timeout_s())
     except FutureTimeoutError:
         # a wedged dispatcher: the dial must not hang; the straggling flush
         # resolves the orphaned future later
-        return _shed(scalar, peer_pub, device)
+        return _shed(scalar, peer_pub, device, "handshake_timeout",
+                     timeout_s=_timeout_s())
     tstats.record_handshake("pool")
     return out
 

@@ -20,8 +20,9 @@ routing:
     loop would have delivered before raising.
 
 ``device`` (None: the card, by the gate) goes down to ``ops/chacha_aead``;
-on a card a pass the kernel did not serve raises ``BackendError``.  The
-JAX package's "aead.flush" span waits for ``libs/tracing``.
+on a card a pass the kernel did not serve raises ``BackendError``.  Each
+pass records an ``aead.flush`` span (``libs/tracing``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import os
 import struct
 from typing import Optional, Sequence
 
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.ops import chacha_aead
 from cometbft_tpu_torch.p2p import transport_stats as tstats
 
@@ -66,9 +68,10 @@ def seal_frames(key: bytes, nonce_start: int, payloads: "Sequence[bytes]",
     ``ciphertext || tag`` per frame, equal to the serial reference."""
     frames = [(key, nonce_bytes(nonce_start + i), bytes(p))
               for i, p in enumerate(payloads)]
-    tstats.record_batch("seal")
-    tstats.record_frames("batched", len(frames))
-    return chacha_aead.seal_frames(frames, device)
+    with tracing.span("aead.flush", op="seal", frames=len(frames)):
+        tstats.record_batch("seal")
+        tstats.record_frames("batched", len(frames))
+        return chacha_aead.seal_frames(frames, device)
 
 
 def open_frames(key: bytes, nonce_start: int, sealed: "Sequence[bytes]",
@@ -81,9 +84,10 @@ def open_frames(key: bytes, nonce_start: int, sealed: "Sequence[bytes]",
     never have reached them."""
     frames = [(key, nonce_bytes(nonce_start + i), bytes(c))
               for i, c in enumerate(sealed)]
-    tstats.record_batch("open")
-    tstats.record_frames("batched", len(frames))
-    pts = chacha_aead.open_frames(frames, device)
+    with tracing.span("aead.flush", op="open", frames=len(frames)):
+        tstats.record_batch("open")
+        tstats.record_frames("batched", len(frames))
+        pts = chacha_aead.open_frames(frames, device)
     out: "list[bytes]" = []
     for i, p in enumerate(pts):
         if p is None:

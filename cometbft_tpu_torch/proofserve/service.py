@@ -31,9 +31,9 @@ The server knows no block or state types: three loaders are given at
 ``configure`` time, ``tx_loader(h) -> list of tx bytes | None``,
 ``header_hasher(h) -> bytes | None`` and ``valset_hasher(h) -> bytes |
 None``.  The kill switch ``COMETBFT_TPU_PROOFSERVE=0`` (the plane's)
-restores the serial path bit for bit.  The JAX package's spans and
-anomaly records (``libs/tracing``) wait for "Node assembly": each site is
-a comment.
+restores the serial path bit for bit.  A flush records a ``proof.flush``
+span and a shed query a ``proof_shed`` anomaly (``libs/tracing``), as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ from concurrent.futures import TimeoutError as FutureTimeoutError
 from typing import Callable, Optional
 
 from cometbft_tpu_torch.crypto import merkle
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.proofserve import plane
 from cometbft_tpu_torch.proofserve import stats as pstats
 
@@ -148,31 +149,39 @@ class ProofServer:
             raise ValueError(f"unknown proof kind {kind!r}")
         height = int(height)
         fut: "Future" = Future()
-        with self._cond:
-            if self._stopped:
-                raise ServerStoppedError("proof server is stopped")
-            key = (kind, height)
-            if key in self._cache:
-                self._cache.move_to_end(key)
-                pstats.record_cache_hit(kind)
-                fut.set_result(self._cache[key])
-                return fut
-            if len(self._queue) >= self.queue_cap:
-                pstats.record_shed(kind)
-                # (the JAX package's "proof_shed" anomaly, after the lock)
-                raise QueueFullError(
-                    f"proof queue at capacity ({self.queue_cap}); shedding "
-                    f"{kind} query")
-            self._queue.append(_Query(kind, height, fut, time.perf_counter()))
-            pstats.record_query(kind)
-            if self._thread is None or not self._thread.is_alive():
-                if self._thread is not None:
-                    logger.error("proof dispatcher thread died; restarting "
-                                 "(%d queries pending)", len(self._queue))
-                self._thread = threading.Thread(target=self._run,
-                                                name="proof-serve", daemon=True)
-                self._thread.start()
-            self._cond.notify_all()
+        try:
+            with self._cond:
+                if self._stopped:
+                    raise ServerStoppedError("proof server is stopped")
+                key = (kind, height)
+                if key in self._cache:
+                    self._cache.move_to_end(key)
+                    pstats.record_cache_hit(kind)
+                    fut.set_result(self._cache[key])
+                    return fut
+                if len(self._queue) >= self.queue_cap:
+                    pstats.record_shed(kind)
+                    raise QueueFullError(
+                        f"proof queue at capacity ({self.queue_cap}); shedding "
+                        f"{kind} query")
+                self._queue.append(_Query(kind, height, fut, time.perf_counter()))
+                pstats.record_query(kind)
+                if self._thread is None or not self._thread.is_alive():
+                    if self._thread is not None:
+                        logger.error("proof dispatcher thread died; restarting "
+                                     "(%d queries pending)", len(self._queue))
+                    self._thread = threading.Thread(target=self._run,
+                                                    name="proof-serve",
+                                                    daemon=True)
+                    self._thread.start()
+                self._cond.notify_all()
+        except QueueFullError:
+            # anomaly recorded AFTER the cond is released: the flight
+            # recorder's ring-dump IO must never block other submitters
+            tracing.record_anomaly(
+                "proof_shed", query_kind=kind, queue_cap=self.queue_cap
+            )
+            raise
         return fut
 
     # -- test and bench hooks ---------------------------------------------
@@ -277,28 +286,35 @@ class ProofServer:
         for it in items:
             groups.setdefault((it.kind, it.height), []).append(it)
         resolutions: "list[tuple[Future, object, Optional[Exception]]]" = []
-        # (the JAX package's "proof.flush" span, with reason, queries, groups
-        # and builds, covers this loop)
-        for (kind, height), members in groups.items():
-            with self._lock:
-                hit = (kind, height) in self._cache
-                val = self._cache.get((kind, height))
-            if not hit:
-                pstats.record_cache_miss()
-                try:
-                    val = self._build(kind, height)
-                except Exception as e:  # noqa: BLE001 — fail the group,
-                    # flush the rest; its callers see the error
-                    resolutions.extend((m.future, None, e) for m in members)
-                    continue
-                pstats.record_build(kind)
-                if val is not None:
-                    with self._lock:
-                        self._cache[(kind, height)] = val
-                        self._cache.move_to_end((kind, height))
-                        while len(self._cache) > self.cache_cap:
-                            self._cache.popitem(last=False)
-            resolutions.extend((m.future, val, None) for m in members)
+        builds = 0
+        with tracing.span(
+            "proof.flush",
+            reason=reason,
+            queries=len(items),
+            groups=len(groups),
+        ) as sp:
+            for (kind, height), members in groups.items():
+                with self._lock:
+                    hit = (kind, height) in self._cache
+                    val = self._cache.get((kind, height))
+                if not hit:
+                    pstats.record_cache_miss()
+                    try:
+                        val = self._build(kind, height)
+                    except Exception as e:  # noqa: BLE001 — fail the group,
+                        # flush the rest; its callers see the error
+                        resolutions.extend((m.future, None, e) for m in members)
+                        continue
+                    pstats.record_build(kind)
+                    builds += 1
+                    if val is not None:
+                        with self._lock:
+                            self._cache[(kind, height)] = val
+                            self._cache.move_to_end((kind, height))
+                            while len(self._cache) > self.cache_cap:
+                                self._cache.popitem(last=False)
+                resolutions.extend((m.future, val, None) for m in members)
+            sp.set(builds=builds)
         # recorded before resolving: a waiter that reads the stats right
         # after its result must see this flush
         pstats.record_flush(reason, len(items), len(groups))

@@ -8,8 +8,7 @@ int64-as-string JSON).
 The port's copy of the JAX package's ``rpc/core.py``: the same routes and
 the same JSON.  ``tx?prove=true`` proves through the port's
 ``proofserve.prove_tx`` (the tree kernel on the card).  The two debug
-routes need ``libs/tracing`` and ``libs/blackbox``, which the port has not
-yet; each answers a JSON-RPC error that names its module.
+routes read ``libs/tracing`` and ``libs/blackbox``, host counters only.
 """
 
 from __future__ import annotations
@@ -760,26 +759,54 @@ class Environment:
     # -- observability (docs/observability.md) -----------------------------
 
     def debug_verify_trace(self, spans: int = 256, rounds: int = 8) -> dict:
-        """The JAX package's verify-pipeline trace document (flight-recorder
-        tail, stage latencies, round timelines, health).  It reads
-        ``libs/tracing``, which the port has not yet: the route answers a
-        JSON-RPC error naming it, never an empty document."""
-        raise RPCError(
-            -32603,
-            "debug_verify_trace is not ported",
-            "it needs libs/tracing, which the port does not have yet",
+        """One JSON document snapshotting the verify pipeline: flight-
+        recorder ring tail + per-stage latency summary + the last-K merged
+        consensus-round timelines (per-step p50/p99, quorum-arrival times,
+        commit-to-proposal trace linkage) + health (breaker states,
+        signature-cache hit rates, scheduler queue, warm-boot progress).
+        Served as ``/debug/verify_trace`` (GET) and the
+        ``debug_verify_trace`` JSON-RPC method; the ``cmd trace`` CLI
+        renders it.  Every read is host counters and never touches CUDA —
+        this endpoint must work exactly when the node (or its card) is
+        sickest."""
+        from cometbft_tpu_torch.libs import tracing
+
+        doc = tracing.trace_document(
+            max_spans=max(0, min(int(spans), 4096)),
+            rounds=max(0, min(int(rounds), 256)),
         )
+        node = self.node
+        ctx: dict = {}
+        try:
+            ctx["latest_block_height"] = str(node.block_store.height())
+        except Exception:  # noqa: BLE001 — health must render regardless
+            pass
+        try:
+            ctx["consensus_height"] = str(node.consensus.rs.height)
+        except Exception:  # noqa: BLE001
+            pass
+        doc["node"] = ctx
+        return doc
 
     def debug_postmortem(self) -> dict:
-        """The JAX package's crash forensics (the previous run's black-box
-        digest and the live journal's counters).  It reads
-        ``libs/blackbox``, which the port has not yet: the route answers a
-        JSON-RPC error naming it."""
-        raise RPCError(
-            -32603,
-            "debug_postmortem is not ported",
-            "it needs libs/blackbox, which the port does not have yet",
-        )
+        """The node's crash forensics: the previous run's black-box
+        postmortem digest (decoded at boot — ``unclean_shutdown`` means
+        the last process died without writing its clean-close sentinel)
+        plus the live journal's counters.  Served as ``/debug/postmortem``
+        (GET) and the ``debug_postmortem`` JSON-RPC method; it never
+        touches CUDA, like every forensic surface."""
+        from cometbft_tpu_torch.libs import blackbox
+
+        boot = getattr(self.node, "boot_postmortem", None)
+        doc: dict = {
+            "blackbox": "on" if blackbox.enabled() else "off",
+            "unclean_shutdown": bool(boot and boot.get("unclean_shutdown")),
+            "boot": boot or {},
+        }
+        stats = blackbox.journal_stats()
+        if stats is not None:
+            doc["journal"] = stats
+        return doc
 
     def broadcast_evidence(self, evidence) -> dict:
         """Reference: rpc/core/evidence.go BroadcastEvidence.  ``evidence``

@@ -34,10 +34,9 @@ flush whose signatures the kernel did not serve raises ``BackendError``
 inside ``check_tx_batch``; ``_flush_chunk`` then logs "batched admission
 failed" and re-admits the chunk tx by tx, as the JAX package does.
 
-The JAX package's flight-recorder records (``libs/tracing``: the
-``ingest_shed`` anomaly and the ``txingest.shed_sync`` and
-``txingest.flush`` spans) wait for ``libs/tracing``; a comment marks each
-site.
+A flush records a ``txingest.flush`` span, a shed tx an ``ingest_shed``
+anomaly and its synchronous check a ``txingest.shed_sync`` span
+(``libs/tracing``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,6 +48,7 @@ import time
 from collections import OrderedDict, deque
 from typing import Callable, Optional
 
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.txingest import stats
 
 logger = logging.getLogger("cometbft_tpu_torch.txingest")
@@ -224,9 +224,9 @@ class IngestCoalescer:
         # queue full (or closing): shed to the per-tx synchronous path —
         # shedding costs the batching win, never a tx verdict
         stats.record_shed_sync()
-        # (the JAX package records an "ingest_shed" anomaly here and spans
-        # the call below as "txingest.shed_sync"; both wait for libs/tracing)
-        res = self.mempool.check_tx(tx, sender=sender)
+        tracing.record_anomaly("ingest_shed", queue_cap=self.queue_cap)
+        with tracing.span("txingest.shed_sync"):
+            res = self.mempool.check_tx(tx, sender=sender)
         self._note_verified_nonce(pn, res)
         return res
 
@@ -288,9 +288,10 @@ class IngestCoalescer:
         keys = [it[2] for it in items]
         stats.record_flush(len(items), self.batch_max)
         try:
-            # (the JAX package spans this call as "txingest.flush"; it
-            # waits for libs/tracing)
-            results = self.mempool.check_tx_batch(txs, senders, keys=keys)
+            with tracing.span(
+                "txingest.flush", txs=len(items), cap=self.batch_max
+            ):
+                results = self.mempool.check_tx_batch(txs, senders, keys=keys)
         except Exception:  # noqa: BLE001 — the flusher must survive
             logger.exception(
                 "batched admission failed; re-admitting %d txs per-tx",

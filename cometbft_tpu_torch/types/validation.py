@@ -24,6 +24,7 @@ from typing import Optional
 
 from cometbft_tpu_torch.crypto import batch as cbatch
 from cometbft_tpu_torch.crypto import sigcache
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.ops import dispatch_stats
 from cometbft_tpu_torch.types.basic import BlockID
 from cometbft_tpu_torch.types.block import Commit
@@ -157,32 +158,39 @@ def _verify_commit(
                        validator set; match signatures by address.
     """
     t0 = time.perf_counter()
-    entries, tallied = _collect_entries(
-        vals, commit, voting_power_needed, count_all, lookup_by_address
-    )
-    if entries:
-        if _should_batch(vals, commit) and len(entries) >= 2:
-            bv = cbatch.create_batch_verifier(
-                entries[0][1].pub_key, backend, device
-            )
-            sign_bytes = commit.all_vote_sign_bytes(
-                chain_id, [idx for idx, _, _ in entries]
-            )
-            for (idx, val, cs), sb in zip(entries, sign_bytes):
-                bv.add(val.pub_key, sb, cs.signature)
-            ok, bits = bv.verify()
-            if not ok:
-                _judge_entries(entries, bits)
-                raise CommitVerificationError("batch verification failed")
-        else:
-            for idx, val, cs in entries:
-                if not sigcache.verify_with_cache(
-                    val.pub_key,
-                    commit.vote_sign_bytes(chain_id, idx),
-                    cs.signature,
-                ):
-                    raise InvalidSignatureError(idx)
-    _tally(entries, tallied, count_all, voting_power_needed)
+    with tracing.span(
+        "verify.commit",
+        height=commit.height,
+        sigs=len(commit.signatures),
+        count_all=count_all,
+    ) as sp:
+        entries, tallied = _collect_entries(
+            vals, commit, voting_power_needed, count_all, lookup_by_address
+        )
+        sp.set(entries=len(entries))
+        if entries:
+            if _should_batch(vals, commit) and len(entries) >= 2:
+                bv = cbatch.create_batch_verifier(
+                    entries[0][1].pub_key, backend, device
+                )
+                sign_bytes = commit.all_vote_sign_bytes(
+                    chain_id, [idx for idx, _, _ in entries]
+                )
+                for (idx, val, cs), sb in zip(entries, sign_bytes):
+                    bv.add(val.pub_key, sb, cs.signature)
+                ok, bits = bv.verify()
+                if not ok:
+                    _judge_entries(entries, bits)
+                    raise CommitVerificationError("batch verification failed")
+            else:
+                for idx, val, cs in entries:
+                    if not sigcache.verify_with_cache(
+                        val.pub_key,
+                        commit.vote_sign_bytes(chain_id, idx),
+                        cs.signature,
+                    ):
+                        raise InvalidSignatureError(idx)
+        _tally(entries, tallied, count_all, voting_power_needed)
     dispatch_stats.record_verify_latency(time.perf_counter() - t0)
 
 

@@ -82,16 +82,21 @@ class Vote:
         one kernel launch; elsewhere this is the cached host path.  Either
         way a precommit verified here at gossip time makes the commit
         built from it free to re-verify (its CommitSig reconstructs
-        byte-identical sign bytes from the same timestamp).  (The JAX
-        package's "consensus.vote" span waits for libs/tracing.)"""
+        byte-identical sign bytes from the same timestamp)."""
         from cometbft_tpu_torch import verifysched
+        from cometbft_tpu_torch.libs import tracing
 
-        return verifysched.verify_cached(
-            pub_key,
-            self.sign_bytes(chain_id),
-            self.signature,
-            priority=verifysched.PRIO_CONSENSUS,
-        )
+        with tracing.span(
+            "consensus.vote", h=self.height, r=self.round_, t=self.type_
+        ) as sp:
+            ok = verifysched.verify_cached(
+                pub_key,
+                self.sign_bytes(chain_id),
+                self.signature,
+                priority=verifysched.PRIO_CONSENSUS,
+            )
+            sp.set(ok=bool(ok))
+        return ok
 
     def copy(self) -> "Vote":
         return replace(self)

@@ -39,9 +39,12 @@ resolved to ``gpu`` on this process (``backend_trusted``).  Otherwise
 every wrapper here falls through to the pre-scheduler path, so the kill
 switch ``COMETBFT_TPU_VERIFY_SCHED=0`` restores it exactly.
 
-The JAX package's spans and anomaly records (``libs/tracing``) are left
-out until that module is ported (ROADMAP "Node assembly"); its lane
-pinning over the elastic mesh waits for ROADMAP "Multi-GPU lanes".  The
+A flush records a ``sched.flush`` span (reason, items, misses, lanes)
+closed before its futures resolve, its launch a ``sched.dispatch`` span and
+its completion a ``sched.fetch`` span; a shed records a ``queue_shed``
+anomaly and its synchronous verify a ``sched.shed_fallback`` span
+(``libs/tracing``, the JAX package's sites).  Its lane pinning over the
+elastic mesh waits for ROADMAP "Multi-GPU lanes".  The
 dispatcher starts the warm-boot pass (``ops/warmboot``) when it first
 runs, as the JAX package's does.
 """
@@ -59,6 +62,7 @@ from typing import Optional, Sequence
 
 from cometbft_tpu_torch.crypto import sigcache
 from cometbft_tpu_torch.crypto.backend_health import BackendError
+from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.ops import dispatch_stats
 from cometbft_tpu_torch.verifysched import stats
 
@@ -264,24 +268,35 @@ class VerifyScheduler:
                 stats.record_submit_hit(prio)
                 fut.set_result(bool(hit))
                 return fut
-        with self._cond:
-            if self._stopped:
-                raise RuntimeError("verify scheduler is stopped")
-            if prio != PRIO_CONSENSUS and self._count >= self.queue_cap:
-                stats.record_shed(prio)
-                # (the JAX package records a "queue_shed" anomaly here,
-                # after the lock; it waits for libs/tracing)
-                raise QueueFullError(
-                    f"verify queue at capacity ({self.queue_cap}); "
-                    f"shedding class {stats.CLASS_NAMES[prio]}"
+        try:
+            with self._cond:
+                if self._stopped:
+                    raise RuntimeError("verify scheduler is stopped")
+                if prio != PRIO_CONSENSUS and self._count >= self.queue_cap:
+                    stats.record_shed(prio)
+                    raise QueueFullError(
+                        f"verify queue at capacity ({self.queue_cap}); "
+                        f"shedding class {stats.CLASS_NAMES[prio]}"
+                    )
+                self._queues[prio].append(
+                    _Item(pub, msg, sig, prio, fut, time.perf_counter())
                 )
-            self._queues[prio].append(
-                _Item(pub, msg, sig, prio, fut, time.perf_counter())
+                self._count += 1
+                stats.record_submit(prio)
+                self._ensure_dispatcher_locked()
+                self._cond.notify_all()
+        except QueueFullError:
+            # flight-recorder anomaly (the FIRST shed dumps the ring;
+            # later sheds are counted), recorded AFTER the cond is
+            # released: the dump's file IO must never block other
+            # submitters — least of all shed-exempt consensus votes —
+            # behind the scheduler lock
+            tracing.record_anomaly(
+                "queue_shed",
+                cls=stats.CLASS_NAMES[prio],
+                queue_cap=self.queue_cap,
             )
-            self._count += 1
-            stats.record_submit(prio)
-            self._ensure_dispatcher_locked()
-            self._cond.notify_all()
+            raise
         return fut
 
     def submit_many(
@@ -313,6 +328,7 @@ class VerifyScheduler:
                 stats.record_submit_hit(prio)
                 out[i] = fut = Future()
                 fut.set_result(bool(hit))
+        shed = 0
         with self._cond:
             if self._stopped:
                 return out
@@ -320,8 +336,8 @@ class VerifyScheduler:
             queued = 0
             for i in todo:
                 if prio != PRIO_CONSENSUS and self._count >= self.queue_cap:
-                    # (the JAX package records a "queue_shed" anomaly)
                     stats.record_shed(prio)
+                    shed += 1
                     continue
                 out[i] = fut = Future()
                 self._queues[prio].append(
@@ -333,6 +349,14 @@ class VerifyScheduler:
             if queued:
                 self._ensure_dispatcher_locked()
                 self._cond.notify_all()
+        for _ in range(shed):
+            # one anomaly a shed item, after the cond is released, as
+            # ``submit`` records them
+            tracing.record_anomaly(
+                "queue_shed",
+                cls=stats.CLASS_NAMES[prio],
+                queue_cap=self.queue_cap,
+            )
         return out
 
     # -- hooks for tests and measurements ----------------------------------
@@ -533,74 +557,79 @@ class VerifyScheduler:
         """The front half of a flush: structural filter + dedup + ONE
         fused dispatch (``ops.verify.dispatch_segments``), then hand the
         in-flight handle to the completion thread and return to draining
-        — up to ``INFLIGHT`` flushes ride the card at once.  (The JAX
-        package's "sched.flush" span covers this.)"""
+        — up to ``INFLIGHT`` flushes ride the card at once."""
         n = len(items)
         pubs = [it.pub for it in items]
         msgs = [it.msg for it in items]
         sigs = [it.sig for it in items]
         interval = self._flush_interval()
 
-        # structural filter (garbage never occupies a device lane) +
-        # in-flight dedup: concurrent gossip of the same vote collapses
-        # into one lane, both futures share the verdict
-        bits: "list[Optional[bool]]" = [None] * n
-        uniq: "OrderedDict[bytes, list[int]]" = OrderedDict()
-        for i in range(n):
-            if len(pubs[i]) != 32 or len(sigs[i]) != 64:
-                bits[i] = False
-                continue
-            k = sigcache._key(pubs[i], msgs[i], sigs[i])
-            uniq.setdefault(k, []).append(i)
-        firsts = [ixs[0] for ixs in uniq.values()]
-        stats.record_dedup(sum(len(ixs) - 1 for ixs in uniq.values()))
+        # flush span (closed BEFORE futures resolve, like the stats below,
+        # so a deterministic sim's ring order cannot race its waiters)
+        with tracing.span("sched.flush", reason=reason, items=n) as fsp:
+            # structural filter (garbage never occupies a device lane) +
+            # in-flight dedup: concurrent gossip of the same vote collapses
+            # into one lane, both futures share the verdict
+            bits: "list[Optional[bool]]" = [None] * n
+            uniq: "OrderedDict[bytes, list[int]]" = OrderedDict()
+            for i in range(n):
+                if len(pubs[i]) != 32 or len(sigs[i]) != 64:
+                    bits[i] = False
+                    continue
+                k = sigcache._key(pubs[i], msgs[i], sigs[i])
+                uniq.setdefault(k, []).append(i)
+            firsts = [ixs[0] for ixs in uniq.values()]
+            stats.record_dedup(sum(len(ixs) - 1 for ixs in uniq.values()))
 
-        lanes = 0
-        handle = None
-        ordered: "list[int]" = []
-        if firsts:
-            from cometbft_tpu_torch.ops import verify as ov
+            lanes = 0
+            handle = None
+            ordered: "list[int]" = []
+            if firsts:
+                from cometbft_tpu_torch.ops import verify as ov
 
-            # one segment per priority class present: dispatch_segments
-            # fuses them into ONE dispatch and splits the bits back
-            by_class: "list[list[int]]" = [[] for _ in range(N_CLASSES)]
-            for i in firsts:
-                by_class[items[i].prio].append(i)
-            ordered = [i for cls in by_class for i in cls]
-            work = [
-                (
-                    [pubs[i] for i in cls],
-                    [msgs[i] for i in cls],
-                    [sigs[i] for i in cls],
-                )
-                for cls in by_class
-                if cls
-            ]
-            lanes = ov.bucket_size(len(ordered), ov._BUCKETS[0])
-            self._ensure_fetch_thread()
-            # reserve an in-flight slot BEFORE dispatching; the wait
-            # re-checks the completion thread so a dead one is restarted
-            # rather than waited on forever
-            with self._fcond:
-                while self._inflight >= INFLIGHT:
-                    if (
-                        self._fetch_thread is None
-                        or not self._fetch_thread.is_alive()
-                    ):
-                        break
-                    self._fcond.wait(0.1)
-                self._inflight += 1
-                stats.record_inflight(self._inflight)
-            self._ensure_fetch_thread()
-            try:
-                # (the JAX package's "sched.dispatch" span goes here)
-                handle = ov.dispatch_segments(work, device=self.device)
-            except BaseException:
+                # one segment per priority class present: dispatch_segments
+                # fuses them into ONE dispatch and splits the bits back
+                by_class: "list[list[int]]" = [[] for _ in range(N_CLASSES)]
+                for i in firsts:
+                    by_class[items[i].prio].append(i)
+                ordered = [i for cls in by_class for i in cls]
+                work = [
+                    (
+                        [pubs[i] for i in cls],
+                        [msgs[i] for i in cls],
+                        [sigs[i] for i in cls],
+                    )
+                    for cls in by_class
+                    if cls
+                ]
+                lanes = ov.bucket_size(len(ordered), ov._BUCKETS[0])
+                self._ensure_fetch_thread()
+                # reserve an in-flight slot BEFORE dispatching; the wait
+                # re-checks the completion thread so a dead one is restarted
+                # rather than waited on forever
                 with self._fcond:
-                    self._inflight -= 1
+                    while self._inflight >= INFLIGHT:
+                        if (
+                            self._fetch_thread is None
+                            or not self._fetch_thread.is_alive()
+                        ):
+                            break
+                        self._fcond.wait(0.1)
+                    self._inflight += 1
                     stats.record_inflight(self._inflight)
-                    self._fcond.notify_all()
-                raise
+                self._ensure_fetch_thread()
+                try:
+                    with tracing.span(
+                        "sched.dispatch", reason=reason, items=n, lanes=lanes,
+                    ):
+                        handle = ov.dispatch_segments(work, device=self.device)
+                except BaseException:
+                    with self._fcond:
+                        self._inflight -= 1
+                        stats.record_inflight(self._inflight)
+                        self._fcond.notify_all()
+                    raise
+            fsp.set(misses=len(firsts), lanes=lanes)
 
         stats.record_flush(
             reason, items=n, misses=len(firsts), lanes=lanes,
@@ -663,13 +692,13 @@ class VerifyScheduler:
         sigcache back, resolve every future.  Runs on the completion
         thread in drain order; cannot leave a future unresolved — a fetch
         that raises (on a card, the supervisor's ``BackendError``)
-        completes the flush's open futures through ``_resolve_unserved``.
-        (The JAX package's "sched.fetch" span covers the fetch.)"""
+        completes the flush's open futures through ``_resolve_unserved``."""
         handle, items, bits, uniq, ordered = pf
         try:
             from cometbft_tpu_torch.ops import verify as ov
 
-            results = ov.fetch_segments(handle)
+            with tracing.span("sched.fetch", items=len(items)):
+                results = ov.fetch_segments(handle)
             verdict_by_first = dict(
                 zip(ordered, (bool(b) for seg in results for b in seg))
             )
@@ -757,10 +786,14 @@ def verify_now(pub_key, msg: bytes, sig: bytes) -> bool:
 
 
 def _shed_fallback_verify(pub_key, msg: bytes, sig: bytes, prio: int) -> bool:
-    """The synchronous verify a SHED caller runs; its submit->verdict time
-    stays in the latency record.  (The JAX package also spans it.)"""
+    """The synchronous verify a SHED caller runs: emits a span and a
+    submit->verdict histogram sample so shed work stays in the latency
+    record instead of vanishing from it."""
     t0 = time.perf_counter()
-    ok = verify_now(pub_key, msg, sig)
+    with tracing.span(
+        "sched.shed_fallback", cls=stats.CLASS_NAMES[_clamp_prio(prio)]
+    ):
+        ok = verify_now(pub_key, msg, sig)
     stats.record_shed_fallback(prio, time.perf_counter() - t0)
     return ok
 
@@ -844,13 +877,17 @@ def verify_segment_sync(
     direct: dict = {}
     if shed:
         t0 = time.perf_counter()
-        # (the JAX package's "sched.shed_fallback" span goes here)
-        got = ov.verify_batch(
-            [pubs[i] for i in shed],
-            [msgs[i] for i in shed],
-            [sigs[i] for i in shed],
-            sched.device,
-        )
+        with tracing.span(
+            "sched.shed_fallback",
+            cls=stats.CLASS_NAMES[_clamp_prio(prio)],
+            items=len(shed),
+        ):
+            got = ov.verify_batch(
+                [pubs[i] for i in shed],
+                [msgs[i] for i in shed],
+                [sigs[i] for i in shed],
+                sched.device,
+            )
         dt = time.perf_counter() - t0
         for _ in shed:
             # every shed item waited for the whole direct dispatch

@@ -29,8 +29,10 @@ and state sync (a fresh joiner, its app behind the ABCI socket server,
 restores a serving node's snapshot through two switches with a
 ``LightClientStateProvider`` on the CPU, then blocksyncs the next
 height), and the node as users start it (``cmd init``, then a
-single-validator ``Node`` on ``device="cpu"`` to height 2, a tx through
-its JSON-RPC), and checks that neither name reached ``sys.modules``.
+single-validator ``Node`` on ``device="cpu"`` to height 2 with
+``instrumentation.prometheus`` on, a tx through its JSON-RPC, a
+``/metrics`` scrape, its ``debug_verify_trace`` and ``cmd postmortem`` on
+its home), and checks that neither name reached ``sys.modules``.
 """
 
 import ast
@@ -203,6 +205,11 @@ def test_port_files_exist():
         "cometbft_tpu_torch/cmd/__init__.py",
         "cometbft_tpu_torch/cmd/__main__.py",
         "cometbft_tpu_torch/cmd/main.py",
+        "cometbft_tpu_torch/libs/tracing.py",
+        "cometbft_tpu_torch/libs/blackbox.py",
+        "cometbft_tpu_torch/libs/metrics.py",
+        "cometbft_tpu_torch/ops/device_health.py",
+        "cometbft_tpu_torch/node/pprof.py",
         "tests/torch_net.py",
     ):
         assert need in names
@@ -514,7 +521,8 @@ finally:
     app_srv.stop()
     handshake_pool.reset_pool()
 # the node as users start it: cmd init, then a single-validator Node on
-# the CPU to height 2, and a tx through its JSON-RPC
+# the CPU to height 2 with Prometheus on, a tx through its JSON-RPC, a
+# /metrics scrape, its verify trace, and cmd postmortem on its home
 import base64
 import json
 import shutil
@@ -532,6 +540,8 @@ ncfg.base.home = home
 ncfg.base.db_backend = "memdb"
 ncfg.rpc.laddr = ncfg.p2p.laddr = "tcp://127.0.0.1:0"
 ncfg.consensus.timeout_commit_ms = 50
+ncfg.instrumentation.prometheus = True
+ncfg.instrumentation.prometheus_listen_addr = "tcp://127.0.0.1:0"
 node = Node(ncfg, device="cpu")
 node.start()
 try:
@@ -545,8 +555,26 @@ try:
                                  data=body, headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=60) as resp:
         assert json.loads(resp.read())["result"]["tx_result"]["code"] == 0
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{node.metrics_server.bound_port}/metrics",
+            timeout=30) as resp:
+        text = resp.read().decode()
+    assert "cometbft_consensus_height " in text and "cometbft_device_up -1" in text
+    with urllib.request.urlopen(
+            f"http://127.0.0.1:{node.rpc_server.bound_port}/debug_verify_trace",
+            timeout=30) as resp:
+        doc = json.loads(resp.read())["result"]
+    assert "verify.commit" in doc["stages"], sorted(doc["stages"])
+    assert doc["blackbox"]["records"] > 0, doc["blackbox"]
 finally:
     node.stop()
+try:
+    from cometbft_tpu_torch.libs import blackbox
+
+    assert cli_main(["postmortem", home, "--json"]) == 0
+    report = blackbox.postmortem_report(blackbox.resolve_dir(home))
+    assert report["clean_close"] and report["last_committed_height"] >= 2, report
+finally:
     shutil.rmtree(home, ignore_errors=True)
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))

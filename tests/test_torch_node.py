@@ -2,9 +2,8 @@
 ``node/rollback.py``, ``node/inspect.py`` and ``config/confix.py``.
 
 - The JAX node's cases (``tests/test_node_rpc.py``) against a port node:
-  ``cmd init``, then ``Node(cfg, device="cpu")`` answering JSON-RPC.  Its
-  black-box half of the full-disk case is left out: ``libs/blackbox`` is
-  not ported (the WAL's fail-stop and the 503 are kept).
+  ``cmd init``, then ``Node(cfg, device="cpu")`` answering JSON-RPC, the
+  full-disk case with its black-box postmortem.
 - ``rollback_state`` and ``confix.upgrade`` give the JAX package's result on
   the same input.
 - A JAX node's home after some heights (``config.toml``, genesis, keys,
@@ -15,7 +14,10 @@
   ``COMETBFT_TPU_HANDSHAKE=0``, ``COMETBFT_TPU_AEAD=0``).
 - The device rule (``Node()`` and ``cmd start`` with no card and no CPU
   asked for raise), the options that are not ported (each raises naming its
-  module) and the CLI commands that wait for modules (non-zero, named).
+  module; ``rpc.pprof_laddr`` and ``instrumentation.prometheus`` now serve
+  ``/debug/pprof/goroutine`` and ``/metrics``), the CLI command that waits
+  for modules (``sim``: non-zero, named), and ``cmd trace`` and ``cmd
+  postmortem`` against the JAX CLI's output on the same home.
 
 Every node runs with ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` (votes verify on the
 host in both packages) and stops in a ``finally``; every wait has a deadline.
@@ -285,8 +287,9 @@ def test_tx_prove_roundtrip(node):
 
 
 def test_full_disk_wal_fail_stop_e2e(node):
-    """The JAX case less its black-box postmortem (libs/blackbox is not
-    ported): ENOSPC on the WAL halts consensus and flips /health to 503."""
+    """The JAX case: ENOSPC on the WAL halts consensus, flips /health to
+    503, and the black-box journal decodes to a postmortem attributing the
+    halt to ``disk_fatal`` on the wal surface."""
     import errno
 
     from cometbft_tpu_torch.libs import diskguard, storage_stats
@@ -313,6 +316,20 @@ def test_full_disk_wal_fail_stop_e2e(node):
             urllib.request.urlopen(url, timeout=20)
         assert ei.value.code == 503
         assert "storage" in json.loads(ei.value.read())["error"]["message"]
+        # forensics survive the halt: the journal (a degradable surface,
+        # untouched by the wal rule) pins the fail-stop on the wal surface
+        bb_dir = node._blackbox.dir
+        node.stop()
+        from cometbft_tpu_torch.libs import blackbox
+
+        report = blackbox.postmortem_report(bb_dir)
+        assert report["anomaly_counts"].get("disk_fatal", 0) >= 1, report[
+            "anomaly_counts"]
+        fatal = [a for a in report["anomalies"] if a.get("kind") == "disk_fatal"]
+        assert fatal, report["anomalies"]
+        attrs = fatal[-1].get("attrs") or {}
+        assert attrs.get("surface") == "wal" and attrs.get("errno") == errno.ENOSPC
+        assert report["clean_close"]
     finally:
         diskguard.set_fault_plan(prev)
         storage_stats.reset()
@@ -566,6 +583,11 @@ def test_node_and_cmd_start_raise_without_a_card(tmp_path, monkeypatch):
         cli_main(["--home", home, "start"])
 
 
+# the modules the option table once named that are ported: route, answer
+SERVED = {"node/pprof": ("/debug/pprof/goroutine", b"Thread"),
+          "libs/metrics": ("/metrics", b"cometbft_consensus_height")}
+
+
 @pytest.mark.parametrize("option,value,module", [
     ("grpc.laddr", "tcp://127.0.0.1:0", "rpc/grpc_server"),
     ("grpc.privileged_laddr", "tcp://127.0.0.1:0", "rpc/grpc_server"),
@@ -575,14 +597,38 @@ def test_node_and_cmd_start_raise_without_a_card(tmp_path, monkeypatch):
     ("p2p.zone", "eu", "p2p/latency"),
 ])
 def test_options_not_ported_raise_naming_their_module(tmp_path, option, value, module):
+    """An option whose module the port has not raises, naming it.  The two
+    whose modules this table once named, ``node/pprof`` and
+    ``libs/metrics``, are ported: a node with either serves its route
+    (``/debug/pprof/goroutine``, ``/metrics``) on a port of its own."""
     home = str(tmp_path / "opt")
     assert cli_main(["--home", home, "init"]) == 0
     cfg = cfgmod.load_config(home)
     cfg.base.home = home
     section, _, key = option.partition(".")
     setattr(getattr(cfg, section), key, value)
-    with pytest.raises(NotImplementedError, match=module):
-        Node(_fast(cfg), device="cpu")
+    if module not in SERVED:
+        with pytest.raises(NotImplementedError, match=module):
+            Node(_fast(cfg), device="cpu")
+        return
+    route, want = SERVED[module]
+    if module == "libs/metrics":
+        cfg.instrumentation.prometheus_listen_addr = "tcp://127.0.0.1:0"
+    import tracemalloc
+
+    tracing_before = tracemalloc.is_tracing()
+    n = Node(_fast(cfg), device="cpu")
+    n.start()
+    try:
+        srv = n.pprof_server if module == "node/pprof" else n.metrics_server
+        _wait_height(n, 1)
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.bound_port}{route}",
+                                    timeout=20) as resp:
+            assert resp.status == 200 and want in resp.read()
+    finally:
+        n.stop()
+        if not tracing_before:  # the pprof server starts tracemalloc
+            tracemalloc.stop()
 
 
 @pytest.mark.parametrize("argv,module", [
@@ -590,8 +636,57 @@ def test_options_not_ported_raise_naming_their_module(tmp_path, option, value, m
     (["postmortem", "/nonexistent"], "libs/blackbox"),
 ])
 def test_cli_commands_that_wait_exit_non_zero(tmp_path, capfd, argv, module):
-    assert cli_main(["--home", str(tmp_path), *argv]) != 0
-    assert module in capfd.readouterr().err
+    """``sim`` waits for its modules: non-zero, naming them.  ``trace`` and
+    ``postmortem`` are ported (``libs/tracing``, ``libs/blackbox``):
+    ``trace --local`` renders this process's recorder, and ``postmortem``
+    of a directory with no journal exits non-zero saying so, as the JAX
+    CLI does."""
+    rc = cli_main(["--home", str(tmp_path), *argv])
+    out = capfd.readouterr()
+    if argv[0] == "sim":
+        assert rc != 0 and module in out.err
+    elif argv[0] == "trace":
+        assert rc == 0 and "flight recorder: on" in out.out
+    else:
+        assert rc != 0 and "no black-box journal under /nonexistent" in out.err
+
+
+def test_cmd_trace_and_postmortem_equal_the_jax_cli(tmp_path, capfd):
+    """``cmd trace`` of a live port node and ``cmd postmortem`` of its
+    stopped home print what the JAX CLI prints on the same node and home,
+    human and ``--json``."""
+    from cometbft_tpu.cmd.main import main as jax_main
+
+    home = str(tmp_path / "traced")
+    assert cli_main(["--home", home, "init", "--chain-id", "trace-chain"]) == 0
+    cfg = cfgmod.load_config(home)
+    cfg.base.home = home
+    n = Node(_fast(cfg), device="cpu")
+    n.start()
+    try:
+        _wait_height(n, 3)
+        n.consensus.stop()  # the ring stands still between the two reads
+        capfd.readouterr()
+        rpc = f"tcp://127.0.0.1:{n.rpc_server.bound_port}"
+        got = {}
+        for name, cli in (("jax", jax_main), ("port", cli_main)):
+            for extra in ([], ["--json"]):
+                assert cli(["trace", "--rpc", rpc, "--spans", "16", *extra]) == 0
+                got[(name, bool(extra))] = capfd.readouterr().out
+    finally:
+        n.stop()
+    assert got[("port", False)] == got[("jax", False)]
+    assert got[("port", True)] == got[("jax", True)]
+    doc = json.loads(got[("port", True)])
+    assert "verify.commit" in doc["stages"] and doc["node"]["latest_block_height"]
+    for extra in ([], ["--json"]):
+        outs = []
+        for cli in (jax_main, cli_main):
+            assert cli(["postmortem", home, *extra]) == 0
+            outs.append(capfd.readouterr().out)
+        assert outs[1] == outs[0]
+    report = json.loads(outs[1])
+    assert report["clean_close"] and report["last_committed_height"] >= 3
 
 
 def test_cmd_testnet_show_and_reset(tmp_path, capfd):

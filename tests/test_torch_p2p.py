@@ -404,7 +404,11 @@ def _exchange(a, b, got_a, got_b):
     return pa, pb
 
 
-def test_port_switches_echo_over_loopback():
+def test_port_switches_echo_over_loopback(monkeypatch):
+    # a dial waits for its ladder flush; under the whole suite's load the
+    # plain ladder's flush can outlast the pool's 5 s, and the dial then
+    # sheds to the host ladder: the wait gets a deadline of its own
+    monkeypatch.setenv("COMETBFT_TPU_HANDSHAKE_TIMEOUT_S", str(WAIT_S))
     got_a, got_b = [], []
     a, b = _pair(P, P, got_a, got_b, device="cpu")
     try:

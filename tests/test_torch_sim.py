@@ -15,6 +15,8 @@ stand-in card.
 
 from __future__ import annotations
 
+import json
+
 import pytest
 import torch
 
@@ -176,3 +178,45 @@ def test_statesync_join_through_handle_provider_equals_jax(tmp_path):
     finally:
         jax_c.stop()
         port_c.stop()
+
+
+@pytest.mark.parametrize("script,heights", [("clean", 5), ("crash", 6)])
+def test_span_streams_and_journals_equal_the_jax_package(tmp_path, script, heights):
+    """The flight recorder on the virtual clock and a black box per node
+    (``tests/torch_sim.py``, as the JAX ``SimCluster`` installs them): both
+    packages record the same span stream and write the same journal bytes
+    on every node.  The one difference by construction is a path: the
+    journals sit under each package's own directory (``_journals`` reads
+    them relative to it)."""
+    runs = {pkg: _run(pkg, tmp_path, script, heights=heights) for pkg in (J, P)}
+    try:
+        streams = {pkg: json.dumps(c.tracer.tail(0), sort_keys=True)
+                   for pkg, c in runs.items()}
+        rounds = {pkg: json.dumps(c.tracer.rounds_report(), sort_keys=True)
+                  for pkg, c in runs.items()}
+        for c in runs.values():
+            c.stop()  # every journal closes with its clean-close sentinel
+        journals = {pkg: _journals(tmp_path / pkg) for pkg in runs}
+    finally:
+        for c in runs.values():
+            c.stop()
+    assert streams[P] == streams[J]
+    assert rounds[P] == rounds[J]
+    assert journals[P] == journals[J]
+    spans = json.loads(streams[P])
+    stages = {s["stage"] for s in spans}
+    assert {"consensus.round", "consensus.step", "consensus.vote",
+            "consensus.proposal", "verify.commit"} <= stages
+    assert len(journals[P]) == 4 and all(journals[P].values())
+    if script == "crash":
+        (pm,) = runs[P].postmortems
+        assert not pm["report"]["clean_close"] and pm["report"]["in_flight"]
+        assert pm == runs[J].postmortems[0]
+
+
+def _journals(root) -> dict:
+    out = {}
+    for d in sorted(root.glob("node*/blackbox")):
+        for f in sorted(d.iterdir()):
+            out[str(f.relative_to(root))] = f.read_bytes()
+    return out

@@ -16,6 +16,7 @@ a process-wide scheduler on the CPU, as ``tests/test_torch_verifysched.py``
 opens it.  No plain verify and no JAX program runs.
 """
 
+import contextlib
 import hashlib
 import random
 import threading
@@ -432,12 +433,16 @@ def _coalescer_run(p, script):
                                **script["kw"], **p.cpu)
     sync = []
     try:
-        for i, tx in enumerate(script["txs"]):
-            try:
-                r = ing.submit(tx, sender="p%d" % i)
-            except p.mp.MempoolError as e:
-                r = e
-            sync.append(None if r is None else _outcome(r))
+        # a live flusher takes the coalescer's lock to flush: holding it over
+        # the submits makes the batch the deadline flushes the same in both
+        # packages, whatever the wall clock does between two submits
+        with ing._cond if script.get("hold") else contextlib.nullcontext():
+            for i, tx in enumerate(script["txs"]):
+                try:
+                    r = ing.submit(tx, sender="p%d" % i)
+                except p.mp.MempoolError as e:
+                    r = e
+                sync.append(None if r is None else _outcome(r))
         if script.get("wait"):
             deadline = time.monotonic() + 10
             while len(got) < script["wait"] and time.monotonic() < deadline:
@@ -462,7 +467,8 @@ def _scripts():
     return {
         "size": {"kw": {"batch_max": 4, "queue_cap": 64, "start_thread": False},
                  "txs": ed[:10], "flush": True},
-        "deadline": {"kw": {"flush_us": 1000, "queue_cap": 64}, "txs": ed[:3], "wait": 3},
+        "deadline": {"kw": {"flush_us": 1000, "queue_cap": 64}, "txs": ed[:3], "wait": 3,
+                     "hold": True},
         "shed": {"kw": {"queue_cap": 2, "start_thread": False}, "txs": ed[:4], "flush": True},
         "nonce": {"kw": {"batch_max": 4, "start_thread": False}, "txs": ed[:6], "flush": True,
                   "then": [replay, ed[0], ed[6]]},

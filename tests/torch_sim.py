@@ -11,7 +11,13 @@ mirrors the JAX package's ``sim/cluster.SimCluster`` (``_build``,
 ``_broadcast``, ``crash``/``restart``, ``_on_deliver``, ``_drain_all``,
 ``step``, ``run``, the catchup tick and ``join``: a statesync of a fresh
 node on the virtual clock, through ``sim/node.HandleProvider``), without
-its black boxes, blocksync and churn.  Each time the network's top height
+its blocksync and churn.  As there, the package's flight recorder
+(``libs/tracing``) runs on the virtual clock, reset when the cluster is
+built, and each node keeps its own black box (``libs/blackbox``,
+synchronous, records routed by the node whose work is running): a crash
+kills the journal's unflushed tail, a restart logs the dead journal's
+postmortem into the trace, and ``stop`` closes every journal cleanly and
+gives the tracer back its wall clock.  Each time the network's top height
 grows, every live node's mempool is offered the next height's
 ``txs_per_height`` KVStore txs (from a numpy seed), standing in for the
 mempool reactor.
@@ -39,6 +45,8 @@ CATCHUP_INTERVAL = 0.5  # virtual seconds between catchup scans
 PORT = "cometbft_tpu_torch"
 
 _MODULES = {
+    "blackbox": "libs.blackbox",
+    "tracing": "libs.tracing",
     "messages": "consensus.messages",
     "block": "types.block",
     "clock": "sim.clock",
@@ -107,6 +115,19 @@ class Cluster:
         self.trace: list[str] = []
         self.events_fired = 0
         self._dbs: list = [None] * N_VALS  # MemKV survives crash-restart
+        # the flight recorder on the virtual clock, reset per cluster (span
+        # ids and anomaly dumps become a pure function of the seed), and
+        # one synchronous black box a node, as the JAX SimCluster has
+        self.tracer = m.tracing.get_tracer()
+        self.tracer.reset()
+        self.tracer.set_clock(self.clock.now)
+        self.active_node: Optional[int] = None
+        self.blackbox: dict = {}
+        self.postmortems: list = []
+        self._bb_prev_sinks: Optional[dict] = None
+        if m.blackbox.enabled():
+            self._bb_prev_sinks = {
+                k: m.tracing.set_sink(k, fn) for k, fn in self._bb_sinks().items()}
         self.nodes: list = [self._build(i) for i in range(N_VALS)]
         self.members = set(range(N_VALS))
         self._started = False
@@ -124,14 +145,65 @@ class Cluster:
         self._dbs[i] = node.block_store._db
         node.cs.trace_origin = i
         node.cs.broadcast_hook = lambda msg, i=i: self._broadcast(i, msg)
+        if self._bb_prev_sinks is not None:
+            # no periodic health records: their counter snapshots carry
+            # wall-clock aggregates, which would break the journal's bytes
+            j = self.m.blackbox.BlackboxJournal(
+                str(self.root / f"node{i}" / "blackbox"), threaded=False,
+                clock=self.clock.now, health_every=None)
+            j.on_event("boot", {"node": i})
+            self.blackbox[i] = j
         repair = node.cs.wal.last_repair if node.cs.wal is not None else None
         if repair is not None:
             self._log("node%d wal_repair: truncated %d torn byte(s) to %d"
                       % (i, repair["dropped_bytes"], repair["good_bytes"]))
+            j = self.blackbox.get(i)
+            if j is not None and not j.closed:
+                j.on_event("wal_repair", {"node": i, **repair})
         return node
 
+    # -- black-box routing (the JAX SimCluster's): records go to the journal
+    # of the node whose work runs (``active_node``), else to the one a
+    # consensus record names; cluster-level work is nobody's
+
+    def _bb_target(self, attrs=None):
+        i = self.active_node
+        if i is None and attrs:
+            i = attrs.get("node")
+        j = self.blackbox.get(i) if i is not None else None
+        return j if j is not None and not j.closed else None
+
+    def _bb_sinks(self) -> dict:
+        def span(sp):
+            j = self._bb_target(sp.attrs)
+            if j is not None:
+                j.on_span(sp)
+
+        def open_(sp):
+            j = self._bb_target(sp.attrs)
+            if j is not None:
+                j.on_open(sp)
+
+        def anomaly(kind, attrs, t):
+            j = self._bb_target(attrs)
+            if j is not None:
+                j.on_anomaly(kind, attrs, t)
+
+        def event(kind, attrs):
+            j = self._bb_target(attrs)
+            if j is not None:
+                j.on_event(kind, attrs)
+
+        return {"span": span, "open": open_, "anomaly": anomaly, "event": event}
+
     def _broadcast(self, i: int, msg) -> None:
-        self.net.send(i, msg)
+        node = self.nodes[i]
+        ctx = None
+        if node is not None:
+            # current_trace_ctx already gates on tracing.xnode_enabled()
+            tc = node.cs.current_trace_ctx()
+            ctx = tc.encode() if tc is not None else None
+        self.net.send(i, msg, ctx=ctx)
 
     def live_nodes(self) -> list:
         return [n for n in self.nodes if n is not None]
@@ -145,14 +217,31 @@ class Cluster:
         self._feed()
         for node in self.live_nodes():
             self._log("start node%d" % node.index)
-            node.cs.start()
+            self._start_cs(node)
         self.clock.call_later(CATCHUP_INTERVAL, self._catchup_tick, label="catchup")
         self._drain_all()
+
+    def _start_cs(self, node) -> None:
+        """Start a node's consensus with ``active_node`` set, so the round
+        anchor its start opens routes to the node's own journal."""
+        self.active_node = node.index
+        try:
+            node.cs.start()
+        finally:
+            self.active_node = None
 
     def stop(self) -> None:
         for node in self.live_nodes():
             node.cs.stop()
             node.app_conns.stop()
+        for j in self.blackbox.values():
+            if not j.closed:
+                j.close(clean=True)
+        if self._bb_prev_sinks is not None:
+            for k, fn in self._bb_prev_sinks.items():
+                self.m.tracing.set_sink(k, fn)
+            self._bb_prev_sinks = None
+        self.tracer.set_clock(None)
 
     def crash(self, i: int) -> None:
         """Kill node i; its stores, WAL and privval files survive."""
@@ -163,6 +252,11 @@ class Cluster:
         self.nodes[i] = None
         if node.cs.wal is not None:
             node.cs.wal.kill()
+        j = self.blackbox.get(i)
+        if j is not None:
+            # the journal's unflushed tail dies with the process, as the
+            # WAL's does
+            j.kill()
         node.cs.stop()
         node.app_conns.stop()
 
@@ -172,9 +266,23 @@ class Cluster:
         if self.nodes[i] is not None:
             return
         self._log("restart node%d" % i)
+        if self._bb_prev_sinks is not None:
+            # decode the dead journal before reopening repairs its torn tail
+            rep = self.m.blackbox.postmortem_report(
+                str(self.root / f"node{i}" / "blackbox"))
+            self.postmortems.append(
+                {"node": i, "t": round(self.clock.now(), 6), "report": rep})
+            inf = rep.get("in_flight") or {}
+            self._log(
+                "restart node%d postmortem: clean=%s records=%d torn=%s "
+                "corrupt=%d last_committed=%s inflight=h%s/r%s open_spans=%d"
+                % (i, rep["clean_close"], rep["journal"]["records"],
+                   rep["journal"]["torn_tail"], rep["journal"]["corrupt_skipped"],
+                   rep["last_committed_height"], inf.get("h"), inf.get("r"),
+                   len(rep["open_spans"])))
         node = self._build(i)
         self.nodes[i] = node
-        node.cs.start()
+        self._start_cs(node)
         self._drain_all()
         self.checker.on_restart(self, i)
 
@@ -195,6 +303,11 @@ class Cluster:
         sp, syn = imp("statesync.stateprovider"), imp("statesync.syncer")
         state_store, block_store, kv = imp("state.store"), imp("store.block_store"), imp("store.kv")
 
+        # a fresh machine: no stores, no WAL, no privval history and no
+        # black box (close the old handle before its directory goes)
+        j = self.blackbox.pop(i, None)
+        if j is not None and not j.closed:
+            j.close(clean=False)
         shutil.rmtree(self.root / f"node{i}", ignore_errors=True)
         self._dbs[i] = None
         app = kvstore.KVStoreApplication()
@@ -248,7 +361,7 @@ class Cluster:
         self.members.add(i)
         self.checker.on_join(self, i, state.last_block_height)
         self._log("join node%d statesync complete h=%d" % (i, state.last_block_height))
-        node.cs.start()
+        self._start_cs(node)
         self._drain_all()
         return True
 
@@ -298,8 +411,12 @@ class Cluster:
             progress = False
             for node in self.nodes:
                 if node is not None and node.cs.is_running:
-                    if node.cs.process_pending():
-                        progress = True
+                    self.active_node = node.index
+                    try:
+                        if node.cs.process_pending():
+                            progress = True
+                    finally:
+                        self.active_node = None
 
     def step(self) -> bool:
         """Fire one scheduled event, drain, check the invariants."""
