@@ -302,12 +302,32 @@ served by the torch or host tier, or one that raised, fails the run.
               versions on the path's own inputs.  Printed: each height's
               wall, rounds, txs, launches and lanes per launch; each node's
               apply split (medians over heights); vote-verify latency; the
-              restart's replay; the card's busy share (derived).  Part B:
-              ``tests/torch_sim.py``'s seeded virtual-time network (four
-              validators, 64 txs a height, five heights) on the card and,
-              in a fresh process with ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``
-              (``--sim-child``), on the CPU: equal block hashes, app hashes,
-              ``#ENDHEIGHT`` sets and event traces.
+              restart's replay; the card's busy share (derived).
+ 18b. sim   — the deterministic simulator (``sim/scenarios.run_scenario``
+              on virtual time, ``device=None``: the card, no stand-in at
+              any seam), six scenarios at the JAX tests' sizes; every one
+              but ``backend-brownout`` is held to fresh CPU processes
+              (``--sim-child``, two beside the card's scenarios,
+              ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``, the host oracle at the
+              seams, no batch on ``cuda``): its trace,
+              heights, events, commit hashes and its scheduler's, proof
+              plane's and transport plane's blocks of ``summary()`` equal
+              the card's; on the card every kernel's batches equal its
+              launches.  ``baseline`` and ``crash-restart`` (seed 42);
+              ``backend-brownout`` (seed 3) under the card's rule: every
+              Ed25519 batch served by ``cuda`` or raised, each raised one
+              faulted by the injector or refused by the open breaker, no
+              faulted one served, the breakers' transitions and heights
+              printed;
+              ``dial-storm`` (42): every ladder and AEAD pass on ``cuda``,
+              the tampered batch's prefix and the kill-switch wave's bytes
+              asserted by the scenario, the AEAD digests in the trace;
+              ``light-stampede`` (3): every tree pass on ``cuda``, the
+              response digests in the trace, printed, no
+              consensus-class shed; ``gossip-burst`` (3): no
+              consensus-class shed, every Ed25519 batch on ``cuda``.  One
+              ``sim:`` line a scenario: virtual and wall seconds, launches
+              per kernel, ``reached``/``invariants_ok``.
  19. network — the peer-to-peer network and its reactors, a path of its
               own, each node wired by ``tests/torch_net.py`` as the JAX
               node's ``_setup_p2p`` wires one: a ``NodeKey``, a
@@ -597,9 +617,24 @@ CONSENSUS_RESTARTED = 3  # the validator stopped and rebuilt from its stores
 CONSENSUS_AFTER = 2  # heights all four commit after the restarted one caught up
 CONSENSUS_TIMEOUT_S = 240.0  # each wait of the threaded run
 CONSENSUS_CATCHUP_S = 0.5  # the relay's catchup scan (the sim's CATCHUP_INTERVAL)
-SIM_SEED = 42  # part B: the seeded virtual-time network of tests/torch_sim.py
-SIM_HEIGHTS = 5
-SIM_TXS = 64
+# the sim phase: (scenario, seed, run_scenario overrides) at the JAX tests'
+# seeds and sizes; all but backend-brownout (whose card rule differs from
+# the CPU's by design) are held to a CPU child run of the same scenario.
+# dial-storm runs to height 10: at its own target (6) both
+# packages stop at ~6.6 virtual s, before its third wave (t=7) and its
+# kill-switch parity wave (t=9)
+SIM_SCENARIOS = (("baseline", 42, {}), ("crash-restart", 42, {}),
+                 ("backend-brownout", 3, {}), ("dial-storm", 42, {"target_height": 10}),
+                 ("light-stampede", 3, {}), ("gossip-burst", 3, {}))
+SIM_AGAINST_CPU = ("baseline", "crash-restart", "dial-storm", "light-stampede",
+                   "gossip-burst")
+# the CPU children, each a fresh process running its share in turn: the
+# longest alone, so that the children end within the card's runs
+SIM_CHILDREN = (("dial-storm",), ("baseline", "crash-restart", "light-stampede",
+                                  "gossip-burst"))
+# the kernels of the sim phase, by their ``ops/dispatch_stats`` tier keys
+SIM_TIER_KEYS = {"ed25519": "ed25519", "tree": "merkle", "aead": "aead",
+                 "ladder": "x25519"}
 SIM_CHILD_TIMEOUT_S = 300
 NETWORK_CHAIN = "network-chain"
 NETWORK_SEED = 20261035  # the txs offered to node 0 before each height
@@ -4543,53 +4578,57 @@ def blockexec_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
             "genesis": gdoc, "keys": keys, "app": app}
 
 
-def load_torch_sim():
-    """``tests/torch_sim.py``, the seeded virtual-time network's drive loop
-    that the CPU differential tests use, loaded by path: the one test helper
-    this script runs, so that the card's run and the tests cannot drift
-    apart."""
-    import importlib.util
-
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                        "torch_sim.py")
-    spec = importlib.util.spec_from_file_location("torch_sim", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def sim_run(device) -> dict:
-    """Part B of phase 18: four validators on the seeded virtual-time
-    network (``threaded=False``), SIM_TXS txs a height, to SIM_HEIGHTS;
-    what must agree between the card and the CPU."""
-    from cometbft_tpu_torch.ops import dispatch_stats as ds
-    from cometbft_tpu_torch.ops import sha256_tree as st
-
-    ts = load_torch_sim()
-    with tempfile.TemporaryDirectory(prefix="sim-") as d:
-        c = ts.run_script(ts.PORT, d, "clean", seed=SIM_SEED, heights=SIM_HEIGHTS,
-                          txs_per_height=SIM_TXS, device=device)
-        try:
-            out = {"chain": c.chain(SIM_HEIGHTS), "heights": c.heights(),
-                   "events": c.events_fired, "violations": len(c.checker.violations),
-                   "commits_verified": c.checker.commits_verified,
-                   "trace_lines": len(c.trace),
-                   "trace_sha256": hashlib.sha256("\n".join(c.trace).encode()).hexdigest(),
-                   "ed25519": ds.tier_counts(), "merkle": ds.tier_counts(st.MERKLE)}
-        finally:
-            c.stop()
-    return json.loads(json.dumps(out))
+def sim_digest(res) -> dict:
+    """What a scenario's card run and its CPU run must agree on: heights,
+    events, the commit hash at every height, the trace line for line (with
+    dial-storm's AEAD digests and light-stampede's proof-response digests),
+    the scheduler's, proof plane's and transport plane's blocks of
+    ``summary()``, but for one count: a restarted node's postmortem line counts the records
+    of its black box, which holds the spans its verify path recorded (on
+    the card the scheduler's flushes and the kernel's dispatches, on a CPU
+    verifying on the host none), so ``records=`` is kept apart, in
+    ``journal_records``."""
+    top = max(res.heights)
+    trace, records = [], []
+    for ln in res.trace:
+        m = re.search(r" postmortem: .*\brecords=(\d+)", ln)
+        if m:
+            records.append(int(m.group(1)))
+            ln = ln.replace(f"records={m.group(1)}", "records=*")
+        trace.append(ln)
+    row = res.summary()
+    return {"heights": res.heights, "events": res.events,
+            "virtual_time": round(res.virtual_time, 6),
+            "planes": {k: row.get(k) for k in ("sched", "proofs", "transport")},
+            "commits": [res.cluster.commit_hash(h).hex() for h in range(1, top + 1)],
+            "trace": trace, "journal_records": records,
+            "violations": len(res.violations)}
 
 
-def sim_child(path: str) -> int:
-    """Part B's CPU side, in a fresh process with
+def sim_child(path: str, names: str) -> int:
+    """The sim phase's CPU side, in a fresh process with
     ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` (the verify scheduler's gate is
     process-wide: once the card's self-check has passed, an in-process run
-    on ``device="cpu"`` would still send its votes to the card)."""
+    on the CPU would still send its votes to the card): each scenario of
+    ``names`` (comma-separated, of SIM_AGAINST_CPU) at its seed, its
+    ``sim_digest`` and the tiers that served its kernels' batches
+    (``dispatch_stats``: never ``cuda`` here)."""
+    from cometbft_tpu_torch.ops import dispatch_stats as ds
+    from cometbft_tpu_torch.sim import run_scenario
+
     check(os.environ.get("COMETBFT_TPU_CRYPTO_BACKEND") == "cpu",
           "sim child: COMETBFT_TPU_CRYPTO_BACKEND is not cpu")
+    runs = {name: (seed, kw) for name, seed, kw in SIM_SCENARIOS}
+    out = {}
+    for name in names.split(","):
+        seed, kw = runs[name]
+        ds.reset()
+        with tempfile.TemporaryDirectory(prefix=f"sim-{name}-") as d:
+            res = run_scenario(name, seed, root=d, keep_cluster=True, **kw)
+            out[name] = dict(sim_digest(res), tiers={
+                k: ds.tier_counts(t) for k, t in SIM_TIER_KEYS.items()})
     with open(path, "w") as f:
-        json.dump(sim_run("cpu"), f)
+        json.dump(out, f)
     return 0
 
 
@@ -4643,9 +4682,8 @@ def consensus_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
     the card with an on-disk root, wired by a loopback relay, full mempools
     before each height; one is stopped after CONSENSUS_HEIGHTS, rebuilt
     from its stores (its WAL replayed, the Handshaker replaying the app)
-    and signs again.  Part B: the seeded virtual-time network of
-    ``tests/torch_sim.py`` on the card and on the CPU, byte for byte.
-    Returns {"ed25519": launches, "tree": launches} of both parts."""
+    and signs again.  (The seeded virtual-time network, card against CPU,
+    is the sim phase's.)  Returns {"ed25519": launches, "tree": launches}."""
     import pathlib
     import threading
 
@@ -5069,51 +5107,6 @@ def consensus_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
               f"busy ~{busy:.4%} of the run's {wall:.2f} s (derived: launches x those "
               f"times) {tag}")
 
-        # -- part B: the seeded virtual-time network, card against CPU ------
-        cv.reset_launches()
-        csh.reset_launches()
-        ds.reset()
-        t0 = time.perf_counter()
-        card = sim_run(None)
-        card_s = time.perf_counter() - t0
-        sim_ed, sim_tree = cv.launches, csh.launches
-        with tempfile.TemporaryDirectory(prefix="sim-child-") as d:
-            out = os.path.join(d, "cpu.json")
-            env = dict(os.environ, COMETBFT_TPU_CRYPTO_BACKEND="cpu")
-            t0 = time.perf_counter()
-            proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                   "--sim-child", out], env=env, capture_output=True,
-                                  text=True, timeout=SIM_CHILD_TIMEOUT_S)
-            cpu_s = time.perf_counter() - t0
-            check(proc.returncode == 0, f"consensus: the CPU child failed: "
-                  f"{proc.stderr[-2000:]}")
-            with open(out) as f:
-                cpu = json.load(f)
-        check(card["ed25519"]["cuda"][0] == sim_ed > 0
-              and card["ed25519"]["torch"] == [0, 0] and card["ed25519"]["host"] == [0, 0],
-              f"consensus: part B's Ed25519 on the card {card['ed25519']}, {sim_ed} launches")
-        check(cpu["ed25519"]["cuda"] == [0, 0] and cpu["merkle"]["cuda"] == [0, 0],
-              f"consensus: the CPU child reached the cuda tier: {cpu['ed25519']} "
-              f"{cpu['merkle']}")
-        for side in (card, cpu):
-            check(min(side["heights"]) >= SIM_HEIGHTS and side["violations"] == 0,
-                  f"consensus: part B heights {side['heights']}, violations "
-                  f"{side['violations']}")
-        check(card["chain"] == cpu["chain"], "consensus: part B's block or app hashes "
-              "differ between the card and the CPU")
-        check(card["trace_sha256"] == cpu["trace_sha256"],
-              "consensus: part B's event traces differ between the card and the CPU")
-        print(f"consensus: part B, tests/torch_sim.py's seeded network ({CONSENSUS_NODES} "
-              f"validators, threaded=False, VirtualClock, SimNetwork seed {SIM_SEED}, "
-              f"{SIM_TXS} txs a height, {SIM_HEIGHTS} heights): on the card "
-              f"{card_s:.2f} s (Ed25519 {card['ed25519']}, {sim_ed} launches; tree "
-              f"{card['merkle']}, {sim_tree} launches), on the CPU in a fresh process "
-              f"(COMETBFT_TPU_CRYPTO_BACKEND=cpu) {cpu_s:.2f} s (Ed25519 "
-              f"{cpu['ed25519']}, tree {cpu['merkle']}); equal block and app hashes at "
-              f"every height on every node, equal #ENDHEIGHT sets, equal event traces "
-              f"({card['trace_lines']} lines, sha256 {card['trace_sha256'][:16]}), "
-              f"{card['commits_verified']} commits verified by the invariant checker, "
-              f"no violation {tag}")
         print(f"consensus: the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         cv.verify_core_cuda, csh.tree_words, Vote.verify = real_ed, real_tree, real_verify
@@ -5123,12 +5116,187 @@ def consensus_phase(torch, dev, cbatch, cv, ds, sigcache, tag) -> dict:
             n.app_conns.stop()
         verifysched.reset_scheduler()
         shutil.rmtree(root, ignore_errors=True)
-    return {"ed25519": ed_launches + sim_ed, "tree": tree_launches + sim_tree}
+    return {"ed25519": ed_launches, "tree": tree_launches}
+
+
+def sim_phase(torch, ds, tag) -> dict:
+    """Phase 18b: the port's deterministic simulator on the card, through
+    ``sim/scenarios.run_scenario`` with ``device=None`` (no stand-in at any
+    seam: the kernels answer), the scenarios of SIM_SCENARIOS at their
+    seeds; the CPU children of SIM_AGAINST_CPU run beside them.  Returns
+    {"ed25519", "tree", "aead", "ladder": launches} of the phase."""
+    from cometbft_tpu_torch.crypto import batch as cbatch
+    from cometbft_tpu_torch.crypto import sigcache
+    from cometbft_tpu_torch.crypto.backend_health import BackendError
+    from cometbft_tpu_torch.ops import cuda_aead, cuda_sha256, cuda_verify, cuda_x25519
+    from cometbft_tpu_torch.ops import supervisor
+    from cometbft_tpu_torch.sim import run_scenario
+
+    t_phase = time.perf_counter()
+    # the card's known-answer self-check (once a process; earlier phases
+    # ran it) launches outside every scenario's count, so each kernel's
+    # batches served on cuda equal its launches there
+    cbatch.default_backend()
+    kernels = {"ed25519": cuda_verify, "tree": cuda_sha256, "aead": cuda_aead,
+               "ladder": cuda_x25519}
+    tmp = tempfile.mkdtemp(prefix="sim-phase-")
+    env = dict(os.environ, COMETBFT_TPU_CRYPTO_BACKEND="cpu")
+    children = []  # (process, output path)
+    for i, names in enumerate(SIM_CHILDREN):
+        out_path = os.path.join(tmp, f"cpu{i}.json")
+        children.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sim-child", out_path,
+             ",".join(names)], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True), out_path))
+    # the brownout's accounting, batch by batch (the scheduler is off there
+    # and the sim is one thread, so a supervised verify's injected faults
+    # are its own): raised with a fault injected in it (bisection's halves
+    # included), raised with none (an open breaker refused it), served
+    # with a fault injected in it (must not happen: nothing answers below
+    # the kernel)
+    acct = collections.Counter()
+    shims = []
+    real_sup = supervisor.verify_supervised
+    real_shim = supervisor.FaultyBackend
+
+    def faults() -> int:
+        return sum(sh.faults for sh in shims)
+
+    def counted_sup(*a, **kw):
+        before = faults()
+        try:
+            out = real_sup(*a, **kw)
+        except BackendError:
+            acct["raised_faulted" if faults() > before else "raised_refused"] += 1
+            raise
+        if faults() > before:
+            acct["served_faulted"] += 1
+        return out
+
+    class Shim(real_shim):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            shims.append(self)
+
+    totals = collections.Counter()
+    digests = {}
+    try:
+        supervisor.verify_supervised = counted_sup
+        supervisor.FaultyBackend = Shim
+        for name, seed, kw in SIM_SCENARIOS:
+            for mod in kernels.values():
+                mod.reset_launches()
+            ds.reset()
+            sigcache.reset_cache()
+            acct.clear()
+            shims.clear()
+            t0 = time.perf_counter()
+            res = run_scenario(name, seed, root=os.path.join(tmp, name), keep_cluster=True,
+                               **kw)
+            wall = time.perf_counter() - t0
+            launches = {k: mod.launches for k, mod in kernels.items()}
+            totals.update(launches)
+            tiers = {k: ds.tier_counts(t) for k, t in SIM_TIER_KEYS.items()}
+            ok = not res.violations
+            check(res.reached and ok, f"sim: {name} seed {seed} reached {res.reached}, "
+                  f"heights {res.heights}, violations {res.violations[:3]}")
+            for k, t in tiers.items():
+                check(t["torch"] == (0, 0) and t["host"] == (0, 0)
+                      and t["cuda"][0] == launches[k],
+                      f"sim: {name}: {k} batches off the kernel: {t}, {launches[k]} launches")
+            print(f"sim: {name} seed {seed}: virtual {res.virtual_time:.3f} s, wall "
+                  f"{wall:.2f} s, {res.events} events, heights {res.heights}, launches "
+                  f"Ed25519 {launches['ed25519']} tree {launches['tree']} AEAD "
+                  f"{launches['aead']} ladder {launches['ladder']}, tiers (batches, "
+                  f"items) {json.dumps({k: t['cuda'] for k, t in tiers.items()})} on cuda, "
+                  f"reached {res.reached}, invariants_ok {ok} {tag}")
+            if name in SIM_AGAINST_CPU:
+                digests[name] = json.loads(json.dumps(sim_digest(res)))
+                check(launches["ed25519"] > 0, f"sim: {name} launched no Ed25519 kernel")
+            if name == "backend-brownout":
+                b = res.backend
+                raised = acct["raised_faulted"] + acct["raised_refused"]
+                check(acct["raised_faulted"] > 0 and acct["served_faulted"] == 0,
+                      f"sim: backend-brownout batches {dict(acct)}, {faults()} faults")
+                check(b["fallback_signatures"] == 0 and b["breaker_opens"] >= 1
+                      and b["repromotions"] >= 1 and b["breakers"].get("cuda") == "closed",
+                      f"sim: backend-brownout breakers {b}")
+                print(f"sim: backend-brownout under the card's rule: {tiers['ed25519']['cuda'][0]} "
+                      f"Ed25519 batches served by cuda (none with a fault injected), "
+                      f"{raised} raised = {acct['raised_faulted']} in which the injector "
+                      f"fired ({faults()} faults, bisection's halves included) + "
+                      f"{acct['raised_refused']} an open breaker refused, none answered "
+                      f"below the kernel; breakers: {b['breaker_opens']} opens, "
+                      f"{b['demotions']} demotions, {b['repromotions']} repromotions, end "
+                      f"states {b['breakers']}; heights {res.heights} (target "
+                      f"{res.target_height}) {tag}")
+            if name == "dial-storm":
+                check(launches["aead"] > 0 and launches["ladder"] > 0,
+                      f"sim: dial-storm launches {launches}")
+                waves = [ln for ln in res.trace if "dial storm wave" in ln
+                         or "kill-switch parity ok" in ln]
+                for ln in waves:
+                    print(f"sim: dial-storm: {ln}")
+                check(len(waves) == 4, f"sim: dial-storm trace lines {waves}")
+            if name == "light-stampede":
+                check(launches["tree"] > 0 and res.sched["shed"]["consensus"] == 0,
+                      f"sim: light-stampede tree launches {launches['tree']}, sched "
+                      f"{res.sched}")
+                for ln in res.trace:
+                    if "scenario: proof stampede" in ln:
+                        print(f"sim: light-stampede: {ln}")
+                print(f"sim: light-stampede: proofs {json.dumps(res.summary()['proofs'])}, "
+                      f"consensus-class shed {res.sched['shed']['consensus']}")
+            if name == "gossip-burst":
+                check(res.sched["shed"]["consensus"] == 0 and res.sched["shed"]["bulk"] > 0,
+                      f"sim: gossip-burst sched {res.summary()['sched']}")
+                print(f"sim: gossip-burst: sched {json.dumps(res.summary()['sched'])}")
+        cpu = {}
+        for child, out_path in children:
+            try:
+                _, err = child.communicate(timeout=SIM_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                _, err = child.communicate()
+            check(child.returncode == 0, f"sim: a CPU child failed: {err[-2000:]}")
+            with open(out_path) as f:
+                cpu.update(json.load(f))
+        for name in SIM_AGAINST_CPU:
+            card, host = digests[name], cpu[name]
+            host_tiers = host.pop("tiers")
+            check(all(t["cuda"] == [0, 0] for t in host_tiers.values()),
+                  f"sim: {name}: the CPU child reached the cuda tier: {host_tiers}")
+            apart = [(a, b) for a, b in zip(card["trace"], host["trace"]) if a != b]
+            differ = [k for k in card if k != "journal_records" and card[k] != host[k]]
+            check(not differ, f"sim: {name}: the card's run differs from the CPU child's: "
+                  f"{differ}, trace lines {len(card['trace'])} / {len(host['trace'])}, "
+                  f"the first apart {apart[:3]}")
+            sha = hashlib.sha256("\n".join(card["trace"]).encode()).hexdigest()
+            print(f"sim: {name}: the card's trace ({len(card['trace'])} lines, sha256 "
+                  f"{sha[:16]}), heights, events, the commit hash at each of "
+                  f"{len(card['commits'])} heights and the sched/proofs/transport blocks "
+                  f"equal the CPU child's (COMETBFT_TPU_CRYPTO_BACKEND=cpu, no batch on "
+                  f"cuda there); restarted nodes' journal records "
+                  f"{card['journal_records']} on the card, {host['journal_records']} on the "
+                  f"CPU {tag}")
+    finally:
+        supervisor.verify_supervised = real_sup
+        supervisor.FaultyBackend = real_shim
+        for child, _ in children:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"sim: the phase took {time.perf_counter() - t_phase:.1f} s; launches Ed25519 "
+          f"{totals['ed25519']}, tree {totals['tree']}, AEAD {totals['aead']}, ladder "
+          f"{totals['ladder']}")
+    return dict(totals)
 
 
 def load_torch_net():
     """``tests/torch_net.py``, the node wiring that the CPU tests use,
-    loaded by path as ``load_torch_sim`` loads the drive loop."""
+    loaded by path, so that the card's run and the tests cannot drift
+    apart."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
@@ -8536,6 +8704,17 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         light_entry["launches"] += cs_launches["tree"]
         lap("consensus")
 
+        # -- 18b. sim: the deterministic simulator's scenarios on the card ---
+        sim = sim_phase(torch, ds, tag)
+        print(f"sim: the kernels line adds the phase's launches to the earlier paths' "
+              f"counts (Ed25519 {launches}, tree {light_entry['launches']}, AEAD "
+              f"{aead_entry['launches']}, ladder {ladder_entry['launches']})")
+        launches += sim["ed25519"]
+        light_entry["launches"] += sim["tree"]
+        aead_entry["launches"] += sim["aead"]
+        ladder_entry["launches"] += sim["ladder"]
+        lap("sim")
+
         # -- 19. network: switches, reactors, PEX and blocksync ---------------
         net = network_phase(torch, dev, cbatch, cv, ds, sigcache, be, tag)
         lap("network")
@@ -8612,7 +8791,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--warm-child"]:
         sys.exit(warm_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--sim-child"]:
-        sys.exit(sim_child(sys.argv[2]))
+        sys.exit(sim_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--net-node"]:
         sys.exit(net_node_child(sys.argv[2]))
     if sys.argv[1:2] == ["--cli-child"]:

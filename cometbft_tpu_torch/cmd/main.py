@@ -2,15 +2,15 @@
 
 Commands: init, start, show-node-id, show-validator, gen-validator,
 unsafe-reset-all, version, testnet, rollback, inspect, light, confix,
-compact-db, debug kill/dump, reindex-event.  ``python -m
-cometbft_tpu_torch.cmd --home <dir> <command>``.
+compact-db, debug kill/dump, reindex-event, sim, trace, postmortem.
+``python -m cometbft_tpu_torch.cmd --home <dir> <command>``.
 
-The port's copy of the JAX package's ``cmd/main.py``.  ``start`` and
-``light`` run on the card; with no card they raise unless
+The port's copy of the JAX package's ``cmd/main.py``.  ``start``,
+``light`` and ``sim`` run on the card; with no card they raise unless
 ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` asks for the CPU
-(``types/validation.require_device``).  ``sim``, ``trace`` and
-``postmortem`` wait for modules the port has not yet: each prints the
-module and exits non-zero.
+(``types/validation.require_device``).  ``sim`` runs the port's scenarios
+(``sim/scenarios``); the JAX package's three elastic-mesh scenarios wait
+for ``parallel/elastic``, and naming one exits 2 saying so.
 """
 
 from __future__ import annotations
@@ -252,21 +252,60 @@ def cmd_version(args) -> int:
     return 0
 
 
-# The JAX CLI's ``sim`` reads modules the port has not yet; it prints the
-# modules it waits for and exits non-zero.
-_NOT_PORTED = {
-    "sim": "sim/{cluster,blocksync,scenarios}",
-}
+def cmd_sim(args) -> int:
+    """Deterministic simulation: run a fault scenario on virtual time and
+    report whether the cluster reached the target height with the
+    agreement/validity/WAL invariants intact.  Same seed ⇒ byte-identical
+    event trace (``sim/``).  On the card; ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``
+    asks for the CPU.  A scenario of the JAX package that needs the
+    elastic mesh exits 2, naming ``parallel/elastic``."""
+    from cometbft_tpu_torch.sim import SCENARIOS, run_scenario
+    from cometbft_tpu_torch.sim.scenarios import NOT_PORTED, not_ported_message
 
-
-def cmd_not_ported(args) -> int:
-    print(
-        f"{args.command}: not ported: it needs "
-        f"{_NOT_PORTED[args.command]}, which cometbft_tpu_torch does not "
-        "have yet",
-        file=sys.stderr,
+    if args.list:
+        for name, sc in SCENARIOS.items():
+            print(f"{name:20s} {sc.description}")
+        return 0
+    if args.scenario.replace("_", "-") in NOT_PORTED:
+        print(not_ported_message(args.scenario.replace("_", "-")), file=sys.stderr)
+        return 2
+    if args.scenario not in SCENARIOS:
+        print(
+            f"unknown scenario {args.scenario!r}; --list shows the options",
+            file=sys.stderr,
+        )
+        return 1
+    result = run_scenario(
+        args.scenario,
+        args.seed,
+        n_vals=args.validators or None,
+        target_height=args.height or None,
+        max_time=args.max_time or None,
     )
-    return 2
+    if args.trace_out:
+        with open(args.trace_out, "w") as f:
+            f.write("\n".join(result.trace) + "\n")
+        print(f"wrote {len(result.trace)} trace lines to {args.trace_out}")
+    summary = result.summary()
+    if args.json:
+        print(json.dumps(summary, indent=2))
+    else:
+        print(
+            "scenario=%s seed=%d reached=%s heights=%s virtual_time=%.1fs "
+            "events=%d commits_verified=%d"
+            % (
+                summary["scenario"],
+                summary["seed"],
+                summary["reached"],
+                summary["heights"],
+                summary["virtual_time"],
+                summary["events"],
+                summary["commits_verified"],
+            )
+        )
+        for v in summary["violations"]:
+            print(f"INVARIANT VIOLATION: {v}")
+    return 0 if summary["reached"] and summary["invariants_ok"] else 1
 
 
 def cmd_trace(args) -> int:
@@ -920,7 +959,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--trace-out", default="", help="write the event trace here")
     sp.add_argument("--json", action="store_true")
     sp.add_argument("--list", action="store_true", help="list scenarios")
-    sp.set_defaults(fn=cmd_not_ported)
+    sp.set_defaults(fn=cmd_sim)
 
     sp = sub.add_parser(
         "trace",

@@ -287,7 +287,9 @@ class GpuBatchVerifier(_CollectingVerifier):
     default device, with the verify scheduler active, they go through
     ``verifysched.verify_segment_sync``: fewer than a flush's worth
     coalesce with concurrent gossip-time work into one flush, more are one
-    direct supervised launch, as here."""
+    direct supervised launch, as here.  A verifier on the device a caller
+    holds the gate open on (``verifysched.open_gate``) bridges to the
+    scheduler there."""
 
     def __init__(self, device=None):
         super().__init__()
@@ -297,7 +299,7 @@ class GpuBatchVerifier(_CollectingVerifier):
         from cometbft_tpu_torch import verifysched
         from cometbft_tpu_torch.ops import verify as ov
 
-        if self.device is None and verifysched.scheduler_active():
+        if verifysched.scheduler_active() and verifysched.on_gate_device(self.device):
             # the scheduler resolves only definitive supervised verdicts,
             # at the caller's ambient priority class
             return verifysched.verify_segment_sync(pubs, msgs, sigs)

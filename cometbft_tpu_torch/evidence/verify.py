@@ -9,7 +9,8 @@ verification of the conflicting block against the common validator set
 live commit verification).
 
 ``device`` is the caller's (``EvidencePool``): ``None`` means the card,
-``"cpu"`` the host.  On the card a flush or a batch the kernel did not
+``"cpu"`` the host (or, while a caller holds the gate open on the CPU,
+``verifysched.open_gate``, the scheduler there).  On the card a flush or a batch the kernel did not
 serve raises ``BackendError``, which is not a verdict on the evidence.
 """
 
@@ -130,12 +131,13 @@ def verify_duplicate_vote(
     pubs = [val.pub_key, val.pub_key]
     msgs = [a.sign_bytes(chain_id), b.sign_bytes(chain_id)]
     sigs = [a.signature, b.signature]
-    if _on_host(device):
+    if _on_host(device) and not verifysched.on_gate_device(device):
         ok_a, ok_b = (verifysched.verify_now(*t) for t in zip(pubs, msgs, sigs))
     else:
-        from cometbft_tpu_torch.crypto import batch as cbatch
+        if not _on_host(device):
+            from cometbft_tpu_torch.crypto import batch as cbatch
 
-        cbatch.default_backend()
+            cbatch.default_backend()
         ok_a, ok_b = verifysched.verify_many_cached(
             pubs, msgs, sigs, priority=verifysched.PRIO_EVIDENCE
         )

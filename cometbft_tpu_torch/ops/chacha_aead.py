@@ -22,7 +22,9 @@ being the gate, as in ``ops/sha256_tree.tree_root``):
 
   * ``COMETBFT_TPU_AEAD_DEVICE=0`` pins every frame to the host tier;
   * with no device named, no runner installed and the gate closed, a
-    batch is sealed or opened on the host tier;
+    batch is sealed or opened on the host tier; with the gate open, a
+    batch with no device named goes to the gate's device
+    (``verifysched.gate_device``: the card, or a device a caller named);
   * a batch beyond the JAX package's bucket ladder (``_bucket_shape``:
     frames over 2 KiB, more than ``COMETBFT_TPU_AEAD_MAX_LANES`` frames, a
     4 MiB budget) goes to the host, counted as oversize;
@@ -432,6 +434,10 @@ def aead_pass(op, frames, device=None):
         outs, tier = _host_tier(op, frames)
         dispatch_stats.record_tier("host", n, AEAD)
         return outs, tier
+    if device is None:  # the gate's device: the card, or one a caller named
+        from cometbft_tpu_torch.verifysched import service
+
+        device = service.gate_device()
     if aead_runner() is None and _bucket_shape(frames) is None:
         outs, tier = _host_tier(op, frames)
         dispatch_stats.record_tier("host", n, AEAD)

@@ -25,9 +25,13 @@ kernel pads nothing, so a 64 KiB part-set chunk, one SHA-256 block over
 the JAX ladder's bound once prefixed and padded, is hashed there too;
 with no device named and the trust gate closed
 (``verifysched.backend_trusted``, which reads
-``COMETBFT_TPU_CRYPTO_BACKEND`` first) a tree is hashed on the host.  The
+``COMETBFT_TPU_CRYPTO_BACKEND`` first) a tree is hashed on the host; with
+the gate open it goes to the gate's device (the card, or the device a
+caller holds it open on with ``verifysched.open_gate``).  The
 gate never runs the card's self-check itself; a named device runs its
-tier whatever the gate says.  There is no fallback: on
+tier whatever the gate says.  ``set_tree_runner`` replaces the device
+pass, as the JAX package's seam does (a runner also takes sets beyond the
+bucket rules), for the simulator's host-oracle stand-in.  There is no fallback: on
 a card, a tree pass that the kernel fails, or that returns a malformed
 result, counts against the ``merkle_device`` breaker, logs a WARNING and
 raises ``BackendError`` (``ops/supervisor.supervised_device_call``); the
@@ -44,6 +48,7 @@ JAX package.  ``warm_kernels`` is the tree family's warm-boot hook
 from __future__ import annotations
 
 import hashlib
+import threading
 
 import numpy as np
 import torch
@@ -95,9 +100,43 @@ _MASK = 0xFFFFFFFF
 EMPTY_HASH = hashlib.sha256(b"").digest()
 
 
+# -- runner seam ------------------------------------------------------------------
+
+_RUNNER_LOCK = threading.Lock()
+_TREE_RUNNER: "list" = [None]
+
+
+def set_tree_runner(fn) -> None:
+    """Install a stand-in for the device tree pass: ``fn(items) ->
+    levels`` (leaf level first, root level last), as the JAX package's
+    seam takes.  Everything above the pass (routing, the breaker, the
+    counters) runs as it does over the kernel; the deterministic
+    simulator pins the host oracle here on the CPU."""
+    with _RUNNER_LOCK:
+        _TREE_RUNNER[0] = fn
+
+
+def clear_tree_runner() -> None:
+    with _RUNNER_LOCK:
+        _TREE_RUNNER[0] = None
+
+
+def tree_runner():
+    with _RUNNER_LOCK:
+        return _TREE_RUNNER[0]
+
+
+def host_tree_runner(items) -> "list[list[bytes]]":
+    """The host oracle as a tree runner: the kernel's differential oracle."""
+    return host_levels(items)
+
+
 def device_active() -> bool:
-    """True when a tree pass with no device named goes to the card: the
-    trust gate is open.  Never runs the self-check."""
+    """True when a tree pass with no device named goes to the device pass:
+    a runner is installed or the trust gate is open.  Never runs the
+    self-check."""
+    if tree_runner() is not None:
+        return True
     from cometbft_tpu_torch.verifysched import service
 
     return service.backend_trusted()
@@ -296,8 +335,13 @@ def proofs_from_levels(levels) -> "list[merkle.Proof]":
 def device_root(items, device=None) -> bytes:
     """The unguarded device tree pass: the leaves' bytes to ``device``
     (None: the card), one launch of the tree kernel, one copy of the root
-    back.  CPU tensors run the plain version.  Raises on any failure;
+    back.  CPU tensors run the plain version; an installed runner
+    (``set_tree_runner``) answers in its place.  Raises on any failure;
     ``tree_root`` supervises it."""
+    runner = tree_runner()
+    if runner is not None:
+        levels = runner(items)
+        return levels[-1][0]
     from cometbft_tpu_torch.ops import cuda_sha256
     from cometbft_tpu_torch.ops.verify import resolve_device
 
@@ -322,8 +366,11 @@ def device_levels(items, device=None) -> "list[list[bytes]]":
     """The unguarded device pass of every level: the leaves' bytes to
     ``device`` (None: the card), one launch of the tree kernel, one copy
     of its whole output back, split by ``level_sizes``.  CPU tensors run
-    the plain version.  Raises on any failure; ``tree_levels`` supervises
-    it."""
+    the plain version; an installed runner answers in its place.  Raises
+    on any failure; ``tree_levels`` supervises it."""
+    runner = tree_runner()
+    if runner is not None:
+        return runner(items)
     from cometbft_tpu_torch.ops import cuda_sha256
     from cometbft_tpu_torch.ops.verify import resolve_device
 
@@ -360,25 +407,29 @@ def _on_host(n: int, host):
 
 def _route(items, device, run, validate, host):
     """The routing of ``tree_root`` and ``tree_levels``: ``run`` is the
-    device pass, ``validate`` its result check, ``host`` the host oracle.
-    With no device named and the gate closed, or a set beyond the bucket
+    device pass on a given device, ``validate`` its result check, ``host``
+    the host oracle.  With no device named and the gate closed, or a set beyond the bucket
     ladder (on the card, with leaves of up to ``_CARD_MAX_BLOCKS``), the
     host answers; otherwise one supervised pass under the
     ``merkle_device`` breaker, which on a card answers or raises
     ``BackendError``."""
     from cometbft_tpu_torch.ops import dispatch_stats, supervisor
+    from cometbft_tpu_torch.verifysched import service
 
     n = len(items)
-    if device is None and not device_active():
-        return _on_host(n, host)
+    if device is None:
+        if not device_active():
+            return _on_host(n, host)
+        device = service.gate_device()
     on_card = supervisor._on_card(device)
-    if _bucket_shape(items, _CARD_MAX_BLOCKS if on_card else _MAX_BLOCKS) is None:
+    if tree_runner() is None and _bucket_shape(
+            items, _CARD_MAX_BLOCKS if on_card else _MAX_BLOCKS) is None:
         dispatch_stats.record_tier("host", n, MERKLE_OVERSIZE)
         pstats.record_oversize()
         return _on_host(n, host)
     lanes = _pow2_at_least(max(n, _MIN_LANES), _MIN_LANES)
     out = supervisor.traced_device_call(
-        "merkle.tree", "merkle_device_fault", BREAKER, run, validate,
+        "merkle.tree", "merkle_device_fault", BREAKER, lambda: run(device), validate,
         device=device, leaves=n, lanes=lanes)
     if out is None:  # the CPU only: the host answers below the plain version
         pstats.record_device_fallback()
@@ -397,7 +448,7 @@ def tree_root(items, device=None) -> bytes:
     ``EMPTY_HASH`` and launches nothing."""
     if len(items) == 0:
         return EMPTY_HASH
-    return _route(items, device, lambda: device_root(items, device),
+    return _route(items, device, lambda d: device_root(items, d),
                   _validate_root, lambda: merkle.hash_from_byte_slices(items))
 
 
@@ -411,7 +462,7 @@ def tree_levels(items, device=None) -> "list[list[bytes]]":
     n = len(items)
     if n == 0:
         raise ValueError("tree_levels needs at least one leaf")
-    return _route(items, device, lambda: device_levels(items, device),
+    return _route(items, device, lambda d: device_levels(items, d),
                   lambda lv: _validate_levels(lv, n), lambda: host_levels(items))
 
 

@@ -579,6 +579,13 @@ class _GiveUp(Exception):
     pass
 
 
+def _bisect_enabled() -> bool:
+    """``COMETBFT_TPU_SUPERVISOR_BISECT=0`` turns bisection off (a flapping
+    backend would otherwise let the bisector "solve" each failing burst),
+    as in the JAX package."""
+    return os.environ.get("COMETBFT_TPU_SUPERVISOR_BISECT", "1") != "0"
+
+
 def _bisect_quarantine(
     backend: str, pubs: list, msgs: list, sigs: list, dev
 ) -> Optional[tuple]:
@@ -705,6 +712,7 @@ def verify_supervised(
             except Exception as e:  # noqa: BLE001 — any dispatch error demotes
                 if (
                     n >= 2
+                    and _bisect_enabled()
                     and not isinstance(e, DispatchTimeoutError)
                     and br.stats()["consecutive_failures"] == 0
                 ):

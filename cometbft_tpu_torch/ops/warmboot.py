@@ -91,6 +91,8 @@ def enabled() -> bool:
     from cometbft_tpu_torch.crypto import batch as cbatch
     from cometbft_tpu_torch.verifysched import service
 
+    if service.gate_device() is not None:
+        return False  # a gate opened on a named device: no card to warm
     return cbatch.env_backend() == "gpu" or service.backend_trusted()
 
 

@@ -23,7 +23,9 @@ being the gate):
     reference (``aead_ref.x25519``);
   * with no device named and the gate closed, or with more pairs than
     ``COMETBFT_TPU_X25519_MAX_LANES`` (counted as oversize), a batch goes
-    to the host;
+    to the host; with the gate open, a batch with no device named goes to
+    the gate's device (``verifysched.gate_device``: the card, or a device
+    a caller named);
   * otherwise the pass goes through ``ops/supervisor.supervised_device_call``
     under the ``x25519_device`` breaker: on a card the kernel answers or
     the call raises ``BackendError`` (the JAX package re-derives every
@@ -298,6 +300,10 @@ def exchange_batch(pairs, device=None) -> "list[bytes]":
         tstats.record_hs_dispatch(False, n)
         dispatch_stats.record_tier("host", n, X25519)
         return host_exchange(pairs)
+    if device is None:  # the gate's device: the card, or one a caller named
+        from cometbft_tpu_torch.verifysched import service
+
+        device = service.gate_device()
     if ladder_runner() is None and bucket_lanes(n) is None:
         tstats.record_hs_dispatch(False, n)
         dispatch_stats.record_tier("host", n, X25519)

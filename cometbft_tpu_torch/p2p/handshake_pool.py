@@ -87,9 +87,13 @@ def _env_int(name: str, default: int) -> int:
 def sync_exchange(scalar: bytes, peer_pub: bytes, device=None) -> bytes:
     """The synchronous dial that every shed, timed-out or inactive path
     takes: where the ladder's device pass is live on a card, one direct
-    supervised launch for this pair; elsewhere the host reference."""
+    supervised launch for this pair; elsewhere the host reference.  No
+    device named means the gate's (``verifysched.gate_device``)."""
     from cometbft_tpu_torch.ops import dispatch_stats, supervisor
+    from cometbft_tpu_torch.verifysched import service
 
+    if device is None:
+        device = service.gate_device()
     if x25519_ladder.device_active(device) and supervisor._on_card(device):
         return x25519_ladder.exchange_batch([(scalar, peer_pub)], device)[0]
     dispatch_stats.record_tier("host", 1, x25519_ladder.X25519)

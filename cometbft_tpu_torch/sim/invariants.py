@@ -26,10 +26,10 @@ delivered message costs O(new commits), not O(history):
 Limitation: consensus-param updates are not replayed (no sim scenario
 issues them); ``validate_validator_updates`` runs against genesis params.
 
-The validity check's ``verify_commit`` runs on ``device`` (None: the card,
-as for the nodes; the JAX package checks with ``backend="cpu"``).  Seen
-commits are made of precommits the nodes verified at gossip time, so they
-are signature-cache hits unless the cache was cleared.
+The validity check's ``verify_commit`` runs on the host
+(``backend="cpu"``), as in the JAX package: the checker is the oracle the
+nodes are held to, independent of the kernel and the device tiers they
+verify on, and it adds nothing to their launches, flushes or breakers.
 """
 
 from __future__ import annotations
@@ -57,11 +57,8 @@ class Violation:
 
 
 class InvariantChecker:
-    def __init__(
-        self, chain_id: str, genesis_state, check_wal: bool = True, device=None
-    ):
+    def __init__(self, chain_id: str, genesis_state, check_wal: bool = True):
         self.chain_id = chain_id
-        self.device = device
         self.consensus_params = genesis_state.consensus_params
         initial = genesis_state.initial_height
         # canonical validator set per height, advanced as blocks commit:
@@ -243,7 +240,7 @@ class InvariantChecker:
                     meta.block_id,
                     h,
                     commit,
-                    device=self.device,
+                    backend="cpu",
                 )
                 self.commits_verified += 1
             except Exception as e:  # noqa: BLE001 — any rejection is a violation

@@ -20,7 +20,10 @@ from cometbft_tpu_torch.verifysched.service import (  # noqa: F401
     backend_trusted,
     current_priority,
     enabled,
+    gate_device,
     get_scheduler,
+    on_gate_device,
+    open_gate,
     priority_class,
     reset_scheduler,
     scheduler_active,

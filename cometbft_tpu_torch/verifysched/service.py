@@ -35,9 +35,18 @@ consensus submissions are always admitted.
 
 Activation: the scheduler takes the verify path only when
 ``COMETBFT_TPU_VERIFY_SCHED`` != 0 (default on) AND the batch backend has
-resolved to ``gpu`` on this process (``backend_trusted``).  Otherwise
-every wrapper here falls through to the pre-scheduler path, so the kill
-switch ``COMETBFT_TPU_VERIFY_SCHED=0`` restores it exactly.
+resolved to ``gpu`` on this process (``backend_trusted``), or a caller
+holds the gate open on a named device (``open_gate``; the scheduler then
+flushes there).  Otherwise every wrapper here falls through to the
+pre-scheduler path, so the kill switch ``COMETBFT_TPU_VERIFY_SCHED=0``
+restores it exactly.
+
+The gate's device is the one routing rule beside the card's: the
+deterministic simulator holds it open on the CPU for a scenario, and the
+Ed25519 batch seam, evidence, the tree, AEAD and ladder planes, the
+handshake pool, the warm boot and this scheduler read it.  While no caller
+holds it, ``gate_device()`` is None and every one of those paths is the
+card's, unchanged.
 
 A flush records a ``sched.flush`` span (reason, items, misses, lanes)
 closed before its futures resolve, its launch a ``sched.dispatch`` span and
@@ -101,17 +110,56 @@ def enabled() -> bool:
     return os.environ.get("COMETBFT_TPU_VERIFY_SCHED", "1") != "0"
 
 
+# The device a caller holds the gate open on (``open_gate``), or None.
+_GATE_DEVICE: list = [None]
+
+
+@contextlib.contextmanager
+def open_gate(device):
+    """Hold the trust gate open on ``device``, which the caller names, for
+    the ``with`` block: work that names no device goes to it meanwhile, and
+    the process-wide scheduler flushes there.  The deterministic simulator
+    holds it on the CPU, where the kernels' plain versions (or a stand-in
+    at their seams) are the device tiers, as the JAX package's scenarios
+    force its ``tpu`` backend on a CPU host.  Leaving the block puts back
+    the gate it found, whatever raised inside."""
+    saved = _GATE_DEVICE[0]
+    _GATE_DEVICE[0] = device
+    try:
+        yield
+    finally:
+        _GATE_DEVICE[0] = saved
+
+
+def gate_device():
+    """The device that work with no device named goes to while the gate is
+    open: the one a caller holds it on (``open_gate``), else None (the
+    card)."""
+    return _GATE_DEVICE[0]
+
+
+def on_gate_device(device) -> bool:
+    """Whether ``device`` (None: the card) is the gate's device."""
+    gate = gate_device()
+    if device is None or gate is None:
+        return device is None and gate is None
+    return str(device) == str(gate)
+
+
 def backend_trusted() -> bool:
     """True once the batch backend has resolved to ``gpu`` on this process
     (``crypto.batch.default_backend`` ran the card's known-answer
     self-check and it passed), unless ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``
-    closes the gate.  Never runs the self-check itself: a gossip-time
+    closes the gate; or while a caller holds it open on a named device
+    (``open_gate``).  Never runs the self-check itself: a gossip-time
     ``Vote.verify`` or a validator-set hash must not be the thing that
     first touches the card; until the batch seam's own first use resolves
     the backend, the gate stays closed (``gpu``/``tpu`` in the variable do
     not open it without a passed self-check)."""
     from cometbft_tpu_torch.crypto import batch as cbatch
 
+    if gate_device() is not None:
+        return True
     return cbatch.env_backend() != "cpu" and bool(cbatch._SELF_CHECKED)
 
 
@@ -748,13 +796,15 @@ _SCHED_LOCK = threading.Lock()
 
 
 def get_scheduler() -> VerifyScheduler:
-    """The process-wide scheduler on the card (consensus, evidence, light
-    and blocksync all share one — that sharing IS the optimization)."""
+    """The process-wide scheduler on the card, or on the device a caller
+    holds the gate open on (``open_gate``): consensus, evidence, light and
+    blocksync all share one — that sharing IS the optimization."""
     global _SCHED
     if _SCHED is None:
         with _SCHED_LOCK:
             if _SCHED is None:
-                _SCHED = VerifyScheduler()
+                gate = gate_device()
+                _SCHED = VerifyScheduler() if gate is None else VerifyScheduler(device=gate)
     return _SCHED
 
 

@@ -18,7 +18,9 @@ in the block store and applied by ``BlockExecutor`` over ``MemKV``, the
 LastCommit through the plain version), and the consensus core
 (``tests/torch_sim``: four validators on the seeded virtual-time network,
 three heights, one of them crashed and rebuilt from its stores, its WAL
-replayed), and the network (``tests/torch_net``: two switches on
+replayed, then ``run_scenario("baseline", 42)`` and
+``run_scenario("dial-storm", 42)`` of ``sim/scenarios`` on the CPU), and
+the network (``tests/torch_net``: two switches on
 ``device="cpu"`` over loopback, their dial through the handshake pool and
 the AEAD plane, a message each way on an echo channel, and a joiner's
 blocksync of three heights from a serving node, its commits through the
@@ -98,6 +100,9 @@ def test_port_files_exist():
         "cometbft_tpu_torch/crypto/secp256k1.py",
         "cometbft_tpu_torch/ops/fpgen.py",
         "cometbft_tpu_torch/ops/wcurve.py",
+        "cometbft_tpu_torch/sim/cluster.py",
+        "cometbft_tpu_torch/sim/blocksync.py",
+        "cometbft_tpu_torch/sim/scenarios.py",
         "cometbft_tpu_torch/ops/secp_verify.py",
         "cometbft_tpu_torch/ops/cuda_secp.py",
         "cometbft_tpu_torch/crypto/merkle.py",
@@ -353,20 +358,29 @@ assert chain.block_store.height() == 2 and chain.state.last_block_height == 2
 assert chain.state_store.load().to_json() == chain.state.to_json() == rec[-1][0]
 assert chain.block_store.load_block(2).hash() == chain.state.last_block_id.hash
 assert dispatch_stats.tier_counts()["torch"] == (2, 5)  # the votes', the commit's
-# the consensus core: four validators on the seeded virtual-time network,
-# three heights, node 1 crashed at height 2 and rebuilt from its stores
-# (the Handshaker and its WAL's replay)
+# the consensus core: four validators of the simulator's SimCluster on the
+# seeded virtual-time network, three heights, node 1 crashed at height 2
+# and rebuilt from its stores (the Handshaker and its WAL's replay); then
+# two of its scenarios on the CPU: baseline, and dial-storm (the verify
+# scheduler opened on the CPU, the handshake pool and the AEAD plane on
+# their host-oracle runners)
 import tempfile
 import torch_sim
+from cometbft_tpu_torch.sim import run_scenario
 with tempfile.TemporaryDirectory() as d:
-    c = torch_sim.Cluster("cometbft_tpu_torch", d, txs_per_height=8, device="cpu")
+    c = torch_sim.cluster("cometbft_tpu_torch", d, txs_per_height=8, device="cpu")
     assert c.run(2), c.heights()
     c.crash(1)
     c.restart(1)
     assert c.run(3), c.heights()
     assert not c.checker.violations and c.checker.commits_verified >= 12
-    assert len({tuple(n["blocks"]) for n in c.chain(3).values()}) == 1
-    c.stop()
+    assert len({tuple(n["blocks"]) for n in torch_sim.chain(c, 3).values()}) == 1
+    torch_sim.stop(c)
+    for name in ("baseline", "dial-storm"):
+        res = run_scenario(name, 42, root=os.path.join(d, name), device="cpu",
+                           raise_on_violation=True)
+        assert res.reached and not res.violations, (name, res.heights)
+    assert res.transport["handshakes"]["pool"] > 0, res.transport
 # the network: two switches on the CPU over loopback, each with an echo
 # reactor; the joiner dials the server (ladders through the pool, frames
 # through the plane), a message goes each way, and the joiner blocksyncs

@@ -632,19 +632,22 @@ def test_options_not_ported_raise_naming_their_module(tmp_path, option, value, m
 
 
 @pytest.mark.parametrize("argv,module", [
-    (["sim", "--list"], "sim/"), (["trace", "--local"], "libs/tracing"),
+    pytest.param(["sim", "--scenario", "chip-death"], "parallel/elastic",
+                 id="argv0-sim/"),
+    (["trace", "--local"], "libs/tracing"),
     (["postmortem", "/nonexistent"], "libs/blackbox"),
 ])
 def test_cli_commands_that_wait_exit_non_zero(tmp_path, capfd, argv, module):
-    """``sim`` waits for its modules: non-zero, naming them.  ``trace`` and
-    ``postmortem`` are ported (``libs/tracing``, ``libs/blackbox``):
-    ``trace --local`` renders this process's recorder, and ``postmortem``
-    of a directory with no journal exits non-zero saying so, as the JAX
-    CLI does."""
+    """``sim`` is ported (``sim/``), but a scenario of the JAX package that
+    drives the elastic mesh waits for ``parallel/elastic``: exit 2, naming
+    it.  ``trace`` and ``postmortem`` are ported (``libs/tracing``,
+    ``libs/blackbox``): ``trace --local`` renders this process's recorder,
+    and ``postmortem`` of a directory with no journal exits non-zero saying
+    so, as the JAX CLI does."""
     rc = cli_main(["--home", str(tmp_path), *argv])
     out = capfd.readouterr()
     if argv[0] == "sim":
-        assert rc != 0 and module in out.err
+        assert rc == 2 and module in out.err
     elif argv[0] == "trace":
         assert rc == 0 and "flight recorder: on" in out.out
     else:

@@ -92,7 +92,7 @@ def nodes(tmp_path_factory):
         yield out
     finally:
         for n in out.values():
-            n.cluster.stop()
+            torch_sim.stop(n.cluster)
         mp.undo()
 
 

@@ -1,6 +1,7 @@
-"""Whole-network differentials: four validators of each package on one
-seeded virtual-time network (``tests/torch_sim.py``), with the invariant
-checker raising on any violation.
+"""Whole-network differentials: four validators of each package's
+``sim/cluster.SimCluster`` on one seeded virtual-time network, driven by
+``tests/torch_sim.py``'s scripts, with the invariant checker raising on any
+violation.
 
 For the clean, crash-restart and lossy-link scripts both packages commit
 the same chain: equal block hashes, app hashes and WAL ``#ENDHEIGHT`` sets
@@ -15,6 +16,7 @@ stand-in card.
 
 from __future__ import annotations
 
+import importlib
 import json
 
 import pytest
@@ -36,6 +38,10 @@ def _run(pkg, root, script, seed=42, heights=5):
     return torch_sim.run_script(pkg, root / pkg, script, seed=seed, heights=heights, **dev)
 
 
+def _node_mod(pkg):
+    return importlib.import_module(f"{pkg}.sim.node")
+
+
 @pytest.mark.parametrize("script,heights", [("clean", 5), ("crash", 6), ("lossy", 5)])
 def test_both_packages_commit_the_same_chain(tmp_path, script, heights):
     jax_c, port_c = (_run(pkg, tmp_path, script, heights=heights) for pkg in (J, P))
@@ -44,8 +50,8 @@ def test_both_packages_commit_the_same_chain(tmp_path, script, heights):
             assert min(c.heights()) >= heights
             assert not c.checker.violations
             assert c.checker.commits_verified >= 4 * heights
-        chain = port_c.chain(heights)
-        assert chain == jax_c.chain(heights)
+        chain = torch_sim.chain(port_c, heights)
+        assert chain == torch_sim.chain(jax_c, heights)
         for node in chain.values():
             assert len(set(node["blocks"])) == heights
             assert node["ends"] == list(range(1, heights + 1))
@@ -63,30 +69,32 @@ def test_both_packages_commit_the_same_chain(tmp_path, script, heights):
             assert port_c.net.stats.dropped_rate > 0
             assert port_c.net.stats.dropped_rate == jax_c.net.stats.dropped_rate
     finally:
-        jax_c.stop()
-        port_c.stop()
+        torch_sim.stop(jax_c)
+        torch_sim.stop(port_c)
 
 
 def test_same_seed_same_trace_in_the_port(tmp_path):
     runs = [_run(P, tmp_path / sub, "lossy", seed=7) for sub in ("a", "b")]
     assert runs[0].trace == runs[1].trace
-    assert runs[0].chain(5) == runs[1].chain(5)
+    assert torch_sim.chain(runs[0], 5) == torch_sim.chain(runs[1], 5)
     other = _run(P, tmp_path / "c", "lossy", seed=8)
     assert other.trace != runs[0].trace
-    for c in (*runs, other):
-        c.stop()
+    # last built, first stopped: each cluster gives the tracer back the
+    # black-box sinks it found, and only while its own are installed
+    for c in (other, *reversed(runs)):
+        torch_sim.stop(c)
 
 
 def test_build_node_without_a_card_raises(tmp_path, monkeypatch):
     monkeypatch.delenv("COMETBFT_TPU_CRYPTO_BACKEND")
-    m = torch_sim.modules(P)
-    privs, gdoc = m.node.make_genesis(1, "device-rule")
+    node_mod = _node_mod(P)
+    privs, gdoc = node_mod.make_genesis(1, "device-rule")
     with pytest.raises(Exception, match="(?i)cuda|card|device"):
-        m.node.build_node(0, privs[0], gdoc, tmp_path / "a")
-    node = m.node.build_node(0, privs[0], gdoc, tmp_path / "b", device="cpu")
+        node_mod.build_node(0, privs[0], gdoc, tmp_path / "a")
+    node = node_mod.build_node(0, privs[0], gdoc, tmp_path / "b", device="cpu")
     assert node.cs.block_exec.device == "cpu"
     monkeypatch.setenv("COMETBFT_TPU_CRYPTO_BACKEND", "cpu")
-    m.node.build_node(0, privs[0], gdoc, tmp_path / "c")
+    node_mod.build_node(0, privs[0], gdoc, tmp_path / "c")
 
 
 @pytest.mark.parametrize("device,resolves", [(None, True), ("cuda", True),
@@ -111,10 +119,10 @@ def test_build_node_opens_the_scheduler_gate_on_the_card(tmp_path, monkeypatch,
     monkeypatch.setattr(cbatch, "_SELF_CHECKED", set())
     checks = []
     monkeypatch.setattr(cbatch, "gpu_self_check", lambda dev: checks.append(str(dev)))
-    m = torch_sim.modules(P)
-    privs, gdoc = m.node.make_genesis(1, "device-rule")
+    node_mod = _node_mod(P)
+    privs, gdoc = node_mod.make_genesis(1, "device-rule")
     assert not verifysched.scheduler_active()
-    m.node.build_node(0, privs[0], gdoc, tmp_path, device=device)
+    node_mod.build_node(0, privs[0], gdoc, tmp_path, device=device)
     assert checks == (["cuda:0"] if resolves else [])
     assert verifysched.scheduler_active() == resolves
 
@@ -156,28 +164,28 @@ def test_statesync_join_through_handle_provider_equals_jax(tmp_path):
         assert port_c.trace == jax_c.trace
         assert "join node3 statesync complete h=5" in " ".join(port_c.trace)
         for pkg, c in ((J, jax_c), (P, port_c)):
-            helper = c.m.node.HandleProvider(c.nodes[0], torch_sim.CHAIN_ID)
+            helper = _node_mod(pkg).HandleProvider(c.nodes[0], torch_sim.CHAIN_ID)
             assert helper.id() == "simnode:0" and helper.chain_id() == torch_sim.CHAIN_ID
         codecs = [torch_chain.modules(pkg).codec for pkg in (J, P)]
         for h in range(1, heights + 1):
-            blocks = [codec.encode_light_block(c.m.node.HandleProvider(
+            blocks = [codec.encode_light_block(_node_mod(pkg).HandleProvider(
                 c.nodes[0], torch_sim.CHAIN_ID).light_block(h))
-                for codec, c in zip(codecs, (jax_c, port_c))]
+                for codec, pkg, c in zip(codecs, (J, P), (jax_c, port_c))]
             assert blocks[0] == blocks[1], h
         joiner = port_c.nodes[3]
         assert joiner.block_store.base() == 6
         assert joiner.app_conns.query.info().last_block_height >= heights
-        chain = port_c.chain(heights)
-        assert chain == jax_c.chain(heights)
+        chain = torch_sim.chain(port_c, heights)
+        assert chain == torch_sim.chain(jax_c, heights)
         assert chain[3]["blocks"] == chain[0]["blocks"][5:]
         assert chain[3]["apps"] == chain[0]["apps"][5:]
         from cometbft_tpu_torch.light.provider import ErrLightBlockNotFound
 
         with pytest.raises(ErrLightBlockNotFound):
-            port_c.m.node.HandleProvider(port_c.nodes[0], torch_sim.CHAIN_ID).light_block(99)
+            _node_mod(P).HandleProvider(port_c.nodes[0], torch_sim.CHAIN_ID).light_block(99)
     finally:
-        jax_c.stop()
-        port_c.stop()
+        torch_sim.stop(jax_c)
+        torch_sim.stop(port_c)
 
 
 @pytest.mark.parametrize("script,heights", [("clean", 5), ("crash", 6)])
@@ -195,11 +203,11 @@ def test_span_streams_and_journals_equal_the_jax_package(tmp_path, script, heigh
         rounds = {pkg: json.dumps(c.tracer.rounds_report(), sort_keys=True)
                   for pkg, c in runs.items()}
         for c in runs.values():
-            c.stop()  # every journal closes with its clean-close sentinel
+            torch_sim.stop(c)  # every journal closes with its clean-close sentinel
         journals = {pkg: _journals(tmp_path / pkg) for pkg in runs}
     finally:
         for c in runs.values():
-            c.stop()
+            torch_sim.stop(c)
     assert streams[P] == streams[J]
     assert rounds[P] == rounds[J]
     assert journals[P] == journals[J]

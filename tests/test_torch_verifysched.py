@@ -239,7 +239,9 @@ def test_verify_segment_sync_sheds_past_the_cap(pkgs, monkeypatch):
         t = threading.Thread(target=lambda: out.append(
             p.vs.verify_segment_sync(pubs, msgs, sigs)))
         t.start()
+        deadline = time.monotonic() + 30
         while p.vs.stats.snapshot()["shed_fallback"]["bulk"] < 6:
+            assert time.monotonic() < deadline, p.vs.stats.snapshot()["shed_fallback"]
             threading.Event().wait(0.002)
         p.vs.get_scheduler().resume()
         t.join(30)
