@@ -325,9 +325,27 @@ served by the torch or host tier, or one that raised, fails the run.
               ``light-stampede`` (3): every tree pass on ``cuda``, the
               response digests in the trace, printed, no
               consensus-class shed; ``gossip-burst`` (3): no
-              consensus-class shed, every Ed25519 batch on ``cuda``.  One
-              ``sim:`` line a scenario: virtual and wall seconds, launches
-              per kernel, ``reached``/``invariants_ok``.
+              consensus-class shed, every Ed25519 batch on ``cuda``;
+              the elastic mesh's ``chip-death`` and ``mesh-brownout`` (3,
+              held to a third CPU child) and ``combined-storm`` (3, the
+              card's rule: nothing answered below the kernel, the raised
+              batches counted) over four virtual ordinals of the card, a
+              kernel launch a shard, no mesh runner.  One ``sim:`` line a
+              scenario: virtual and wall seconds, launches per kernel,
+              ``reached``/``invariants_ok``.
+ 18c. mesh  — the elastic mesh (``parallel/mesh``, ``parallel/elastic``):
+              ``__graft_entry__.dryrun_multichip``'s counterpart (an
+              uneven 2W+3 batch and the 10,240 commit with bad (0, 5000,
+              10239) through ``verify_batch_sharded`` at W = the card
+              count and at four virtual ordinals: bits equal to one
+              launch's and the plain version's, the host-summed count, W
+              launches and W ``mesh.shard`` spans); each ``FaultyDevice``
+              mode on ordinal 2 through ``ops.verify.verify_batch`` with
+              no runner (shrink 4 -> 3, ``mesh_dev2`` open, a probe
+              restores it, verdicts the plain version's, nothing on
+              ``torch`` or ``host``); the sharded launches against one
+              10,240-lane launch, in turns (virtual ordinals share the
+              card: not a multi-card number).
  19. network — the peer-to-peer network and its reactors, a path of its
               own, each node wired by ``tests/torch_net.py`` as the JAX
               node's ``_setup_p2p`` wires one: a ``NodeKey``, a
@@ -623,19 +641,31 @@ CONSENSUS_CATCHUP_S = 0.5  # the relay's catchup scan (the sim's CATCHUP_INTERVA
 # dial-storm runs to height 10: at its own target (6) both
 # packages stop at ~6.6 virtual s, before its third wave (t=7) and its
 # kill-switch parity wave (t=9)
+# The three elastic-mesh scenarios (seed 3, as the JAX tests run them) run
+# over four virtual ordinals of the card, a kernel launch a shard, no
+# stand-in; combined-storm (whose single-card brownout raises on the card)
+# is held to the card's rule as backend-brownout is.
 SIM_SCENARIOS = (("baseline", 42, {}), ("crash-restart", 42, {}),
                  ("backend-brownout", 3, {}), ("dial-storm", 42, {"target_height": 10}),
-                 ("light-stampede", 3, {}), ("gossip-burst", 3, {}))
+                 ("light-stampede", 3, {}), ("gossip-burst", 3, {}),
+                 ("chip-death", 3, {}), ("mesh-brownout", 3, {}), ("combined-storm", 3, {}))
 SIM_AGAINST_CPU = ("baseline", "crash-restart", "dial-storm", "light-stampede",
-                   "gossip-burst")
+                   "gossip-burst", "chip-death", "mesh-brownout")
+SIM_MESH = ("chip-death", "mesh-brownout", "combined-storm")
+SIM_CARD_RULE = ("backend-brownout", "combined-storm")
 # the CPU children, each a fresh process running its share in turn: the
 # longest alone, so that the children end within the card's runs
 SIM_CHILDREN = (("dial-storm",), ("baseline", "crash-restart", "light-stampede",
-                                  "gossip-burst"))
+                                  "gossip-burst"), ("chip-death", "mesh-brownout"))
 # the kernels of the sim phase, by their ``ops/dispatch_stats`` tier keys
 SIM_TIER_KEYS = {"ed25519": "ed25519", "tree": "merkle", "aead": "aead",
                  "ladder": "x25519"}
 SIM_CHILD_TIMEOUT_S = 300
+MESH_VIRTUAL = 4  # virtual ordinals of cuda:0 in the mesh phase
+MESH_FAULT_LANES = 1_024  # the fault modes' batch, cut from the mixed lanes
+MESH_HANG_DEADLINE_MS = 500  # the shard watchdog in the hang mode
+MESH_HANG_S = 1.0
+MESH_RUNS = 10  # samples of the sharded launches and of one launch, in turns
 NETWORK_CHAIN = "network-chain"
 NETWORK_SEED = 20261035  # the txs offered to node 0 before each height
 NETWORK_NODES = 4  # CometBFT's make localnet-start: node0-node3
@@ -669,7 +699,7 @@ NODE_CHAIN = "node-chain"
 NODE_SEED = 20261041  # the clients' txs
 NODE_VALIDATORS = 4  # CometBFT's make localnet-start: cmd testnet --v 4
 NODE_SIGNED = 3  # the validator whose key a remote signer serves
-NODE_TXS = 2_500  # by broadcast_tx_sync (half MempoolConfig().size: cut for the script's time)
+NODE_TXS = 1_500  # by broadcast_tx_sync (5,000 is MempoolConfig().size: cut for the script's time)
 NODE_TX_BYTES = 256
 NODE_COMMIT_TXS = 20  # then by broadcast_tx_commit
 NODE_CLIENTS = 8  # client threads
@@ -680,6 +710,7 @@ NODE_TIMEOUT_S = 240.0  # each wait of the phase
 NODE_WATCHED = 1  # the validator with instrumentation.prometheus and rpc.pprof_laddr
 NODE_TRACE_RING = 65536  # its flight recorder's ring (the dials' spans stay in it)
 NODE_KILLED = "node2-restart"  # the validator process SIGKILLed at the end
+NODE_PROXY_HEIGHTS = 3  # part B's reads through the proxy (cut from 6 for the mesh phase)
 NODE_TRUST_PERIOD_S = 3650 * 86400  # part B: phase 17's chain is dated October 2025
 
 
@@ -5162,13 +5193,21 @@ def sim_phase(torch, ds, tag) -> dict:
     def faults() -> int:
         return sum(sh.faults for sh in shims)
 
+    depth = threading.local()
+
     def counted_sup(*a, **kw):
+        # the outermost call alone: the mesh's floor re-enters here
+        if getattr(depth, "n", 0):
+            return real_sup(*a, **kw)
+        depth.n = 1
         before = faults()
         try:
             out = real_sup(*a, **kw)
         except BackendError:
             acct["raised_faulted" if faults() > before else "raised_refused"] += 1
             raise
+        finally:
+            depth.n = 0
         if faults() > before:
             acct["served_faulted"] += 1
         return out
@@ -5201,8 +5240,10 @@ def sim_phase(torch, ds, tag) -> dict:
             check(res.reached and ok, f"sim: {name} seed {seed} reached {res.reached}, "
                   f"heights {res.heights}, violations {res.violations[:3]}")
             for k, t in tiers.items():
-                check(t["torch"] == (0, 0) and t["host"] == (0, 0)
-                      and t["cuda"][0] == launches[k],
+                # a mesh batch is a launch a shard (and a probe one more)
+                served = (t["cuda"][0] <= launches[k] if name in SIM_MESH and k == "ed25519"
+                          else t["cuda"][0] == launches[k])
+                check(t["torch"] == (0, 0) and t["host"] == (0, 0) and served,
                       f"sim: {name}: {k} batches off the kernel: {t}, {launches[k]} launches")
             print(f"sim: {name} seed {seed}: virtual {res.virtual_time:.3f} s, wall "
                   f"{wall:.2f} s, {res.events} events, heights {res.heights}, launches "
@@ -5213,6 +5254,31 @@ def sim_phase(torch, ds, tag) -> dict:
             if name in SIM_AGAINST_CPU:
                 digests[name] = json.loads(json.dumps(sim_digest(res)))
                 check(launches["ed25519"] > 0, f"sim: {name} launched no Ed25519 kernel")
+            if name in SIM_MESH:
+                b = res.backend
+                check(b["fallback_signatures"] == 0 and b.get("mesh_shrinks", 0) >= 1
+                      and launches["ed25519"] > tiers["ed25519"]["cuda"][0],
+                      f"sim: {name}: backend {b}, launches {launches}")
+                reconf = [ln for ln in res.trace if "scenario: " in ln and (
+                    "mesh" in ln or "probe" in ln)]
+                for ln in reconf:
+                    print(f"sim: {name}: {ln}")
+                print(f"sim: {name} on four virtual ordinals of the card (a kernel launch a "
+                      f"shard, no runner): {tiers['ed25519']['cuda'][0]} Ed25519 batches "
+                      f"served by cuda with {launches['ed25519']} launches; mesh width at the "
+                      f"end {b.get('mesh_width')}, shrinks {b.get('mesh_shrinks')}, restores "
+                      f"{b.get('mesh_restores')}; breakers {b['breakers']} {tag}")
+            if name == "combined-storm":
+                b = res.backend
+                raised = acct["raised_faulted"] + acct["raised_refused"]
+                check(acct["served_faulted"] == 0 and res.sched["shed"]["consensus"] == 0,
+                      f"sim: combined-storm batches {dict(acct)}, sched {res.sched['shed']}")
+                print(f"sim: combined-storm under the card's rule: {raised} supervised "
+                      f"batches raised = {acct['raised_faulted']} in which the injector fired "
+                      f"({faults()} faults) + {acct['raised_refused']} an open breaker "
+                      f"refused, none answered below the kernel (fallback signatures "
+                      f"{b['fallback_signatures']}); sched shed {res.sched['shed']}; heights "
+                      f"{res.heights} (target {res.target_height}) {tag}")
             if name == "backend-brownout":
                 b = res.backend
                 raised = acct["raised_faulted"] + acct["raised_refused"]
@@ -5291,6 +5357,176 @@ def sim_phase(torch, ds, tag) -> dict:
           f"{totals['ed25519']}, tree {totals['tree']}, AEAD {totals['aead']}, ladder "
           f"{totals['ladder']}")
     return dict(totals)
+
+
+def mesh_device_ms(torch, cv, parts, streams, runs: int) -> float:
+    """Median device time, CUDA events, of one sharded verify from inputs
+    on the card: each shard a launch on its ordinal's stream, every stream
+    waiting on a start event and joined by the current one before the end
+    event."""
+    cur = torch.cuda.current_stream()
+    ts = []
+    for i in range(runs + 2):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(cur)
+        for t, st in zip(parts, streams):
+            st.wait_event(start)
+            with torch.cuda.stream(st):
+                cv.verify_core_cuda(**t)
+                done = torch.cuda.Event()
+                done.record(st)
+            cur.wait_event(done)
+        end.record(cur)
+        end.synchronize()
+        if i >= 2:
+            ts.append(start.elapsed_time(end))
+    return statistics.median(ts)
+
+
+def mesh_phase(torch, ov, cv, ds, commit_triples, bad, mixed, tag) -> dict:
+    """Phase 18c: the elastic mesh (``parallel/mesh``, ``parallel/elastic``)
+    on the card.  (a) ``__graft_entry__.dryrun_multichip``'s counterpart: an
+    uneven batch of 2W+3 triples with two invalid lanes and config 2's
+    10,240-signature commit with bad ``bad`` through
+    ``mesh.verify_batch_sharded``, at W = the card count and at
+    MESH_VIRTUAL virtual ordinals of cuda:0: bits equal to one launch's and
+    the plain version's, the host-summed count their sum, W ``mesh.shard``
+    spans and W launches.  (b) the elastic supervisor with no runner at
+    MESH_VIRTUAL ordinals, each ``FaultyDevice`` mode on ordinal 2 through
+    ``ops.verify.verify_batch``: a shrink 4 -> 3 and ``mesh_dev2`` open, a
+    half-open probe restores it, every verdict the plain version's, no
+    batch served by ``torch`` or ``host``.  Then the sharded launches
+    against one launch of the same 10,240 lanes, in turns.  Returns
+    {"launches", "ms", "one_ms", ...}."""
+    from cometbft_tpu_torch.crypto import backend_health
+    from cometbft_tpu_torch.libs import tracing
+    from cometbft_tpu_torch.parallel import elastic
+    from cometbft_tpu_torch.parallel import mesh as pmesh
+
+    t_phase = time.perf_counter()
+    card = torch.device("cuda", 0)
+    pubs, msgs, sigs = commit_triples
+    bad_sigs = list(sigs)
+    for i in bad:
+        bad_sigs[i] = bad_sigs[i][:-1] + bytes([bad_sigs[i][-1] ^ 1])
+    launches = 0
+
+    def one_and_plain(p, m, g):
+        arrays, n, structural = ov.prepare_batch(p, m, g)
+        t = ov.batch_to_device(arrays, card)
+        one = (cv.verify_core_cuda(**t).cpu().numpy() & structural)[:n]
+        plain = (ov.verify_core(**t).cpu().numpy() & structural)[:n]
+        return one, plain
+
+    # (a) the dry run: at the card count and at MESH_VIRTUAL virtual ordinals
+    commit_want = one_and_plain(pubs, msgs, bad_sigs)
+    for mesh in (pmesh.make_mesh(), pmesh.make_mesh([card] * MESH_VIRTUAL)):
+        w = mesh.size
+        k = 2 * w + 3
+        p, m, g = list(pubs[:k]), list(msgs[:k]), list(sigs[:k])
+        g[1] = bytes(64)  # a degenerate signature
+        p[k - 1] = p[k - 1][:16]  # a short key: structurally invalid
+        for what, (bp, bm, bg), want in (
+                (f"{k} uneven triples", (p, m, g), one_and_plain(p, m, g)),
+                (f"the {len(pubs)}-signature commit", (pubs, msgs, bad_sigs), commit_want)):
+            tracing.reset_tracer()
+            cv.reset_launches()
+            bits, n_ok = pmesh.verify_batch_sharded(bp, bm, bg, mesh, count=True)
+            got = cv.launches
+            launches += got
+            shards = [x for x in tracing.get_tracer().tail(0) if x["stage"] == "mesh.shard"]
+            false_at = [i for i in range(len(bits)) if not bits[i]]
+            check((bits == want[0]).all() and (bits == want[1]).all(),
+                  f"mesh: W={w} {what}: sharded bits != one launch / plain")
+            check(n_ok == int(bits.sum()) and got == w and len(shards) == w
+                  and sorted(x["attrs"]["device"] for x in shards) == sorted(mesh.ordinals),
+                  f"mesh: W={w} {what}: count {n_ok}, launches {got}, spans {len(shards)}")
+            if "commit" in what:
+                check(false_at == list(bad), f"mesh: W={w}: rejected {false_at}")
+            print(f"mesh: W={w} ({[str(d) for d in mesh.devices]}, ordinals "
+                  f"{mesh.ordinals}): {what}: bits == one launch == plain version, "
+                  f"rejected {false_at[:8]}, host-summed accept count {n_ok} == the bits' "
+                  f"sum, {got} launches, {len(shards)} mesh.shard spans {tag}")
+
+    # (b) the elastic supervisor under each fault mode, no runner
+    fp, fm, fs = (list(x[:MESH_FAULT_LANES]) for x in mixed)
+    _, plain_bits = one_and_plain(fp, fm, fs)
+    clock = [1_000.0]
+    ordinals = pmesh.make_mesh([card] * MESH_VIRTUAL).ordinals
+    dead = ordinals[2]
+    modes = {}
+    try:
+        with environ({"COMETBFT_TPU_BREAKER_THRESHOLD": "1",
+                      "COMETBFT_TPU_DISPATCH_TIMEOUT_MS": str(MESH_HANG_DEADLINE_MS)}):
+            for mode in ("raise", "hang", "wrong_shape", "flap"):
+                elastic.clear()
+                backend_health.reset()
+                backend_health.registry().set_clock(lambda: clock[0])
+                ds.reset()
+                elastic.configure(ordinals)
+                elastic.set_fault_injector(elastic.FaultyDevice(
+                    mode, ordinals=(dead,), hang_s=MESH_HANG_S, fail_n=1, pass_n=3))
+                cv.reset_launches()
+                t0 = time.perf_counter()
+                first = ov.verify_batch(fp, fm, fs)
+                width1 = ds.mesh_width()
+                state1 = backend_health.registry().breaker(f"mesh_dev{dead}").state
+                elastic.clear_fault_injector()
+                clock[0] += 10.0  # past the backoff: the next membership walk probes
+                second = ov.verify_batch(fp, fm, fs)
+                wall = time.perf_counter() - t0
+                got = cv.launches
+                launches += got
+                snap = ds.snapshot()
+                tiers = ds.tier_counts()
+                check((first == plain_bits).all() and (second == plain_bits).all(),
+                      f"mesh: {mode}: verdicts != the plain version's")
+                check(width1 == MESH_VIRTUAL - 1 and state1 == "open"
+                      and snap["mesh_width"] == MESH_VIRTUAL and snap["mesh_shrinks"] == 1
+                      and snap["mesh_restores"] == 1,
+                      f"mesh: {mode}: width {width1} -> {snap['mesh_width']}, mesh_dev{dead} "
+                      f"{state1}, shrinks {snap['mesh_shrinks']}, restores "
+                      f"{snap['mesh_restores']}")
+                check(tiers["torch"] == (0, 0) and tiers["host"] == (0, 0)
+                      and tiers["cuda"][0] == 2,
+                      f"mesh: {mode}: batches by tier {tiers}")
+                modes[mode] = {"launches": got, "wall_s": round(wall, 3)}
+                print(f"mesh: {mode} on ordinal {dead} of {MESH_VIRTUAL} virtual ordinals "
+                      f"(no runner): width {MESH_VIRTUAL} -> {width1}, mesh_dev{dead} "
+                      f"{state1}; a half-open probe restored it (width "
+                      f"{snap['mesh_width']}, {snap['mesh_restores']} restore); both "
+                      f"batches' {MESH_FAULT_LANES} verdicts == the plain version's; "
+                      f"batches by tier {tiers}; {got} launches; {wall:.2f} s {tag}")
+    finally:
+        elastic.clear()
+        backend_health.registry().set_clock(time.monotonic)
+        backend_health.reset()
+
+    # the sharded launches against one launch of the same lanes, in turns
+    arrays, n, _ = ov.prepare_batch(pubs, msgs, sigs)
+    mesh = pmesh.make_mesh([card] * MESH_VIRTUAL)
+    per = n // MESH_VIRTUAL
+    whole = ov.batch_to_device(arrays, card)
+    parts = [{k: v[i * per:(i + 1) * per].contiguous() for k, v in whole.items()}
+             for i in range(MESH_VIRTUAL)]
+    streams = [ov._stream(card, o) for o in mesh.ordinals]
+    sharded, one = [], []
+    for i in range(4):
+        for side in (("sharded", "one") if i % 2 == 0 else ("one", "sharded")):
+            if side == "sharded":
+                sharded.append(mesh_device_ms(torch, cv, parts, streams, MESH_RUNS))
+            else:
+                one.append(cuda_ms(torch, lambda: cv.verify_core_cuda(**whole), MESH_RUNS, 2))
+    ms, one_ms = statistics.median(sharded), statistics.median(one)
+    print(f"mesh: time: {n} lanes as {MESH_VIRTUAL} shards of {per} on {MESH_VIRTUAL} "
+          f"virtual ordinals of one card (a stream each) {ms} ms, one {n}-lane launch "
+          f"{one_ms} ms (medians of 4 turns x {MESH_RUNS} samples, CUDA events; all "
+          f"{sharded} / {one}): virtual ordinals share the card's SMs, so this is not a "
+          f"multi-card number {tag}")
+    print(f"mesh: the phase took {time.perf_counter() - t_phase:.1f} s; {launches} Ed25519 "
+          f"launches on its path; fault modes {json.dumps(modes)}")
+    return {"launches": launches, "ms": ms, "one_ms": one_ms, "modes": modes}
 
 
 def load_torch_net():
@@ -5875,9 +6111,15 @@ def network_localnet(tag, root, procs) -> dict:
                          "evidence_at": NETWORK_EVIDENCE_AT if i == 1 else 0,
                          "deadline_s": 4 * NETWORK_TIMEOUT_S})
         log = open(root / f"{name}.log", "w")
+        # the joiner is never alone: its peer comes once the chain stored
+        # NETWORK_SYNC_MIN + 1, which on a slow host can be later than the
+        # blocksync's 10 s solo grace after its build (then it would switch
+        # to consensus having synced nothing)
+        child_env = (dict(env, COMETBFT_TPU_BSYNC_SOLO_GRACE=str(NETWORK_TIMEOUT_S))
+                     if role == "joiner" else env)
         procs.append((name, subprocess.Popen(
             [sys.executable, script, "--net-node", str(path)], cwd=os.path.dirname(script),
-            env=env, stdout=log, stderr=subprocess.STDOUT), log))
+            env=child_env, stdout=log, stderr=subprocess.STDOUT), log))
 
     def status(name: str) -> dict:
         return net_read(root / f"status-{name}.json") or {}
@@ -8278,7 +8520,8 @@ def node_part_b_start(root, procs, chain) -> dict:
 def node_part_b(tag, root, procs, ctx) -> dict:
     """Part B of phase 21: a client reads ``commit``, ``validators`` and
     ``block`` through the ``cmd light`` proxy that ``node_part_b_start``
-    started, at every height above 1 of phase 17's chain."""
+    started, at NODE_PROXY_HEIGHTS heights above 1 of phase 17's chain (one
+    skipping hop, two adjacent ones)."""
     ctx["thread"].join(NODE_TIMEOUT_S)
     if ctx["error"] is not None:
         raise ctx["error"]
@@ -8286,7 +8529,7 @@ def node_part_b(tag, root, procs, ctx) -> dict:
     t_run, top, n_vals, lport, up_s = (ctx[k] for k in ("t_run", "top", "n_vals", "lport",
                                                          "up_s"))
     t_reads = time.perf_counter()
-    heights = list(range(2, top + 1))
+    heights = list(range(2, top + 1))[:NODE_PROXY_HEIGHTS]
     order = heights[1::2] + heights[0::2]  # skips from below first, then adjacent hops
     read_ms = collections.defaultdict(list)
     for h in order:
@@ -8714,6 +8957,14 @@ def main(n: int = N_VALIDATORS, device: str = "cuda") -> int:
         aead_entry["launches"] += sim["aead"]
         ladder_entry["launches"] += sim["ladder"]
         lap("sim")
+
+        # -- 18c. mesh: the elastic mesh over the card's ordinals ------------
+        mesh = mesh_phase(torch, ov, cv, ds, (pubs, sign_bytes, sigs), bad, (mp, mm, ms),
+                          tag)
+        print(f"mesh: the kernels line adds the phase's {mesh['launches']} Ed25519 "
+              f"launches to the earlier paths' {launches}")
+        launches += mesh["launches"]
+        lap("mesh")
 
         # -- 19. network: switches, reactors, PEX and blocksync ---------------
         net = network_phase(torch, dev, cbatch, cv, ds, sigcache, be, tag)

@@ -8,9 +8,9 @@ compact-db, debug kill/dump, reindex-event, sim, trace, postmortem.
 The port's copy of the JAX package's ``cmd/main.py``.  ``start``,
 ``light`` and ``sim`` run on the card; with no card they raise unless
 ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` asks for the CPU
-(``types/validation.require_device``).  ``sim`` runs the port's scenarios
-(``sim/scenarios``); the JAX package's three elastic-mesh scenarios wait
-for ``parallel/elastic``, and naming one exits 2 saying so.
+(``types/validation.require_device``).  ``sim`` runs every scenario of
+the JAX package (``sim/scenarios``), the three elastic-mesh ones over
+virtual ordinals.
 """
 
 from __future__ import annotations
@@ -257,18 +257,13 @@ def cmd_sim(args) -> int:
     report whether the cluster reached the target height with the
     agreement/validity/WAL invariants intact.  Same seed ⇒ byte-identical
     event trace (``sim/``).  On the card; ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``
-    asks for the CPU.  A scenario of the JAX package that needs the
-    elastic mesh exits 2, naming ``parallel/elastic``."""
+    asks for the CPU."""
     from cometbft_tpu_torch.sim import SCENARIOS, run_scenario
-    from cometbft_tpu_torch.sim.scenarios import NOT_PORTED, not_ported_message
 
     if args.list:
         for name, sc in SCENARIOS.items():
             print(f"{name:20s} {sc.description}")
         return 0
-    if args.scenario.replace("_", "-") in NOT_PORTED:
-        print(not_ported_message(args.scenario.replace("_", "-")), file=sys.stderr)
-        return 2
     if args.scenario not in SCENARIOS:
         print(
             f"unknown scenario {args.scenario!r}; --list shows the options",

@@ -55,6 +55,7 @@ from cometbft_tpu_torch.consensus.types import (
     RoundState,
 )
 from cometbft_tpu_torch.consensus.wal import WAL
+from cometbft_tpu_torch.crypto.backend_health import BackendError
 from cometbft_tpu_torch.libs import log as liblog
 from cometbft_tpu_torch.libs import tracing
 from cometbft_tpu_torch.libs.diskguard import StorageFatal
@@ -132,6 +133,12 @@ class ConsensusState(BaseService):
 
         self._mtx = libsync.rlock("consensus.state")
         self._queue: "_MsgQueue[tuple[str, object]]" = _MsgQueue(maxsize=1000)
+        # an input whose check the card did not serve (``BackendError``: an
+        # infrastructure failure, never a verdict) is handed back here,
+        # ``on_unserved(kind, payload)``, to be offered again later, as a
+        # peer's vote gossip sends again what it sees the node lacks; None
+        # drops it (the threaded node: its reactors re-gossip)
+        self.on_unserved: Optional[Callable[[str, object], None]] = None
         self._clock: Callable[[], float] = clock or _time.time
         self._threaded = threaded
         self.ticker = (ticker_factory or TimeoutTicker)(self._tock)
@@ -227,6 +234,10 @@ class ConsensusState(BaseService):
     def notify_txs_available(self) -> None:
         self._queue.put(("txs", None))
 
+    def requeue(self, kind: str, payload: object) -> None:
+        """Offer an input again (``on_unserved``)."""
+        self._queue.put_unbounded((kind, payload))
+
     def get_round_state(self) -> RoundState:
         with self._mtx:
             import copy
@@ -319,6 +330,14 @@ class ConsensusState(BaseService):
             # fail-stop: the durable state backing consensus safety can no
             # longer advance — halt before voting/committing on it
             self._storage_fatal(e)
+        except BackendError as e:
+            # on a card a check the kernel did not serve raises; the input
+            # is not consumed, so it may be offered again
+            self.logger.error(
+                "consensus input not verified", err=repr(e), height=self.rs.height
+            )
+            if self.on_unserved is not None:
+                self.on_unserved(kind, payload)
         except Exception as e:  # noqa: BLE001 — consensus must not die silently
             self.logger.error(
                 "consensus failure", err=repr(e), height=self.rs.height

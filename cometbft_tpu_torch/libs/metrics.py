@@ -484,12 +484,29 @@ class NodeMetrics:
             "Dispatches per padding bucket (the bucket-ladder pruning "
             "evidence)",
         )
-        # The JAX package's mesh and shard families go here:
-        # cometbft_crypto_shard_dispatch_seconds, cometbft_crypto_mesh_width,
-        # cometbft_crypto_mesh_shrinks and cometbft_crypto_mesh_restores.
-        # They read dispatch_stats' mesh counters, which come with the mesh
-        # (ROADMAP "Multi-GPU lanes"); tests/test_torch_metrics.py names
-        # them as the families left out.
+        self.shard_dispatch_hist = r.labeled_callback_histogram(
+            "crypto", "shard_dispatch_seconds", "device",
+            _disp("shard_hist"),
+            "Per-device shard fetch wall time on the mesh-sharded verify "
+            "path (one sick chip = one outlier series)",
+        )
+        self.mesh_width = r.callback_gauge(
+            "crypto", "mesh_width", _disp("mesh_width"),
+            "Devices the elastic mesh's last dispatch targeted (0 = mesh "
+            "inactive; a drop below the fleet size means a chip was "
+            "excluded — see cometbft_crypto_backend_breaker_state"
+            "{backend=mesh_dev*})",
+        )
+        self.mesh_shrinks = r.callback_counter(
+            "crypto", "mesh_shrinks", _disp("mesh_shrinks"),
+            "Mesh shrink events (a shard failure or a proactive "
+            "probe-down removed a device from membership)",
+        )
+        self.mesh_restores = r.callback_counter(
+            "crypto", "mesh_restores", _disp("mesh_restores"),
+            "Devices re-admitted to the mesh by a passing half-open "
+            "probe dispatch",
+        )
         self.lane_occupancy = r.labeled_callback_gauge(
             "crypto", "lane_occupancy", "lane", _disp("lane_occupancy"),
             "Real-signature fraction of padded lanes per in-flight "

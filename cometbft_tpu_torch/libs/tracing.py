@@ -106,8 +106,7 @@ ANOMALY_KINDS = (
     "exec_cache_stale",
     # elastic mesh supervision: a shard abandoned past the watchdog, a
     # device removed from mesh membership, and a device re-admitted by a
-    # passing half-open probe.  Nothing in the port records these until
-    # the mesh is ported (ROADMAP "Multi-GPU lanes").
+    # passing half-open probe (parallel/elastic).
     "shard_watchdog_fire",
     "mesh_shrink",
     "mesh_restore",

@@ -43,9 +43,8 @@ def _fresh() -> dict:
         "last_probe_t": None,
         "source": "",
         "_file_mtime": 0.0,
-        # per-ordinal availability on a multi-card host (stable physical
-        # ordinal -> bool); the mesh membership it would steer is not
-        # ported (ROADMAP "Multi-GPU lanes")
+        # per-ordinal availability on a multi-card host (stable ordinal ->
+        # bool); a down ordinal leaves the elastic mesh (parallel/elastic)
         "ordinals": {},
     }
 
@@ -67,9 +66,9 @@ def record_probe(
 
     With ``ordinal`` the probe targets ONE card of a multi-card host: the
     per-ordinal state is tracked separately and the journaled event
-    carries the ordinal.  The mesh exclusion that a down-transition
-    triggers in a sharded deployment waits for the mesh (ROADMAP
-    "Multi-GPU lanes")."""
+    carries the ordinal; a transition is folded into the elastic mesh's
+    membership (``parallel/elastic.note_probe``: a down card leaves the
+    mesh before the next dispatch)."""
     if ordinal is not None:
         return _record_ordinal_probe(int(ordinal), bool(up), source, t)
     t = time.time() if t is None else t
@@ -120,8 +119,11 @@ def _record_ordinal_probe(
         tracing.note_event(
             "device_probe", up=up, ordinal=ordinal, source=source
         )
-        # the proactive mesh exclusion goes here with the mesh (ROADMAP
-        # "Multi-GPU lanes"); with one card there is no membership to flip
+        # proactive mesh exclusion (a no-op when no mesh is configured or
+        # the ordinal is not a member)
+        from cometbft_tpu_torch.parallel import elastic
+
+        elastic.note_probe(ordinal, up)
     return changed
 
 

@@ -15,8 +15,10 @@ Counters:
   * ``inflight_depth`` / ``inflight_hwm`` — supervised dispatches whose
     fetch has not resolved yet, and the high-water mark since reset
   * ``lane_dispatches`` / ``lane_lanes_total`` / ``lane_lanes_used`` — the
-    in-flight routing tally per lane (a supervisor tier until the mesh is
-    ported)
+    in-flight routing tally per lane (a mesh ordinal or a supervisor tier)
+  * ``mesh_width`` / ``mesh_shrinks`` / ``mesh_restores`` — the elastic
+    mesh's current membership width (0: no mesh) and its shrink and
+    re-admission counts (``parallel/elastic``)
   * ``tier_dispatches`` / ``tier_lanes`` — batches and signatures SERVED
     per key type and tier (``cuda`` on a card; ``torch``, then ``host``
     below it, on the CPU).  A card's batch that the kernel did not serve
@@ -37,10 +39,10 @@ Counters:
 Histograms:
   * ``buckets[lanes]``            — dispatch count per lane count
   * ``dispatch_hist[tier-lanes]`` — dispatch wall time per (tier, lanes)
+  * ``shard_hist[device]``        — per-ordinal shard fetch wall time on
+    the mesh-sharded path (``parallel/mesh.fetch_sharded``): one sick card
+    is one outlier series
   * ``verify_hist``               — commit verification latency
-
-The mesh and shard counters of the JAX package wait for the port of
-``parallel/mesh`` and ``parallel/elastic`` (ROADMAP "Multi-GPU lanes").
 """
 
 from __future__ import annotations
@@ -65,7 +67,13 @@ def _zero() -> dict:
         "verify_seconds": 0.0,
         "buckets": {},  # lanes -> dispatch count
         "dispatch_hist": {},  # "tier-lanes" -> Histo (wall seconds)
+        "shard_hist": {},  # device ordinal (str) -> Histo (wall seconds)
         "verify_hist": Histo(),
+        # the elastic mesh (parallel/elastic): width the last dispatch
+        # targeted (0 = mesh inactive), shrink/restore counts
+        "mesh_width": 0,
+        "mesh_shrinks": 0,
+        "mesh_restores": 0,
         "inflight_depth": 0,
         "inflight_hwm": 0,
         "lane_dispatches": {},  # lane (str) -> dispatches routed there
@@ -97,6 +105,43 @@ def record_dispatch_time(impl: str, lanes: int, seconds: float) -> None:
         if h is None:
             h = _STATS["dispatch_hist"][key] = Histo(DISPATCH_BUCKETS_S)
         h.observe(float(seconds))
+
+
+def record_shard_time(impl: str, device: int, lanes: int, seconds: float) -> None:
+    """Wall time of one per-ordinal shard fetch on the mesh path, keyed by
+    the stable ordinal (``cometbft_crypto_shard_dispatch_seconds{device=}``).
+    ``impl`` and ``lanes`` ride the span; the series is the device, so a
+    sick card is one series whatever its lanes."""
+    del impl, lanes
+    key = str(int(device))
+    with _LOCK:
+        h = _STATS["shard_hist"].get(key)
+        if h is None:
+            h = _STATS["shard_hist"][key] = Histo(DISPATCH_BUCKETS_S)
+        h.observe(float(seconds))
+
+
+def record_mesh_width(width: int) -> None:
+    """Width of the elastic mesh's current membership, written by
+    ``parallel/elastic`` at every reconfiguration (the
+    ``cometbft_crypto_mesh_width`` gauge)."""
+    with _LOCK:
+        _STATS["mesh_width"] = int(width)
+
+
+def record_mesh_shrink() -> None:
+    with _LOCK:
+        _STATS["mesh_shrinks"] += 1
+
+
+def record_mesh_restore() -> None:
+    with _LOCK:
+        _STATS["mesh_restores"] += 1
+
+
+def mesh_width() -> int:
+    with _LOCK:
+        return _STATS["mesh_width"]
 
 
 def record_tier(tier: str, n_signatures: int, key_type: str = "ed25519") -> None:
@@ -134,8 +179,8 @@ def record_inflight_exit() -> None:
 
 
 def record_lane_dispatch(lane: str, lanes_total: int, lanes_used: int) -> None:
-    """Per-lane routing tally of the in-flight pipeline: ``lane`` is a
-    supervisor tier name (a mesh ordinal once the mesh is ported)."""
+    """Per-lane routing tally of the in-flight pipeline: ``lane`` is a mesh
+    ordinal (str) or a supervisor tier name."""
     key = str(lane)
     with _LOCK:
         d = _STATS["lane_dispatches"]

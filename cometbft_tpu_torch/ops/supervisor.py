@@ -65,9 +65,15 @@ dispatch ordinal) on the calling thread, and a watchdog fire, a breaker
 opening or a quarantine an anomaly (``libs/tracing``), at the JAX
 package's sites and with its stage names; the tier names are the port's
 (``cuda``, ``torch``, ``host``).  A span records the enqueue and the
-wait as the caller sees them: it never synchronizes the card.  The JAX
-package's elastic mesh routing (``parallel/elastic``) waits for
-"Multi-GPU lanes".
+wait as the caller sees them: it never synchronizes the card.
+
+Elastic mesh: when ``parallel/elastic`` is active (two or more ordinals
+configured), ``verify_supervised`` shards a batch of
+``elastic.min_batch()`` or more over the mesh first, and
+``dispatch_verify(lane=...)`` pins a batch at one healthy ordinal.  The
+single-card chain above is the mesh's floor (``mesh=False``): a failed
+lane is degraded alone and its batch re-verified there, on a card by the
+kernel or not at all.
 """
 
 from __future__ import annotations
@@ -683,7 +689,8 @@ def _load_libraries(dev) -> None:
 
 
 def verify_supervised(
-    pubs, msgs, sigs, device=None, skip: tuple = (), cause=None
+    pubs, msgs, sigs, device=None, skip: tuple = (), cause=None,
+    mesh: bool = True,
 ) -> np.ndarray:
     """The supervised ed25519 batch verify: walk the chain, return (n,)
     bool accept bits.  On the CPU it cannot raise for infrastructure
@@ -691,12 +698,22 @@ def verify_supervised(
     did not serve raises ``BackendError`` (``PoisonedInputError`` for a
     quarantined input); so does a CUDA request without a card, before any
     tier is tried.  ``skip`` names tiers that already failed this batch,
-    ``cause`` their failure."""
+    ``cause`` their failure.
+
+    When the elastic mesh is active (``parallel/elastic``) a batch of
+    ``elastic.min_batch()`` or more shards over it first; the chain below
+    is the mesh's own floor (``mesh=False`` is how the elastic path
+    re-enters here at width < 2 without recursing)."""
     from cometbft_tpu_torch.ops import verify as ov
 
     pubs, msgs, sigs = list(pubs), list(msgs), list(sigs)
     dev = ov.resolve_device(device)
     _load_libraries(dev)
+    if mesh and not skip:
+        from cometbft_tpu_torch.parallel import elastic
+
+        if elastic.active() and len(pubs) >= elastic.min_batch():
+            return elastic.verify_elastic(pubs, msgs, sigs, dev)
     n = len(pubs)
     reg = backend_health.registry()
     err = cause
@@ -853,6 +870,9 @@ class _InflightVerify:
     """One supervised verify in flight between dispatch and fetch.
 
     Kinds:
+      * ``lane``       — pinned at one healthy mesh ordinal
+        (``elastic.dispatch_lane``; the shard runs at fetch, under the
+        shard watchdog);
       * ``chip``       — a real dispatch already on the device (the
         ``cuda`` tier's launch; the ``torch`` tier's packed batch, which
         runs at fetch) plus the injector's transform;
@@ -867,7 +887,8 @@ class _InflightVerify:
 
     __slots__ = (
         "kind", "pubs", "msgs", "sigs", "n", "lanes", "backend", "dev",
-        "flight", "transform", "skip", "error", "tier",
+        "flight", "transform", "skip", "error", "tier", "lane",
+        "lane_handle",
     )
 
     def __init__(self, pubs, msgs, sigs, dev):
@@ -884,24 +905,34 @@ class _InflightVerify:
         self.skip = ()
         self.error = None  # the failure of the tier in ``skip``
         self.tier = None
+        self.lane = None
+        self.lane_handle = None
 
 
 def dispatch_verify(pubs, msgs, sigs, lane=None, device=None) -> _InflightVerify:
-    """Route one batch without blocking on its verdict: the first
-    breaker-allowed device backend takes it.  ``lane`` pins a mesh
-    ordinal in the JAX package; with no mesh (ROADMAP "Multi-GPU lanes")
-    the chain takes the batch, as there when the mesh is inactive.  Pair every
-    handle with exactly one ``fetch_verify`` — in-flight depth accounting
-    balances on fetch."""
+    """Route one batch without blocking on its verdict.  ``lane`` (a mesh
+    ordinal) pins it at that lane when the elastic mesh is active and the
+    lane is healthy; otherwise the first breaker-allowed device backend
+    takes it.  Pair every handle with exactly one ``fetch_verify`` —
+    in-flight depth accounting balances on fetch."""
     from cometbft_tpu_torch.ops import verify as ov
 
-    del lane  # no elastic mesh: the single-card chain
     pubs, msgs, sigs = list(pubs), list(msgs), list(sigs)
     h = _InflightVerify(pubs, msgs, sigs, ov.resolve_device(device))
     _load_libraries(h.dev)
     n = h.n
     dispatch_stats.record_inflight_enter()
     try:
+        if lane is not None:
+            from cometbft_tpu_torch.parallel import elastic
+
+            if elastic.active() and int(lane) in elastic.healthy_ordinals():
+                h.kind = "lane"
+                h.lane = int(lane)
+                h.lane_handle = elastic.dispatch_lane(h.lane, pubs, msgs, sigs)
+                h.lanes = h.lane_handle.lanes
+                dispatch_stats.record_lane_dispatch(str(h.lane), h.lanes, n)
+                return h
         backend = _first_allowed(h.dev)
         if backend is None:
             # fully degraded: fetch walks the chain (on the CPU the host
@@ -945,6 +976,24 @@ def fetch_verify(h: _InflightVerify) -> np.ndarray:
     infrastructure reasons; on a card it raises ``BackendError``."""
     try:
         bits = None
+        if h.kind == "lane":
+            from cometbft_tpu_torch.parallel import elastic
+
+            try:
+                bits = elastic.fetch_lane(h.lane_handle)
+            except Exception as e:  # noqa: BLE001 — the lane degrades alone
+                if isinstance(e, elastic.ShardFailure):
+                    ordinal, err = e.ordinal, e.err
+                else:
+                    ordinal, err = h.lane, e
+                width = max(0, len(elastic.healthy_ordinals()) - 1)
+                elastic.note_lane_failure(ordinal, err, width)
+                bits = verify_supervised(h.pubs, h.msgs, h.sigs, h.dev,
+                                         mesh=False)
+            else:
+                _served(device_chain(h.dev)[0], h.n, h.dev)
+            h.tier = last_tier()
+            return bits
         if h.kind == "deferred":
             try:
                 bits = _attempt(h.backend, h.pubs, h.msgs, h.sigs, h.dev)
@@ -973,7 +1022,8 @@ def fetch_verify(h: _InflightVerify) -> np.ndarray:
             _served(h.backend, h.n, h.dev)
         else:
             bits = verify_supervised(
-                h.pubs, h.msgs, h.sigs, h.dev, skip=h.skip, cause=h.error
+                h.pubs, h.msgs, h.sigs, h.dev, skip=h.skip, cause=h.error,
+                mesh=False,
             )
         h.tier = last_tier()
         return bits

@@ -27,6 +27,7 @@ the CPU the plain version then the host reference) unless
 from __future__ import annotations
 
 import hashlib
+import os
 from collections import deque
 from functools import lru_cache
 from typing import Sequence
@@ -245,8 +246,10 @@ def batch_to_device(arrays: dict, device) -> dict:
 
 
 @lru_cache(maxsize=None)
-def _stream(dev: torch.device) -> "torch.cuda.Stream":
-    """The stream that every kernel launch on ``dev`` runs on."""
+def _stream(dev: torch.device, slot: int = 0) -> "torch.cuda.Stream":
+    """The stream that every kernel launch on ``dev`` runs on; a mesh
+    ordinal's shards run on the stream of its own ``slot`` (virtual
+    ordinals of one card each get one, ``parallel/mesh``)."""
     return torch.cuda.Stream(device=dev)
 
 
@@ -318,6 +321,44 @@ def _fetch(f: _Flight) -> np.ndarray:
     return (accept & f.structural)[: f.n]
 
 
+_MESH_PROBED = [False]
+
+
+def _maybe_enable_mesh() -> None:
+    """One-time device probe deciding elastic-mesh activation
+    (``parallel/elastic``): two or more CUDA devices, or an explicit
+    ``COMETBFT_TPU_MESH=1`` (which on a one-card machine lists the card
+    as ``parallel/mesh.VIRTUAL_WIDTH`` virtual ordinals).  A one-card
+    machine, and every machine without a card, keeps the single-card
+    supervised path exactly.  ``COMETBFT_TPU_MESH=0`` vetoes activation
+    outright; a mesh configured explicitly (the simulator, tests) is left
+    untouched."""
+    if _MESH_PROBED[0]:
+        return
+    _MESH_PROBED[0] = True
+    from cometbft_tpu_torch.parallel import elastic
+
+    if not elastic.enabled() or elastic.configured():
+        return
+    force = os.environ.get("COMETBFT_TPU_MESH")
+    if force == "0" or not torch.cuda.is_available():
+        return
+    count = torch.cuda.device_count()
+    if count < 2 and force != "1":
+        return
+    from cometbft_tpu_torch.parallel import mesh as pmesh
+
+    devices = [torch.device("cuda", i) for i in range(count)]
+    if count < 2:
+        devices = devices * pmesh.VIRTUAL_WIDTH
+    elastic.configure(pmesh.register_devices(devices))
+
+
+def reset_mesh_probe() -> None:
+    """Forget the one-time activation probe (tests)."""
+    _MESH_PROBED[0] = False
+
+
 def verify_batch(
     pubs: Sequence[bytes],
     msgs: Sequence[bytes],
@@ -333,13 +374,16 @@ def verify_batch(
     watchdog and breakers, and the bits are always verdicts.  On a card a
     failed or wedged launch raises ``BackendError`` (a WARNING and the
     breaker record it); on the CPU the host reference re-verifies the
-    batch, visibly (a WARNING and the per-tier counter).
-    ``COMETBFT_TPU_SUPERVISOR=0`` restores the raw path, where a failed
-    launch raises as it comes."""
+    batch, visibly (a WARNING and the per-tier counter).  On a machine
+    with an elastic mesh the supervised path shards the batch over it
+    first (``parallel/elastic``; ``_maybe_enable_mesh`` decides once per
+    process).  ``COMETBFT_TPU_SUPERVISOR=0`` restores the raw path, where
+    a failed launch raises as it comes."""
     from cometbft_tpu_torch.ops import supervisor
 
     dev = resolve_device(device)
     if supervisor.enabled():
+        _maybe_enable_mesh()
         return supervisor.verify_supervised(pubs, msgs, sigs, dev)
     tier = "cuda" if dev.type == "cuda" else "torch"
     n = len(pubs)
@@ -454,12 +498,13 @@ class _SegmentsHandle:
 def dispatch_segments(work, lane=None, device=None) -> _SegmentsHandle:
     """Pack the segments of ``work`` as one batch and launch it (on a CUDA
     device, without waiting); ``fetch_segments`` returns the verdicts.
-    ``lane`` pins a mesh lane in the JAX package; the port has no mesh
-    yet and accepts only ``None``."""
+    ``lane`` pins the fused dispatch at one elastic-mesh ordinal
+    (round-robined by the verify scheduler) so K concurrent flushes spread
+    over the lanes; with no active mesh, or an unhealthy lane, the
+    single-card chain takes it (``ops/supervisor.dispatch_verify``).  A
+    lane needs the supervisor: the raw path ignores it."""
     from cometbft_tpu_torch.ops import supervisor
 
-    if lane is not None:
-        raise ValueError("mesh lanes are not ported: lane must be None")
     dev = resolve_device(device)
     sizes = [len(p) for p, _, _ in work]
     pubs = [x for p, _, _ in work for x in p]
@@ -468,8 +513,10 @@ def dispatch_segments(work, lane=None, device=None) -> _SegmentsHandle:
     if len(work) > 1:
         dispatch_stats.record_fused(len(work))
     if pubs and supervisor.enabled():
+        _maybe_enable_mesh()
         return _SegmentsHandle(
-            sizes, sup=supervisor.dispatch_verify(pubs, msgs, sigs, device=dev)
+            sizes,
+            sup=supervisor.dispatch_verify(pubs, msgs, sigs, lane=lane, device=dev),
         )
     return _SegmentsHandle(sizes, flight=_dispatch(pubs, msgs, sigs, dev))
 
@@ -496,8 +543,8 @@ def verify_pipelined(
     chunks dispatched at once, through ``verify_batches_overlapped`` (so
     supervised by default, as the JAX package's chunks go through the
     supervisor's in-flight seam).  A chunk is the largest bucket that the
-    batch fills (on one card, as the JAX package with one mesh lane: a
-    10,240 batch is one chunk).  Bitwise-equal to ``verify_batch``:
+    batch fills (as the JAX package with one mesh lane: a 10,240 batch is
+    one chunk; the chunks do not round-robin over mesh lanes).  Bitwise-equal to ``verify_batch``:
     chunking splits lanes, never couples them."""
     pubs, msgs, sigs = list(pubs), list(msgs), list(sigs)
     n = len(pubs)

@@ -48,9 +48,16 @@ process never starts ``nvcc``.  ``enabled()`` never touches the card.  As
 in the JAX package, an empty ``COMETBFT_TPU_WARMBOOT_SECP_BUCKETS``,
 ``_BLS_BUCKETS``, ``_MERKLE_BUCKETS`` or ``_TRANSPORT_BUCKETS`` skips that
 family (transport: both AEAD and X25519); their values name lane buckets
-in the JAX package and mean nothing more here.  The JAX package's mesh
-shrink ladder (``COMETBFT_TPU_WARMBOOT_MESH_SHRINK``) waits for
-"Multi-GPU lanes".  Counters are in ``ops/warm_stats``; the pass is a
+in the JAX package and mean nothing more here.
+
+The elastic mesh's shrink ladder (``COMETBFT_TPU_WARMBOOT_MESH_SHRINK=1``,
+``mesh_shrink_matrix``): the JAX package compiles the sharded executable
+of the full width and of the first shrink step there.  The port compiles
+nothing per width, so its pass runs one known-answer sharded verify at
+each (width, lanes) shape of the matrix
+(``parallel/mesh.warm_shrink_shape``): a card that fails it is found at
+boot, not by the first post-shrink batch.  Counters are in
+``ops/warm_stats``; the pass is a
 ``warmboot.run`` span with a ``warmboot.shape`` child a family
 (``libs/tracing``), as in the JAX package.
 """
@@ -106,6 +113,40 @@ def matrix() -> "list[tuple[str, str]]":
             continue
         out.append((family, breaker))
     return out
+
+
+def mesh_shrink_enabled() -> bool:
+    """``COMETBFT_TPU_WARMBOOT_MESH_SHRINK=1`` opts the pass into the
+    elastic mesh's shrink ladder (default off, as in the JAX package)."""
+    return os.environ.get("COMETBFT_TPU_WARMBOOT_MESH_SHRINK", "0") == "1"
+
+
+def mesh_shrink_matrix() -> "list[tuple[int, int]]":
+    """(width, lanes) mesh shapes to warm: the full width AND the first
+    shrink step (N-1) at the smallest bucket, the shape of the first
+    post-shrink dispatch.  Empty when the shrink warm-up is off, the mesh
+    supervisor is off, or fewer than 2 ordinals are configured."""
+    if not mesh_shrink_enabled():
+        return []
+    from cometbft_tpu_torch.parallel import elastic
+
+    if not elastic.enabled() or not elastic.configured():
+        return []
+    n = elastic.total_width()
+    if n < 2:
+        return []
+    from cometbft_tpu_torch.ops import verify as ov
+
+    lanes = ov.bucket_size(1, ov._BUCKETS[0])
+    return [(w, lanes) for w in (n, n - 1) if w >= 2]
+
+
+def _warm_mesh(width: int, lanes: int) -> "dict[str, dict]":
+    """One shrink-ladder shape's known-answer sharded verify: the seam
+    tests replace, as ``_warm_family``.  Returns {shape tag: info}."""
+    from cometbft_tpu_torch.parallel import mesh as pmesh
+
+    return pmesh.warm_shrink_shape(width, lanes)
 
 
 def _warm_family(family: str) -> "dict[str, str]":
@@ -186,8 +227,24 @@ def _run_families(t0: float) -> dict:
             statuses.update(libs)
             warmed += len(libs)
         family_seconds[family] = time.perf_counter() - t
-    # (the JAX package warms the elastic mesh's shrink ladder here; that
-    # waits for "Multi-GPU lanes")
+    # the elastic mesh's shrink ladder: no breaker here (no single tier
+    # stands for the whole mesh; a sick card demotes through its own
+    # mesh_dev* breaker at dispatch time), and a failure never wedges boot
+    for width, lanes in mesh_shrink_matrix():
+        key = f"mesh{width}-{lanes}"
+        try:
+            with tracing.span("warmboot.shape", family="mesh",
+                              tier=f"mesh{width}", lanes=lanes) as shape_sp:
+                infos = _warm_mesh(width, lanes)
+                shape_sp.set(tags=len(infos))
+            for tag, info in infos.items():
+                statuses[tag] = str(info.get("status", "?"))
+                warmed += 1
+        except Exception as e:  # noqa: BLE001 — boot never wedges
+            failures += 1
+            statuses.setdefault(key, f"error:{type(e).__name__}")
+            logger.warning("warm-boot: mesh shrink shape %s failed (%r); "
+                           "continuing", key, e)
     seconds = time.perf_counter() - t0
     warm_stats.record_warm_run(seconds, warmed, 0, failures)
     logger.info("warm-boot: %d libraries warm in %.1fs (%d failures)", warmed,

@@ -17,8 +17,8 @@ Entry points (``device=None`` runs on the card, ``device="cpu"`` or
   * ``run_scenario`` — named fault scripts (``cometbft-tpu sim`` CLI)
   * ``compose``      — merge fault scripts into combined-fault scenarios
 
-The JAX package's three elastic-mesh scenarios wait for
-``parallel/elastic`` (``scenarios.NOT_PORTED``).
+The three elastic-mesh scenarios run over ``scenarios.SIM_MESH_WIDTH``
+virtual ordinals (``parallel/elastic``).
 """
 
 from cometbft_tpu_torch.sim.clock import SimTicker, VirtualClock

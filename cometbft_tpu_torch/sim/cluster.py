@@ -64,6 +64,9 @@ from cometbft_tpu_torch.types.validation import entry_device
 
 SIM_CHAIN_ID = "sim-chain"
 CATCHUP_INTERVAL = 0.5  # virtual seconds between catchup scans
+# virtual seconds before an input whose check the card did not serve is
+# offered again (the consensus reactor's vote gossip sleep, 100 ms)
+UNSERVED_RETRY = 0.1
 
 
 def describe_msg(msg) -> str:
@@ -195,6 +198,10 @@ class SimCluster:
             device=self.device,
         )
         self._dbs[i] = node.block_store._db
+        node.cs.on_unserved = (
+            lambda kind, payload, cs=node.cs: self.clock.call_later(
+                UNSERVED_RETRY, lambda: cs.requeue(kind, payload),
+                label=f"unserved node{i}"))
         # gossip envelopes carry the sender's round-trace context so
         # consensus-round spans merge into one causal tree per (height,
         # round) across the cluster (docs/observability.md); the context

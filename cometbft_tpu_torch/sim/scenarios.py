@@ -7,10 +7,12 @@ through the cluster's seeded clock and RNG, so ``run_scenario(name, seed)``
 reproduces byte-identically: same event trace, same commit hashes, same
 failure (if any).
 
-``SCENARIOS`` holds the JAX package's scenarios less the three that drive
-its elastic mesh (``chip-death``, ``mesh-brownout``, ``combined-storm``):
-they wait for ``parallel/elastic`` (ROADMAP "Multi-GPU lanes"), and
-``run_scenario`` raises ``NotImplementedError`` naming it for each.
+``SCENARIOS`` holds every scenario of the JAX package.  The three that
+drive the elastic mesh (``chip-death``, ``mesh-brownout``,
+``combined-storm``) configure ``parallel/elastic`` over ``SIM_MESH_WIDTH``
+virtual ordinals: on the CPU with the host oracle at the mesh runner seam,
+as the JAX setups do; on the card with no stand-in, each shard a launch of
+the kernel on its virtual ordinal's stream (``_mesh_setup``).
 
 ``run_scenario(..., device=None)`` runs on the card; ``device="cpu"`` (or
 ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``) asks for the CPU.  The scenarios that
@@ -57,6 +59,7 @@ from pathlib import Path
 from typing import Callable, Optional
 
 from cometbft_tpu_torch.config.config import MempoolConfig
+from cometbft_tpu_torch.crypto.backend_health import BackendError
 from cometbft_tpu_torch.ops import supervisor
 from cometbft_tpu_torch.sim.cluster import SimCluster
 
@@ -404,6 +407,13 @@ _BACKEND_ENV_KNOBS = (
     "COMETBFT_TPU_HANDSHAKE_TIMEOUT_S",
     "COMETBFT_TPU_X25519_DEVICE",
     "COMETBFT_TPU_X25519_MAX_LANES",
+    # elastic mesh supervision (parallel/elastic): mesh scenarios force
+    # membership + the shard runner in setup; these knobs ride the same
+    # save/restore as everything else
+    "COMETBFT_TPU_MESH_SUPERVISOR",
+    "COMETBFT_TPU_MESH",
+    "COMETBFT_TPU_MESH_MIN_BATCH",
+    "COMETBFT_TPU_WARMBOOT_MESH_SHRINK",
     # blocksync adaptive catchup (blocksync/pool.py + reactor.py): the
     # WAN scenarios pin BAN_BASE/STALL_SECS via extra_env so ban/probe
     # cycles fit inside a catchup window; same save/restore as the rest
@@ -558,6 +568,184 @@ def _backend_faults_teardown(cluster: SimCluster) -> None:
 
         _tracing.get_tracer().restore_dump_state(dump_saved)
         cluster._dump_saved = None
+
+
+def _sim_mesh_runner(ordinal, pubs, msgs, sigs, lanes):
+    """Host-backed stand-in for ONE mesh shard on the CPU (the elastic
+    supervisor's ``set_mesh_runner`` seam): verdict-identical to the
+    kernel by construction (the host ZIP-215 oracle IS its differential
+    oracle) without a plain-version verify per shard.  Breakers,
+    membership, the shrink ladder, re-admission probes and the
+    FaultyDevice injector all run unchanged above this seam.  Never
+    installed on the card."""
+    from cometbft_tpu_torch.parallel import elastic
+
+    return elastic.host_oracle_runner(ordinal, pubs, msgs, sigs, lanes)
+
+
+SIM_MESH_WIDTH = 4  # virtual ordinals the mesh scenarios run on
+
+
+def _card_mesh_ordinals(width: int) -> "list[int]":
+    """On the card: ``width`` ordinals over the CUDA devices in turn (one
+    card: ``width`` virtual ordinals of it), registered with
+    ``parallel/mesh``.  They must be 0..width-1, the ordinals the
+    scenarios' faults name."""
+    import torch
+
+    from cometbft_tpu_torch.parallel import mesh as pmesh
+
+    count = torch.cuda.device_count()
+    ordinals = pmesh.register_devices(
+        [torch.device("cuda", i % count) for i in range(width)])
+    if ordinals != list(range(width)):
+        raise RuntimeError(
+            f"the mesh scenarios need ordinals 0..{width - 1}; the CUDA "
+            f"devices registered as {ordinals}")
+    return ordinals
+
+
+def _mesh_setup(extra_env: Optional[dict] = None, width: int = SIM_MESH_WIDTH):
+    """Backend setup (the forced device path, virtual-clock breakers)
+    PLUS an elastic mesh of ``width`` virtual ordinals: on the CPU on the
+    per-shard host oracle, on the card on the kernel (no runner).
+    Threshold 1 for the same reason the brownout scenario uses it: the
+    in-process breaker registry is cluster-shared, so healthy traffic
+    would otherwise keep resetting a sick ordinal's consecutive-failure
+    count."""
+    base = _backend_faults_setup(
+        dict(
+            {
+                "COMETBFT_TPU_BREAKER_THRESHOLD": "1",
+                # sim commits are a handful of signatures; the production
+                # min-batch cutoff would keep them off the mesh path
+                # under test
+                "COMETBFT_TPU_MESH_MIN_BATCH": "1",
+            },
+            **(extra_env or {}),
+        )
+    )
+
+    def setup(cluster: SimCluster) -> None:
+        from cometbft_tpu_torch.ops import device_health
+        from cometbft_tpu_torch.parallel import elastic
+
+        base(cluster)
+        # per-ordinal probe state is process-global like the breakers: a
+        # previous run's down-marks must not swallow this run's flips
+        device_health.reset()
+        elastic.clear()
+        if on_card(cluster):
+            elastic.configure(_card_mesh_ordinals(width))
+        else:
+            elastic.configure(range(width))
+            elastic.set_mesh_runner(_sim_mesh_runner)
+
+    return setup
+
+
+def _mesh_teardown(cluster: SimCluster) -> None:
+    from cometbft_tpu_torch.ops import device_health
+    from cometbft_tpu_torch.parallel import elastic
+
+    elastic.clear()  # drops membership + runner + injector, zeroes width
+    device_health.reset()
+    _backend_faults_teardown(cluster)
+
+
+def _chip_death(s: Scenario) -> list[Action]:
+    """One card of the virtual mesh dies mid-dispatch and STAYS dead:
+    every later dispatch touching ordinal 2 raises, so the first dispatch
+    after t=5 must shrink the mesh 4->3 and re-dispatch (only the failed
+    dispatch re-runs); the mesh_dev2 breaker opens (threshold 1) and
+    keeps the corpse out of membership, with each elapsed backoff costing
+    exactly one failed one-signature probe.  At t=8 a chip-watcher-style
+    health probe reports ordinal 1 down too — PROACTIVE exclusion: the
+    card leaves membership before any dispatch pays a failure to find
+    out; because that card actually dispatches fine, its next half-open
+    probe re-admits it (the probe dispatch is the arbiter, so a flaky
+    watcher can't permanently cost a lane) while the truly dead ordinal
+    2 stays out.  The fleet keeps committing throughout."""
+
+    def die(c: SimCluster) -> None:
+        from cometbft_tpu_torch.parallel import elastic
+
+        c._log("scenario: mesh ordinal 2 dies (every dispatch raises)")
+        elastic.set_fault_injector(
+            elastic.FaultyDevice("raise", ordinals=(2,))
+        )
+
+    def probe_down(c: SimCluster) -> None:
+        from cometbft_tpu_torch.ops import device_health
+
+        c._log("scenario: health probe reports mesh ordinal 1 down")
+        device_health.record_probe(
+            False, source="chipwatch", t=c.clock.now(), ordinal=1
+        )
+
+    return [
+        Action(5.0, "chip death: mesh ordinal 2", die),
+        Action(8.0, "probe-down: mesh ordinal 1", probe_down),
+    ]
+
+
+def _mesh_brownout(s: Scenario) -> list[Action]:
+    """A flapping card: ordinal 1 fails in bursts (fail 2 / pass 4,
+    counter-based so the run is deterministic per seed) from t=4 to t=12.
+    The mesh must shrink on each failing burst, the mesh_dev1 breaker
+    must cycle open -> half-open -> closed on the virtual-clock backoff
+    (a pass-phase probe re-admits the card: ``mesh_restore``), and after
+    t=12 the mesh must settle back at full width — all without a single
+    wrong verdict or a missed commit."""
+
+    def flap(c: SimCluster) -> None:
+        from cometbft_tpu_torch.parallel import elastic
+
+        c._log("scenario: mesh ordinal 1 flapping (fail 2 / pass 4)")
+        elastic.set_fault_injector(
+            elastic.FaultyDevice("flap", ordinals=(1,), fail_n=2, pass_n=4)
+        )
+
+    def stable(c: SimCluster) -> None:
+        from cometbft_tpu_torch.parallel import elastic
+
+        c._log("scenario: mesh ordinal 1 stable again")
+        elastic.clear_fault_injector()
+
+    return [
+        Action(4.0, "mesh brownout: ordinal 1 flaps", flap),
+        Action(12.0, "mesh brownout ends", stable),
+    ]
+
+
+def _mesh_blackout(s: Scenario) -> list[Action]:
+    """Three of the four mesh ordinals die at t=5 (overlapping the
+    composed backend brownout's window): the mesh collapses below width 2
+    and every batch falls into the SINGLE-CARD chain, which the composed
+    ``_backend_brownout`` is failing on the victim nodes at the same
+    time, so the whole ladder mesh(4)->3->2->single card is exercised in
+    one storm (on the CPU down to the host; on a card a batch the kernel
+    did not serve raises).  At t=10.5 the cards heal; half-open probes
+    re-admit them and the mesh climbs back to full width."""
+
+    def blackout(c: SimCluster) -> None:
+        from cometbft_tpu_torch.parallel import elastic
+
+        c._log("scenario: mesh blackout (ordinals 1, 2, 3 die)")
+        elastic.set_fault_injector(
+            elastic.FaultyDevice("raise", ordinals=(1, 2, 3))
+        )
+
+    def restore(c: SimCluster) -> None:
+        from cometbft_tpu_torch.parallel import elastic
+
+        c._log("scenario: mesh blackout ends")
+        elastic.clear_fault_injector()
+
+    return [
+        Action(5.0, "mesh blackout: 3 of 4 ordinals die", blackout),
+        Action(10.5, "mesh blackout ends", restore),
+    ]
 
 
 def _byzantine_voter(s: Scenario) -> list[Action]:
@@ -791,10 +979,19 @@ def _gossip_burst(s: Scenario) -> list[Action]:
             sched.resume()
         # wait the admitted items out: the queue is empty again before the
         # action returns, so the next burst's shed count (logged into the
-        # byte-compared trace) cannot depend on dispatcher wall-time
+        # byte-compared trace) cannot depend on dispatcher wall-time.  On
+        # the card a flush the kernel did not serve raises (the card's
+        # rule): counted, never a verdict
+        raised = 0
         for f in futs:
-            assert f.result(timeout=30) is False  # garbage never verifies
-        c._log("scenario: bulk burst of 256 submissions, %d shed" % shed)
+            try:
+                ok = f.result(timeout=30)
+            except BackendError:
+                raised += 1
+                continue
+            assert ok is False  # garbage never verifies
+        c._log("scenario: bulk burst of 256 submissions, %d shed" % shed
+               + (", %d raised unserved" % raised if raised else ""))
 
     return [Action(0.0, "storm links: dup 25%, reorder 50%", storm)] + [
         Action(float(t), "bulk verify burst (256 items)", burst)
@@ -1990,18 +2187,6 @@ def _torn_wal_restart(s: Scenario) -> list[Action]:
     ]
 
 
-# The JAX package's scenarios that drive its elastic mesh, which the port
-# does not have yet (ROADMAP "Multi-GPU lanes").
-NOT_PORTED = ("chip-death", "mesh-brownout", "combined-storm")
-
-
-def not_ported_message(name: str) -> str:
-    return (
-        f"scenario {name!r} drives the elastic mesh (parallel/elastic), which "
-        f"the port does not have yet (ROADMAP \"Multi-GPU lanes\")"
-    )
-
-
 SCENARIOS: dict[str, Scenario] = {
     s.name: s
     for s in [
@@ -2242,6 +2427,42 @@ SCENARIOS: dict[str, Scenario] = {
             teardown=_evidence_teardown,
         ),
         Scenario(
+            "chip-death",
+            "one chip of the 4-wide elastic mesh dies mid-dispatch at "
+            "t=5 and stays dead: the failed dispatch (alone) re-runs on "
+            "the shrunken 3-device mesh, the mesh_dev2 breaker opens and "
+            "keeps the corpse out of membership (each elapsed backoff "
+            "costs one failed one-bucket probe, never a production "
+            "batch), and at t=8 a chip-watcher probe marks ordinal 1 "
+            "down — PROACTIVE exclusion before any dispatch fails; since "
+            "that chip actually dispatches fine, its next half-open "
+            "probe re-admits it (mesh_restore) while the dead chip stays "
+            "out.  The fleet keeps committing throughout, verdicts never "
+            "change, traces byte-identical per seed.  Runs on the "
+            "per-shard host-oracle runner seam",
+            target_height=14,
+            max_time=240.0,
+            actions=_chip_death,
+            setup=_mesh_setup(),
+            teardown=_mesh_teardown,
+        ),
+        Scenario(
+            "mesh-brownout",
+            "a flapping chip: mesh ordinal 1 fails in deterministic "
+            "bursts (fail 2 / pass 4) from t=4 to t=12 — the mesh must "
+            "shrink on failing bursts, the mesh_dev1 breaker must cycle "
+            "open -> half-open -> closed on the virtual-clock backoff "
+            "with a pass-phase probe re-admitting the chip "
+            "(mesh_restore), and the mesh settles back at full width "
+            "after the brownout.  Runs on the per-shard host-oracle "
+            "runner seam",
+            target_height=14,
+            max_time=240.0,
+            actions=_mesh_brownout,
+            setup=_mesh_setup(),
+            teardown=_mesh_teardown,
+        ),
+        Scenario(
             "byzantine-voter",
             "one LIVE validator double-signs every non-nil prevote and "
             "precommit from t=2 to t=8 (a second vote for a fabricated "
@@ -2254,6 +2475,38 @@ SCENARIOS: dict[str, Scenario] = {
             target_height=12,
             max_time=240.0,
             actions=_byzantine_voter,
+        ),
+        Scenario(
+            "combined-storm",
+            "the composition layer's proof: minority partition + device "
+            "backend brownout on f+1 nodes + scripted bulk verify bursts "
+            "+ a mesh blackout (3 of 4 ordinals die t=5..10.5, so the "
+            "mesh collapses below width 2 and the single-chip brownout "
+            "REALLY fires underneath it) composed in ONE script "
+            "(compose()).  Agreement must hold, only bulk-class verify "
+            "work may shed, the full ladder mesh(4)->...->xla->host must "
+            "degrade and every layer must re-promote after the storm",
+            target_height=14,
+            max_time=300.0,
+            actions=compose(
+                _partition_minority,
+                _backend_brownout,
+                _gossip_burst,
+                _mesh_blackout,
+            ),
+            setup=_mesh_setup(
+                {
+                    "COMETBFT_TPU_VERIFY_SCHED": "1",
+                    "COMETBFT_TPU_SCHED_QUEUE": "48",
+                    "COMETBFT_TPU_SCHED_FLUSH_US": "500",
+                    # failed probes during the blackout double each dead
+                    # chip's backoff; cap it low so re-admission probes
+                    # recur fast enough to restore full width before the
+                    # run ends (deterministic: virtual clock)
+                    "COMETBFT_TPU_BREAKER_BACKOFF_MAX_MS": "2000",
+                }
+            ),
+            teardown=_mesh_teardown,
         ),
         Scenario(
             "disk-full",
@@ -2382,10 +2635,7 @@ def run_scenario(
 ) -> ScenarioResult:
     """Build a cluster on ``device`` (None: the card), script the
     scenario's actions onto its virtual clock, and drive it to the target
-    height (or the time budget).  A mesh scenario of the JAX package
-    raises ``NotImplementedError`` naming ``parallel/elastic``."""
-    if name.replace("_", "-") in NOT_PORTED:
-        raise NotImplementedError(not_ported_message(name.replace("_", "-")))
+    height (or the time budget)."""
     scenario = SCENARIOS.get(name) or SCENARIOS[name.replace("_", "-")]
     name = scenario.name
     # overrides flow into the scenario the action generators see, so e.g.
@@ -2504,6 +2754,14 @@ def run_scenario(
                     n: b["state"] for n, b in snap["breakers"].items()
                 },
             }
+            # elastic-mesh shape of the run (chip-death / mesh-brownout /
+            # combined-storm): width at end of run + shrink/restore
+            # counts, only when the mesh actually ran
+            msnap = _dstats.snapshot()
+            if msnap["mesh_width"] or msnap["mesh_shrinks"]:
+                backend_stats["mesh_width"] = msnap["mesh_width"]
+                backend_stats["mesh_shrinks"] = msnap["mesh_shrinks"]
+                backend_stats["mesh_restores"] = msnap["mesh_restores"]
             # only when the scenario ran with the scheduler enabled —
             # backend-* scenarios pin it off, and an all-zero sched block
             # in their soak rows would read as "scheduler ran, idle"

@@ -14,8 +14,9 @@ signature verification:
     into a single ``ops/verify.dispatch_segments`` dispatch, flushing when
     the oldest item has waited ``COMETBFT_TPU_SCHED_FLUSH_US`` (default
     2000) or when the smallest padding bucket fills;
-  * up to ``INFLIGHT`` flushes ride the card at once; one completion
-    thread fetches them in drain order and resolves their futures;
+  * up to ``inflight_target()`` flushes ride the card at once (two on one
+    card, the live mesh width on an elastic mesh); one completion thread
+    fetches them in drain order and resolves their futures;
   * the sigcache is consulted before any queue slot or device lane is
     occupied, and duplicate in-flight triples (the same vote gossiped by
     two peers at once) collapse into one lane;
@@ -52,9 +53,10 @@ A flush records a ``sched.flush`` span (reason, items, misses, lanes)
 closed before its futures resolve, its launch a ``sched.dispatch`` span and
 its completion a ``sched.fetch`` span; a shed records a ``queue_shed``
 anomaly and its synchronous verify a ``sched.shed_fallback`` span
-(``libs/tracing``, the JAX package's sites).  Its lane pinning over the
-elastic mesh waits for ROADMAP "Multi-GPU lanes".  The
-dispatcher starts the warm-boot pass (``ops/warmboot``) when it first
+(``libs/tracing``, the JAX package's sites).  With an elastic mesh
+(``parallel/elastic``) the flush target and the in-flight depth follow
+its live width, and each flush is pinned at the next lane of a round
+robin over ``elastic.admit_ordinals()``.  The dispatcher starts the warm-boot pass (``ops/warmboot``) when it first
 runs, as the JAX package's does.
 """
 
@@ -94,9 +96,8 @@ _FALLBACK_BUCKETS = (32, 64, 128, 256, 512, 1024, 4096, 8192, 10240, 32768)
 # exceeds it — leftovers stay queued for the next flush
 MAX_DRAIN = _FALLBACK_BUCKETS[-1]
 DEFAULT_QUEUE_CAP = 8192
-# flushes dispatched and not yet fetched: on one card the depth buys
-# host-prep/device overlap (the JAX package follows the live mesh width,
-# ROADMAP "Multi-GPU lanes")
+# flushes dispatched and not yet fetched on one card, where the depth
+# buys host-prep/device overlap (``inflight_target``)
 INFLIGHT = 2
 
 
@@ -108,6 +109,25 @@ class QueueFullError(Exception):
 
 def enabled() -> bool:
     return os.environ.get("COMETBFT_TPU_VERIFY_SCHED", "1") != "0"
+
+
+def _mesh_width() -> int:
+    """The elastic mesh's live width (0 without a mesh); never
+    load-bearing for the flush loop."""
+    try:
+        from cometbft_tpu_torch.parallel import elastic
+
+        return elastic.healthy_width()
+    except Exception:  # noqa: BLE001 — mesh introspection only
+        return 0
+
+
+def inflight_target() -> int:
+    """Bound on concurrently dispatched flushes: the LIVE elastic mesh
+    width (each healthy lane carries its own dispatch, and the bound
+    follows shrinks and restores), with a floor of ``INFLIGHT`` on one
+    card."""
+    return max(_mesh_width(), INFLIGHT)
 
 
 # The device a caller holds the gate open on (``open_gate``), or None.
@@ -263,6 +283,7 @@ class VerifyScheduler:
         self._stopped = False
         self._paused = False
         self._full_target: Optional[int] = None
+        self._lane_rr = 0  # round robin over the mesh's lanes
         # stamped at dispatch on the dispatcher thread, so intervals are
         # monotonic however many flushes are in flight
         self._last_flush_t: Optional[float] = None
@@ -464,10 +485,12 @@ class VerifyScheduler:
     def _bucket_target(self) -> int:
         """Items that fill the smallest padding bucket: flushing there
         costs no padding on the plain version's ladder, so waiting any
-        longer only adds latency.  Computed once, off the submit path (the
-        ops import pulls in torch).  The JAX package scales it by the live
-        elastic mesh width; the port has one card (ROADMAP "Multi-GPU
-        lanes")."""
+        longer only adds latency.  The base is computed once, off the
+        submit path (the ops import pulls in torch).  The LIVE elastic mesh
+        width scales it per flush: a W-wide mesh splits a flush W ways, so
+        a full flush is W smallest buckets, rounded DOWN to a real bucket
+        (the mesh pads the fused batch to a bucket before sharding, so a
+        target between buckets would wait for a worse-padded flush)."""
         if self._full_target is None:
             try:
                 from cometbft_tpu_torch.ops import verify as ov
@@ -475,7 +498,12 @@ class VerifyScheduler:
                 self._full_target = ov.bucket_size(1, ov._BUCKETS[0])
             except Exception:  # noqa: BLE001 — conservative fallback
                 self._full_target = _FALLBACK_BUCKETS[0]
-        return self._full_target
+        w = _mesh_width()
+        if w < 2:
+            return self._full_target
+        scaled = self._full_target * w
+        fits = [b for b in _FALLBACK_BUCKETS if self._full_target <= b <= scaled]
+        return fits[-1] if fits else self._full_target
 
     def _oldest_t0(self) -> Optional[float]:
         heads = [q[0].t0 for q in self._queues if q]
@@ -493,7 +521,7 @@ class VerifyScheduler:
         return out
 
     def _run(self) -> None:
-        full = self._bucket_target()  # the torch import happens here, unlocked
+        self._bucket_target()  # the torch import happens here, unlocked
         # the dispatcher runs only once the card is trusted, the population
         # warm boot serves: build, load and self-check every other key type
         # and plane in the background before their first batch
@@ -501,6 +529,10 @@ class VerifyScheduler:
 
         warmboot.ensure_started()
         while True:
+            # re-read once per flush cycle (not per wakeup: the live width
+            # walks breaker locks), so the target follows mesh shrinks and
+            # restores at flush granularity
+            full = self._bucket_target()
             with self._cond:
                 while not self._stopped and (
                     self._count == 0 or self._paused
@@ -605,7 +637,7 @@ class VerifyScheduler:
         """The front half of a flush: structural filter + dedup + ONE
         fused dispatch (``ops.verify.dispatch_segments``), then hand the
         in-flight handle to the completion thread and return to draining
-        — up to ``INFLIGHT`` flushes ride the card at once."""
+        — up to ``inflight_target()`` flushes ride the card at once."""
         n = len(items)
         pubs = [it.pub for it in items]
         msgs = [it.msg for it in items]
@@ -652,11 +684,12 @@ class VerifyScheduler:
                 ]
                 lanes = ov.bucket_size(len(ordered), ov._BUCKETS[0])
                 self._ensure_fetch_thread()
+                cap = inflight_target()
                 # reserve an in-flight slot BEFORE dispatching; the wait
                 # re-checks the completion thread so a dead one is restarted
                 # rather than waited on forever
                 with self._fcond:
-                    while self._inflight >= INFLIGHT:
+                    while self._inflight >= cap:
                         if (
                             self._fetch_thread is None
                             or not self._fetch_thread.is_alive()
@@ -666,11 +699,27 @@ class VerifyScheduler:
                     self._inflight += 1
                     stats.record_inflight(self._inflight)
                 self._ensure_fetch_thread()
+                lane = None
+                try:
+                    from cometbft_tpu_torch.parallel import elastic
+
+                    # the probe-ADMITTING membership walk, not the read-only
+                    # healthy list: a half-open ordinal re-earns its lane by
+                    # the one-signature probe here.  Below 2 lanes the
+                    # single-card chain takes the flush (lane None)
+                    ords = elastic.admit_ordinals()
+                    if len(ords) >= 2:
+                        lane = ords[self._lane_rr % len(ords)]
+                        self._lane_rr += 1
+                except Exception:  # noqa: BLE001 — lane pinning is never
+                    # load-bearing
+                    lane = None
                 try:
                     with tracing.span(
                         "sched.dispatch", reason=reason, items=n, lanes=lanes,
                     ):
-                        handle = ov.dispatch_segments(work, device=self.device)
+                        handle = ov.dispatch_segments(work, lane=lane,
+                                                      device=self.device)
                 except BaseException:
                     with self._fcond:
                         self._inflight -= 1

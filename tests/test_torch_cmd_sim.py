@@ -1,11 +1,13 @@
 """The port's ``cmd sim`` against the JAX CLI's, and the port's simulator
-alone: its scenario list, its determinism, the three mesh scenarios it
-does not have, and the device rule of ``run_scenario``.
+alone: its scenario list, its determinism, and the device rule of
+``run_scenario``.
 
-``cmd sim --list`` prints the JAX CLI's lines less the three that drive
-the elastic mesh; ``cmd sim --scenario crash-restart --json`` prints the
-JAX CLI's summary; naming a mesh scenario exits 2 naming
-``parallel/elastic``.  Both CLIs run in this process with
+``cmd sim --list`` prints the JAX CLI's lines, all 28; ``cmd sim
+--scenario crash-restart --json`` prints the JAX CLI's summary, and so
+does each of the three elastic-mesh scenarios (journal byte counts aside:
+they follow the lengths of the tier names in the records, which
+``tests/test_torch_sim_mesh.py`` compares one by one).  Both CLIs run in
+this process with
 ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` (the port's ``sim`` then runs on the
 CPU).  On the card's side: with no card and no CPU asked for,
 ``run_scenario`` raises; on a card no host-oracle stand-in is installed at
@@ -35,31 +37,33 @@ def _cpu(monkeypatch):
 
 
 def _cli(main, argv, capfd):
-    rc = main(argv)
+    # the journals hold the scenario's own records, as in ``run_pair``
+    with torch_sim.own_threads_only():
+        rc = main(argv)
     out = capfd.readouterr()
     return rc, out.out, out.err
 
 
-def test_list_is_the_jax_list_less_the_mesh_scenarios(capfd):
+def test_list_is_the_jax_list(capfd):
     from cometbft_tpu.cmd.main import main as jax_main
 
     rc_j, out_j, _ = _cli(jax_main, ["sim", "--list"], capfd)
     rc_p, out_p, _ = _cli(port_main, ["sim", "--list"], capfd)
     assert rc_j == rc_p == 0
-    want = [ln for ln in out_j.splitlines() if ln.split()[0] not in MESH]
-    assert out_p.splitlines() == want
-    assert len(want) == len(psc.SCENARIOS) == 25
+    assert out_p.splitlines() == out_j.splitlines()
+    assert len(out_p.splitlines()) == len(psc.SCENARIOS) == 28
+    assert set(MESH) <= set(psc.SCENARIOS)
 
 
-def test_scenarios_are_the_jax_scenarios_less_the_mesh():
+def test_scenarios_are_the_jax_scenarios():
     from cometbft_tpu.sim import scenarios as jsc
 
+    assert list(psc.SCENARIOS) == list(jsc.SCENARIOS)
     for name, sc in psc.SCENARIOS.items():
         j = jsc.SCENARIOS[name]
         assert (sc.description, sc.n_vals, sc.target_height, sc.max_time,
                 sc.n_spares) == (j.description, j.n_vals, j.target_height,
                                  j.max_time, j.n_spares), name
-    assert set(jsc.SCENARIOS) - set(psc.SCENARIOS) == set(MESH)
 
 
 def test_json_summary_equals_the_jax_cli(capfd):
@@ -74,12 +78,24 @@ def test_json_summary_equals_the_jax_cli(capfd):
     assert row["reached"] and row["invariants_ok"] and row["seed"] == 42
 
 
+def _without_journal_bytes(row: dict) -> dict:
+    for k in ("bytes", "disk_bytes"):
+        row.get("blackbox", {}).pop(k, None)
+    return row
+
+
 @pytest.mark.parametrize("name", MESH)
-def test_mesh_scenarios_exit_2_naming_parallel_elastic(capfd, name):
-    rc, out, err = _cli(port_main, ["sim", "--scenario", name], capfd)
-    assert rc == 2 and "parallel/elastic" in err and not out
-    with pytest.raises(NotImplementedError, match="parallel/elastic"):
-        psc.run_scenario(name.replace("-", "_"), 1, device="cpu")
+def test_mesh_scenario_json_summary_equals_the_jax_cli(capfd, name):
+    from cometbft_tpu.cmd.main import main as jax_main
+
+    argv = ["sim", "--scenario", name, "--seed", "3", "--json"]
+    rc_j, out_j, _ = _cli(jax_main, argv, capfd)
+    rc_p, out_p, _ = _cli(port_main, argv, capfd)
+    assert rc_j == rc_p == 0
+    row = _without_journal_bytes(json.loads(out_p))
+    assert row == torch_sim.map_tiers(_without_journal_bytes(json.loads(out_j)))
+    assert row["reached"] and row["invariants_ok"] and row["seed"] == 3
+    assert row["backend"]["mesh_shrinks"] >= 1
 
 
 def test_same_seed_same_trace_two_seeds_diverge(tmp_path):

@@ -34,7 +34,10 @@ height), and the node as users start it (``cmd init``, then a
 single-validator ``Node`` on ``device="cpu"`` to height 2 with
 ``instrumentation.prometheus`` on, a tx through its JSON-RPC, a
 ``/metrics`` scrape, its ``debug_verify_trace`` and ``cmd postmortem`` on
-its home), and checks that neither name reached ``sys.modules``.
+its home), and the elastic mesh (one ``parallel/mesh.verify_batch_sharded``
+over four virtual CPU ordinals, the plain version per shard, its bits and
+its host-summed count against the oracle), and checks that neither name
+reached ``sys.modules``.
 """
 
 import ast
@@ -215,6 +218,8 @@ def test_port_files_exist():
         "cometbft_tpu_torch/libs/metrics.py",
         "cometbft_tpu_torch/ops/device_health.py",
         "cometbft_tpu_torch/node/pprof.py",
+        "cometbft_tpu_torch/parallel/elastic.py",
+        "cometbft_tpu_torch/parallel/mesh.py",
         "tests/torch_net.py",
     ):
         assert need in names
@@ -590,6 +595,20 @@ try:
     assert report["clean_close"] and report["last_committed_height"] >= 2, report
 finally:
     shutil.rmtree(home, ignore_errors=True)
+
+# the elastic mesh: one sharded verify over four virtual CPU ordinals
+from cometbft_tpu_torch.crypto import ed25519_ref as mref
+from cometbft_tpu_torch.parallel import mesh as pmesh
+
+mseed = b"\x33" * 32
+mpub = mref.pubkey_from_seed(mseed)
+mmsgs = [b"audit-mesh-%d" % i for i in range(11)]
+msigs = [mref.sign(mseed, x) for x in mmsgs]
+msigs[4] = bytes(64)
+mbits, mcount = pmesh.verify_batch_sharded(
+    [mpub] * 11, mmsgs, msigs, pmesh.make_mesh(["cpu"] * 4), count=True)
+assert [i for i, b in enumerate(mbits) if not b] == [4], mbits
+assert mcount == 10, mcount
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
                 or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
 print("LEAKED", leaked)

@@ -4,12 +4,11 @@ its pprof server (``node/pprof.py``) and the card's health gauge
 
 Both packages' stats modules are reset and fed the same counter states,
 the same gauges set and the same histograms observed: the two
-``NodeMetrics`` registries render the same Prometheus text, less what the
-port leaves out or names differently on purpose:
+``NodeMetrics`` registries render the same Prometheus text, the mesh and
+shard families (``MESH_FAMILIES``, fed through ``parallel/elastic``'s
+counters in ``ops/dispatch_stats``) included, less what the port names
+differently on purpose:
 
-  * ``MESH_FAMILIES``: the mesh and shard families, which read the mesh
-    counters of ``ops/dispatch_stats`` that come with the mesh (ROADMAP
-    "Multi-GPU lanes");
   * ``TIER_LABELS``: the AEAD passes' host tiers, ``numpy`` and ``pure``
     in the JAX package, one ``host`` pass in the port;
   * ``HELP``: the warm-boot build counter's help text (nvcc, not XLA).
@@ -70,6 +69,11 @@ def _feed(pkg: str):
     ds.record_fused(3)
     ds.record_verify_latency(0.0123)
     ds.record_lane_dispatch("cuda", 256, 200)
+    ds.record_lane_dispatch("2", 32, 9)
+    ds.record_shard_time("cuda", 2, 64, 0.0031)
+    ds.record_mesh_width(3)
+    ds.record_mesh_shrink()
+    ds.record_mesh_restore()
     for prio in (0, 1, 3):
         ss.record_submit(prio)
     ss.record_shed(3)
@@ -116,8 +120,6 @@ def _text(pkg: str) -> "list[str]":
     out = []
     for ln in lines:
         name = ln.split(" ", 3)[2] if ln.startswith("#") else ln.split("{")[0].split(" ")[0]
-        if any(name == f or name.startswith(f + "_") for f in MESH_FAMILIES):
-            continue
         if ln.rsplit(" ", 1)[0] in TIER_LABELS or ln.startswith(HELP):
             continue
         out.append(ln)
@@ -132,16 +134,20 @@ def test_same_counter_states_render_the_same_prometheus_text():
     assert "cometbft_device_up -1" in text
     assert 'cometbft_crypto_dispatch_seconds_count{shape="cuda-256"} 1' in text
     assert "cometbft_consensus_block_interval_seconds_count 2" in text
+    assert "cometbft_crypto_mesh_width 3" in text
+    assert 'cometbft_crypto_shard_dispatch_seconds_count{device="2"} 1' in text
 
 
 def test_node_metrics_families_are_the_jax_ones_less_the_mesh():
+    """Since the mesh's port the families are the JAX ones whole: the mesh
+    leaves none out."""
     names = {}
     for pkg in PKGS:
         m = _m(pkg, "libs.metrics").NodeMetrics()
         names[pkg] = {ln.split(" ")[2] for ln in m.registry.expose().splitlines()
                       if ln.startswith("# TYPE ")}
-    assert names[PKGS[0]] - names[PKGS[1]] == set(MESH_FAMILIES)
-    assert names[PKGS[1]] <= names[PKGS[0]]
+    assert names[PKGS[1]] == names[PKGS[0]]
+    assert set(MESH_FAMILIES) <= names[PKGS[1]]
     port = _m(PKGS[1], "libs.metrics").NodeMetrics().registry.expose()
     assert 'cometbft_transport_aead_dispatches{tier="host"} 0' in port
 

@@ -547,6 +547,11 @@ def test_a_full_node_follows_the_other_package(tmp_path, monkeypatch, validator)
     f = None
     try:
         _wait_height(v, 2)
+        # the goal is a height the validator reached before the follower is
+        # built: the one-validator chain commits ~10 blocks a second, and a
+        # goal read after the build raced it (the follower blocksyncs a
+        # block every 2-3 s on the CPU)
+        goal = v.block_store.height() + 2
         peers = {"p2p.persistent_peers": [_address(v)]}
         if validator == JAX:
             f, _ = _port_node(fhome, genesis_from=vhome, extra=peers)
@@ -558,7 +563,6 @@ def test_a_full_node_follows_the_other_package(tmp_path, monkeypatch, validator)
                 dst.write(src.read())
             f, _ = _jax_node(fhome, extra=peers)
         f.start()
-        goal = v.block_store.height() + 2
         _wait_height(f, goal, timeout=60)
         assert [f.block_store.load_block_meta(h).block_id.hash for h in range(1, goal + 1)] \
             == [v.block_store.load_block_meta(h).block_id.hash for h in range(1, goal + 1)]
@@ -638,16 +642,16 @@ def test_options_not_ported_raise_naming_their_module(tmp_path, option, value, m
     (["postmortem", "/nonexistent"], "libs/blackbox"),
 ])
 def test_cli_commands_that_wait_exit_non_zero(tmp_path, capfd, argv, module):
-    """``sim`` is ported (``sim/``), but a scenario of the JAX package that
-    drives the elastic mesh waits for ``parallel/elastic``: exit 2, naming
-    it.  ``trace`` and ``postmortem`` are ported (``libs/tracing``,
-    ``libs/blackbox``): ``trace --local`` renders this process's recorder,
-    and ``postmortem`` of a directory with no journal exits non-zero saying
-    so, as the JAX CLI does."""
+    """``sim`` is ported (``sim/``), and since ``parallel/elastic`` is too a
+    scenario that drives the elastic mesh runs (on the CPU here) and
+    reaches its height.  ``trace`` and ``postmortem`` are ported
+    (``libs/tracing``, ``libs/blackbox``): ``trace --local`` renders this
+    process's recorder, and ``postmortem`` of a directory with no journal
+    exits non-zero saying so, as the JAX CLI does."""
     rc = cli_main(["--home", str(tmp_path), *argv])
     out = capfd.readouterr()
     if argv[0] == "sim":
-        assert rc == 2 and module in out.err
+        assert rc == 0 and "scenario=chip-death" in out.out and "reached=True" in out.out
     elif argv[0] == "trace":
         assert rc == 0 and "flight recorder: on" in out.out
     else:

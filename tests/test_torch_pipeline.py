@@ -125,8 +125,24 @@ def test_segments_past_the_largest_bucket_go_overlapped(monkeypatch):
 
 
 def test_dispatch_rejects_a_lane_and_empty_work_needs_no_verify():
-    with pytest.raises(ValueError, match="lane must be None"):
-        tov.dispatch_segments(_work(), lane=0, device="cpu")
+    """A lane pins a flush at a mesh ordinal (``parallel/elastic``); with no
+    mesh configured the single-card chain takes it, so the handle is the
+    chain's, not a lane's, and its verdicts are the oracle's (on the
+    supervisor's runner seam: no plain verify)."""
+    from cometbft_tpu_torch.ops import supervisor
+    from cometbft_tpu_torch.parallel import elastic
+
+    assert not elastic.active()
+    work = _work()
+    supervisor.set_device_runner(
+        lambda backend, p, m, s, lanes: np.array(oracle(p, m, s) + [False] * (lanes - len(p))))
+    try:
+        h = tov.dispatch_segments(work, lane=0, device="cpu")
+        assert h.sup.kind == "deferred" and h.sup.lane is None
+        got = tov.fetch_segments(h)
+    finally:
+        supervisor.clear_device_runner()
+    assert [list(g) for g in got] == [list(w) for w in _want(work)]
     h = tov.dispatch_segments([([], [], []), ([], [], [])], device="cpu")
     assert [o.shape for o in tov.fetch_segments(h)] == [(0,), (0,)]
     assert tov.verify_batches_overlapped([([], [], [])], device="cpu")[0].shape == (0,)

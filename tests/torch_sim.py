@@ -25,6 +25,7 @@ import importlib
 import json
 import re
 import signal
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -192,15 +193,52 @@ def map_tiers(obj):
     return obj
 
 
+@contextlib.contextmanager
+def own_threads_only(pkgs=(JAX, PORT)):
+    """While the block runs, the black-box sinks a ``SimCluster`` installs
+    (``libs/tracing.set_sink``) take no record from a thread that was alive
+    before the block began, other than the caller's: such a thread is
+    another test's (a node it did not join, still verifying), and the
+    cluster would route its spans into whichever node's journal is active
+    (``SimCluster.active_node``).  The scenario's own threads (the caller,
+    the scheduler's, the watchdog's, every thread started during the run)
+    record as before, in both packages alike."""
+    foreign = set(threading.enumerate()) - {threading.current_thread()}
+    saved = []
+    for pkg in pkgs:
+        tr = importlib.import_module(f"{pkg}.libs.tracing")
+        real = tr.set_sink
+
+        def set_sink(kind, fn, real=real):
+            owner = getattr(fn, "__self__", None)
+            if fn is not None and type(owner).__name__ == "SimCluster":
+                inner = fn
+
+                def fn(*a):
+                    if threading.current_thread() not in foreign:
+                        inner(*a)
+            return real(kind, fn)
+
+        tr.set_sink = set_sink
+        saved.append((tr, real))
+    try:
+        yield
+    finally:
+        for tr, real in saved:
+            tr.set_sink = real
+
+
 def run_pair(name: str, seed: int, root, **kw):
     """``run_scenario(name, seed)`` in the JAX package and in the port on
-    the CPU, each under its own directory of ``root``, clusters kept."""
+    the CPU, each under its own directory of ``root``, clusters kept, the
+    journals holding the scenario's own records (``own_threads_only``)."""
     out = []
-    for pkg in (JAX, PORT):
-        dev = {"device": "cpu"} if pkg == PORT else {}
-        out.append(sim(pkg).run_scenario(
-            name, seed, root=Path(root) / pkg, raise_on_violation=True,
-            keep_cluster=True, **dev, **kw))
+    with own_threads_only():
+        for pkg in (JAX, PORT):
+            dev = {"device": "cpu"} if pkg == PORT else {}
+            out.append(sim(pkg).run_scenario(
+                name, seed, root=Path(root) / pkg, raise_on_violation=True,
+                keep_cluster=True, **dev, **kw))
     return out
 
 
