@@ -429,17 +429,33 @@ served by the torch or host tier, or one that raised, fails the run.
               start`` processes at the default ``config.toml`` (the RPC, the
               kv indexer, the proof server, the kvstore app), validator 3's
               key behind a ``SignerServer`` child (``priv_validator_laddr``);
-              8 client threads send 5,000 txs of 256 bytes by
+              the four in two latency zones (``p2p.zone``, 20 ms RTT inside
+              a zone, 60 across: every link's bytes held by a
+              ``DelayedSocket`` under the AEAD plane), validator 0's app a
+              child behind ``GRPCABCIServer`` (``abci = "grpc"``), validator
+              1 serving the gRPC services (``grpc.laddr``,
+              ``grpc.privileged_laddr``), validator 3 indexing into the psql
+              sink on a ``sqlite://`` file; where ``grpc`` or
+              ``google.protobuf`` does not import, a line says so and the
+              two gRPC validators run as the others;
+              8 client threads send 1,500 txs of 256 bytes by
               ``broadcast_tx_sync`` over the four nodes, then 20 by
               ``broadcast_tx_commit``; a websocket on node 1 subscribes to
               NewBlock; reads of ``status``, ``block``, ``commit``,
               ``validators``, ``block_results``, ``tx_search`` by height on
               every node, ``block_search``, 64 ``tx?prove=true`` (each proof
               checked on the host against the block's data hash) and 64
-              ``abci_query``; node 2 stopped, ``cmd rollback``, restarted;
-              a fifth home from ``cmd init`` statesyncs from nodes 0 and 1
-              and follows 2 heights.  Asserted: equal block hashes, the
-              5,020 txs indexed once on every node, every proof and query,
+              ``abci_query``, each app's hash by ``abci_info``, validator
+              1's gRPC version, blocks, latest height and block results
+              against its JSON-RPC, a retain height set and read back; node
+              2 stopped, ``cmd rollback``, restarted; a fifth home from
+              ``cmd init`` statesyncs from nodes 0 and 1 and follows 2
+              heights; after the stop, ``cmd reindex-event`` rebuilds
+              validator 3's sink.  Asserted: equal block and app hashes,
+              the 1,520 txs indexed once on every node, the psql sink's
+              ``tx_search`` results equal the kv indexer's, the rebuilt
+              sink equal to the live one, each link's ping round trip at
+              least its zone pair's RTT, every proof and query,
               every height on the websocket, the signer's last-sign state
               never stepping back, every pass of the four kernels ``cuda``
               in every process and each kernel equal to its plain version on
@@ -712,6 +728,13 @@ NODE_TRACE_RING = 65536  # its flight recorder's ring (the dials' spans stay in 
 NODE_KILLED = "node2-restart"  # the validator process SIGKILLed at the end
 NODE_PROXY_HEIGHTS = 3  # part B's reads through the proxy (cut from 6 for the mesh phase)
 NODE_TRUST_PERIOD_S = 3650 * 86400  # part B: phase 17's chain is dated October 2025
+NODE_ZONES = ("zone-a", "zone-a", "zone-b", "zone-b")  # p2p.zone of validators 0-3
+NODE_ZONE_RTT_MS = {"zone-a": {"zone-a": 20.0, "zone-b": 60.0},  # p2p.zone_rtt_ms
+                    "zone-b": {"zone-b": 20.0}}
+NODE_GRPC_APP = 0  # the validator whose app a child serves over gRPC ABCI (abci = "grpc")
+NODE_GRPC = 1  # the validator with grpc.laddr and grpc.privileged_laddr
+NODE_PSQL = 3  # the validator with tx_index.indexer = "psql" on a sqlite:// file
+NODE_GRPC_READS = 4  # heights read through the gRPC block and block-results services
 
 
 class SmokeError(AssertionError):
@@ -6564,6 +6587,27 @@ def abci_app_child(run_dir: str) -> int:
     return 0
 
 
+def grpc_app_child(run_dir: str) -> int:
+    """Phase 21's app behind gRPC ABCI: a port ``KVStoreApplication``
+    behind ``abci/grpc_abci.GRPCABCIServer`` on 127.0.0.1 (a free port,
+    written to ``grpc-app-port.json`` in ``run_dir``), until ``stop-app``
+    appears there or the parent is gone.  It launches no kernel."""
+    from cometbft_tpu_torch.abci.grpc_abci import GRPCABCIServer
+    from cometbft_tpu_torch.abci.kvstore import KVStoreApplication
+
+    parent = os.getppid()
+    srv = GRPCABCIServer(KVStoreApplication(), "127.0.0.1:0")
+    srv.start()
+    net_write(os.path.join(run_dir, "grpc-app-port.json"), {"port": srv.bound_port,
+                                                            "pid": os.getpid()})
+    try:
+        while not os.path.exists(os.path.join(run_dir, "stop-app")) and os.getppid() == parent:
+            time.sleep(0.1)
+    finally:
+        srv.stop()
+    return 0
+
+
 class LogLines(logging.Handler):
     """Keeps the records of a logger whose message holds one of ``marks``."""
 
@@ -7663,7 +7707,9 @@ def cli_child(cfg_path: str) -> int:
     children do; when it is stopped (SIGTERM) it writes its report: its
     launches and tiers, its kernels against their plain versions on the
     inputs its path gave them, the light proxy's hops, the signer's
-    requests and its last-sign state's steps."""
+    requests and its last-sign state's steps.  A node also times each
+    MConnection ping to its pong, per peer (the links' round trips, latency
+    zones included)."""
     import collections as co
     import signal
 
@@ -7692,6 +7738,29 @@ def cli_child(cfg_path: str) -> int:
         cbatch.default_backend()
     kept_ed, hops, signed, steps = {}, [], co.Counter(), []
     real_ed = cv.verify_core_cuda
+    rtt = co.defaultdict(list)  # peer node id -> ping-to-pong ms
+    if role == "node":
+        from cometbft_tpu_torch.p2p import conn as pconn
+        from cometbft_tpu_torch.p2p.secret_connection import SecretConnection
+
+        ping, pong = bytes([pconn._PKT_PING]), bytes([pconn._PKT_PONG])
+        real_write, real_read = SecretConnection.write_frames, SecretConnection.read_frame
+
+        def timed_write(self, frames):
+            if ping in frames:
+                self._smoke_ping = time.perf_counter()
+            return real_write(self, frames)
+
+        def timed_read(self):
+            frame = real_read(self)
+            sent = getattr(self, "_smoke_ping", None)
+            if frame == pong and sent is not None:
+                rtt[self.remote_pub_key.address().hex()].append(
+                    (time.perf_counter() - sent) * 1e3)
+                self._smoke_ping = None
+            return frame
+
+        SecretConnection.write_frames, SecretConnection.read_frame = timed_write, timed_read
 
     def keep_ed(**t):
         kept_ed.setdefault(int(t["s_ok"].shape[0]), {k: v.clone() for k, v in t.items()})
@@ -7814,7 +7883,7 @@ def cli_child(cfg_path: str) -> int:
                  "aead": sorted(list(k) for k in kept_aead), "ladder": sorted(kept_ladder)},
         "max_abs_err": dict(worst), "device_ms": dev_ms, "hops": hops,
         "signed": dict(signed), "steps": steps, "leaked": leaked,
-        "metrics": metrics_text})
+        "metrics": metrics_text, "rtt_ms": dict(rtt)})
     return 0
 
 
@@ -8044,6 +8113,162 @@ def postmortem_of_a_killed_node(root, procs, home, rpc_port: int, tag) -> None:
         print(f"node:   {line}", flush=True)
 
 
+def node_grpc_missing() -> str:
+    """The import error of ``grpc`` or ``google.protobuf`` on this machine,
+    or "" where both import (the gRPC options need both)."""
+    try:
+        import google.protobuf  # noqa: F401
+        import grpc  # noqa: F401
+    except ImportError as e:
+        return repr(e)
+    return ""
+
+
+def node_grpc_app(root, procs) -> int:
+    """Start the ``--grpc-app`` child (the KVStore app behind
+    ``GRPCABCIServer``) and return its port once it serves."""
+    script = os.path.abspath(__file__)
+    log = open(root / "app0.log", "w")
+    procs.append(("app0", subprocess.Popen(
+        [sys.executable, script, "--grpc-app", str(root)], cwd=os.path.dirname(script),
+        stdout=log, stderr=subprocess.STDOUT), log))
+    proc, t0 = procs[-1][1], time.perf_counter()
+    while (doc := net_read(root / "grpc-app-port.json")) is None:
+        check(proc.poll() is None and time.perf_counter() - t0 < NODE_TIMEOUT_S,
+              "node: the gRPC ABCI app did not serve: " + (root / "app0.log").read_text()[-3000:])
+        time.sleep(0.05)
+    return int(doc["port"])
+
+
+def node_grpc_reads(name: str, rpc_port: int, port: int, priv_port: int, heights, tag) -> None:
+    """Validator ``name``'s gRPC services through ``grpc_unary``, each
+    answer against the same node's JSON-RPC at the same height: the
+    version, blocks by height, the latest height (between two ``status``
+    reads), block results; then a block and a tx-indexer retain height set
+    and read back on the privileged endpoint (1: nothing below it to prune)."""
+    import base64 as b64
+
+    from cometbft_tpu_torch.proto_gen.cometbft.services.block.v1 import block_pb2 as bsvc
+    from cometbft_tpu_torch.proto_gen.cometbft.services.block_results.v1 import (
+        block_results_pb2 as rsvc,
+    )
+    from cometbft_tpu_torch.proto_gen.cometbft.services.pruning.v1 import pruning_pb2 as psvc
+    from cometbft_tpu_torch.proto_gen.cometbft.services.version.v1 import version_pb2 as vsvc
+    from cometbft_tpu_torch.rpc.grpc_server import grpc_unary, make_client_channel
+
+    t0 = time.perf_counter()
+    ch = make_client_channel(f"127.0.0.1:{port}")
+    pch = make_client_channel(f"127.0.0.1:{priv_port}")
+    try:
+        st = node_rpc(rpc_port, "status")["node_info"]
+        ver = grpc_unary(ch, "cometbft.services.version.v1.VersionService", "GetVersion",
+                         vsvc.GetVersionRequest(), vsvc.GetVersionResponse)
+        check(ver.node == st["version"] and str(ver.p2p) == st["protocol_version"]["p2p"]
+              and str(ver.block) == st["protocol_version"]["block"],
+              f"node: {name}: gRPC version {ver} against status {st}")
+        for h in heights:
+            blk = grpc_unary(ch, "cometbft.services.block.v1.BlockService", "GetByHeight",
+                             bsvc.GetByHeightRequest(height=h), bsvc.GetByHeightResponse)
+            rj = node_rpc(rpc_port, "block", {"height": h})
+            hdr, lc = rj["block"]["header"], rj["block"]["last_commit"]
+            check(blk.block_id.hash.hex().upper() == rj["block_id"]["hash"]
+                  and (str(blk.block.header.height), blk.block.header.chain_id,
+                       blk.block.header.app_hash.hex().upper(),
+                       blk.block.header.data_hash.hex().upper())
+                  == (hdr["height"], hdr["chain_id"], hdr["app_hash"], hdr["data_hash"])
+                  and [b64.b64encode(t).decode() for t in blk.block.data.txs]
+                  == rj["block"]["data"]["txs"]
+                  and len(blk.block.last_commit.signatures) == len(lc["signatures"]),
+                  f"node: {name}: the gRPC block at {h} differs from its JSON-RPC block")
+            res = grpc_unary(ch, "cometbft.services.block_results.v1.BlockResultsService",
+                             "GetBlockResults", rsvc.GetBlockResultsRequest(height=h),
+                             rsvc.GetBlockResultsResponse)
+            rr = node_rpc(rpc_port, "block_results", {"height": h})
+            check(res.app_hash.hex().upper() == rr["app_hash"] and str(res.height) == rr["height"]
+                  and [(r.code, b64.b64encode(r.data).decode(), r.log, str(r.gas_used))
+                       for r in res.tx_results]
+                  == [(r["code"], r["data"], r["log"], r["gas_used"])
+                      for r in rr["txs_results"]]
+                  and len(res.finalize_block_events) == len(rr["finalize_block_events"]),
+                  f"node: {name}: the gRPC block results at {h} differ from JSON-RPC's")
+        before = int(node_rpc(rpc_port, "status")["sync_info"]["latest_block_height"])
+        stream = ch.unary_stream(
+            "/cometbft.services.block.v1.BlockService/GetLatestHeight",
+            request_serializer=lambda m: m.SerializeToString(),
+            response_deserializer=bsvc.GetLatestHeightResponse.FromString,
+        )(bsvc.GetLatestHeightRequest(), timeout=60)
+        latest = next(iter(stream)).height
+        stream.cancel()
+        after = int(node_rpc(rpc_port, "status")["sync_info"]["latest_block_height"])
+        check(before <= latest <= after, f"node: {name}: gRPC latest height {latest}, "
+              f"status {before}..{after}")
+        svc = "cometbft.services.pruning.v1.PruningService"
+        kept = {}
+        for what in ("BlockRetainHeight", "TxIndexerRetainHeight"):
+            grpc_unary(pch, svc, "Set" + what, getattr(psvc, f"Set{what}Request")(height=1),
+                       getattr(psvc, f"Set{what}Response"))
+            got = grpc_unary(pch, svc, "Get" + what, getattr(psvc, f"Get{what}Request")(),
+                             getattr(psvc, f"Get{what}Response"))
+            kept[what] = (got.pruning_service_retain_height if what == "BlockRetainHeight"
+                          else got.height)
+        check(kept == {"BlockRetainHeight": 1, "TxIndexerRetainHeight": 1},
+              f"node: {name}: retain heights read back {kept}")
+    finally:
+        ch.close()
+        pch.close()
+    print(f"node: part A: {name}'s gRPC services (grpc.laddr, grpc.privileged_laddr) through "
+          f"grpc_unary equal its JSON-RPC: version {ver.node} (p2p {ver.p2p}, block "
+          f"{ver.block}), blocks and block results at heights {list(heights)}, the latest "
+          f"height {latest} (status {before}..{after}); retain heights set and read back "
+          f"{kept}; {time.perf_counter() - t0:.2f} s {tag}", flush=True)
+
+
+def node_reindex(home, psql_path, tag) -> None:
+    """``cmd reindex-event`` of the stopped psql validator's home into an
+    empty sink file (the live one moved aside); the rebuilt rows against
+    the live ones (row ids are random: compared without them)."""
+    import sqlite3
+
+    live = f"{psql_path}.live"
+    os.replace(psql_path, live)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "cometbft_tpu_torch.cmd", "--home", str(home),
+                          "reindex-event"], cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=300)
+    took = time.perf_counter() - t0
+    check(out.returncode == 0 and "reindexed" in out.stdout,
+          f"node: cmd reindex-event: rc {out.returncode} {out.stdout[-500:]} {out.stderr[-2000:]}")
+
+    def rows(path) -> dict:
+        """Each table's rows by height, row ids left out."""
+        conn = sqlite3.connect(path)
+        try:
+            return {k: sorted(conn.execute(q).fetchall(), key=repr) for k, q in (
+                ("blocks", "SELECT height, chain_id FROM blocks"),
+                ("tx_results", 'SELECT height, "index", tx_hash, tx_result FROM tx_results '
+                               "JOIN blocks ON blocks.rowid = tx_results.block_id"),
+                ("tx_events", 'SELECT height, "index", type, composite_key, value '
+                              "FROM tx_events"),
+                ("block_events", "SELECT height, type, composite_key, value FROM block_events"),
+            )}
+        finally:
+            conn.close()
+
+    got, want = rows(psql_path), rows(live)
+    live_h = {r[0] for r in want["blocks"]}
+    heights = {r[0] for r in got["blocks"]}
+    check(want["tx_results"] and heights >= live_h,
+          f"node: the reindexed sink lacks heights {sorted(live_h - heights)[:10]}")
+    for k in got:
+        check([r for r in got[k] if r[0] in live_h] == want[k],
+              f"node: the reindexed sink's {k} differ from the live sink's")
+    print(f"node: part A: cmd reindex-event of the stopped psql validator into an empty "
+          f"sqlite file: {out.stdout.strip()} in {took:.2f} s; at the live sink's heights "
+          f"{min(live_h)}-{max(live_h)} its blocks, tx results ({len(want['tx_results'])} rows, "
+          f"tx_result bytes), block events and tx events equal the live sink's {tag}",
+          flush=True)
+
+
 def node_part_a(tag, root, procs, after_reads=None) -> dict:
     """Part A of phase 21: CometBFT's ``make localnet-start`` through the
     port's CLI: ``cmd testnet --v 4``, four ``cmd start`` processes with the
@@ -8068,21 +8293,43 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
                "--o", str(net), "--chain-id", NODE_CHAIN]) == 0, "node: cmd testnet failed")
     names = [f"node{i}" for i in range(NODE_VALIDATORS)]
     homes = {n: net / n for n in names}
-    ports = free_ports(2 * NODE_VALIDATORS + 5)
+    ports = free_ports(2 * NODE_VALIDATORS + 7)
     rpc = {n: ports[2 * i] for i, n in enumerate(names)}
     p2p = {n: ports[2 * i + 1] for i, n in enumerate(names)}
-    signer_port, rpc["joiner"], p2p["joiner"], metrics_port, pprof_port = ports[-5:]
+    (signer_port, rpc["joiner"], p2p["joiner"], metrics_port, pprof_port, grpc_port,
+     grpc_priv_port) = ports[-7:]
     watched = names[NODE_WATCHED]
     ids = {n: NodeKey.load_or_generate(str(homes[n] / "config" / "node_key.json")).node_id
            for n in names}
     peers = {n: f"{ids[n]}@127.0.0.1:{p2p[n]}" for n in names}
     signer_name = names[NODE_SIGNED]
+    zones = dict(zip(names, NODE_ZONES))
+    psql_name, psql_path = names[NODE_PSQL], root / f"psql-{names[NODE_PSQL]}.db"
+    grpc_err = node_grpc_missing()
+    grpc_app = grpc_name = None
+    if grpc_err:
+        print(f"node: part A: grpc or google.protobuf does not import on this machine "
+              f"({grpc_err}): the validator behind gRPC ABCI and the gRPC services were not "
+              f"run {tag}", flush=True)
+    else:
+        grpc_app, grpc_name = names[NODE_GRPC_APP], names[NODE_GRPC]
+        app_port = node_grpc_app(root, procs)
     for n in names:
         cfg = cfgmod.load_config(str(homes[n]))
         cfg.base.home = str(homes[n])
         cfg.rpc.laddr = f"tcp://127.0.0.1:{rpc[n]}"
         cfg.p2p.laddr = f"tcp://127.0.0.1:{p2p[n]}"
         cfg.p2p.persistent_peers = [peers[m] for m in names if m != n]
+        cfg.p2p.zone, cfg.p2p.zone_rtt_ms = zones[n], NODE_ZONE_RTT_MS
+        cfg.p2p.peer_zones = {ids[m]: zones[m] for m in names}
+        if n == grpc_app:
+            cfg.base.abci, cfg.base.proxy_app = "grpc", f"grpc://127.0.0.1:{app_port}"
+        if n == grpc_name:
+            cfg.grpc.laddr = f"tcp://127.0.0.1:{grpc_port}"
+            cfg.grpc.privileged_laddr = f"tcp://127.0.0.1:{grpc_priv_port}"
+            cfg.grpc.pruning_service_enabled = True
+        if n == psql_name:
+            cfg.tx_index.indexer, cfg.tx_index.psql_conn = "psql", f"sqlite://{psql_path}"
         if n == signer_name:
             cfg.base.priv_validator_laddr = f"tcp://127.0.0.1:{signer_port}"
         if n == watched:
@@ -8128,8 +8375,12 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
                        state=str(homes[n] / defaults.base.priv_validator_state_file))
     boot_s = wait(lambda: all(height(n) >= 2 for n in names), "height 2 on all four")
     print(f"node: part A: cmd testnet --v {NODE_VALIDATORS}, four cmd start processes (node "
-          f"{NODE_SIGNED} behind a SignerServer child) at height 2 in {boot_s:.2f} s "
-          f"(imports, the kernel's self-check, the handshakes) {tag}", flush=True)
+          f"{NODE_SIGNED} behind a SignerServer child; p2p.zone {zones}, zone_rtt_ms "
+          f"{NODE_ZONE_RTT_MS}; {grpc_app or 'no validator'} behind gRPC ABCI (abci = "
+          f"\"grpc\", the KVStore app in a GRPCABCIServer child); {grpc_name or 'no validator'}"
+          f" with grpc.laddr and grpc.privileged_laddr; {psql_name} with tx_index.indexer = "
+          f"\"psql\" on a sqlite:// file) at height 2 in {boot_s:.2f} s (imports, the "
+          f"kernel's self-check, the handshakes) {tag}", flush=True)
     ws = NodeWs(rpc["node1"], "tm.event='NewBlock'")
     ws_from = height("node1")
     watch = NodeWatch(watched, rpc[watched], metrics_port, pprof_port, tag)
@@ -8202,15 +8453,16 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
     search_ms = []
 
     def indexed(n: str) -> tuple:
-        """Node n's block hashes at 1..top and its tx index, height by
-        height through tx_search."""
+        """Node n's block hashes and app hashes at 1..top and its tx index,
+        height by height through tx_search (each result kept whole)."""
         hashes = {}
         for lo in range(1, top + 1, 20):
             got = node_rpc(rpc[n], "blockchain", {"min_height": lo,
                                                    "max_height": min(top, lo + 19)})
-            hashes.update({int(m["header"]["height"]): m["block_id"]["hash"]
+            hashes.update({int(m["header"]["height"]): (m["block_id"]["hash"],
+                                                         m["header"]["app_hash"])
                            for m in got["block_metas"]})
-        seen = collections.Counter()
+        seen, found = collections.Counter(), {}
         for h in with_txs:
             page = 1
             while True:
@@ -8219,12 +8471,13 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
                                                       "page": page, "per_page": 100})
                 search_ms.append((time.perf_counter() - t1) * 1e3)
                 seen.update(x["hash"] for x in got["txs"])
+                found.update({x["hash"]: json.dumps(x, sort_keys=True) for x in got["txs"]})
                 check(all(int(x["height"]) == h for x in got["txs"]),
                       f"node: {n}: tx_search tx.height={h} gave another height")
                 if page * 100 >= int(got["total_count"]):
                     break
                 page += 1
-        return hashes, seen
+        return hashes, seen, found
 
     def caught_up(n: str) -> bool:
         """Node n's indexer service has indexed every block to ``top`` and
@@ -8260,6 +8513,23 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
               and vals["total"] == str(NODE_VALIDATORS)
               and len(br["txs_results"]) == int(metas[with_txs[-1]]["num_txs"]),
               f"node: {n}'s status, block, commit, validators or block_results at {top}")
+    # every node's app at the height it last committed: its abci_info app
+    # hash against the header of the next block (the gRPC one's app sits in
+    # a child behind GRPCABCIServer)
+    apps = {}
+    for n in names:
+        info = node_rpc(rpc[n], "abci_info")["response"]
+        h = int(info["last_block_height"])
+        wait(lambda: height("node1") > h, f"height {h + 1} after {n}'s abci_info")
+        nxt = node_rpc(rpc["node1"], "block", {"height": h + 1})["block"]["header"]["app_hash"]
+        apps[n] = h
+        check(b64.b64decode(info["last_block_app_hash"]).hex().upper() == nxt,
+              f"node: {n}'s app hash at {h} differs from block {h + 1}'s header")
+    print(f"node: part A: every app's hash (abci_info) equals the chain's at the height it "
+          f"read ({apps}; {grpc_app or 'no validator'} over gRPC ABCI) {tag}", flush=True)
+    if grpc_name is not None:
+        node_grpc_reads(grpc_name, rpc[grpc_name], grpc_port, grpc_priv_port,
+                        [1] + with_txs[-(NODE_GRPC_READS - 1):], tag)
     pick = np.random.default_rng(NODE_SEED + 1).choice(len(txs), NODE_PROVE, replace=False)
     headers, prove_ms = {}, []
     for j, k in enumerate(pick.tolist()):
@@ -8363,16 +8633,22 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
     idx = {n: f.result() for n, f in idx.items()}
     pool.shutdown()
     idx_wait_s = time.perf_counter() - t_idx
+    kv_name = next(n for n in names if n != psql_name)
     for n in names:
-        hashes, seen = idx[n]
-        check(hashes == idx["node0"][0], f"node: {n}'s block hashes differ from node0's")
+        hashes, seen, found = idx[n]
+        check(hashes == idx["node0"][0], f"node: {n}'s block hashes or app hashes differ from "
+              "node0's")
         check(set(seen) == set(sent) and max(seen.values()) == 1,
               f"node: {n} indexed {len(seen)} txs ({sum(seen.values())} rows), sent {len(sent)}")
-    print(f"node: part A: blocks 1-{top} equal on the four nodes; each node indexed the "
+        check(found == idx[kv_name][2], f"node: {n}'s tx_search results differ from "
+              f"{kv_name}'s (kv indexer)")
+    print(f"node: part A: blocks 1-{top} and their app hashes equal on the four nodes "
+          f"({grpc_app or 'none'} behind gRPC ABCI); each node indexed the "
           f"{len(sent)} txs once (tx_search by height, {len(search_ms)} pages of 100: median "
           f"{np.percentile(search_ms, 50):.3f} ms, p99 {np.percentile(search_ms, 99):.3f} ms; "
           f"walked during the rollback and the joiner's sync, {idx_wait_s:.2f} s waited after "
-          f"them) {tag}",
+          f"them); {psql_name}'s tx_search (the psql sink) gave every result equal to "
+          f"{kv_name}'s (kv indexer) {tag}",
           flush=True)
 
     # -- stop, reports, assertions ---------------------------------------------
@@ -8383,6 +8659,30 @@ def node_part_a(tag, root, procs, after_reads=None) -> dict:
     t_stop = time.perf_counter()
     reports = node_stop(root, procs, everyone)
     stop_s = time.perf_counter() - t_stop
+    if grpc_app is not None:  # the app outlives its validator
+        (root / "stop-app").touch()
+        app_proc = next(p for n, p, _ in procs if n == "app0")
+        app_proc.wait(60)
+        check(app_proc.returncode == 0, f"node: the gRPC ABCI app exited {app_proc.returncode}: "
+              + (root / "app0.log").read_text()[-3000:])
+    node_reindex(homes[psql_name], psql_path, tag)
+    # each link's round trip: an MConnection ping to its pong, timed in both
+    # of its processes, against the zone pair's RTT
+    from cometbft_tpu_torch.p2p.latency import ZoneMatrix
+
+    matrix, links = ZoneMatrix.from_config(NODE_ZONE_RTT_MS), {}
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            ms = reports[a]["rtt_ms"].get(ids[b], []) + reports[b]["rtt_ms"].get(ids[a], [])
+            want = 2e3 * matrix.one_way_s(zones[a], zones[b])
+            check(ms and min(ms) >= want, f"node: the link {a}-{b} ({zones[a]}, {zones[b]}): "
+                  f"{len(ms)} pings, round trips {sorted(ms)[:3]} ms against {want} ms")
+            links[f"{a}-{b}"] = (want, len(ms), min(ms), statistics.median(ms))
+    print("node: part A: per-link round trips (ping to pong through the DelayedSocket, the "
+          "AEAD plane and both send routines; configured RTT ms: measured min, median ms "
+          "over n pings): " + "; ".join(
+              f"{k} {w:.0f}: {lo:.2f}, {med:.2f} (n {c})" for k, (w, c, lo, med)
+              in links.items()) + f" {tag}", flush=True)
     # the last validator left (2 of 4, after its restart) cannot commit
     # alone: its round anchors open and flush while it waits; SIGKILL it
     postmortem_of_a_killed_node(root, procs, homes["node2"], rpc["node2"], tag)
@@ -9049,4 +9349,6 @@ if __name__ == "__main__":
         sys.exit(cli_child(sys.argv[2]))
     if sys.argv[1:2] == ["--abci-app"]:
         sys.exit(abci_app_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--grpc-app"]:
+        sys.exit(grpc_app_child(sys.argv[2]))
     sys.exit(main())

@@ -6,7 +6,7 @@ ABCI app sees at most one concurrent request per connection.  The socket
 client speaks the framed codec in abci/codec.py against a SocketServer
 (possibly in another process), with async CheckTx pipelining for the mempool
 path (reference: socket_client.go request queue + response routing).  The
-JAX package's gRPC client (``abci/grpc_abci.py``) is not ported yet.
+gRPC client is ``abci/grpc_abci.GRPCClient``.
 """
 
 from __future__ import annotations

@@ -784,7 +784,7 @@ def cmd_reindex_event(args) -> int:
         print(f"no database at {db_path}")
         return 1
     db = SqliteKV(db_path, surface="state")
-    index_db = None
+    index_db = sink = None
     try:
         block_store = BlockStore(db)
         state_store = StateStore(db)
@@ -815,9 +815,19 @@ def cmd_reindex_event(args) -> int:
             tx_indexer = KVTxIndexer(index_db)
             block_indexer = KVBlockIndexer(index_db)
         elif cfg.tx_index.indexer == "psql":
-            print("reindex: the psql sink is not ported: it needs "
-                  "indexer/psql, which cometbft_tpu_torch does not have yet")
-            return 1
+            from cometbft_tpu_torch.indexer.psql import (
+                PsqlBlockIndexerAdapter,
+                PsqlEventSink,
+                PsqlTxIndexerAdapter,
+            )
+            from cometbft_tpu_torch.types.genesis import GenesisDoc
+
+            gpath = os.path.join(cfg.base.home, cfg.base.genesis_file)
+            with open(gpath) as f:
+                chain_id = GenesisDoc.from_json(f.read()).chain_id
+            sink = PsqlEventSink(cfg.tx_index.psql_conn, chain_id)
+            tx_indexer = PsqlTxIndexerAdapter(sink)
+            block_indexer = PsqlBlockIndexerAdapter(sink)
         else:
             print("reindex requires a non-null indexer")
             return 1
@@ -839,6 +849,8 @@ def cmd_reindex_event(args) -> int:
         print(f"reindexed {n_blocks} blocks, {n_txs} txs in [{start}, {end}]")
         return 0
     finally:
+        if sink is not None:
+            sink.stop()
         if index_db is not None:
             index_db.close()
         db.close()

@@ -16,18 +16,23 @@ built (``types/validation.entry_device``), before any reactor starts.  With
 no card the build raises unless the caller names the CPU (``device="cpu"``
 or ``COMETBFT_TPU_CRYPTO_BACKEND=cpu``).
 
-What the port has not yet raises when the node is built, naming the missing
-module (``_refuse_not_ported``): the gRPC servers, the psql sink and the p2p
-latency zones.  The node keeps ``libs/metrics.NodeMetrics`` with a 2 s
-sampler, serves ``/metrics`` behind ``instrumentation.prometheus`` and
-``/debug/pprof/`` behind ``rpc.pprof_laddr``, journals to the black box
-(``libs/blackbox``: a "boot" record, the previous run's postmortem in the
-boot log, the clean-close sentinel at stop), and names the flight
-recorder's state in its boot line, as the JAX node does.
+The gRPC options (``grpc.laddr``, ``grpc.privileged_laddr``, ``abci =
+"grpc"``) need the ``grpc`` and ``google.protobuf`` packages, imported only
+for them; where one does not import, the build raises
+``NotImplementedError`` naming it (``_require_grpc``).  The psql sink
+(``tx_index.indexer = "psql"``) and the p2p latency zones (``p2p.zone``)
+are built as the JAX node builds them.  The node keeps
+``libs/metrics.NodeMetrics`` with a 2 s sampler, serves ``/metrics``
+behind ``instrumentation.prometheus`` and ``/debug/pprof/`` behind
+``rpc.pprof_laddr``, journals to the black box (``libs/blackbox``: a
+"boot" record, the previous run's postmortem in the boot log, the
+clean-close sentinel at stop), and names the flight recorder's state in its
+boot line, as the JAX node does.
 """
 
 from __future__ import annotations
 
+import importlib
 import os
 import threading
 import time
@@ -70,24 +75,30 @@ def _builtin_app(name: str):
     raise ValueError(f"unknown builtin app {name!r}")
 
 
-def _refuse_not_ported(config: Config) -> None:
-    """Raise ``NotImplementedError`` for an option whose module the port has
-    not yet, so that a node never runs on quietly without it.  The defaults
-    set none of them."""
-    missing = []
-    if config.grpc.laddr:
-        missing.append(("grpc.laddr", "rpc/grpc_server"))
-    if config.grpc.privileged_laddr:
-        missing.append(("grpc.privileged_laddr", "rpc/grpc_server"))
-    if config.tx_index.indexer == "psql":
-        missing.append(('tx_index.indexer = "psql"', "indexer/psql"))
-    if config.p2p.zone:
-        missing.append(("p2p.zone", "p2p/latency"))
-    if missing:
-        raise NotImplementedError(
-            "not ported to cometbft_tpu_torch: "
-            + "; ".join(f"{opt} needs {mod}" for opt, mod in missing)
+def _require_grpc(config: Config) -> None:
+    """Raise ``NotImplementedError`` naming the package when a gRPC option
+    is set and ``grpc`` or ``google.protobuf`` does not import, so that a
+    node never runs on quietly without the option.  Nothing else needs
+    either package, and the defaults set no gRPC option."""
+    options = [
+        name
+        for name, on in (
+            ("grpc.laddr", config.grpc.laddr),
+            ("grpc.privileged_laddr", config.grpc.privileged_laddr),
+            ('abci = "grpc"', config.base.abci == "grpc"),
         )
+        if on
+    ]
+    if not options:
+        return
+    for package in ("grpc", "google.protobuf"):
+        try:
+            importlib.import_module(package)
+        except ImportError as e:
+            raise NotImplementedError(
+                f"{', '.join(options)} needs the {package!r} package, "
+                f"which does not import: {e}"
+            ) from e
 
 
 class Node(BaseService):
@@ -105,7 +116,7 @@ class Node(BaseService):
         injection, node/setup.go DefaultNewNode vs NewNodeWithCliParams).
         ``device``: None is the card (see the module's docstring)."""
         super().__init__("Node")
-        _refuse_not_ported(config)
+        _require_grpc(config)
         device = entry_device(device)
         self.device = device
         self._app_override = app
@@ -239,6 +250,18 @@ class Node(BaseService):
                 )
             self.tx_indexer = KVTxIndexer(index_view)
             self.block_indexer = KVBlockIndexer(index_view)
+        elif config.tx_index.indexer == "psql":
+            from cometbft_tpu_torch.indexer.psql import (
+                PsqlBlockIndexerAdapter,
+                PsqlEventSink,
+                PsqlTxIndexerAdapter,
+            )
+
+            self.event_sink = PsqlEventSink(
+                config.tx_index.psql_conn, self.genesis_doc.chain_id
+            )
+            self.tx_indexer = PsqlTxIndexerAdapter(self.event_sink)
+            self.block_indexer = PsqlBlockIndexerAdapter(self.event_sink)
         if self.tx_indexer is not None:
             from cometbft_tpu_torch.indexer import IndexerService
 
@@ -410,11 +433,21 @@ class Node(BaseService):
             # COMETBFT_TPU_SEMVER and peers must see it in the handshake
             version=CMT_SEMVER,
         )
+        latency = None
+        if config.p2p.zone:
+            from cometbft_tpu_torch.p2p.latency import ZoneMatrix
+
+            latency = (
+                config.p2p.zone,
+                ZoneMatrix.from_config(config.p2p.zone_rtt_ms),
+                dict(config.p2p.peer_zones or {}),
+            )
         transport = Transport(
             self.node_key,
             lambda: self._node_info,
             handshake_timeout=config.p2p.handshake_timeout_s,
             dial_timeout=config.p2p.dial_timeout_s,
+            latency=latency,
             device=self.device,
         )
         self.switch = Switch(
@@ -603,7 +636,24 @@ class Node(BaseService):
             env = Environment(self)
             self.rpc_server = RPCServer(self.config.rpc, env, self.event_bus)
             self.rpc_server.start()
-        # the gRPC servers raise at build (_refuse_not_ported)
+        self.grpc_server = None
+        self.grpc_privileged_server = None
+        if self.config.grpc.laddr:
+            from cometbft_tpu_torch.rpc.grpc_server import GRPCServer
+
+            self.grpc_server = GRPCServer(
+                self, self.config.grpc.laddr,
+                logger=self.logger.with_(module="grpc"),
+            )
+            self.grpc_server.start()
+        if self.config.grpc.privileged_laddr:
+            from cometbft_tpu_torch.rpc.grpc_server import GRPCServer
+
+            self.grpc_privileged_server = GRPCServer(
+                self, self.config.grpc.privileged_laddr, privileged=True,
+                logger=self.logger.with_(module="grpc-priv"),
+            )
+            self.grpc_privileged_server.start()
         if self.switch is not None:
             # listen, then fix up the advertised address with the bound port
             host, port = self.switch.transport.listen(self.config.p2p.laddr)
@@ -755,12 +805,18 @@ class Node(BaseService):
             self.indexer_service.stop()
         if getattr(self, "pruner", None) is not None:
             self.pruner.stop()
+        if getattr(self, "event_sink", None) is not None:
+            self.event_sink.stop()
         if self._signer_endpoint is not None:
             self._signer_endpoint.stop()
         if self.metrics_server is not None:
             self.metrics_server.stop()
         if getattr(self, "pprof_server", None) is not None:
             self.pprof_server.stop()
+        for srv in (getattr(self, "grpc_server", None),
+                    getattr(self, "grpc_privileged_server", None)):
+            if srv is not None:
+                srv.stop()
         self.proxy_app.stop()
         if getattr(self, "_blackbox", None) is not None:
             # the clean-close sentinel: the one record whose absence at

@@ -10,9 +10,11 @@ and each frame through the AEAD plane on that device (on the card the
 transport opens the gate when it is built: the batch seam's self-check);
 built with no card, the transport raises unless ``device="cpu"`` or
 ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` names the CPU
-(``types/validation.require_device``).  The JAX package's ``latency``
-option (emulated WAN delay, ``p2p/latency.DelayedSocket``) waits for the
-port's ``p2p/latency``; ``conn_wrapper`` stays.
+(``types/validation.require_device``).  ``latency`` (``(my_zone,
+ZoneMatrix, peer_zones)``) wraps each raw socket in ``p2p/latency``'s
+``DelayedSocket``, innermost, and arms it with the zone pair's one-way
+delay once the handshake names the peer; ``conn_wrapper`` (for example
+``p2p/fuzz.FuzzedConnection``) wraps outside it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ class Transport:
         handshake_timeout: float = 20.0,
         dial_timeout: float = 3.0,
         conn_wrapper: Optional[Callable] = None,  # e.g. FuzzedConnection
+        latency: Optional[tuple] = None,  # (my_zone, ZoneMatrix, peer_zones)
         device=None,
     ):
         self.device = entry_device(device)  # the gate open for the first dial
@@ -68,6 +71,7 @@ class Transport:
         self.handshake_timeout = handshake_timeout
         self.dial_timeout = dial_timeout
         self.conn_wrapper = conn_wrapper
+        self.latency = latency if latency and latency[0] else None
         self._listener: Optional[socket.socket] = None
         self.listen_addr: Optional[tuple[str, int]] = None
         self._closed = threading.Event()
@@ -119,8 +123,13 @@ class Transport:
         self, sock: socket.socket, addr, outbound: bool, expected_id: str
     ) -> UpgradedConn:
         sock.settimeout(self.handshake_timeout)
-        # (the JAX package wraps ``sock`` in p2p/latency's DelayedSocket
-        # here when a latency zone is set)
+        delayed = None
+        if self.latency is not None:
+            # innermost wrapper: emulated WAN delay applies to the final
+            # bytes; armed after the handshake identifies the peer's zone
+            from cometbft_tpu_torch.p2p.latency import DelayedSocket
+
+            sock = delayed = DelayedSocket(sock)
         if self.conn_wrapper is not None:
             sock = self.conn_wrapper(sock)
         try:
@@ -139,6 +148,10 @@ class Transport:
                     "peer's claimed node id does not match its handshake key"
                 )
             self.node_info_fn().compatible_with(their_info)
+            if delayed is not None:
+                my_zone, matrix, peer_zones = self.latency
+                peer_zone = peer_zones.get(their_info.node_id, "")
+                delayed.set_delay(matrix.one_way_s(my_zone, peer_zone))
             # back to blocking IO for the MConnection routines
             try:
                 sock.settimeout(None)

@@ -11,8 +11,8 @@ The mempool connection additionally carries the batched-CheckTx surface
 whole gossip burst in one round trip, with a per-tx loop fallback for
 clients/apps that predate the batch method.
 
-The gRPC client (``abci/grpc_abci.GRPCClient``) is not ported yet:
-``remote_client_creator`` raises ``NotImplementedError`` for it.
+``remote_client_creator`` makes ``abci/grpc_abci.GRPCClient``s for the gRPC
+transport (importing ``grpc`` only then) and ``SocketClient``s otherwise.
 """
 
 from __future__ import annotations
@@ -39,16 +39,13 @@ def local_client_creator(app: Application) -> ClientCreator:
 
 def remote_client_creator(address: str, transport: str = "socket") -> ClientCreator:
     """Socket (length-prefixed framing) or gRPC flavor, per the reference's
-    abci config key (abci/client: socketClient vs grpcClient).  The gRPC
-    flavor raises ``NotImplementedError``: ``abci/grpc_abci`` is not ported
-    yet."""
-    if transport == "grpc" or address.startswith("grpc://"):
-        raise NotImplementedError(
-            f"the gRPC ABCI client for {address!r} is not ported yet "
-            "(abci/grpc_abci); use the socket transport"
-        )
+    abci config key (abci/client: socketClient vs grpcClient)."""
 
     def create() -> Client:
+        if transport == "grpc" or address.startswith("grpc://"):
+            from cometbft_tpu_torch.abci.grpc_abci import GRPCClient
+
+            return GRPCClient(address)
         return SocketClient(address)
 
     return create

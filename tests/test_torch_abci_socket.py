@@ -213,6 +213,11 @@ def test_remote_client_creator():
             conns.stop()
     finally:
         srv.stop()
+    from cometbft_tpu_torch.abci.grpc_abci import GRPCClient
+
     for addr, transport in (("grpc://127.0.0.1:1", "socket"), ("tcp://127.0.0.1:1", "grpc")):
-        with pytest.raises(NotImplementedError, match="grpc_abci"):
-            tproxy.remote_client_creator(addr, transport)
+        client = tproxy.remote_client_creator(addr, transport)()
+        try:
+            assert isinstance(client, GRPCClient)
+        finally:
+            client.close()

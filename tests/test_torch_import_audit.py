@@ -34,10 +34,15 @@ height), and the node as users start it (``cmd init``, then a
 single-validator ``Node`` on ``device="cpu"`` to height 2 with
 ``instrumentation.prometheus`` on, a tx through its JSON-RPC, a
 ``/metrics`` scrape, its ``debug_verify_trace`` and ``cmd postmortem`` on
-its home), and the elastic mesh (one ``parallel/mesh.verify_batch_sharded``
-over four virtual CPU ordinals, the plain version per shard, its bits and
-its host-summed count against the oracle), and checks that neither name
-reached ``sys.modules``.
+its home, with ``grpc.laddr`` on and block 1 read through ``GRPCServer``),
+and the elastic mesh (one ``parallel/mesh.verify_batch_sharded`` over four
+virtual CPU ordinals, the plain version per shard, its bits and its
+host-summed count against the oracle), and a gRPC ABCI round trip (the
+KVStore app behind ``GRPCABCIServer``, driven by ``GRPCClient``), and
+checks that neither name reached ``sys.modules``, that no top-level
+``cometbft`` package was loaded, and that every loaded generated
+``*_pb2`` module outside ``google.protobuf`` is the port's own
+(``cometbft_tpu_torch/proto_gen``).
 """
 
 import ast
@@ -220,9 +225,33 @@ def test_port_files_exist():
         "cometbft_tpu_torch/node/pprof.py",
         "cometbft_tpu_torch/parallel/elastic.py",
         "cometbft_tpu_torch/parallel/mesh.py",
+        "cometbft_tpu_torch/libs/bits.py",
+        "cometbft_tpu_torch/crypto/proof_op.py",
+        "cometbft_tpu_torch/p2p/latency.py",
+        "cometbft_tpu_torch/p2p/fuzz.py",
+        "cometbft_tpu_torch/indexer/psql.py",
+        "cometbft_tpu_torch/rpc/pb_convert.py",
+        "cometbft_tpu_torch/abci/grpc_abci.py",
+        "cometbft_tpu_torch/rpc/grpc_server.py",
+        "cometbft_tpu_torch/proto_gen/__init__.py",
         "tests/torch_net.py",
     ):
         assert need in names
+    # the generated modules: one file of the port's for each of the JAX
+    # package's, the JAX package's sys.path hook replaced by the docstring
+    jax_gen = sorted(p.relative_to(ROOT / "cometbft_tpu" / "proto_gen").as_posix()
+                     for p in (ROOT / "cometbft_tpu" / "proto_gen").rglob("*.py"))
+    port_gen = sorted(p.relative_to(ROOT / "cometbft_tpu_torch" / "proto_gen").as_posix()
+                      for p in (ROOT / "cometbft_tpu_torch" / "proto_gen").rglob("*.py"))
+    assert port_gen == jax_gen and len(port_gen) == 37
+    # every module of the JAX package has its counterpart, but for the two
+    # not ported on purpose and native/__init__.py, whose port is native.py
+    jax_py = {p.relative_to(ROOT / "cometbft_tpu").as_posix()
+              for p in (ROOT / "cometbft_tpu").rglob("*.py")}
+    port_py = {p.relative_to(ROOT / "cometbft_tpu_torch").as_posix()
+               for p in (ROOT / "cometbft_tpu_torch").rglob("*.py")}
+    assert jax_py - port_py == {"ops/aot_cache.py", "ops/pallas_verify.py",
+                                "native/__init__.py"}
     assert {p.name for p in NATIVE_FILES} >= {
         "host_prep.cpp", "ed25519_verify.cu", "secp256k1_verify.cu",
         "sha256_tree.cu", "bls12381.cpp", "bls_g1.cu", "chacha20_poly1305.cu",
@@ -561,6 +590,7 @@ ncfg.rpc.laddr = ncfg.p2p.laddr = "tcp://127.0.0.1:0"
 ncfg.consensus.timeout_commit_ms = 50
 ncfg.instrumentation.prometheus = True
 ncfg.instrumentation.prometheus_listen_addr = "tcp://127.0.0.1:0"
+ncfg.grpc.laddr = "tcp://127.0.0.1:0"
 node = Node(ncfg, device="cpu")
 node.start()
 try:
@@ -585,6 +615,15 @@ try:
         doc = json.loads(resp.read())["result"]
     assert "verify.commit" in doc["stages"], sorted(doc["stages"])
     assert doc["blackbox"]["records"] > 0, doc["blackbox"]
+    from cometbft_tpu_torch.proto_gen.cometbft.services.block.v1 import block_pb2
+    from cometbft_tpu_torch.rpc.grpc_server import grpc_unary, make_client_channel
+
+    gch = make_client_channel(f"127.0.0.1:{node.grpc_server.bound_port}")
+    got = grpc_unary(gch, "cometbft.services.block.v1.BlockService", "GetByHeight",
+                     block_pb2.GetByHeightRequest(height=1), block_pb2.GetByHeightResponse)
+    gch.close()
+    assert got.block.header.height == 1 and got.block.header.chain_id == "audit-chain"
+    assert got.block_id.hash == node.block_store.load_block_meta(1).block_id.hash
 finally:
     node.stop()
 try:
@@ -609,8 +648,29 @@ mbits, mcount = pmesh.verify_batch_sharded(
     [mpub] * 11, mmsgs, msigs, pmesh.make_mesh(["cpu"] * 4), count=True)
 assert [i for i, b in enumerate(mbits) if not b] == [4], mbits
 assert mcount == 10, mcount
+
+# a gRPC ABCI round trip: the KVStore app behind GRPCABCIServer
+from cometbft_tpu_torch.abci import types as gat
+from cometbft_tpu_torch.abci.grpc_abci import GRPCABCIServer, GRPCClient
+
+gsrv = GRPCABCIServer(KVStoreApplication(), "127.0.0.1:0")
+gsrv.start()
+gcl = GRPCClient(f"grpc://127.0.0.1:{gsrv.bound_port}", timeout=60)
+try:
+    assert gcl.echo("audit").message == "audit"
+    assert gcl.check_tx(gat.CheckTxRequest(tx=b"g=1")).code == 0
+    assert gcl.info(gat.InfoRequest()).last_block_height == 0
+finally:
+    gcl.close()
+    gsrv.stop()
 leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
-                or m == "cometbft_tpu" or m.startswith("cometbft_tpu."))
+                or m == "cometbft_tpu" or m.startswith("cometbft_tpu.")
+                or m == "cometbft" or m.startswith("cometbft."))
+port_gen = os.path.join(os.getcwd(), "cometbft_tpu_torch", "proto_gen") + os.sep
+gen = sorted(m for m in sys.modules if m.endswith("_pb2") and not m.startswith("google."))
+assert len(gen) >= 10, gen
+assert all(sys.modules[m].__file__.startswith(port_gen) for m in gen), [
+    (m, sys.modules[m].__file__) for m in gen]
 print("LEAKED", leaked)
 """
 

@@ -13,11 +13,12 @@
   reverse, to equal block hashes (serial links on both sides:
   ``COMETBFT_TPU_HANDSHAKE=0``, ``COMETBFT_TPU_AEAD=0``).
 - The device rule (``Node()`` and ``cmd start`` with no card and no CPU
-  asked for raise), the options that are not ported (each raises naming its
-  module; ``rpc.pprof_laddr`` and ``instrumentation.prometheus`` now serve
-  ``/debug/pprof/goroutine`` and ``/metrics``), the CLI command that waits
-  for modules (``sim``: non-zero, named), and ``cmd trace`` and ``cmd
-  postmortem`` against the JAX CLI's output on the same home.
+  asked for raise), the options that once raised naming their module (each
+  now served: ``/debug/pprof/goroutine``, ``/metrics``, the gRPC services,
+  the psql sink's ``block_search``, the transport's latency zone), the CLI
+  command that waits for modules (``sim``: non-zero, named), and ``cmd
+  trace`` and ``cmd postmortem`` against the JAX CLI's output on the same
+  home.
 
 Every node runs with ``COMETBFT_TPU_CRYPTO_BACKEND=cpu`` (votes verify on the
 host in both packages) and stops in a ``finally``; every wait has a deadline.
@@ -587,9 +588,60 @@ def test_node_and_cmd_start_raise_without_a_card(tmp_path, monkeypatch):
         cli_main(["--home", home, "start"])
 
 
-# the modules the option table once named that are ported: route, answer
+# the modules the option table once named, all ported: route, answer
 SERVED = {"node/pprof": ("/debug/pprof/goroutine", b"Thread"),
           "libs/metrics": ("/metrics", b"cometbft_consensus_height")}
+
+
+def _served(n, option: str, module: str) -> None:
+    """The option's module at work on a running node ``n``."""
+    if module in SERVED:
+        route, want = SERVED[module]
+        srv = n.pprof_server if module == "node/pprof" else n.metrics_server
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.bound_port}{route}",
+                                    timeout=20) as resp:
+            assert resp.status == 200 and want in resp.read()
+    elif module == "rpc/grpc_server":
+        from cometbft_tpu_torch.proto_gen.cometbft.services.pruning.v1 import (
+            pruning_pb2 as prune,
+        )
+        from cometbft_tpu_torch.proto_gen.cometbft.services.version.v1 import (
+            version_pb2 as ver,
+        )
+        from cometbft_tpu_torch.rpc.grpc_server import grpc_unary, make_client_channel
+
+        privileged = option == "grpc.privileged_laddr"
+        srv = n.grpc_privileged_server if privileged else n.grpc_server
+        assert (n.grpc_server is None) == privileged
+        ch = make_client_channel(f"127.0.0.1:{srv.bound_port}")
+        try:
+            if privileged:
+                svc = "cometbft.services.pruning.v1.PruningService"
+                grpc_unary(ch, svc, "SetBlockIndexerRetainHeight",
+                           prune.SetBlockIndexerRetainHeightRequest(height=1),
+                           prune.SetBlockIndexerRetainHeightResponse)
+                got = grpc_unary(ch, svc, "GetBlockIndexerRetainHeight",
+                                 prune.GetBlockIndexerRetainHeightRequest(),
+                                 prune.GetBlockIndexerRetainHeightResponse)
+                assert got.height == 1
+            else:
+                got = grpc_unary(ch, "cometbft.services.version.v1.VersionService",
+                                 "GetVersion", ver.GetVersionRequest(),
+                                 ver.GetVersionResponse)
+                assert (got.block, got.p2p) == (11, 9)
+        finally:
+            ch.close()
+    elif module == "indexer/psql":
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline:
+            got = _rpc(n.rpc_server.bound_port, "block_search", {"query": "block.height>=1"})
+            if int(got["total_count"]) >= 1:
+                break
+            time.sleep(0.05)
+        assert int(got["total_count"]) >= 1 and type(n.event_sink).__name__ == "PsqlEventSink"
+    else:
+        zone, matrix, peer_zones = n.switch.transport.latency
+        assert zone == "eu" and matrix.one_way_s("eu", "us") == 0.06 and peer_zones == {}
 
 
 @pytest.mark.parametrize("option,value,module", [
@@ -601,34 +653,36 @@ SERVED = {"node/pprof": ("/debug/pprof/goroutine", b"Thread"),
     ("p2p.zone", "eu", "p2p/latency"),
 ])
 def test_options_not_ported_raise_naming_their_module(tmp_path, option, value, module):
-    """An option whose module the port has not raises, naming it.  The two
-    whose modules this table once named, ``node/pprof`` and
-    ``libs/metrics``, are ported: a node with either serves its route
-    (``/debug/pprof/goroutine``, ``/metrics``) on a port of its own."""
+    """Every option this table once refused, naming the module the port
+    lacked, is ported: a node with it starts and serves it.  ``node/pprof``
+    and ``libs/metrics`` serve their route (``/debug/pprof/goroutine``,
+    ``/metrics``) on a port of their own; ``rpc/grpc_server`` answers
+    ``GetVersion`` (public) or sets and reads back a retain height
+    (privileged) through ``grpc_unary``; ``indexer/psql`` serves
+    ``block_search`` from its sqlite file; ``p2p/latency`` gives the
+    node's transport its zone and matrix."""
     home = str(tmp_path / "opt")
     assert cli_main(["--home", home, "init"]) == 0
     cfg = cfgmod.load_config(home)
     cfg.base.home = home
     section, _, key = option.partition(".")
     setattr(getattr(cfg, section), key, value)
-    if module not in SERVED:
-        with pytest.raises(NotImplementedError, match=module):
-            Node(_fast(cfg), device="cpu")
-        return
-    route, want = SERVED[module]
     if module == "libs/metrics":
         cfg.instrumentation.prometheus_listen_addr = "tcp://127.0.0.1:0"
+    if option == "grpc.privileged_laddr":
+        cfg.grpc.pruning_service_enabled = True
+    if module == "indexer/psql":
+        cfg.tx_index.psql_conn = "sqlite://" + str(tmp_path / "sink.db")
+    if module == "p2p/latency":
+        cfg.p2p.zone_rtt_ms = {"eu": {"eu": 20, "us": 120}}
     import tracemalloc
 
     tracing_before = tracemalloc.is_tracing()
     n = Node(_fast(cfg), device="cpu")
     n.start()
     try:
-        srv = n.pprof_server if module == "node/pprof" else n.metrics_server
         _wait_height(n, 1)
-        with urllib.request.urlopen(f"http://127.0.0.1:{srv.bound_port}{route}",
-                                    timeout=20) as resp:
-            assert resp.status == 200 and want in resp.read()
+        _served(n, option, module)
     finally:
         n.stop()
         if not tracing_before:  # the pprof server starts tracemalloc
